@@ -1,0 +1,18 @@
+"""petastorm_tpu_torch: the PyTorch/CUDA port of petastorm_tpu.
+
+Parquet datasets of images and tensors are read and decoded on the host
+(``make_reader``), assembled into exact-size batches and moved to a CUDA
+device (``cuda.CudaDataLoader``), normalized there by a hand-written Hopper
+kernel (``ops.normalize_images``) and fed to a torch model
+(``models.ResNet50``).  The package imports nothing of ``petastorm_tpu``: it
+keeps its own copies of the host-side modules it needs, under the same
+module names.
+"""
+
+from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec
+from petastorm_tpu_torch.etl.writer import write_dataset
+from petastorm_tpu_torch.reader import Reader, make_batch_reader, make_reader
+from petastorm_tpu_torch.schema import Field, Schema
+
+__all__ = ["CompressedImageCodec", "Field", "NdarrayCodec", "Reader", "ScalarCodec",
+           "Schema", "make_batch_reader", "make_reader", "write_dataset"]

@@ -1,0 +1,306 @@
+"""Column codecs: how a logical tensor field is stored in Parquet.
+
+Counterpart of ``petastorm_tpu/codecs.py:150-620``, trimmed to the three codecs
+the ImageNet feed uses: ``ScalarCodec``, ``NdarrayCodec`` and
+``CompressedImageCodec``.  Codecs serialize to the same JSON
+(``{"codec": name, **params}``) and store the same bytes (``np.save`` payloads,
+standard RGB PNG/JPEG streams), so a dataset written by either package decodes
+in the other.
+
+Image decode runs per cell through OpenCV, with PIL as the fallback
+(``petastorm_tpu/codecs.py:535-590``).  The JAX package's batched native
+libjpeg decode is not part of this package yet.
+"""
+
+from __future__ import annotations
+
+import ast
+import io
+from abc import ABC, abstractmethod
+from typing import Any, Dict, Optional, Tuple, Type
+
+import numpy as np
+import pyarrow as pa
+
+from petastorm_tpu_torch import dtypes
+from petastorm_tpu_torch.errors import CodecError
+
+_CODEC_REGISTRY: Dict[str, Type["Codec"]] = {}
+
+
+def register_codec(cls: Type["Codec"]) -> Type["Codec"]:
+    """Class decorator: make a Codec JSON-round-trippable by ``codec_name``."""
+    _CODEC_REGISTRY[cls.codec_name] = cls
+    return cls
+
+
+def codec_from_json(obj: Dict[str, Any]) -> "Codec":
+    obj = dict(obj)
+    name = obj.pop("codec")
+    if name not in _CODEC_REGISTRY:
+        raise CodecError(f"Unknown codec {name!r}; known: {sorted(_CODEC_REGISTRY)}")
+    return _CODEC_REGISTRY[name].from_json(obj)
+
+
+def check_shape_compliance(field, value: np.ndarray) -> None:
+    """Validate ndarray rank/dims against the field shape; None dims are wildcards."""
+    expected = field.shape
+    if len(expected) != value.ndim:
+        raise CodecError(
+            f"field {field.name!r}: rank mismatch, schema {expected} vs value {value.shape}")
+    for want, got in zip(expected, value.shape):
+        if want is not None and want != got:
+            raise CodecError(
+                f"field {field.name!r}: shape mismatch, schema {expected} vs value {value.shape}")
+
+
+def _check_array(field, value) -> np.ndarray:
+    value = np.asarray(value)
+    check_shape_compliance(field, value)
+    if value.dtype != field.dtype:
+        raise CodecError(
+            f"field {field.name!r}: dtype mismatch {value.dtype} vs schema {field.dtype}")
+    return value
+
+
+def _stack_cells(field, cells) -> np.ndarray:
+    if field.is_fixed_shape and not any(c is None for c in cells):
+        if not cells:
+            return np.empty((0,) + field.shape, dtype=field.dtype)
+        return np.stack(cells)
+    out = np.empty(len(cells), dtype=object)
+    for i, c in enumerate(cells):
+        out[i] = c
+    return out
+
+
+class Codec(ABC):
+    """Field storage codec: ``encode``/``decode`` one cell, ``decode_column`` a column."""
+
+    codec_name: str = ""
+    #: encoded cells are already entropy-coded: the writer stores the column
+    #: without parquet-level compression
+    precompressed: bool = False
+
+    @abstractmethod
+    def storage_type(self, field) -> pa.DataType:
+        """Arrow type this codec stores the field as."""
+
+    @abstractmethod
+    def encode(self, field, value) -> Any:
+        """One cell's python value -> the storage value handed to pyarrow."""
+
+    @abstractmethod
+    def decode(self, field, value) -> Any:
+        """Invert :meth:`encode` for one stored cell."""
+
+    def decode_column(self, field, column: pa.Array) -> np.ndarray:
+        """Decode an arrow column; fixed-shape fields stack into one array."""
+        cells = [None if v is None else self.decode(field, v) for v in column.to_pylist()]
+        return _stack_cells(field, cells)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"codec": self.codec_name}
+
+    @classmethod
+    def from_json(cls, obj: Dict[str, Any]) -> "Codec":
+        return cls(**obj)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.to_json() == other.to_json()
+
+    def __hash__(self):
+        return hash((type(self).__name__, tuple(sorted(self.to_json().items()))))
+
+    def __repr__(self):
+        params = {k: v for k, v in self.to_json().items() if k != "codec"}
+        return f"{type(self).__name__}({', '.join(f'{k}={v!r}' for k, v in params.items())})"
+
+
+@register_codec
+class ScalarCodec(Codec):
+    """Plain scalar column in arrow-native storage (optionally ``store_dtype``)."""
+
+    codec_name = "scalar"
+
+    def __init__(self, store_dtype: Optional[str] = None):
+        self._store_dtype = np.dtype(store_dtype) if store_dtype else None
+
+    def storage_type(self, field) -> pa.DataType:
+        return dtypes.numpy_to_arrow(self._store_dtype or field.dtype)
+
+    def encode(self, field, value):
+        if field.shape != ():
+            raise CodecError(f"ScalarCodec on non-scalar field {field.name!r} {field.shape}")
+        return dtypes.sanitize_value(value, self._store_dtype or field.dtype)
+
+    def decode(self, field, value):
+        if field.dtype.kind in ("U", "S", "O"):
+            return value
+        return field.dtype.type(value)
+
+    def decode_column(self, field, column: pa.Array) -> np.ndarray:
+        if column.null_count > 0:
+            # an int column with nulls would come back as float64 + NaN
+            return super().decode_column(field, column)
+        arr = column.to_numpy(zero_copy_only=False)
+        if field.dtype.kind not in ("U", "S", "O") and arr.dtype != field.dtype:
+            arr = arr.astype(field.dtype)
+        return arr
+
+    def to_json(self):
+        out = {"codec": self.codec_name}
+        if self._store_dtype is not None:
+            out["store_dtype"] = self._store_dtype.name
+        return out
+
+
+def _npy_header(value: bytes) -> Optional[Tuple[int, np.dtype, Tuple[int, ...]]]:
+    """(payload offset, dtype, shape) of ``np.save`` bytes, or None if unusual."""
+    if not value.startswith(b"\x93NUMPY") or len(value) < 12:
+        return None
+    major = value[6]
+    if major == 1:
+        hlen, off = int.from_bytes(value[8:10], "little"), 10
+    elif major in (2, 3):
+        hlen, off = int.from_bytes(value[8:12], "little"), 12
+    else:
+        return None
+    try:
+        d = ast.literal_eval(value[off:off + hlen].decode("latin1"))
+    except (ValueError, SyntaxError):
+        return None
+    dtype = np.dtype(d["descr"])
+    if d.get("fortran_order") or dtype.hasobject:
+        return None
+    return off + hlen, dtype, tuple(d["shape"])
+
+
+@register_codec
+class NdarrayCodec(Codec):
+    """ndarray <-> ``np.save`` bytes."""
+
+    codec_name = "ndarray"
+
+    def storage_type(self, field) -> pa.DataType:
+        return pa.binary()
+
+    def encode(self, field, value) -> bytes:
+        value = _check_array(field, value)
+        buf = io.BytesIO()
+        np.save(buf, value)
+        return buf.getvalue()
+
+    def decode(self, field, value: bytes) -> np.ndarray:
+        return np.load(io.BytesIO(value), allow_pickle=False)
+
+    def decode_column(self, field, column: pa.Array) -> np.ndarray:
+        """A fixed-shape column whose cells share one header decodes as one
+        strided view of the arrow data buffer, copied once."""
+        n = len(column)
+        if (not field.is_fixed_shape or column.null_count or n == 0
+                or column.type != pa.binary()):
+            return super().decode_column(field, column)
+        _, offsets_buf, data_buf = column.buffers()
+        offsets = np.frombuffer(offsets_buf, dtype=np.int32, count=n + 1,
+                                offset=column.offset * 4)
+        lens = np.diff(offsets)
+        cell_len = int(lens[0])
+        parsed = _npy_header(column[0].as_py())
+        if parsed is None or not (lens == cell_len).all():
+            return super().decode_column(field, column)
+        hdr_len, dtype, shape = parsed
+        if dtype != field.dtype or shape != field.shape:
+            return super().decode_column(field, column)
+        cells = np.frombuffer(data_buf, dtype=np.uint8, count=n * cell_len,
+                              offset=int(offsets[0])).reshape(n, cell_len)
+        if not (cells[:, :hdr_len] == cells[0, :hdr_len]).all():
+            return super().decode_column(field, column)
+        return cells[:, hdr_len:].view(field.dtype).reshape((n,) + field.shape).copy()
+
+
+@register_codec
+class CompressedImageCodec(Codec):
+    """Image <-> PNG/JPEG stream through OpenCV, with PIL as the fallback.
+
+    Streams are standard RGB files: cv2 is BGR-native, so 3-channel images
+    are swapped on the way in and out.
+    """
+
+    codec_name = "compressed_image"
+    precompressed = True
+
+    def __init__(self, image_codec: str = "png", quality: int = 80):
+        if image_codec not in ("png", "jpeg", "jpg"):
+            raise CodecError(f"Unsupported image codec {image_codec!r}")
+        self._format = "jpeg" if image_codec == "jpg" else image_codec
+        self._quality = int(quality)
+
+    def storage_type(self, field) -> pa.DataType:
+        return pa.binary()
+
+    @staticmethod
+    def _cv2():
+        try:
+            import cv2
+        except ImportError:
+            return None
+        return cv2
+
+    def encode(self, field, value) -> bytes:
+        value = _check_array(field, value)
+        if value.dtype not in (np.dtype("uint8"), np.dtype("uint16")):
+            raise CodecError("CompressedImageCodec supports uint8/uint16 images only")
+        if self._format == "jpeg" and value.dtype != np.dtype("uint8"):
+            raise CodecError("JPEG supports uint8 only")
+        cv2 = self._cv2()
+        if cv2 is None:
+            from PIL import Image
+
+            buf = io.BytesIO()
+            Image.fromarray(value).save(buf, format="JPEG" if self._format == "jpeg" else "PNG",
+                                        quality=self._quality)
+            return buf.getvalue()
+        bgr = value[..., ::-1] if value.ndim == 3 and value.shape[2] == 3 else value
+        if self._format == "jpeg":
+            ok, enc = cv2.imencode(".jpeg", bgr, [int(cv2.IMWRITE_JPEG_QUALITY), self._quality])
+        else:
+            ok, enc = cv2.imencode(".png", bgr)
+        if not ok:
+            raise CodecError(f"cv2.imencode failed for field {field.name!r}")
+        return enc.tobytes()
+
+    def decode(self, field, value: bytes) -> np.ndarray:
+        # (h, w, 1) fields are grayscale streams: decode single-channel
+        single_channel = len(field.shape) == 3 and field.shape[2] == 1
+        cv2 = self._cv2()
+        if cv2 is None:
+            img = self._pil_decode(field, value)
+        else:
+            flags = cv2.IMREAD_UNCHANGED if field.dtype == np.dtype("uint16") else (
+                cv2.IMREAD_COLOR if len(field.shape) == 3 and not single_channel
+                else cv2.IMREAD_GRAYSCALE)
+            img = cv2.imdecode(np.frombuffer(value, dtype=np.uint8), flags)
+            if img is None:
+                raise CodecError(f"cv2.imdecode failed for field {field.name!r}")
+            if img.ndim == 3 and img.shape[2] == 3:
+                img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        if single_channel and img.ndim == 2:
+            img = img[..., None]
+        return np.ascontiguousarray(img.astype(field.dtype, copy=False))
+
+    @staticmethod
+    def _pil_decode(field, value: bytes) -> np.ndarray:
+        from PIL import Image
+
+        img = Image.open(io.BytesIO(value))
+        single_channel = len(field.shape) <= 2 or (
+            len(field.shape) == 3 and field.shape[2] == 1)
+        if single_channel and img.mode not in ("L", "I;16", "I"):
+            img = img.convert("L")
+        elif len(field.shape) == 3 and field.shape[2] == 3 and img.mode != "RGB":
+            img = img.convert("RGB")
+        return np.asarray(img).astype(field.dtype, copy=False)
+
+    def to_json(self):
+        return {"codec": self.codec_name, "image_codec": self._format, "quality": self._quality}

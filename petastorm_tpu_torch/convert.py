@@ -1,0 +1,84 @@
+"""Weights of the flax ResNet -> a state_dict of the torch ResNet.
+
+Maps every leaf of ``{"params": ..., "batch_stats": ...}`` (nested dicts of
+numpy arrays, as ``flax.linen`` ``init``/``apply`` use them) onto
+:class:`petastorm_tpu_torch.models.ResNet`:
+
+* conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in);
+* BatchNorm ``scale``/``bias``/``mean``/``var`` ->
+  ``weight``/``bias``/``running_mean``/``running_var``.
+
+Every leaf is consumed exactly once: a leaf with no torch counterpart, or two
+leaves landing on one key, raises.  Loading the result with
+``load_state_dict(strict=True)`` then catches leaves the flax tree lacks.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
+              ("batch_stats", "mean"): "running_mean",
+              ("batch_stats", "var"): "running_var"}
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _module_name(path: Tuple[str, ...]) -> str:
+    """Flax module path -> torch module name (``BottleneckBlock_3/Conv_1`` -> ``blocks.3.conv1``)."""
+    out = []
+    for part in path:
+        m = re.fullmatch(r"(BottleneckBlock|Conv|BatchNorm|Dense)_(\d+)", part)
+        if m is None:
+            if part not in ("conv_init", "bn_init", "conv_proj", "norm_proj"):
+                raise KeyError(f"flax module {'/'.join(path)!r} has no torch counterpart")
+            out.append(part)
+        elif m.group(1) == "BottleneckBlock":
+            out.append(f"blocks.{m.group(2)}")
+        elif m.group(1) == "Dense":
+            if m.group(2) != "0":
+                raise KeyError(f"flax module {'/'.join(path)!r} has no torch counterpart")
+            out.append("dense")
+        else:
+            out.append(("conv" if m.group(1) == "Conv" else "bn") + m.group(2))
+    return ".".join(out)
+
+
+def resnet_state_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """Convert flax ResNet variables (numpy leaves) to a torch ResNet state_dict."""
+    state: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(collection, {})):
+            module, leaf_name = _module_name(path[:-1]), path[-1]
+            arr = np.asarray(leaf, dtype=np.float32)
+            if (collection, leaf_name) == ("params", "kernel"):
+                is_dense = module == "dense"
+                if arr.ndim != (2 if is_dense else 4):
+                    raise ValueError(f"{'/'.join(path)}: unexpected kernel shape {arr.shape}")
+                key = module + ".weight"
+                arr = arr.T if is_dense else arr.transpose(3, 2, 0, 1)
+            elif module == "dense" and (collection, leaf_name) == ("params", "bias"):
+                key = "dense.bias"
+            elif (collection, leaf_name) in _BN_LEAVES:
+                key = f"{module}.{_BN_LEAVES[collection, leaf_name]}"
+            else:
+                raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has no torch counterpart")
+            if key in state:
+                raise KeyError(f"two flax leaves map to {key!r}")
+            state[key] = torch.from_numpy(np.array(arr, order="C", copy=True))
+    for key in [k for k in state if k.endswith(".running_var")]:
+        state[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    for collection in variables:
+        if collection not in ("params", "batch_stats"):
+            raise KeyError(f"flax collection {collection!r} has no torch counterpart")
+    return state

@@ -1,0 +1,90 @@
+"""Dtype mapping between numpy, Arrow and torch.
+
+Counterpart of ``petastorm_tpu/dtypes.py:54-117``.  The storage mapping is the
+same table; the device-feed policy follows the JAX package's torch loader
+(``petastorm_tpu/pytorch.py:30-75``): torch has no uint16/uint32/uint64, so
+they widen to int32/int64/int64, and 64-bit types are kept as they are.
+Strings, objects and datetimes never go to a device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pyarrow as pa
+
+from petastorm_tpu_torch.errors import SchemaError
+
+_NUMPY_TO_ARROW = {
+    np.dtype("bool"): pa.bool_(),
+    np.dtype("int8"): pa.int8(),
+    np.dtype("int16"): pa.int16(),
+    np.dtype("int32"): pa.int32(),
+    np.dtype("int64"): pa.int64(),
+    np.dtype("uint8"): pa.uint8(),
+    np.dtype("uint16"): pa.uint16(),
+    np.dtype("uint32"): pa.uint32(),
+    np.dtype("uint64"): pa.uint64(),
+    np.dtype("float16"): pa.float16(),
+    np.dtype("float32"): pa.float32(),
+    np.dtype("float64"): pa.float64(),
+}
+
+_ARROW_TO_NUMPY = {
+    **{v: k for k, v in _NUMPY_TO_ARROW.items()},
+    pa.string(): np.dtype("object"),
+    pa.large_string(): np.dtype("object"),
+    pa.binary(): np.dtype("object"),
+    pa.large_binary(): np.dtype("object"),
+}
+
+_TORCH_FEED_PROMOTIONS = {
+    np.dtype("uint16"): np.dtype("int32"),
+    np.dtype("uint32"): np.dtype("int64"),
+    np.dtype("uint64"): np.dtype("int64"),
+}
+
+
+def numpy_to_arrow(dtype) -> pa.DataType:
+    """Arrow storage type for a numpy scalar dtype."""
+    dtype = np.dtype(dtype)
+    if dtype in _NUMPY_TO_ARROW:
+        return _NUMPY_TO_ARROW[dtype]
+    if dtype.kind in ("U", "S", "O"):
+        return pa.string()
+    raise SchemaError(f"No arrow mapping for numpy dtype {dtype!r}")
+
+
+def arrow_to_numpy(atype: pa.DataType) -> np.dtype:
+    """Numpy dtype for a flat arrow type; raises SchemaError otherwise."""
+    if atype in _ARROW_TO_NUMPY:
+        return _ARROW_TO_NUMPY[atype]
+    if pa.types.is_dictionary(atype):
+        return arrow_to_numpy(atype.value_type)
+    raise SchemaError(f"No numpy mapping for arrow type {atype!r}")
+
+
+def torch_feed_dtype(dtype) -> np.dtype:
+    """Dtype a column is cast to before it becomes a torch tensor."""
+    dtype = np.dtype(dtype)
+    if dtype.kind in ("U", "S", "O", "M", "m"):
+        raise SchemaError(
+            f"dtype {dtype!r} cannot be fed to a device; keep it host-side or"
+            " convert it to a numeric type")
+    return _TORCH_FEED_PROMOTIONS.get(dtype, dtype)
+
+
+def sanitize_value(value, dtype):
+    """Coerce one python value to ``dtype`` for encoding, refusing lossy ints."""
+    dtype = np.dtype(dtype)
+    if dtype.kind in ("U", "S"):
+        return str(value)
+    if dtype.kind == "O":
+        return value
+    try:
+        arr = np.asarray(value)
+        out = arr.astype(dtype)
+    except (OverflowError, TypeError, ValueError) as exc:
+        raise SchemaError(f"Value {value!r} cannot be stored as dtype {dtype}: {exc}") from exc
+    if dtype.kind in "uib" and not np.array_equal(out.astype(np.float64), arr.astype(np.float64)):
+        raise SchemaError(f"Value {value!r} does not fit dtype {dtype} without loss")
+    return out.item()

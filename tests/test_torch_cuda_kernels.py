@@ -1,0 +1,89 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and ``nvcc`` (the kernels have no CPU mode)
+and skip without one.  The file imports nothing of JAX, so on a GPU machine
+without JAX it runs on its own:
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda -q``.
+
+Normalize tolerance: float32 within 2 ulp taken at the larger of |out| and
+|bias| (the kernel contracts ``x*s+b`` into one FMA, the plain version rounds
+the product first, and that rounding is of the addends' size); bfloat16 and
+float16 within 1 ulp of their type at |out| on top of that.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from petastorm_tpu_torch.ops import normalize as torch_normalize
+
+
+def _ulp(x: np.ndarray, dtype) -> np.ndarray:
+    """The spacing of ``dtype`` at each |x|, in float64."""
+    info = {np.float32: (23, -126), "bfloat16": (7, -126), np.float16: (10, -14)}[dtype]
+    mant, emin = info
+    exp = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** emin)))
+    return 2.0 ** (exp - mant)
+
+
+def assert_within_ulp(got, want, dtype, bias):
+    """|got - want| <= 2 float32 ulp at max(|want|, |bias|), plus 1 ulp of
+    ``dtype`` at |want| when ``dtype`` is narrower than float32; ``bias``
+    broadcasts over the channel axis."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    bound = 2 * _ulp(np.maximum(np.abs(want), np.abs(bias)), np.float32)
+    if dtype is not np.float32:
+        bound = bound + _ulp(want, dtype)
+    assert np.all(np.abs(got - want) <= bound), np.max(np.abs(got - want) / bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 224, 224, 3), (7, 225, 223, 3), (5, 31, 17, 1),
+                                   (3, 16, 16, 4)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("offset", [0, 1, 7], ids=["aligned", "off1", "off7"])
+def test_kernel_matches_plain_on_card(shape, out_dtype, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = int(np.prod(shape))
+    flat = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, device="cuda", generator=gen)
+    x = flat[offset:].view(shape)  # a view starting `offset` bytes past an aligned address
+    c = shape[-1]
+    mean, std = (0.5, 0.4, 0.3, 0.6)[:c], (0.2, 0.25, 0.3, 0.35)[:c]
+    scale, bias = torch_normalize.channel_constants(mean, std, c)
+    got = torch_normalize.normalize_images(x, mean, std, out_dtype)
+    want = torch_normalize._normalize_reference(x, scale, bias, out_dtype)
+    ulp_dt = {torch.float32: np.float32, torch.bfloat16: "bfloat16",
+              torch.float16: np.float16}[out_dtype]
+    assert_within_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(), ulp_dt, bias)
+    with pytest.raises(TypeError):
+        torch_normalize.normalize_images(x, mean, std, torch.float64)
+
+
+@pytest.mark.cuda
+def test_loader_delivers_every_row_once_on_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import Field, Schema, make_reader, write_dataset
+    from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
+
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (300, 12, 10, 3), dtype=np.uint8)
+    schema = Schema("S", [Field("label", np.int64), Field("image", np.uint8, (12, 10, 3))])
+    write_dataset(str(tmp_path / "ds"), schema,
+                  [{"label": i, "image": images[i]} for i in range(300)], row_group_size_rows=7)
+    reader = make_reader(str(tmp_path / "ds"), workers_count=4, shuffle_seed=0, num_epochs=2)
+    labels, seen = [], []
+    with CudaDataLoader(reader, batch_size=32, device="cuda", drop_last=False,
+                        prefetch=1) as loader:
+        for batch in loader:
+            n = batch.get(VALID_ROWS, 32)
+            assert batch["image"].is_cuda and batch["image"].dtype == torch.uint8
+            labels.append(batch["label"][:n])
+            seen.append(batch["image"][:n])
+    labels = torch.cat(labels).cpu().numpy()
+    seen = torch.cat(seen).cpu().numpy()
+    assert sorted(labels.tolist()) == sorted(list(range(300)) * 2)
+    np.testing.assert_array_equal(seen, images[labels])

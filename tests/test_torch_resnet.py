@@ -1,0 +1,133 @@
+"""The port's ResNet against the flax ResNet of the JAX package, on the CPU.
+
+Every flax leaf is redrawn from a numpy seed before conversion - BatchNorm
+scales, biases, means and positive variances included - because flax's own
+init zeroes each block's last BatchNorm scale, and with those weights every
+block passes only its residual and a wrong 3x3 conv would go unseen.
+
+Tolerances: float32 logits within rtol 1e-4, atol 1e-4 (both run float32
+convolutions on the CPU; they differ only in summation order).  bfloat16
+logits within 0.02 * max|logit| + 0.01: both bodies round every conv and
+BatchNorm output to bf16 (8 bits of mantissa, ~0.4 % each), but at other
+places in the two frameworks, and those roundings compound over the layers
+(the largest gap seen on these seeds was 0.75 % of the largest logit).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from petastorm_tpu.models.resnet import ResNet as FlaxResNet
+from petastorm_tpu.models.resnet import ResNet50 as FlaxResNet50
+from petastorm_tpu_torch.convert import resnet_state_from_flax
+from petastorm_tpu_torch.models.resnet import ResNet, ResNet50, _same_pad
+
+
+def _randomized(variables, seed):
+    """Every leaf redrawn from numpy: kernels ~ N(0, 1/fan_in), BN scale and
+    bias ~ N(0, 0.5) around 1 and 0, means ~ N(0, 0.3), variances in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        leaf = np.asarray(leaf)
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return (rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.5 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        return (0.3 * rng.standard_normal(leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, jax.device_get(variables))
+
+
+def _small_pair(dtype_flax, dtype_torch, seed):
+    flax_model = FlaxResNet(stage_sizes=[1, 1], num_filters=8, num_classes=10, dtype=dtype_flax)
+    x = np.random.default_rng(seed).integers(0, 256, (4, 32, 32, 3)).astype(np.float32) / 64.0
+    variables = _randomized(flax_model.init(jax.random.PRNGKey(seed), jnp.asarray(x)), seed + 1)
+    torch_model = ResNet([1, 1], num_classes=10, num_filters=8, dtype=dtype_torch, device="cpu")
+    torch_model.load_state_dict(resnet_state_from_flax(variables), strict=True)
+    for name, module in torch_model.named_children():
+        if name != "dense":
+            module.to(dtype_torch)
+    want = np.asarray(flax_model.apply(variables, jnp.asarray(x)), np.float32)
+    with torch.inference_mode():
+        got = torch_model(torch.from_numpy(x)).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_small_resnet_f32_matches_flax(seed):
+    got, want = _small_pair(jnp.float32, torch.float32, seed)
+    assert got.shape == want.shape == (4, 10)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_small_resnet_bf16_matches_flax(seed):
+    got, want = _small_pair(jnp.bfloat16, torch.bfloat16, seed)
+    assert got.dtype == np.float32  # the head runs in float32 in both
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.02 * np.abs(want).max() + 0.01)
+
+
+def test_resnet50_conversion_consumes_every_leaf():
+    flax_model = FlaxResNet50(num_classes=1000, dtype=jnp.float32)
+    variables = jax.device_get(
+        flax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3), jnp.float32)))
+    leaves = jax.tree_util.tree_leaves(variables)
+    state = resnet_state_from_flax(variables)
+    torch_model = ResNet50(num_classes=1000, dtype=torch.float32, device="cpu")
+    result = torch_model.load_state_dict(state, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    n_bn = sum(1 for k in state if k.endswith("num_batches_tracked"))
+    assert len(state) == len(leaves) + n_bn  # one torch tensor per flax leaf
+    flax_params = sum(np.asarray(x).size for x in jax.tree_util.tree_leaves(variables["params"]))
+    torch_params = sum(p.numel() for p in torch_model.parameters())
+    assert flax_params == torch_params == 25_557_032
+
+
+@pytest.mark.parametrize("bad", [
+    lambda v: {**v, "extra": {}},
+    lambda v: {**v, "params": {**v["params"], "Dense_1": v["params"]["Dense_0"]}},
+    lambda v: {**v, "params": {**v["params"], "conv_init": {"kernel": np.zeros((3, 3))}}},
+    lambda v: {**v, "params": {**v["params"], "bn_init": {**v["params"]["bn_init"],
+                                                           "gamma": np.ones(8)}}},
+])
+def test_conversion_refuses_unknown_leaves(bad):
+    flax_model = FlaxResNet(stage_sizes=[1], num_filters=8, num_classes=4, dtype=jnp.float32)
+    variables = jax.device_get(flax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3))))
+    with pytest.raises((KeyError, ValueError)):
+        resnet_state_from_flax(bad(variables))
+
+
+def test_missing_flax_leaf_fails_strict_load():
+    flax_model = FlaxResNet(stage_sizes=[1], num_filters=8, num_classes=4, dtype=jnp.float32)
+    variables = jax.device_get(flax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3))))
+    del variables["batch_stats"]["bn_init"]["var"]
+    model = ResNet([1], num_classes=4, num_filters=8, dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError):
+        model.load_state_dict(resnet_state_from_flax(variables), strict=True)
+
+
+@pytest.mark.parametrize("size,kernel,stride,want", [
+    (56, 3, 2, (0, 1)), (57, 3, 2, (1, 1)), (56, 3, 1, (1, 1)), (112, 3, 2, (0, 1)),
+    (56, 1, 2, (0, 0)), (7, 1, 1, (0, 0))])
+def test_same_padding_matches_xla(size, kernel, stride, want):
+    x = torch.zeros((1, 1, size, size))
+    padded = _same_pad(x, kernel, stride)
+    assert padded.shape[-1] == size + sum(want)
+    out = jax.lax.conv_general_dilated(
+        jnp.ones((1, 1, size, size)), jnp.ones((1, 1, kernel, kernel)), (stride, stride),
+        "SAME")
+    assert out.shape[-1] == (padded.shape[-1] - kernel) // stride + 1
+
+
+def test_model_refuses_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError):
+        ResNet([1], num_filters=8, num_classes=4)
