@@ -9,14 +9,23 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    one ``nvcc`` per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (and ragged and unaligned ones), with its time, the
-   plain version's time and the least time the card could take;
-4. main path: an ImageNet-shaped JPEG dataset (4096 rows of 224x224x3, 16
-   rowgroups) through ``make_reader`` -> ``CudaDataLoader(batch_size=256)`` ->
-   ``normalize_images`` -> ``ResNet50`` (bf16, seeded random weights) for one
-   epoch: samples/s, the consumer's input-wait share, peak device memory, the
-   delivered labels against the written ones, finite logits, the kernels'
-   launch counts, and the first images' logits against a float32 run of the
-   plain path.
+   plain version's time, the least time the card could take and, where one
+   PyTorch call computes the same function, that call's time;
+4. main path (inference): an ImageNet-shaped JPEG dataset (4096 rows of
+   224x224x3, 16 rowgroups) through ``make_reader`` ->
+   ``CudaDataLoader(batch_size=256)`` -> ``normalize_images`` -> ``ResNet50``
+   (bf16, seeded random weights) for one epoch: samples/s, the consumer's
+   input-wait share, peak device memory, the delivered labels against the
+   written ones, finite logits, the kernels' launch counts, and the first
+   images' logits against a float32 run of the plain path;
+5. train path: the same dataset (labels mod 1000) through ``make_reader`` ->
+   ``CudaDataLoader(batch_size=256)`` -> the trainer's step (resized crop +
+   flip, normalize, ResNet-50 with float32 leaves computing in bf16, one-hot
+   cross-entropy, SGD with momentum) for one epoch of 16 steps: samples/s,
+   the input-wait share, peak device memory, the model FLOPs per sample and
+   the achieved FLOP rate against a measured bf16 matmul peak, a finite loss
+   at every step, the kernels' launch counts, and one bf16 step against one
+   float32 step of the plain path from the same weights, boxes and flips.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -41,14 +50,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset  # noqa: E402
 from petastorm_tpu_torch.cuda import build  # noqa: E402
 from petastorm_tpu_torch.cuda.loader import CudaDataLoader  # noqa: E402
+from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
-from petastorm_tpu_torch.ops import normalize  # noqa: E402
+from petastorm_tpu_torch.ops import augment, normalize  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 N_ROWS, ROWS_PER_GROUP, BATCH, WARMUP_STEPS = 4096, 256, 256, 2
-MAIN_SHAPE = (BATCH, 224, 224, 3)
+SIDE = 224
+MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
 
 def phase(name, **fields):
@@ -97,6 +108,87 @@ def check_normalize(x, mean, std, out_dtype):
     return err.max().item()
 
 
+def check_resized_crop(x, out_hw, antialias, gen):
+    """Kernel vs plain version on drawn boxes and flips; bound: at most 1 LSB
+    and at most 0.1 % of bytes differing (same float32 weights, products
+    summed in another order, which moves a byte only at a .5 boundary).
+    Returns (max LSB difference, share of bytes differing, the draws)."""
+    n, h, w, _ = x.shape
+    boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda")
+    params = augment.crop_params(boxes, out_hw)
+    got = augment.resized_crop_kernel(x, params, flips, out_hw, antialias)
+    want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
+    diff = (got.int() - want.int()).abs()
+    err, share = int(diff.max()), float((diff > 0).double().mean())
+    if err > 1 or share > 1e-3:
+        raise AssertionError(f"resized-crop kernel disagrees at {tuple(x.shape)} -> {out_hw}:"
+                             f" max {err} LSB, {share:.2e} of bytes differ")
+    return err, share, (boxes, params, flips)
+
+
+def resized_crop_entry(gen):
+    """B3 at the training step's shape: checks on three shapes, times, bound."""
+    checks = {}
+    for shape, out_hw, antialias in [(MAIN_SHAPE, (SIDE, SIDE), False),
+                                     ((7, 97, 131, 3), (50, 61), False),
+                                     ((5, 64, 64, 1), (17, 23), True)]:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+        err, share, draws = check_resized_crop(x, out_hw, antialias, gen)
+        checks[f"{shape}->{out_hw} antialias={antialias}"] = {"max_lsb": err,
+                                                              "share_differing": share}
+        if shape == MAIN_SHAPE:
+            main_x, (boxes, params, flips), main_err = x, draws, err
+    try:
+        augment.resize_images(main_x.float(), (SIDE, SIDE))
+        raise AssertionError("resized-crop kernel accepted a float32 input")
+    except TypeError:
+        pass
+    n, h, w, c = main_x.shape
+    out_hw = (SIDE, SIDE)
+    # bytes the work needs: each drawn box's source rows x columns x C, read
+    # once, and the output written once; operations: 2 per multiply-add over
+    # the taps with a nonzero weight (rows, then columns)
+    wy = augment._weight_mats(h, out_hw[0], params[:, 0], params[:, 1], False) != 0
+    wx = augment._weight_mats(w, out_hw[1], params[:, 2], params[:, 3], False) != 0
+    read = (wy.any(2).sum(1) * wx.any(2).sum(1)).sum().item() * c
+    written = n * out_hw[0] * out_hw[1] * c
+    taps_y, taps_x = wy.sum((1, 2)).double(), wx.sum((1, 2)).double()
+    flops = 2 * c * (taps_y * taps_x + out_hw[0] * taps_x).sum().item()
+    bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    # the library yardstick: F.grid_sample on float32 NCHW with the affine
+    # grid of the same boxes precomputed; the time is the grid_sample call
+    # alone (not the uint8 -> float32 NCHW conversion before it, the grid,
+    # or any rounding back to uint8)
+    y0, x0, ch, cw = boxes.unbind(1)
+    theta = torch.zeros((n, 2, 3), device="cuda")
+    theta[:, 0, 0], theta[:, 0, 2] = cw / w, (2 * x0 + cw) / w - 1
+    theta[:, 1, 1], theta[:, 1, 2] = ch / h, (2 * y0 + ch) / h - 1
+    grid = torch.nn.functional.affine_grid(theta, (n, c) + out_hw, align_corners=False)
+    x_nchw = main_x.permute(0, 3, 1, 2).float().contiguous()
+    library_ms = time_ms(lambda: torch.nn.functional.grid_sample(
+        x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=False))
+    entry = {
+        "name": "resized_crop_flip_u8", "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
+        "replaces": "petastorm_tpu/ops/augment.py:141",
+        "max_abs_err": main_err,
+        "ms": time_ms(lambda: augment.resized_crop_kernel(main_x, params, flips, out_hw, False)),
+        "plain_ms": time_ms(lambda: augment._resized_crop_reference(main_x, params, flips,
+                                                                    out_hw, False)),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+        else "operations",
+        "library_ms": library_ms,
+    }
+    phase("kernels", resized_crop_flip_u8={
+        "checks": checks, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+        "bound_ms": entry["bound_ms"], "bytes_read": read, "bytes_written": written, "flops": flops,
+        "library_ms": library_ms,
+        "library_call": "F.grid_sample(bilinear, border, align_corners=False) on float32 NCHW,"
+                        " affine grid precomputed; grid_sample alone"})
+    return entry
+
+
 def kernels_phase():
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -137,7 +229,7 @@ def kernels_phase():
     phase("kernels", normalize_u8={"max_abs_err": results, "ms": entry["ms"],
                                    "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,
                                    "shape": list(MAIN_SHAPE), "out": "bfloat16"})
-    return {"normalize_u8": entry}
+    return {"normalize_u8": entry, "resized_crop_flip_u8": resized_crop_entry(gen)}
 
 
 def smooth_image(rng):
@@ -145,7 +237,7 @@ def smooth_image(rng):
     import cv2
 
     low = rng.integers(0, 256, (7, 7, 3)).astype(np.float32)
-    img = cv2.resize(low, (224, 224), interpolation=cv2.INTER_CUBIC)
+    img = cv2.resize(low, (SIDE, SIDE), interpolation=cv2.INTER_CUBIC)
     img += rng.normal(0.0, 8.0, img.shape).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8)
 
@@ -156,7 +248,7 @@ def main_path_phase(tmp, kernels):
     labels = rng.permutation(N_ROWS).astype(np.int64)
     schema = Schema("ImageNetJpeg", [
         Field("label", np.int64),
-        Field("image", np.uint8, (224, 224, 3), CompressedImageCodec("jpeg", quality=90)),
+        Field("image", np.uint8, (SIDE, SIDE, 3), CompressedImageCodec("jpeg", quality=90)),
     ])
     path = os.path.join(tmp, "imagenet_jpeg")
     t0 = time.perf_counter()
@@ -228,6 +320,162 @@ def main_path_phase(tmp, kernels):
           peak_device_memory_bytes=peak, launches=launches,
           dataset_bytes=data_bytes, dataset_write_s=write_s,
           labels_match=True, logits_vs_f32_plain={"max_abs_err": ref_err, "bound": ref_tol})
+    return path
+
+
+def leaves_flat(step):
+    return torch.cat([leaf.detach().flatten().double() for leaf in step.leaves])
+
+
+def check_step_vs_f32_plain(images, labels, gen):
+    """One bf16 step of the trainer against one float32 step of the plain
+    path (plain augment, plain normalize in float32, TF32 off), both from
+    the seed-0 weights and the same boxes and flips.
+
+    Bounds.  Update: the relative error |u16 - u32| / |u32| of the flattened
+    update at most 0.03, over the weights (``params``) and, apart, over the
+    BatchNorm statistics (``batch_stats``), so that the statistics' 53 k
+    leaves are not lost among the 25.6 M weights.  SGD-momentum's first
+    update is -lr times the gradient, so this is the gradients' relative
+    error: bf16 keeps 8 bits and each of the ~100 rounded layers of forward
+    and backward adds about 2^-9 of it; measured on an H100: 0.0099 over the
+    weights and 0.0135 over the statistics.  0.03 leaves 2-3x headroom,
+    while a dropped or wrong part of the step (a wrong gradient of the
+    statistics, one layer's update missing) moves it by far more.  The
+    cosine of the two flattened updates is held to the bound that implies,
+    sqrt(1 - 0.03^2) = 0.99955 (an update within e * |u32| of u32 makes an
+    angle of at most asin(e) with it).  Loss: within 1e-3 (measured gap
+    2.3e-5).  From random init every block's last BatchNorm scale is zero,
+    so the loss is about ln(1000) whatever the images (6.927-6.989 over an
+    epoch's batches): the loss bound guards the loss arithmetic only, and
+    the update bound is the check of the step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, h, w, _ = images.shape
+    boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = ResNet50(num_classes=1000, dtype=dtype, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        model = model.to(memory_format=torch.channels_last)
+        step = trainer.TrainStep(model, 1000, SIDE)
+        n_params = sum(p.numel() for p in model.parameters())
+        before = leaves_flat(step)
+        if dtype == torch.bfloat16:
+            loss = step(images, labels, boxes=boxes, flips=flips)
+        else:
+            params = augment.crop_params(boxes, (SIDE, SIDE))
+            crops = augment._resized_crop_reference(images, params, flips, (SIDE, SIDE), False)
+            scale, bias = normalize.channel_constants(MEAN, STD, 3)
+            x = normalize._normalize_reference(crops, scale, bias, torch.float32)
+            loss = step.update(x, labels)
+        out[dtype] = (float(loss), leaves_flat(step) - before)
+        del model, step
+    (loss16, d16), (loss32, d32) = out[torch.bfloat16], out[torch.float32]
+    loss_bound, rel_bound = 1e-3, 0.03
+    cosine_bound = (1 - rel_bound ** 2) ** 0.5
+    rel = {name: float((d16[part] - d32[part]).norm() / d32[part].norm())
+           for name, part in (("all", slice(None)), ("params", slice(0, n_params)),
+                              ("batch_stats", slice(n_params, None)))}
+    cosine = float(d16 @ d32 / (d16.norm() * d32.norm()))
+    if not (abs(loss16 - loss32) <= loss_bound and cosine >= cosine_bound
+            and rel["params"] <= rel_bound and rel["batch_stats"] <= rel_bound):
+        raise AssertionError(f"bf16 step vs float32 plain step: loss {loss16} vs {loss32}"
+                             f" (bound {loss_bound}), update relative errors {rel}"
+                             f" (bound {rel_bound}), cosine {cosine} (bound {cosine_bound})")
+    return {"loss_bf16": loss16, "loss_f32": loss32, "loss_bound": loss_bound,
+            "update_rel_err": rel, "rel_err_bound": rel_bound,
+            "update_cosine": cosine, "cosine_bound": cosine_bound}
+
+
+def device_time_by_op(step, images, labels, steps=3, top=12):
+    """Device time of ``steps`` training steps on one resident batch, by the
+    op that launched it (``torch.profiler``; each kernel counted once, under
+    the innermost op around its launch): (ms per step in all, the ``top`` ops
+    as (name, ms per step))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(images, labels)
+        torch.cuda.synchronize()
+    times = [(e.key, e.self_device_time_total / 1e3 / steps) for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    times.sort(key=lambda kv: -kv[1])
+    return sum(t for _, t in times), times[:top]
+
+
+def train_path_phase(path, kernels):
+    """The training path over one epoch of the phase-4 dataset."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    step = trainer.TrainStep(model, 1000, SIDE,
+                             generator=torch.Generator(device="cuda").manual_seed(
+                                 trainer.AUGMENT_SEED))
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    normalize.normalize_kernel.launches = 0
+    augment.resized_crop_kernel.launches = 0
+    losses, steps, first = [], 0, None
+    with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader:
+        start = time.perf_counter()
+        for batch in loader:
+            labels = batch["label"] % 1000
+            if first is None:
+                first = (batch["image"].clone(), labels.clone())
+                flops, loss = trainer.count_flops(step, batch["image"], labels)
+            else:
+                loss = step(batch["image"], labels)
+            losses.append(loss)
+            steps += 1
+            if steps == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        wait = loader.diagnostics()["consumer_wait_s"] - wait0
+    launches = {"normalize_u8": normalize.normalize_kernel.launches,
+                "resized_crop_flip_u8": augment.resized_crop_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+
+    want_steps = N_ROWS // BATCH
+    if steps != want_steps:
+        raise AssertionError(f"{steps} training steps, expected {want_steps}")
+    for name, count in launches.items():
+        if count != steps:
+            raise AssertionError(f"kernel {name} launched {count} times in {steps} steps")
+        kernels[name]["launches"] = count
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    device_ms, by_op = device_time_by_op(step, *first)
+    del model, step, loader
+
+    timed = end - timed_start
+    samples_per_s = (steps - WARMUP_STEPS) * BATCH / timed
+    flops_per_sample = flops / BATCH
+    peak_flops = trainer.measure_peak_flops("cuda")
+    step_check = check_step_vs_f32_plain(*first, torch.Generator(device="cuda").manual_seed(1))
+    phase("train_path", steps=steps, timed_steps=steps - WARMUP_STEPS, batch=BATCH,
+          workers=workers, samples_per_s=samples_per_s, epoch_s=end - start,
+          step_ms=1e3 * timed / (steps - WARMUP_STEPS), consumer_wait_share=wait / timed,
+          peak_device_memory_bytes=peak, launches=launches, losses=losses.tolist(),
+          flops_per_sample=flops_per_sample,
+          achieved_flops_per_s=flops_per_sample * samples_per_s,
+          measured_peak_bf16_flops_per_s=peak_flops,
+          profiled_device_ms_per_step=device_ms,
+          device_busy_share=device_ms / (1e3 * timed / (steps - WARMUP_STEPS)),
+          device_ms_per_step_by_op=by_op,
+          share_of_measured_peak=(flops_per_sample * samples_per_s / peak_flops
+                                  if peak_flops else None),
+          step_vs_f32_plain=step_check)
 
 
 def main():
@@ -245,7 +493,8 @@ def main():
 
     kernels = kernels_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_path_phase(tmp, kernels)
+        path = main_path_phase(tmp, kernels)
+        train_path_phase(path, kernels)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

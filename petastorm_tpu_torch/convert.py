@@ -1,16 +1,17 @@
-"""Weights of the flax ResNet -> a state_dict of the torch ResNet.
+"""Weights of the flax ResNet <-> a state_dict of the torch ResNet.
 
 Maps every leaf of ``{"params": ..., "batch_stats": ...}`` (nested dicts of
 numpy arrays, as ``flax.linen`` ``init``/``apply`` use them) onto
-:class:`petastorm_tpu_torch.models.ResNet`:
+:class:`petastorm_tpu_torch.models.ResNet`, all float32:
 
 * conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in);
-* BatchNorm ``scale``/``bias``/``mean``/``var`` ->
-  ``weight``/``bias``/``running_mean``/``running_var``.
+* BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats)
+  keep their names.
 
 Every leaf is consumed exactly once: a leaf with no torch counterpart, or two
 leaves landing on one key, raises.  Loading the result with
 ``load_state_dict(strict=True)`` then catches leaves the flax tree lacks.
+:func:`flax_from_resnet_state` is the inverse.
 """
 
 from __future__ import annotations
@@ -21,9 +22,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-_BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
-              ("batch_stats", "mean"): "running_mean",
-              ("batch_stats", "var"): "running_var"}
+_BN_LEAVES = {"scale": "params", "bias": "params", "mean": "batch_stats",
+              "var": "batch_stats"}
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()):
@@ -69,16 +69,57 @@ def resnet_state_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
                 arr = arr.T if is_dense else arr.transpose(3, 2, 0, 1)
             elif module == "dense" and (collection, leaf_name) == ("params", "bias"):
                 key = "dense.bias"
-            elif (collection, leaf_name) in _BN_LEAVES:
-                key = f"{module}.{_BN_LEAVES[collection, leaf_name]}"
+            elif _BN_LEAVES.get(leaf_name) == collection:
+                key = f"{module}.{leaf_name}"
             else:
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has no torch counterpart")
             if key in state:
                 raise KeyError(f"two flax leaves map to {key!r}")
             state[key] = torch.from_numpy(np.array(arr, order="C", copy=True))
-    for key in [k for k in state if k.endswith(".running_var")]:
-        state[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     for collection in variables:
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"flax collection {collection!r} has no torch counterpart")
     return state
+
+
+def _flax_path(module: str) -> Tuple[str, ...]:
+    """Torch module name -> flax module path (``blocks.3.conv1`` -> ``BottleneckBlock_3/Conv_1``)."""
+    out = []
+    parts = module.split(".")
+    while parts:
+        part = parts.pop(0)
+        if part == "blocks":
+            out.append(f"BottleneckBlock_{parts.pop(0)}")
+        elif part == "dense":
+            out.append("Dense_0")
+        elif part in ("conv_init", "bn_init", "conv_proj", "norm_proj"):
+            out.append(part)
+        else:
+            m = re.fullmatch(r"(conv|bn)(\d+)", part)
+            if m is None:
+                raise KeyError(f"torch module {module!r} has no flax counterpart")
+            out.append(("Conv" if m.group(1) == "conv" else "BatchNorm") + f"_{m.group(2)}")
+    return tuple(out)
+
+
+def flax_from_resnet_state(state: Dict[str, torch.Tensor]) -> Dict:
+    """Convert a torch ResNet state_dict to flax variables: ``{"params": ...,
+    "batch_stats": ...}`` of nested dicts of float32 numpy arrays."""
+    variables: Dict = {"params": {}, "batch_stats": {}}
+    for key, tensor in state.items():
+        module, leaf_name = key.rsplit(".", 1)
+        arr = tensor.detach().cpu().float().numpy()
+        if leaf_name == "weight":
+            collection, leaf_name = "params", "kernel"
+            arr = arr.T if module == "dense" else arr.transpose(2, 3, 1, 0)
+        elif module == "dense" and leaf_name == "bias":
+            collection = "params"
+        elif leaf_name in _BN_LEAVES:
+            collection = _BN_LEAVES[leaf_name]
+        else:
+            raise KeyError(f"torch leaf {key!r} has no flax counterpart")
+        node = variables[collection]
+        for part in _flax_path(module):
+            node = node.setdefault(part, {})
+        node[leaf_name] = np.ascontiguousarray(arr)
+    return variables

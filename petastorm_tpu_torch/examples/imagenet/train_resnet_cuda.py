@@ -1,0 +1,250 @@
+"""ImageNet-style ResNet-50 training fed by the port, on one CUDA GPU.
+
+Port of ``examples/imagenet/train_resnet_tpu.py`` (``generate_dataset`` and
+``train``) for its ``input_pipeline='petastorm'``, ``decode='host'``,
+``cache='null'``, ``scan_steps=1`` configuration: JPEG Parquet ->
+``make_reader`` (host decode) -> ``CudaDataLoader`` (uint8 to the card) ->
+the training step of ``_step_math``:
+
+1. random-resized-crop and horizontal flip in one launch of the resized-crop
+   kernel (boxes and flips drawn from a ``torch.Generator`` seeded 17);
+2. ``normalize_images`` (the normalize kernel), uint8 -> bf16;
+3. ResNet-50, float32 leaves computing in bf16;
+4. ``-(log_softmax(logits) * one_hot(label)).sum(-1).mean()``;
+5. SGD with momentum 0.9 at lr 0.1 over every float32 leaf, the BatchNorm
+   running ``mean``/``var`` included: the JAX step differentiates the whole
+   variables dict and ``model.apply`` runs BatchNorm on the running
+   statistics, so those leaves take gradient steps too.
+
+``device='cuda'`` is the default; ``device='cpu'`` runs the kernels' plain
+versions (for tests).  Run ``python -m
+petastorm_tpu_torch.examples.imagenet.train_resnet_cuda --help``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import tempfile
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
+
+from petastorm_tpu_torch import (CompressedImageCodec, Field, ScalarCodec, Schema, make_reader,
+                                 write_dataset)
+from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.models import ResNet, ResNet50
+from petastorm_tpu_torch.ops import draw_crop_boxes, draw_flips, normalize_images, random_resized_crop
+
+AUGMENT_SEED = 17
+LR, MOMENTUM = 0.1, 0.9  # optax.sgd(0.1, momentum=0.9) of the JAX step
+
+
+def imagenet_schema(side: int) -> Schema:
+    return Schema("ImagenetLike", [
+        Field("label", np.int64, (), ScalarCodec()),
+        Field("image", np.uint8, (side, side, 3), CompressedImageCodec("jpeg", quality=90)),
+    ])
+
+
+def generate_dataset(url: str, rows: int, side: int, seed: int = 0) -> None:
+    """``rows`` random labels in [0, 1000) and random uint8 images, JPEG q90."""
+    rng = np.random.default_rng(seed)
+
+    def row(_):
+        label = int(rng.integers(0, 1000))
+        return {"label": label, "image": rng.integers(0, 255, (side, side, 3)).astype(np.uint8)}
+
+    write_dataset(url, imagenet_schema(side), (row(i) for i in range(rows)),
+                  row_group_size_rows=max(rows // 8, 1), mode="overwrite")
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          num_classes: int) -> torch.Tensor:
+    """``-(log_softmax(logits) * one_hot(labels)).sum(-1).mean()``; a label
+    outside ``[0, num_classes)`` gives a zero one-hot row (as
+    ``jax.nn.one_hot`` does) where ``F.cross_entropy`` would fail."""
+    classes = torch.arange(num_classes, device=labels.device)
+    onehot = (labels[:, None] == classes).to(logits.dtype)
+    return -(F.log_softmax(logits, dim=-1) * onehot).sum(-1).mean()
+
+
+class TrainStep:
+    """The training step of ``train_resnet_tpu.py::_step_math`` on ``model``.
+
+    ``step(images_u8, labels)`` draws crop boxes and flips from ``generator``
+    (on the images' device), runs augment -> normalize -> model -> loss ->
+    SGD-momentum, and returns the loss (not synchronised).  ``boxes`` and
+    ``flips`` may be passed instead, as :func:`random_resized_crop` takes them.
+    """
+
+    def __init__(self, model: ResNet, num_classes: int, side: int,
+                 generator: Optional[torch.Generator] = None):
+        self.model = model
+        self.num_classes = num_classes
+        self.side = side
+        self.generator = generator
+        for stat in model.batch_stats():
+            stat.requires_grad_(True)
+        self.leaves: List[torch.Tensor] = list(model.parameters()) + model.batch_stats()
+        self.optimizer = torch.optim.SGD(self.leaves, lr=LR, momentum=MOMENTUM)
+
+    def update(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Loss of the model on normalized ``x``, backward, one SGD-momentum step."""
+        loss = softmax_cross_entropy(self.model(x), labels, self.num_classes)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def __call__(self, images_u8: torch.Tensor, labels: torch.Tensor,
+                 boxes: Optional[torch.Tensor] = None,
+                 flips: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n, h, w, _ = images_u8.shape
+        if boxes is None:
+            boxes = draw_crop_boxes(n, h, w, self.generator, device=images_u8.device)
+        if flips is None:
+            flips = draw_flips(n, self.generator, images_u8.device)
+        # crop + flip in one resized-crop launch on the card, then normalize to bf16
+        crops = random_resized_crop(images_u8, None, (self.side, self.side), boxes=boxes,
+                                    flips=flips)
+        return self.update(normalize_images(crops), labels)
+
+
+def count_flops(fn, *args) -> Tuple[int, object]:
+    """Run ``fn(*args)`` once under ``FlopCounterMode``; returns (flops, result).
+
+    It counts the matrix products and convolutions of the forward and the
+    backward pass (2 flops per multiply-add) and nothing else: not the
+    elementwise ops (BatchNorm, ReLU, loss, SGD update) and not the
+    augment and normalize kernels, which it cannot see."""
+    with FlopCounterMode(display=False) as counter:
+        result = fn(*args)
+    return counter.get_total_flops(), result
+
+
+def measure_peak_flops(device) -> Optional[float]:
+    """Achievable bf16 matmul rate of the card, in flop/s; None off a GPU.
+
+    Chained 4096 x 4096 bf16 matmuls at two chain lengths, each timed by CUDA
+    events, interleaved three times and the minimum kept; the difference of
+    the two divided by the difference of the lengths is the time of one
+    matmul without the fixed launch cost.  2 * 4096^3 flops per matmul.  The
+    right factor is scaled by 1/sqrt(4096) so the chain's values neither
+    grow nor vanish."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    n, lo, hi = 4096, 32, 128
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(n, n, generator=gen, device=device).to(torch.bfloat16)
+    b = (torch.randn(n, n, generator=gen, device=device) * n ** -0.5).to(torch.bfloat16)
+
+    def chain(iters):
+        c = a
+        for _ in range(iters):
+            c = c @ b
+        return c
+
+    for iters in (lo, hi):
+        chain(iters)
+    best = {lo: float("inf"), hi: float("inf")}
+    for _ in range(3):
+        for iters in (lo, hi):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain(iters)
+            end.record()
+            end.synchronize()
+            best[iters] = min(best[iters], start.elapsed_time(end) / 1e3)
+    slope = (best[hi] - best[lo]) / (hi - lo)
+    return 2 * n ** 3 / slope if slope > 0 else None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(dataset_url: str, steps: int, global_batch: int, side: int,
+          num_classes: int = 1000, workers: int = 4, prefetch: int = 2,
+          device="cuda") -> Dict:
+    """Run one warm-up step and ``steps`` timed ResNet-50 training steps fed by
+    the loader; returns samples/s, the input-wait share of the timed window
+    (``device_idle_pct``), the stall against a rerun of as many steps on one
+    resident batch (``input_stall_pct``), and the model FLOP counts."""
+    device = resolve_device(device)
+    model = ResNet50(num_classes=num_classes, dtype=torch.bfloat16, device=device,
+                     generator=torch.Generator().manual_seed(0))
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    step = TrainStep(model, num_classes, side,
+                     generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED))
+    reader = make_reader(dataset_url, num_epochs=None, workers_count=workers)
+    with CudaDataLoader(reader, batch_size=global_batch, device=device,
+                        prefetch=prefetch) as feed:
+        it = iter(feed)
+        first = next(it)
+        # warm-up (cuDNN set-up, kernel builds), counted for the FLOP figures
+        flops_per_step, loss = count_flops(step, first["image"], first["label"])
+        _sync(device)
+        wait0 = feed.diagnostics()["consumer_wait_s"]
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            batch = next(it)
+            loss = step(batch["image"], batch["label"])
+        _sync(device)
+        dt = time.perf_counter() - t0
+        input_wait_s = feed.diagnostics()["consumer_wait_s"] - wait0
+        # compute floor: as many steps on one resident batch, no input inside the loop
+        resident = next(it)
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            step(resident["image"], resident["label"])
+        _sync(device)
+        compute_dt = time.perf_counter() - t1
+        diagnostics = feed.diagnostics()
+    return {
+        "samples_per_sec": steps * global_batch / dt,
+        "device_idle_pct": 100.0 * input_wait_s / dt,
+        "input_stall_pct": 100.0 * max(0.0, dt - compute_dt) / dt,
+        "compute_floor_wall_s": compute_dt,
+        "flops_per_sample": flops_per_step / global_batch,
+        "measured_peak_flops": measure_peak_flops(device),
+        "device_kind": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                        else "cpu"),
+        "steps": steps,
+        "global_batch": global_batch,
+        "wall_s": dt,
+        "final_loss": float(loss),
+        "diagnostics": diagnostics,
+    }
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dataset-url", default=None)
+    parser.add_argument("--rows", type=int, default=256)
+    parser.add_argument("--side", type=int, default=224)
+    parser.add_argument("--steps", type=int, default=8)
+    parser.add_argument("--global-batch", type=int, default=32)
+    parser.add_argument("--workers", type=int, default=4)
+    parser.add_argument("--prefetch", type=int, default=2)
+    parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--skip-generate", action="store_true",
+                        help="dataset-url already holds the dataset")
+    args = parser.parse_args()
+    url = args.dataset_url or tempfile.mkdtemp(prefix="imagenet_cuda_") + "/imagenet"
+    if not args.skip_generate:
+        generate_dataset(url, args.rows, args.side)
+    m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
+              workers=args.workers, prefetch=args.prefetch, device=args.device)
+    print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
+          f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']}, input wait"
+          f" {m['device_idle_pct']:.1f}% of the window, final loss {m['final_loss']:.4f}")

@@ -5,6 +5,11 @@ and skip without one.  The file imports nothing of JAX, so on a GPU machine
 without JAX it runs on its own:
 ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda -q``.
 
+Resized-crop tolerance: at most 1 LSB, at most 0.1 % of bytes differing: the
+kernel and the plain version use the same float32 weights and sum the same
+products in other orders (the plain version through cuBLAS), which moves a
+byte only where the sum sits at a .5 boundary.
+
 Normalize tolerance: float32 within 2 ulp taken at the larger of |out| and
 |bias| (the kernel contracts ``x*s+b`` into one FMA, the plain version rounds
 the product first, and that rounding is of the addends' size); bfloat16 and
@@ -15,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from petastorm_tpu_torch.ops import augment
 from petastorm_tpu_torch.ops import normalize as torch_normalize
 
 
@@ -87,3 +93,46 @@ def test_loader_delivers_every_row_once_on_card(tmp_path):
     seen = torch.cat(seen).cpu().numpy()
     assert sorted(labels.tolist()) == sorted(list(range(300)) * 2)
     np.testing.assert_array_equal(seen, images[labels])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_hw,antialias", [
+    ((256, 224, 224, 3), (224, 224), False), ((7, 97, 131, 3), (50, 61), False),
+    ((5, 64, 64, 1), (17, 23), True), ((3, 20, 30, 5), (41, 7), True)])
+def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, w, _ = shape
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+    boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda")
+    before = augment.resized_crop_kernel.launches
+    got = augment.random_resized_crop(x, None, out_hw, antialias=antialias, boxes=boxes,
+                                      flips=flips)
+    assert augment.resized_crop_kernel.launches == before + 1
+    params = augment.crop_params(boxes, out_hw)
+    want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= 0.001
+    resized = augment.resize_images(x, out_hw, antialias=antialias)
+    assert resized.shape == (n, *out_hw, shape[-1]) and resized.dtype == torch.uint8
+    with pytest.raises(TypeError):
+        augment.resize_images(x.float(), out_hw)
+
+
+@pytest.mark.cuda
+def test_trainer_runs_on_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer
+
+    url = str(tmp_path / "imagenet")
+    trainer.generate_dataset(url, rows=64, side=64)
+    before = augment.resized_crop_kernel.launches
+    m = trainer.train(url, steps=2, global_batch=16, side=64, num_classes=10)
+    assert augment.resized_crop_kernel.launches - before == 1 + 2 * m["steps"]
+    assert m["samples_per_sec"] > 0 and np.isfinite(m["final_loss"])
+    assert m["measured_peak_flops"] > 0 and m["flops_per_sample"] > 0
+    assert m["device_kind"] == torch.cuda.get_device_name(0)

@@ -52,5 +52,6 @@ def test_every_port_module_is_scanned():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for required in ("chip_smoke.py", "petastorm_tpu_torch/ops/normalize.py",
                      "petastorm_tpu_torch/cuda/loader.py", "petastorm_tpu_torch/reader.py",
-                     "petastorm_tpu_torch/models/resnet.py"):
+                     "petastorm_tpu_torch/models/resnet.py", "petastorm_tpu_torch/ops/augment.py",
+                     "petastorm_tpu_torch/examples/imagenet/train_resnet_cuda.py"):
         assert required in names

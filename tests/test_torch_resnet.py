@@ -51,9 +51,6 @@ def _small_pair(dtype_flax, dtype_torch, seed):
     variables = _randomized(flax_model.init(jax.random.PRNGKey(seed), jnp.asarray(x)), seed + 1)
     torch_model = ResNet([1, 1], num_classes=10, num_filters=8, dtype=dtype_torch, device="cpu")
     torch_model.load_state_dict(resnet_state_from_flax(variables), strict=True)
-    for name, module in torch_model.named_children():
-        if name != "dense":
-            module.to(dtype_torch)
     want = np.asarray(flax_model.apply(variables, jnp.asarray(x)), np.float32)
     with torch.inference_mode():
         got = torch_model(torch.from_numpy(x)).numpy()
@@ -131,3 +128,55 @@ def test_model_refuses_cuda_without_gpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError):
         ResNet([1], num_filters=8, num_classes=4)
+
+
+def test_inference_mode_reuses_cast_kernels_until_they_change():
+    model = ResNet([1], num_classes=4, num_filters=8, dtype=torch.bfloat16, device="cpu")
+    assert all(p.dtype == torch.float32 for p in model.state_dict().values())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 16, 16, 3),
+                                                                  dtype=np.float32))
+    with torch.inference_mode():
+        first = model(x)
+        cast = model.conv_init._cast[2]
+        assert cast.dtype == torch.bfloat16 and torch.equal(model(x), first)
+        assert model.conv_init._cast[2] is cast
+    with torch.no_grad():
+        model.conv_init.weight.mul_(2.0)  # an update must not leave a stale cast behind
+    with torch.inference_mode():
+        again = model(x)
+        assert model.conv_init._cast[2] is not cast
+        cast = model.conv_init._cast[2]
+    with torch.no_grad():  # outside inference_mode the kernels are cast at every call
+        assert torch.equal(again, model(x))
+    # a new storage behind the same parameter (as .to() gives) is seen too
+    model.conv_init.weight.data = model.conv_init.weight.data * 0.5
+    with torch.inference_mode():
+        assert torch.equal(model(x), first) and model.conv_init._cast[2] is not cast
+        assert torch.equal(model.conv_init._cast[2], model.conv_init.weight.to(torch.bfloat16))
+
+
+def test_forward_ab_variants_agree_and_restore_the_model():
+    from petastorm_tpu_torch.examples.imagenet import forward_ab
+    from petastorm_tpu_torch.models.resnet import BatchNorm, _Conv
+
+    flax_model = FlaxResNet(stage_sizes=[1, 1], num_filters=8, num_classes=10,
+                            dtype=jnp.bfloat16)
+    x = np.random.default_rng(3).integers(0, 256, (4, 32, 32, 3)).astype(np.float32) / 64.0
+    variables = _randomized(flax_model.init(jax.random.PRNGKey(3), jnp.asarray(x)), 4)
+    model = ResNet([1, 1], num_classes=10, num_filters=8, dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(resnet_state_from_flax(variables), strict=True)
+    saved = _Conv._kernel, BatchNorm.forward
+    with torch.inference_mode():
+        base = model(torch.from_numpy(x))
+        got = {}
+        for name in forward_ab.VARIANTS:
+            with forward_ab.variant(name):
+                got[name] = model(torch.from_numpy(x))
+                got[name + " again"] = model(torch.from_numpy(x))
+    assert (_Conv._kernel, BatchNorm.forward) == saved
+    # the casts are the same values whether cached or not
+    for name in ("cast_per_call", "cast_cached", "cast_cached again"):
+        assert torch.equal(got[name], base), name
+    # the explicit formula rounds its last float32 bit elsewhere: the module's bf16 bound
+    tol = 0.02 * base.abs().max().item() + 0.01
+    assert (got["bn_explicit"] - base).abs().max().item() <= tol
