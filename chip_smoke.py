@@ -10,7 +10,9 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (and ragged and unaligned ones), with its time, the
    plain version's time, the least time the card could take and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time; the two
+   resized-crop kernels (tiled, general) equal on every byte wherever both
+   apply, and timed in turns on the training step's inputs;
 4. main path (inference): an ImageNet-shaped JPEG dataset (4096 rows of
    224x224x3, 16 rowgroups) through ``make_reader`` ->
    ``CudaDataLoader(batch_size=256)`` -> ``normalize_images`` -> ``ResNet50``
@@ -108,35 +110,80 @@ def check_normalize(x, mean, std, out_dtype):
     return err.max().item()
 
 
-def check_resized_crop(x, out_hw, antialias, gen):
+def check_resized_crop(x, out_hw, antialias, gen, scale=(0.08, 1.0), flipped=True):
     """Kernel vs plain version on drawn boxes and flips; bound: at most 1 LSB
     and at most 0.1 % of bytes differing (same float32 weights, products
     summed in another order, which moves a byte only at a .5 boundary).
+    Without antialias the tiled kernel runs, and it must also equal the
+    general kernel on the same inputs on every byte.
     Returns (max LSB difference, share of bytes differing, the draws)."""
     n, h, w, _ = x.shape
-    boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
-    flips = augment.draw_flips(n, gen, "cuda")
+    boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda") if flipped else None
     params = augment.crop_params(boxes, out_hw)
     got = augment.resized_crop_kernel(x, params, flips, out_hw, antialias)
+    if not antialias:
+        general = augment.launch_resized_crop(x, params, flips, out_hw, False, tiled=False)
+        differing = int((got != general).sum())
+        if differing:
+            raise AssertionError(f"tiled and general resized-crop kernels differ at"
+                                 f" {tuple(x.shape)} -> {out_hw}: {differing} bytes")
     want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
+    return (*within_lsb(got, want, f"{tuple(x.shape)} -> {out_hw}"), (boxes, params, flips))
+
+
+def within_lsb(got, want, what):
     diff = (got.int() - want.int()).abs()
     err, share = int(diff.max()), float((diff > 0).double().mean())
     if err > 1 or share > 1e-3:
-        raise AssertionError(f"resized-crop kernel disagrees at {tuple(x.shape)} -> {out_hw}:"
+        raise AssertionError(f"resized-crop kernel disagrees at {what}:"
                              f" max {err} LSB, {share:.2e} of bytes differ")
-    return err, share, (boxes, params, flips)
+    return err, share
+
+
+def resample_bound(x, params, out_hw, antialias):
+    """Bytes the resample needs (each image's source rows x columns with a
+    nonzero weight, x C, read once, and the output written once) and
+    operations (2 per multiply-add over the nonzero taps, rows then columns):
+    (bound ms, "bytes" or "operations", read, written, flops)."""
+    n, h, w, c = x.shape
+    wy = augment._weight_mats(h, out_hw[0], params[:, 0], params[:, 1], antialias) != 0
+    wx = augment._weight_mats(w, out_hw[1], params[:, 2], params[:, 3], antialias) != 0
+    read = (wy.any(2).sum(1) * wx.any(2).sum(1)).sum().item() * c
+    written = n * out_hw[0] * out_hw[1] * c
+    taps_y, taps_x = wy.sum((1, 2)).double(), wx.sum((1, 2)).double()
+    flops = 2 * c * (taps_y * taps_x + out_hw[0] * taps_x).sum().item()
+    bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            read, written, flops)
 
 
 def resized_crop_entry(gen):
-    """B3 at the training step's shape: checks on three shapes, times, bound."""
+    """B3 at the training step's shape: the tiled kernel (no antialias) held
+    to the general kernel byte for byte and both to the plain version, on the
+    main shape and ragged, unaligned and downscaled ones; times and bounds of
+    both kernels."""
     checks = {}
-    for shape, out_hw, antialias in [(MAIN_SHAPE, (SIDE, SIDE), False),
-                                     ((7, 97, 131, 3), (50, 61), False),
-                                     ((5, 64, 64, 1), (17, 23), True)]:
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
-        err, share, draws = check_resized_crop(x, out_hw, antialias, gen)
-        checks[f"{shape}->{out_hw} antialias={antialias}"] = {"max_lsb": err,
-                                                              "share_differing": share}
+    for shape, out_hw, antialias, offset, scale, flipped in [
+            (MAIN_SHAPE, (SIDE, SIDE), False, 0, (0.08, 1.0), True),
+            ((7, 97, 131, 3), (50, 61), False, 0, (0.08, 1.0), True),
+            ((7, 97, 131, 3), (50, 61), False, 1, (0.08, 1.0), True),  # odd byte offset
+            ((5, 64, 64, 1), (17, 23), True, 0, (0.08, 1.0), True),
+            ((6, 40, 50, 1), (21, 33), False, 0, (0.08, 1.0), True),   # C = 1
+            ((6, 40, 50, 4), (19, 30), False, 1, (0.08, 1.0), False),  # C = 4, no flips
+            ((5, 33, 37, 3), (20, 27), False, 0, (0.08, 1.0), True),   # rows of 111 bytes
+            ((3, 300, 517, 3), (37, 301), False, 0, (0.08, 1.0), True),  # oh % 8, ow > 256
+            # downscale past 8x: neighbouring pixels read source pixels far apart
+            ((4, 512, 640, 3), (40, 50), False, 0, (0.5, 1.0), True),
+            # C = 5: two channel chunks, the channel count known only at run time
+            ((3, 20, 30, 5), (41, 7), False, 0, (0.08, 1.0), True)]:
+        flat = torch.randint(0, 256, (int(np.prod(shape)) + offset,), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        x = flat[offset:].view(shape)
+        err, share, draws = check_resized_crop(x, out_hw, antialias, gen, scale, flipped)
+        checks[f"{shape}->{out_hw} antialias={antialias} offset={offset} flips={flipped}"] = {
+            "max_lsb": err, "share_differing": share,
+            "tiled_equals_general": True if not antialias else None}
         if shape == MAIN_SHAPE:
             main_x, (boxes, params, flips), main_err = x, draws, err
     try:
@@ -146,16 +193,7 @@ def resized_crop_entry(gen):
         pass
     n, h, w, c = main_x.shape
     out_hw = (SIDE, SIDE)
-    # bytes the work needs: each drawn box's source rows x columns x C, read
-    # once, and the output written once; operations: 2 per multiply-add over
-    # the taps with a nonzero weight (rows, then columns)
-    wy = augment._weight_mats(h, out_hw[0], params[:, 0], params[:, 1], False) != 0
-    wx = augment._weight_mats(w, out_hw[1], params[:, 2], params[:, 3], False) != 0
-    read = (wy.any(2).sum(1) * wx.any(2).sum(1)).sum().item() * c
-    written = n * out_hw[0] * out_hw[1] * c
-    taps_y, taps_x = wy.sum((1, 2)).double(), wx.sum((1, 2)).double()
-    flops = 2 * c * (taps_y * taps_x + out_hw[0] * taps_x).sum().item()
-    bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    bound_ms, bound_by, read, written, flops = resample_bound(main_x, params, out_hw, False)
     # the library yardstick: F.grid_sample on float32 NCHW with the affine
     # grid of the same boxes precomputed; the time is the grid_sample call
     # alone (not the uint8 -> float32 NCHW conversion before it, the grid,
@@ -168,24 +206,69 @@ def resized_crop_entry(gen):
     x_nchw = main_x.permute(0, 3, 1, 2).float().contiguous()
     library_ms = time_ms(lambda: torch.nn.functional.grid_sample(
         x_nchw, grid, mode="bilinear", padding_mode="border", align_corners=False))
+    # the tiled kernel and the PR 2 general kernel on the same inputs, in
+    # turns (tiled, general, general, tiled)
+    tiled = lambda: augment.resized_crop_kernel(main_x, params, flips, out_hw, False)  # noqa: E731
+    general = lambda: augment.launch_resized_crop(main_x, params, flips, out_hw,  # noqa: E731
+                                                  False, tiled=False)
+    turns = [time_ms(tiled), time_ms(general), time_ms(general), time_ms(tiled)]
     entry = {
         "name": "resized_crop_flip_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
+        "function": "resized_crop_u8_tiled_kernel",
         "replaces": "petastorm_tpu/ops/augment.py:141",
         "max_abs_err": main_err,
-        "ms": time_ms(lambda: augment.resized_crop_kernel(main_x, params, flips, out_hw, False)),
+        "ms": (turns[0] + turns[3]) / 2, "prev_ms": (turns[1] + turns[2]) / 2,
         "plain_ms": time_ms(lambda: augment._resized_crop_reference(main_x, params, flips,
                                                                     out_hw, False)),
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
-        else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
     }
     phase("kernels", resized_crop_flip_u8={
-        "checks": checks, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
-        "bound_ms": entry["bound_ms"], "bytes_read": read, "bytes_written": written, "flops": flops,
+        "checks": checks, "ms": entry["ms"], "prev_ms": entry["prev_ms"],
+        "turns_ms_tiled_general_general_tiled": turns, "plain_ms": entry["plain_ms"],
+        "bound_ms": bound_ms, "bytes_read": read, "bytes_written": written, "flops": flops,
         "library_ms": library_ms,
         "library_call": "F.grid_sample(bilinear, border, align_corners=False) on float32 NCHW,"
                         " affine grid precomputed; grid_sample alone"})
+    return {"resized_crop_flip_u8": entry, "resized_crop_aa_u8": resized_crop_aa_entry(gen)}
+
+
+def resized_crop_aa_entry(gen):
+    """The general kernel, off the main path (antialias=True): the ImageNet
+    evaluation resize of a 256x256 batch to 224x224 (three taps per axis)."""
+    src_side = 256
+    x = torch.randint(0, 256, (BATCH, src_side, src_side, 3), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    out_hw = (SIDE, SIDE)
+    inv = 1.0 / (SIDE / src_side)  # as resize_images computes it
+    params = torch.tensor([inv, 0.0, inv, 0.0], device="cuda").expand(BATCH, 4)
+    got = augment.resize_images(x, out_hw, antialias=True)
+    want = augment._resized_crop_reference(x, params, None, out_hw, True)
+    err, share = within_lsb(got, want, f"{tuple(x.shape)} -> {out_hw} antialias=True")
+    bound_ms, bound_by, read, written, flops = resample_bound(x, params, out_hw, True)
+    # the library yardstick: F.interpolate's antialiased bilinear resize (the
+    # same triangle filter) on float32 NCHW, the call alone
+    x_nchw = x.permute(0, 3, 1, 2).float().contiguous()
+    library_ms = time_ms(lambda: torch.nn.functional.interpolate(
+        x_nchw, size=out_hw, mode="bilinear", antialias=True, align_corners=False))
+    entry = {
+        "name": "resized_crop_aa_u8", "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
+        "function": "resized_crop_u8_kernel",
+        "replaces": "petastorm_tpu/ops/augment.py:141",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: augment.resize_images(x, out_hw, antialias=True)),
+        "plain_ms": time_ms(lambda: augment._resized_crop_reference(x, params, None, out_hw,
+                                                                    True)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+    phase("kernels", resized_crop_aa_u8={
+        "shape": [BATCH, src_side, src_side, 3], "out_hw": list(out_hw), "max_lsb": err,
+        "share_differing": share, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+        "bound_ms": bound_ms, "bytes_read": read, "bytes_written": written, "flops": flops,
+        "library_ms": library_ms,
+        "library_call": "F.interpolate(bilinear, antialias=True) on float32 NCHW, the call alone"})
     return entry
 
 
@@ -229,7 +312,7 @@ def kernels_phase():
     phase("kernels", normalize_u8={"max_abs_err": results, "ms": entry["ms"],
                                    "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,
                                    "shape": list(MAIN_SHAPE), "out": "bfloat16"})
-    return {"normalize_u8": entry, "resized_crop_flip_u8": resized_crop_entry(gen)}
+    return {"normalize_u8": entry, **resized_crop_entry(gen)}
 
 
 def smooth_image(rng):
@@ -423,6 +506,8 @@ def train_path_phase(path, kernels):
     torch.cuda.reset_peak_memory_stats()
     normalize.normalize_kernel.launches = 0
     augment.resized_crop_kernel.launches = 0
+    augment.resized_crop_kernel.launches_tiled = 0
+    augment.resized_crop_kernel.launches_general = 0
     losses, steps, first = [], 0, None
     with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader:
         start = time.perf_counter()
@@ -442,16 +527,20 @@ def train_path_phase(path, kernels):
         end = time.perf_counter()
         wait = loader.diagnostics()["consumer_wait_s"] - wait0
     launches = {"normalize_u8": normalize.normalize_kernel.launches,
-                "resized_crop_flip_u8": augment.resized_crop_kernel.launches}
+                "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
+                "resized_crop_aa_u8": augment.resized_crop_kernel.launches_general}
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).float().cpu()
 
     want_steps = N_ROWS // BATCH
     if steps != want_steps:
         raise AssertionError(f"{steps} training steps, expected {want_steps}")
+    # every crop of the step is without antialias: the tiled kernel, never the general one
+    want = {"normalize_u8": steps, "resized_crop_flip_u8": steps, "resized_crop_aa_u8": 0}
     for name, count in launches.items():
-        if count != steps:
-            raise AssertionError(f"kernel {name} launched {count} times in {steps} steps")
+        if count != want[name]:
+            raise AssertionError(f"kernel {name} launched {count} times in {steps} steps,"
+                                 f" expected {want[name]}")
         kernels[name]["launches"] = count
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")

@@ -13,13 +13,14 @@ package.  When every draw is given, the generator is not used.
 
 The resample of ``random_resized_crop`` and ``resize_images`` is
 ``jax.image.scale_and_translate`` with the triangle (bilinear) kernel.  On a
-CUDA tensor it runs in the hand-written Hopper kernel of
+CUDA tensor it runs in a hand-written Hopper kernel of
 ``csrc/resized_crop.cu`` (which replaces the XLA-compiled dense weight
 matrices of ``jax/_src/image/scale.py::compute_weight_mat``), with an optional
-per-image horizontal flip fused in; a dtype or method that kernel does not
-take raises.  On a CPU tensor it runs the plain PyTorch version
-``_scale_and_translate``, which builds the same weight matrices with the same
-float32 expressions and contracts rows, then columns.  Crop, flip, mixup and
+per-image horizontal flip fused in: the tiled kernel without antialias, the
+general one with it; a dtype or method those kernels do not take raises.  On
+a CPU tensor it runs the plain PyTorch version ``_scale_and_translate``, which
+builds the same weight matrices with the same float32 expressions and
+contracts rows, then columns.  Crop, flip, mixup and
 cutmix are selections or blends and stay torch ops on both devices.
 """
 
@@ -39,17 +40,19 @@ _LINEAR = ("bilinear", "linear")
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    lib.pst_resized_crop_u8.restype = ctypes.c_int
-    lib.pst_resized_crop_u8.argtypes = [
+    common = [
         ctypes.c_void_p,     # const uint8_t* in, NHWC
         ctypes.c_void_p,     # uint8_t* out, NHWC
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, h, w, c
         ctypes.c_int, ctypes.c_int,                              # oh, ow
         ctypes.c_void_p,     # const float* params (device, n x 4)
         ctypes.c_void_p,     # const uint8_t* flips (device, n) or null
-        ctypes.c_int,        # antialias
-        ctypes.c_void_p,     # cudaStream_t
     ]
+    lib.pst_resized_crop_u8.restype = ctypes.c_int
+    lib.pst_resized_crop_u8.argtypes = common + [ctypes.c_int,      # antialias
+                                                 ctypes.c_void_p]   # cudaStream_t
+    lib.pst_resized_crop_tiled_u8.restype = ctypes.c_int
+    lib.pst_resized_crop_tiled_u8.argtypes = common + [ctypes.c_void_p]  # cudaStream_t
 
 
 def _check_method(method: str) -> None:
@@ -242,11 +245,14 @@ def _resized_crop_reference(images: torch.Tensor, params: torch.Tensor,
     return _restore_dtype(out, images.dtype)
 
 
-def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
+def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
-                        antialias: bool) -> torch.Tensor:
-    """Launch ``csrc/resized_crop.cu`` on a contiguous CUDA uint8 NHWC tensor,
-    on the current stream; ``resized_crop_kernel.launches`` counts the launches.
+                        antialias: bool, tiled: bool) -> torch.Tensor:
+    """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA uint8
+    NHWC tensor, on the current stream: the tiled one (two taps per axis, so
+    ``antialias`` must be False) or the general one.  Each launch adds one to
+    ``resized_crop_kernel.launches`` and to its kernel's own count
+    (``launches_tiled`` or ``launches_general``).
 
     ``params``: (N, 4) float32 as for :func:`_scale_and_translate`, on the
     same device; ``flips``: (N,) flags (nonzero = mirror the output columns) or None."""
@@ -257,6 +263,8 @@ def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
                         f" {images.dtype} {tuple(images.shape)}")
     if not images.is_contiguous():
         raise ValueError("resized-crop kernel takes a contiguous tensor; call .contiguous()")
+    if tiled and antialias:
+        raise ValueError("the tiled resized-crop kernel takes two taps per axis: no antialias")
     n, h, w, c = images.shape
     oh, ow = out_hw
     if min(h, w, c, oh, ow) < 1 or max(n, h, w, c, oh, ow) >= 2 ** 31:
@@ -270,20 +278,39 @@ def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
             raise ValueError(f"flips must be ({n},), got {tuple(flips.shape)}")
     lib = build.load("resized_crop", _configure)
     out = torch.empty((n, oh, ow, c), dtype=torch.uint8, device=images.device)
+    args = (images.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, params.data_ptr(),
+            None if flips is None else flips.data_ptr())
     with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device)
-        err = lib.pst_resized_crop_u8(images.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow,
-                                      params.data_ptr(),
-                                      None if flips is None else flips.data_ptr(),
-                                      int(antialias), stream.cuda_stream)
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        if tiled:
+            err = lib.pst_resized_crop_tiled_u8(*args, stream)
+        else:
+            err = lib.pst_resized_crop_u8(*args, int(antialias), stream)
     if err != 0:
         raise RuntimeError(f"resized-crop kernel launch failed (error {err})")
     if n:
         resized_crop_kernel.launches += 1
+        if tiled:
+            resized_crop_kernel.launches_tiled += 1
+        else:
+            resized_crop_kernel.launches_general += 1
     return out
 
 
+def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
+                        flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
+                        antialias: bool) -> torch.Tensor:
+    """The resample on a CUDA tensor: the tiled kernel without antialias (every
+    crop of the training step), the general kernel with it.  The choice reads
+    only the flag, never ``params``, so the host does not wait on the card.
+    ``resized_crop_kernel.launches`` counts both kernels' launches,
+    ``.launches_tiled`` and ``.launches_general`` each one's."""
+    return launch_resized_crop(images, params, flips, out_hw, antialias, tiled=not antialias)
+
+
 resized_crop_kernel.launches = 0
+resized_crop_kernel.launches_tiled = 0
+resized_crop_kernel.launches_general = 0
 
 
 def _resample(images: torch.Tensor, params: torch.Tensor, flips: Optional[torch.Tensor],

@@ -8,7 +8,8 @@ without JAX it runs on its own:
 Resized-crop tolerance: at most 1 LSB, at most 0.1 % of bytes differing: the
 kernel and the plain version use the same float32 weights and sum the same
 products in other orders (the plain version through cuBLAS), which moves a
-byte only where the sum sits at a .5 boundary.
+byte only where the sum sits at a .5 boundary.  The tiled kernel (no
+antialias) and the general kernel must agree on every byte.
 
 Normalize tolerance: float32 within 2 ulp taken at the larger of |out| and
 |bias| (the kernel contracts ``x*s+b`` into one FMA, the plain version rounds
@@ -98,28 +99,69 @@ def test_loader_delivers_every_row_once_on_card(tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,out_hw,antialias", [
     ((256, 224, 224, 3), (224, 224), False), ((7, 97, 131, 3), (50, 61), False),
-    ((5, 64, 64, 1), (17, 23), True), ((3, 20, 30, 5), (41, 7), True)])
-def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias):
+    ((5, 64, 64, 1), (17, 23), True), ((3, 20, 30, 5), (41, 7), True),
+    ((6, 40, 50, 1), (21, 33), False), ((6, 40, 50, 4), (19, 30), False),
+    ((5, 33, 37, 3), (20, 27), False),     # a row of 111 bytes: not a multiple of 16
+    ((3, 300, 517, 3), (37, 301), False),  # oh not a multiple of 8, two column tiles
+    ((4, 512, 640, 3), (40, 50), False),   # downscale past 8x: taps far apart
+    ((3, 20, 30, 5), (41, 7), False),      # C = 5: two channel chunks, C not known at compile time
+    ((0, 30, 40, 3), (9, 11), False)])
+@pytest.mark.parametrize("flipped", [True, False], ids=["flips", "no-flips"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off1"])
+def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias, flipped, offset):
+    """Without antialias the tiled kernel runs, and must equal the general
+    kernel on every byte (same arithmetic by construction)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
     n, h, w, _ = shape
-    x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
-    boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
-    flips = augment.draw_flips(n, gen, "cuda")
+    flat = torch.randint(0, 256, (int(np.prod(shape)) + offset,), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    x = flat[offset:].view(shape)  # a view starting `offset` bytes past an aligned address
+    # a downscale by more than 8x: boxes of at least half the image, so that
+    # neighbouring output pixels read source pixels far apart
+    scale = (0.5, 1.0) if out_hw[1] * 8 < w else (0.08, 1.0)
+    boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda") if flipped else None
     before = augment.resized_crop_kernel.launches
     got = augment.random_resized_crop(x, None, out_hw, antialias=antialias, boxes=boxes,
                                       flips=flips)
-    assert augment.resized_crop_kernel.launches == before + 1
+    assert augment.resized_crop_kernel.launches == before + (1 if n else 0)
+    assert got.shape == (n, *out_hw, shape[-1])
     params = augment.crop_params(boxes, out_hw)
+    if not antialias:
+        general = augment.launch_resized_crop(x, params, flips, out_hw, False, tiled=False)
+        assert torch.equal(got, general)
     want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
-    diff = (got.int() - want.int()).abs()
-    assert int(diff.max()) <= 1
-    assert float((diff > 0).float().mean()) <= 0.001
+    if n:
+        diff = (got.int() - want.int()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) <= 0.001
     resized = augment.resize_images(x, out_hw, antialias=antialias)
     assert resized.shape == (n, *out_hw, shape[-1]) and resized.dtype == torch.uint8
     with pytest.raises(TypeError):
         augment.resize_images(x.float(), out_hw)
+
+
+@pytest.mark.cuda
+def test_resized_crop_kernel_routes_by_antialias_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (3, 40, 50, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    k = augment.resized_crop_kernel
+
+    def counts():
+        return k.launches, k.launches_tiled, k.launches_general
+
+    total, tiled, general = counts()
+    augment.random_resized_crop(x, gen, (16, 16), antialias=False)
+    assert counts() == (total + 1, tiled + 1, general)
+    augment.resize_images(x, (16, 16), antialias=True)
+    assert counts() == (total + 2, tiled + 1, general + 1)
+    with pytest.raises(ValueError, match="no antialias"):
+        augment.launch_resized_crop(x, torch.ones(3, 4, device="cuda"), None, (16, 16), True,
+                                    tiled=True)
 
 
 @pytest.mark.cuda
@@ -136,3 +178,18 @@ def test_trainer_runs_on_card(tmp_path):
     assert m["samples_per_sec"] > 0 and np.isfinite(m["final_loss"])
     assert m["measured_peak_flops"] > 0 and m["flops_per_sample"] > 0
     assert m["device_kind"] == torch.cuda.get_device_name(0)
+
+
+def test_crop_ab_parses_variant_files():
+    # the A/B tool times the package's source (as_is) against other versions
+    # of the file, named on its command line
+    from petastorm_tpu_torch.cuda import build
+    from petastorm_tpu_torch.examples.imagenet import crop_ab
+
+    variants = crop_ab.parse_variants(["old=a/resized_crop.cu", "c_at_run_time=b.cu"])
+    assert variants == {"as_is": f"{build.SOURCE_DIR}/resized_crop.cu",
+                        "old": "a/resized_crop.cu", "c_at_run_time": "b.cu"}
+    for bad in (["old"], ["=a.cu"], ["old="], ["as_is=a.cu"], ["general=a.cu"],
+                ["old=a.cu", "old=b.cu"]):
+        with pytest.raises(ValueError):
+            crop_ab.parse_variants(bad)
