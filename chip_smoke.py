@@ -10,9 +10,10 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (and ragged and unaligned ones), with its time, the
    plain version's time, the least time the card could take and, where one
-   PyTorch call computes the same function, that call's time; the two
-   resized-crop kernels (tiled, general) equal on every byte wherever both
-   apply, and timed in turns on the training step's inputs;
+   PyTorch call computes the same function, that call's time; each
+   resized-crop kernel (tiled without antialias, antialiased tiled with it)
+   equal on every byte to the general kernel wherever both apply, and
+   timed in turns against it;
 4. main path (inference): an ImageNet-shaped JPEG dataset (4096 rows of
    224x224x3, 16 rowgroups) through ``make_reader`` ->
    ``CudaDataLoader(batch_size=256)`` -> ``normalize_images`` -> ``ResNet50``
@@ -111,25 +112,33 @@ def check_normalize(x, mean, std, out_dtype):
 
 
 def check_resized_crop(x, out_hw, antialias, gen, scale=(0.08, 1.0), flipped=True):
-    """Kernel vs plain version on drawn boxes and flips; bound: at most 1 LSB
-    and at most 0.1 % of bytes differing (same float32 weights, products
-    summed in another order, which moves a byte only at a .5 boundary).
-    Without antialias the tiled kernel runs, and it must also equal the
-    general kernel on the same inputs on every byte.
-    Returns (max LSB difference, share of bytes differing, the draws)."""
+    """Kernel vs plain version on drawn boxes and flips (see
+    :func:`check_resample`).  Returns (max LSB difference, share of bytes
+    differing, the draws)."""
     n, h, w, _ = x.shape
     boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
     flips = augment.draw_flips(n, gen, "cuda") if flipped else None
     params = augment.crop_params(boxes, out_hw)
-    got = augment.resized_crop_kernel(x, params, flips, out_hw, antialias)
-    if not antialias:
-        general = augment.launch_resized_crop(x, params, flips, out_hw, False, tiled=False)
-        differing = int((got != general).sum())
-        if differing:
-            raise AssertionError(f"tiled and general resized-crop kernels differ at"
-                                 f" {tuple(x.shape)} -> {out_hw}: {differing} bytes")
+    got = augment.random_resized_crop(x, None, out_hw, antialias=antialias, boxes=boxes,
+                                      flips=flips)
+    return (*check_resample(got, x, params, flips, out_hw, antialias), (boxes, params, flips))
+
+
+def check_resample(got, x, params, flips, out_hw, antialias):
+    """A resample from the path's kernel (tiled without antialias, the
+    antialiased tiled kernel with it) vs the general kernel on the same
+    inputs, which it must equal on every byte, and vs the plain version;
+    bound there: at most 1 LSB and at most 0.1 % of bytes differing (same
+    float32 weights, products summed in another order, which moves a byte
+    only at a .5 boundary).  Returns (max LSB difference, share differing)."""
+    what = f"{tuple(x.shape)} -> {out_hw} antialias={antialias}"
+    general = augment.launch_resized_crop(x, params, flips, out_hw, antialias, kernel="general")
+    differing = int((got != general).sum())
+    if differing:
+        raise AssertionError(f"resized-crop kernel and the general kernel differ at {what}:"
+                             f" {differing} bytes")
     want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
-    return (*within_lsb(got, want, f"{tuple(x.shape)} -> {out_hw}"), (boxes, params, flips))
+    return within_lsb(got, want, what)
 
 
 def within_lsb(got, want, what):
@@ -144,15 +153,22 @@ def within_lsb(got, want, what):
 def resample_bound(x, params, out_hw, antialias):
     """Bytes the resample needs (each image's source rows x columns with a
     nonzero weight, x C, read once, and the output written once) and
-    operations (2 per multiply-add over the nonzero taps, rows then columns):
-    (bound ms, "bytes" or "operations", read, written, flops)."""
+    operations: 2 per multiply-add of the separable form over the nonzero
+    taps, per image in the cheaper of its two orders (rows first: each
+    output row's taps over the source columns used, then each output pixel's
+    column taps; or columns first), x C.
+    Returns (bound ms, "bytes" or "operations", read, written, flops)."""
     n, h, w, c = x.shape
-    wy = augment._weight_mats(h, out_hw[0], params[:, 0], params[:, 1], antialias) != 0
-    wx = augment._weight_mats(w, out_hw[1], params[:, 2], params[:, 3], antialias) != 0
-    read = (wy.any(2).sum(1) * wx.any(2).sum(1)).sum().item() * c
-    written = n * out_hw[0] * out_hw[1] * c
+    oh, ow = out_hw
+    wy = augment._weight_mats(h, oh, params[:, 0], params[:, 1], antialias) != 0
+    wx = augment._weight_mats(w, ow, params[:, 2], params[:, 3], antialias) != 0
+    rows_used, cols_used = wy.any(2).sum(1).double(), wx.any(2).sum(1).double()
+    read = (rows_used * cols_used).sum().item() * c
+    written = n * oh * ow * c
     taps_y, taps_x = wy.sum((1, 2)).double(), wx.sum((1, 2)).double()
-    flops = 2 * c * (taps_y * taps_x + out_hw[0] * taps_x).sum().item()
+    rows_first = taps_y * cols_used + oh * taps_x
+    cols_first = taps_x * rows_used + ow * taps_y
+    flops = 2 * c * torch.minimum(rows_first, cols_first).sum().item()
     bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
             read, written, flops)
@@ -161,14 +177,13 @@ def resample_bound(x, params, out_hw, antialias):
 def resized_crop_entry(gen):
     """B3 at the training step's shape: the tiled kernel (no antialias) held
     to the general kernel byte for byte and both to the plain version, on the
-    main shape and ragged, unaligned and downscaled ones; times and bounds of
-    both kernels."""
+    main shape and ragged, unaligned and downscaled ones; its time against
+    the general kernel's, and its bound.  Then the antialiased entry."""
     checks = {}
     for shape, out_hw, antialias, offset, scale, flipped in [
             (MAIN_SHAPE, (SIDE, SIDE), False, 0, (0.08, 1.0), True),
             ((7, 97, 131, 3), (50, 61), False, 0, (0.08, 1.0), True),
             ((7, 97, 131, 3), (50, 61), False, 1, (0.08, 1.0), True),  # odd byte offset
-            ((5, 64, 64, 1), (17, 23), True, 0, (0.08, 1.0), True),
             ((6, 40, 50, 1), (21, 33), False, 0, (0.08, 1.0), True),   # C = 1
             ((6, 40, 50, 4), (19, 30), False, 1, (0.08, 1.0), False),  # C = 4, no flips
             ((5, 33, 37, 3), (20, 27), False, 0, (0.08, 1.0), True),   # rows of 111 bytes
@@ -182,8 +197,7 @@ def resized_crop_entry(gen):
         x = flat[offset:].view(shape)
         err, share, draws = check_resized_crop(x, out_hw, antialias, gen, scale, flipped)
         checks[f"{shape}->{out_hw} antialias={antialias} offset={offset} flips={flipped}"] = {
-            "max_lsb": err, "share_differing": share,
-            "tiled_equals_general": True if not antialias else None}
+            "max_lsb": err, "share_differing": share, "equals_general": True}
         if shape == MAIN_SHAPE:
             main_x, (boxes, params, flips), main_err = x, draws, err
     try:
@@ -210,7 +224,7 @@ def resized_crop_entry(gen):
     # turns (tiled, general, general, tiled)
     tiled = lambda: augment.resized_crop_kernel(main_x, params, flips, out_hw, False)  # noqa: E731
     general = lambda: augment.launch_resized_crop(main_x, params, flips, out_hw,  # noqa: E731
-                                                  False, tiled=False)
+                                                  False, kernel="general")
     turns = [time_ms(tiled), time_ms(general), time_ms(general), time_ms(tiled)]
     entry = {
         "name": "resized_crop_flip_u8", "route": "cuda",
@@ -235,40 +249,86 @@ def resized_crop_entry(gen):
 
 
 def resized_crop_aa_entry(gen):
-    """The general kernel, off the main path (antialias=True): the ImageNet
-    evaluation resize of a 256x256 batch to 224x224 (three taps per axis)."""
-    src_side = 256
-    x = torch.randint(0, 256, (BATCH, src_side, src_side, 3), dtype=torch.uint8, device="cuda",
-                      generator=gen)
-    out_hw = (SIDE, SIDE)
-    inv = 1.0 / (SIDE / src_side)  # as resize_images computes it
-    params = torch.tensor([inv, 0.0, inv, 0.0], device="cuda").expand(BATCH, 4)
-    got = augment.resize_images(x, out_hw, antialias=True)
-    want = augment._resized_crop_reference(x, params, None, out_hw, True)
-    err, share = within_lsb(got, want, f"{tuple(x.shape)} -> {out_hw} antialias=True")
+    """B3 with antialias (off the training path): the antialiased tiled
+    kernel held to the general kernel byte for byte and both to the plain
+    version at the ImageNet evaluation resize of a 256x256 batch to 224x224
+    (3-5 taps per axis), at random_resized_crop(antialias=True) on the main
+    shape (drawn and full-image boxes), and at ragged, unaligned and steep
+    downscales; times in turns against the general kernel at the evaluation
+    resize, the bound, F.interpolate, and random_resized_crop's time."""
+    checks = {}
+    # shape, out_hw, crop-box scale (None: resize_images' params), offset, flips
+    for shape, out_hw, scale, offset, flipped in [
+            ((BATCH, 256, 256, 3), (SIDE, SIDE), None, 0, False),  # the evaluation resize
+            (MAIN_SHAPE, (SIDE, SIDE), (0.08, 1.0), 0, True),
+            (MAIN_SHAPE, (SIDE, SIDE), (1.0, 1.0), 0, True),       # full-image boxes
+            ((5, 64, 64, 1), (17, 23), (0.08, 1.0), 0, True),
+            ((3, 20, 30, 5), (41, 7), (0.08, 1.0), 0, True),       # C = 5, upscaled rows
+            ((6, 40, 50, 4), (19, 30), (0.08, 1.0), 1, False),     # odd byte offset
+            ((3, 300, 517, 3), (37, 301), (0.08, 1.0), 0, True),
+            ((4, 512, 640, 3), (40, 50), (0.5, 1.0), 0, True),     # downscale past 8x
+            # 256x on one axis: a tile's span is walked in chunks
+            ((2, 16, 4096, 3), (16, 16), None, 0, True)]:
+        flat = torch.randint(0, 256, (int(np.prod(shape)) + offset,), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        x = flat[offset:].view(shape)
+        n, h, w, _ = shape
+        if scale is None:
+            inv = [1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0]  # as resize_images
+            params = torch.tensor(inv, device="cuda").expand(n, 4)
+            flips = augment.draw_flips(n, gen, "cuda") if flipped else None
+            got = (augment.resize_images(x, out_hw, antialias=True) if flips is None else
+                   augment.resized_crop_kernel(x, params, flips, out_hw, True))
+            err, share = check_resample(got, x, params, flips, out_hw, True)
+        else:
+            err, share, (boxes, params, flips) = check_resized_crop(x, out_hw, True, gen, scale,
+                                                                    flipped)
+        checks[f"{shape}->{out_hw} boxes={scale or 'resize'} offset={offset} flips={flipped}"] = {
+            "max_lsb": err, "share_differing": share, "equals_general": True}
+        if shape == (BATCH, 256, 256, 3):
+            eval_x, eval_params, eval_err, eval_share = x, params, err, share
+        elif shape == MAIN_SHAPE and scale == (0.08, 1.0):
+            rrc = (x, boxes, flips)
+    x, params, out_hw = eval_x, eval_params, (SIDE, SIDE)
     bound_ms, bound_by, read, written, flops = resample_bound(x, params, out_hw, True)
     # the library yardstick: F.interpolate's antialiased bilinear resize (the
     # same triangle filter) on float32 NCHW, the call alone
     x_nchw = x.permute(0, 3, 1, 2).float().contiguous()
     library_ms = time_ms(lambda: torch.nn.functional.interpolate(
         x_nchw, size=out_hw, mode="bilinear", antialias=True, align_corners=False))
+    # the antialiased tiled kernel and the general kernel through the
+    # wrapper on the same inputs (params on the card), in turns (new,
+    # general, general, new); then the entry point, which makes the params
+    params = params.contiguous()
+    new = lambda: augment.resized_crop_kernel(x, params, None, out_hw, True)  # noqa: E731
+    general = lambda: augment.launch_resized_crop(x, params, None, out_hw, True,  # noqa: E731
+                                                  kernel="general")
+    turns = [time_ms(new), time_ms(general), time_ms(general), time_ms(new)]
+    resize_ms = time_ms(lambda: augment.resize_images(x, out_hw, antialias=True))
+    rrc_x, rrc_boxes, rrc_flips = rrc
+    rrc_ms = time_ms(lambda: augment.random_resized_crop(rrc_x, None, out_hw, antialias=True,
+                                                         boxes=rrc_boxes, flips=rrc_flips))
     entry = {
         "name": "resized_crop_aa_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
-        "function": "resized_crop_u8_kernel",
+        "function": "resized_crop_u8_aa_tiled_kernel",
         "replaces": "petastorm_tpu/ops/augment.py:141",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: augment.resize_images(x, out_hw, antialias=True)),
+        "max_abs_err": eval_err,
+        "ms": (turns[0] + turns[3]) / 2, "prev_ms": (turns[1] + turns[2]) / 2,
         "plain_ms": time_ms(lambda: augment._resized_crop_reference(x, params, None, out_hw,
                                                                     True)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
     phase("kernels", resized_crop_aa_u8={
-        "shape": [BATCH, src_side, src_side, 3], "out_hw": list(out_hw), "max_lsb": err,
-        "share_differing": share, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
-        "bound_ms": bound_ms, "bytes_read": read, "bytes_written": written, "flops": flops,
-        "library_ms": library_ms,
-        "library_call": "F.interpolate(bilinear, antialias=True) on float32 NCHW, the call alone"})
+        "checks": checks, "shape": list(x.shape), "out_hw": list(out_hw),
+        "plan": augment.aa_launch_plan(*x.shape[1:], *out_hw)._asdict(),
+        "max_lsb": eval_err, "share_differing": eval_share, "ms": entry["ms"],
+        "prev_ms": entry["prev_ms"], "turns_ms_new_general_general_new": turns,
+        "plain_ms": entry["plain_ms"], "bound_ms": bound_ms, "bytes_read": read,
+        "bytes_written": written, "flops": flops, "library_ms": library_ms,
+        "library_call": "F.interpolate(bilinear, antialias=True) on float32 NCHW, the call alone",
+        "resize_images_ms": resize_ms, "random_resized_crop_aa_ms": rrc_ms,
+        "random_resized_crop_aa_shape": list(rrc_x.shape)})
     return entry
 
 
@@ -507,6 +567,7 @@ def train_path_phase(path, kernels):
     normalize.normalize_kernel.launches = 0
     augment.resized_crop_kernel.launches = 0
     augment.resized_crop_kernel.launches_tiled = 0
+    augment.resized_crop_kernel.launches_aa = 0
     augment.resized_crop_kernel.launches_general = 0
     losses, steps, first = [], 0, None
     with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader:
@@ -528,15 +589,20 @@ def train_path_phase(path, kernels):
         wait = loader.diagnostics()["consumer_wait_s"] - wait0
     launches = {"normalize_u8": normalize.normalize_kernel.launches,
                 "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
-                "resized_crop_aa_u8": augment.resized_crop_kernel.launches_general}
+                "resized_crop_aa_u8": augment.resized_crop_kernel.launches_aa}
+    general_launches = augment.resized_crop_kernel.launches_general
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).float().cpu()
 
     want_steps = N_ROWS // BATCH
     if steps != want_steps:
         raise AssertionError(f"{steps} training steps, expected {want_steps}")
-    # every crop of the step is without antialias: the tiled kernel, never the general one
+    # every crop of the step is without antialias: the tiled kernel, never the
+    # antialiased one, and no path launches the general one
     want = {"normalize_u8": steps, "resized_crop_flip_u8": steps, "resized_crop_aa_u8": 0}
+    if general_launches:
+        raise AssertionError(f"the general resized-crop kernel launched {general_launches}"
+                             f" times in {steps} steps, expected 0")
     for name, count in launches.items():
         if count != want[name]:
             raise AssertionError(f"kernel {name} launched {count} times in {steps} steps,"
@@ -555,7 +621,8 @@ def train_path_phase(path, kernels):
     phase("train_path", steps=steps, timed_steps=steps - WARMUP_STEPS, batch=BATCH,
           workers=workers, samples_per_s=samples_per_s, epoch_s=end - start,
           step_ms=1e3 * timed / (steps - WARMUP_STEPS), consumer_wait_share=wait / timed,
-          peak_device_memory_bytes=peak, launches=launches, losses=losses.tolist(),
+          peak_device_memory_bytes=peak, launches=launches,
+          general_resized_crop_launches=general_launches, losses=losses.tolist(),
           flops_per_sample=flops_per_sample,
           achieved_flops_per_s=flops_per_sample * samples_per_s,
           measured_peak_bf16_flops_per_s=peak_flops,

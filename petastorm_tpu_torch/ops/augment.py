@@ -17,7 +17,10 @@ CUDA tensor it runs in a hand-written Hopper kernel of
 ``csrc/resized_crop.cu`` (which replaces the XLA-compiled dense weight
 matrices of ``jax/_src/image/scale.py::compute_weight_mat``), with an optional
 per-image horizontal flip fused in: the tiled kernel without antialias, the
-general one with it; a dtype or method those kernels do not take raises.  On
+antialiased tiled kernel with it; a dtype or method those kernels do not take
+raises.  The file's third kernel, the general one, is reachable only by
+naming it to :func:`launch_resized_crop`: it is the byte oracle of the card
+checks.  On
 a CPU tensor it runs the plain PyTorch version ``_scale_and_translate``, which
 builds the same weight matrices with the same float32 expressions and
 contracts rows, then columns.  Crop, flip, mixup and
@@ -27,7 +30,9 @@ cutmix are selections or blends and stay torch ops on both devices.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +58,11 @@ def _configure(lib: ctypes.CDLL) -> None:
                                                  ctypes.c_void_p]   # cudaStream_t
     lib.pst_resized_crop_tiled_u8.restype = ctypes.c_int
     lib.pst_resized_crop_tiled_u8.argtypes = common + [ctypes.c_void_p]  # cudaStream_t
+    lib.pst_resized_crop_aa_u8.restype = ctypes.c_int
+    lib.pst_resized_crop_aa_u8.argtypes = common + [ctypes.c_int] * 6 + [  # the plan
+        ctypes.c_void_p,     # scratch (device) for the pre-pass's axis tables
+        ctypes.c_longlong,   # its bytes
+        ctypes.c_void_p]     # cudaStream_t
 
 
 def _check_method(method: str) -> None:
@@ -245,17 +255,103 @@ def _resized_crop_reference(images: torch.Tensor, params: torch.Tensor,
     return _restore_dtype(out, images.dtype)
 
 
+# Launch plan of the antialiased tiled kernel (csrc/resized_crop.cu).
+AA_MAX_SHARED_BYTES = 232448     # an sm_90 block's dynamic shared memory
+AA_TARGET_SHARED_BYTES = 64 * 1024   # several blocks an SM
+_AA_AXIS_BYTES = 24              # sizeof(Axis) in the kernel
+_AA_GROUP = 4                    # channels accumulated in registers (kChunk)
+_AA_ROWS, _AA_COLS, _AA_MIN_COLS = 8, 256, 32
+_AA_MAX_CAP = 1024               # taps past a table's capacity are computed in the kernel
+_AA_SCALE_MARGIN = 1.0 + 2.0 ** -16  # inv_scale above in/out by float rounding
+
+
+class AaPlan(NamedTuple):
+    """Sizes of one launch of the antialiased tiled kernel: a tile of
+    ``rows`` x ``cols`` output pixels, row and column weight tables of
+    ``cap_y`` and ``cap_x`` taps (built by its pre-pass in device memory),
+    vertical sums over ``span`` source columns at a time, ``group`` channels
+    at a time."""
+    rows: int
+    cols: int
+    cap_y: int
+    cap_x: int
+    span: int
+    group: int
+
+    @property
+    def shared_bytes(self) -> int:
+        """Dynamic shared memory of a block (the kernel's aa_shared_bytes)."""
+        return (_AA_AXIS_BYTES * (self.rows + self.cols)
+                + 4 * (self.rows * self.span * self.group + self.rows * self.cols * self.group))
+
+    def scratch_bytes(self, n: int, oh: int, ow: int) -> int:
+        """Device scratch of the pre-pass's tables: every image's oh + ow axes
+        and their weights (the kernel's aa_scratch_bytes)."""
+        return n * (oh + ow) * _AA_AXIS_BYTES + 4 * n * (oh * self.cap_y + ow * self.cap_x)
+
+
+def _aa_taps(in_size: int, out_size: int) -> int:
+    """Most taps [lo, hi] an output position walks: kernel_scale is at most
+    max(1, in/out) up to float rounding (a box is no larger than the image,
+    and resize_images sets inv_scale = in/out), and hi - lo <= 2 * kernel_scale + 2;
+    at most ``_AA_MAX_CAP``."""
+    kernel_scale = max(1.0, in_size / out_size) * _AA_SCALE_MARGIN
+    return min(in_size, _AA_MAX_CAP, math.floor(2.0 * kernel_scale) + 3)
+
+
+@functools.lru_cache(maxsize=64)
+def aa_launch_plan(h: int, w: int, c: int, oh: int, ow: int) -> AaPlan:
+    """The antialiased tiled kernel's plan from the shapes alone (reading
+    ``params`` back would make the host wait on the card).
+
+    Column tiles of at most 256 (a block's threads) split ``ow`` evenly; a
+    span holds the source columns of a tile's taps.  Over
+    ``AA_TARGET_SHARED_BYTES`` the tile narrows to 32 columns, then the span
+    is cut (the kernel walks it in chunks), then the channel group and the
+    rows.  Any plan is correct: the sizes only trade speed."""
+    rows, group = min(_AA_ROWS, oh), min(c, _AA_GROUP)
+    cap_y, cap_x = _aa_taps(h, oh), _aa_taps(w, ow)
+    spacing = (w / ow) * _AA_SCALE_MARGIN  # source columns between neighbouring outputs
+
+    def plan(rows, cols, group, span=None):
+        if span is None:
+            span = min(w, math.ceil((cols - 1) * spacing) + cap_x + 2)
+        return AaPlan(rows, cols, cap_y, cap_x, span, group)
+
+    p = plan(rows, -(-ow // -(-ow // _AA_COLS)), group)
+    while p.shared_bytes > AA_TARGET_SHARED_BYTES and p.cols > min(ow, _AA_MIN_COLS):
+        p = plan(rows, max(min(ow, _AA_MIN_COLS), -(-p.cols // 2)), group)
+    if p.shared_bytes > AA_TARGET_SHARED_BYTES:  # the kernel walks the span in chunks
+        fixed = plan(rows, p.cols, group, span=0).shared_bytes
+        p = plan(rows, p.cols, group, span=max(1, (AA_TARGET_SHARED_BYTES - fixed)
+                                               // (4 * rows * group)))
+    while p.shared_bytes > AA_MAX_SHARED_BYTES and p.group > 1:
+        p = plan(p.rows, p.cols, max(1, p.group // 2), p.span)
+    while p.shared_bytes > AA_MAX_SHARED_BYTES and p.cols > 1:
+        p = plan(p.rows, max(1, p.cols // 2), p.group, p.span)
+    while p.shared_bytes > AA_MAX_SHARED_BYTES and p.rows > 1:
+        p = plan(max(1, p.rows // 2), p.cols, p.group, p.span)
+    return p
+
+
+RESIZED_CROP_KERNELS = ("tiled", "aa", "general")
+
+
 def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
-                        antialias: bool, tiled: bool) -> torch.Tensor:
+                        antialias: bool, kernel: str) -> torch.Tensor:
     """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA uint8
-    NHWC tensor, on the current stream: the tiled one (two taps per axis, so
-    ``antialias`` must be False) or the general one.  Each launch adds one to
-    ``resized_crop_kernel.launches`` and to its kernel's own count
-    (``launches_tiled`` or ``launches_general``).
+    NHWC tensor, on the current stream: ``"tiled"`` (two taps per axis, so
+    ``antialias`` must be False), ``"aa"`` (the antialiased tiled kernel, so
+    ``antialias`` must be True) or ``"general"`` (one thread a pixel, either).
+    Each launch adds one to ``resized_crop_kernel.launches`` and to its
+    kernel's own count (``launches_tiled``, ``launches_aa`` or
+    ``launches_general``).
 
     ``params``: (N, 4) float32 as for :func:`_scale_and_translate`, on the
     same device; ``flips``: (N,) flags (nonzero = mirror the output columns) or None."""
+    if kernel not in RESIZED_CROP_KERNELS:
+        raise ValueError(f"kernel must be one of {RESIZED_CROP_KERNELS}, got {kernel!r}")
     if images.device.type != "cuda":
         raise ValueError(f"resized_crop_kernel takes a CUDA tensor, got {images.device}")
     if images.dtype != torch.uint8 or images.dim() != 4:
@@ -263,8 +359,10 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
                         f" {images.dtype} {tuple(images.shape)}")
     if not images.is_contiguous():
         raise ValueError("resized-crop kernel takes a contiguous tensor; call .contiguous()")
-    if tiled and antialias:
+    if kernel == "tiled" and antialias:
         raise ValueError("the tiled resized-crop kernel takes two taps per axis: no antialias")
+    if kernel == "aa" and not antialias:
+        raise ValueError("the antialiased tiled resized-crop kernel takes antialias only")
     n, h, w, c = images.shape
     oh, ow = out_hw
     if min(h, w, c, oh, ow) < 1 or max(n, h, w, c, oh, ow) >= 2 ** 31:
@@ -282,18 +380,22 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
             None if flips is None else flips.data_ptr())
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        if tiled:
+        if kernel == "tiled":
             err = lib.pst_resized_crop_tiled_u8(*args, stream)
+        elif kernel == "aa":
+            plan = aa_launch_plan(h, w, c, oh, ow)
+            scratch = torch.empty(plan.scratch_bytes(n, oh, ow), dtype=torch.uint8,
+                                  device=images.device)
+            err = lib.pst_resized_crop_aa_u8(*args, *plan, scratch.data_ptr(), scratch.numel(),
+                                             stream)
         else:
             err = lib.pst_resized_crop_u8(*args, int(antialias), stream)
     if err != 0:
         raise RuntimeError(f"resized-crop kernel launch failed (error {err})")
     if n:
         resized_crop_kernel.launches += 1
-        if tiled:
-            resized_crop_kernel.launches_tiled += 1
-        else:
-            resized_crop_kernel.launches_general += 1
+        counter = f"launches_{kernel}"
+        setattr(resized_crop_kernel, counter, getattr(resized_crop_kernel, counter) + 1)
     return out
 
 
@@ -301,15 +403,18 @@ def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
                         antialias: bool) -> torch.Tensor:
     """The resample on a CUDA tensor: the tiled kernel without antialias (every
-    crop of the training step), the general kernel with it.  The choice reads
-    only the flag, never ``params``, so the host does not wait on the card.
-    ``resized_crop_kernel.launches`` counts both kernels' launches,
-    ``.launches_tiled`` and ``.launches_general`` each one's."""
-    return launch_resized_crop(images, params, flips, out_hw, antialias, tiled=not antialias)
+    crop of the training step), the antialiased tiled kernel with it.  The
+    choice reads only the flag, never ``params``, so the host does not wait on
+    the card.  ``resized_crop_kernel.launches`` counts every kernel's
+    launches, ``.launches_tiled``, ``.launches_aa`` and ``.launches_general``
+    each one's."""
+    return launch_resized_crop(images, params, flips, out_hw, antialias,
+                               kernel="aa" if antialias else "tiled")
 
 
 resized_crop_kernel.launches = 0
 resized_crop_kernel.launches_tiled = 0
+resized_crop_kernel.launches_aa = 0
 resized_crop_kernel.launches_general = 0
 
 

@@ -88,7 +88,8 @@ def _assert_bytes_close(got, want, share):
     ((7, 97, 131, 3), (50, 61), False),
     ((5, 64, 64, 1), (17, 23), True),
     ((4, 224, 224, 3), (224, 224), False),
-], ids=["64to48", "ragged", "antialias", "224"])
+    ((2, 96, 160, 3), (40, 50), True),
+], ids=["64to48", "ragged", "antialias", "224", "antialias-past-2x"])
 def test_random_resized_crop_matches_jax(seed, shape, out_hw, antialias):
     images = _images(seed, shape)
     key = jax.random.PRNGKey(seed)
@@ -97,6 +98,23 @@ def test_random_resized_crop_matches_jax(seed, shape, out_hw, antialias):
     boxes = _jax_boxes(key, *shape[:3])
     got = augment.random_resized_crop(torch.from_numpy(images), None, out_hw,
                                       antialias=antialias, boxes=boxes)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    _assert_bytes_close(got.numpy(), want, 0.001)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape,out_hw", [((4, 64, 80, 3), (48, 48)), ((3, 40, 30, 3), (56, 44))],
+                         ids=["down", "up"])
+def test_random_resized_crop_full_image_boxes_antialiased_matches_jax(seed, shape, out_hw):
+    # scale=(1, 1): boxes of the whole image up to the drawn aspect ratio, so
+    # inv_scale lands on (or an ulp beside) in/out
+    images = _images(seed, shape)
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax_augment.random_resized_crop(jnp.asarray(images), key, out_hw,
+                                                      scale=(1.0, 1.0), antialias=True))
+    boxes = _jax_boxes(key, *shape[:3], scale=(1.0, 1.0))
+    got = augment.random_resized_crop(torch.from_numpy(images), None, out_hw,
+                                      scale=(1.0, 1.0), antialias=True, boxes=boxes)
     assert got.dtype == torch.uint8 and got.shape == want.shape
     _assert_bytes_close(got.numpy(), want, 0.001)
 

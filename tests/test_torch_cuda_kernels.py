@@ -9,7 +9,8 @@ Resized-crop tolerance: at most 1 LSB, at most 0.1 % of bytes differing: the
 kernel and the plain version use the same float32 weights and sum the same
 products in other orders (the plain version through cuBLAS), which moves a
 byte only where the sum sits at a .5 boundary.  The tiled kernel (no
-antialias) and the general kernel must agree on every byte.
+antialias) and the antialiased tiled kernel must each agree with the
+general kernel on every byte.
 
 Normalize tolerance: float32 within 2 ulp taken at the larger of |out| and
 |bias| (the kernel contracts ``x*s+b`` into one FMA, the plain version rounds
@@ -109,8 +110,9 @@ def test_loader_delivers_every_row_once_on_card(tmp_path):
 @pytest.mark.parametrize("flipped", [True, False], ids=["flips", "no-flips"])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off1"])
 def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias, flipped, offset):
-    """Without antialias the tiled kernel runs, and must equal the general
-    kernel on every byte (same arithmetic by construction)."""
+    """Without antialias the tiled kernel runs, with it the antialiased tiled
+    kernel; each must equal the general kernel on every byte (same arithmetic
+    by construction)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -129,9 +131,8 @@ def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias, fli
     assert augment.resized_crop_kernel.launches == before + (1 if n else 0)
     assert got.shape == (n, *out_hw, shape[-1])
     params = augment.crop_params(boxes, out_hw)
-    if not antialias:
-        general = augment.launch_resized_crop(x, params, flips, out_hw, False, tiled=False)
-        assert torch.equal(got, general)
+    general = augment.launch_resized_crop(x, params, flips, out_hw, antialias, kernel="general")
+    assert torch.equal(got, general)
     want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
     if n:
         diff = (got.int() - want.int()).abs()
@@ -144,6 +145,50 @@ def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias, fli
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_hw,boxes", [
+    ((256, 256, 256, 3), (224, 224), None),        # the evaluation resize
+    ((256, 224, 224, 3), (224, 224), (0.08, 1.0)),  # random_resized_crop(antialias=True)
+    ((256, 224, 224, 3), (224, 224), (1.0, 1.0)),   # full-image boxes
+    ((5, 64, 64, 1), (17, 23), (0.08, 1.0)),
+    ((3, 20, 30, 5), (41, 7), (0.08, 1.0)),         # C = 5: a group of 4 and one of 1
+    ((6, 40, 50, 4), (19, 30), (0.08, 1.0)),
+    ((3, 300, 517, 3), (37, 301), (0.08, 1.0)),
+    ((4, 512, 640, 3), (40, 50), (0.5, 1.0)),       # downscale past 8x
+    ((2, 16, 4096, 3), (16, 16), None),             # 256x on one axis: the span in chunks
+], ids=["eval-resize", "rrc", "rrc-full-boxes", "c1", "c5", "c4", "wide", "past-8x",
+        "256x-one-axis"])
+@pytest.mark.parametrize("flipped", [True, False], ids=["flips", "no-flips"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off1"])
+def test_aa_kernel_equals_general_kernel_on_card(shape, out_hw, boxes, flipped, offset):
+    """The antialiased tiled kernel gives the general kernel's bytes, at
+    resize_images' scale (``boxes`` None) and at drawn crop boxes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, w, _ = shape
+    flat = torch.randint(0, 256, (int(np.prod(shape)) + offset,), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    x = flat[offset:].view(shape)
+    if boxes is None:
+        inv = [1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0]  # as resize_images
+        params = torch.tensor(inv, device="cuda").expand(n, 4)
+    else:
+        params = augment.crop_params(
+            augment.draw_crop_boxes(n, h, w, gen, scale=boxes, device="cuda"), out_hw)
+    flips = augment.draw_flips(n, gen, "cuda") if flipped else None
+    k = augment.resized_crop_kernel
+    before = (k.launches_aa, k.launches_general)
+    got = augment.resized_crop_kernel(x, params, flips, out_hw, True)
+    assert (k.launches_aa, k.launches_general) == (before[0] + 1, before[1])
+    general = augment.launch_resized_crop(x, params, flips, out_hw, True, kernel="general")
+    assert torch.equal(got, general)
+    want = augment._resized_crop_reference(x, params, flips, out_hw, True)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= 0.001
+
+
+@pytest.mark.cuda
 def test_resized_crop_kernel_routes_by_antialias_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
@@ -152,16 +197,26 @@ def test_resized_crop_kernel_routes_by_antialias_on_card():
     k = augment.resized_crop_kernel
 
     def counts():
-        return k.launches, k.launches_tiled, k.launches_general
+        return k.launches, k.launches_tiled, k.launches_aa, k.launches_general
 
-    total, tiled, general = counts()
+    total, tiled, aa, general = counts()
     augment.random_resized_crop(x, gen, (16, 16), antialias=False)
-    assert counts() == (total + 1, tiled + 1, general)
+    assert counts() == (total + 1, tiled + 1, aa, general)
     augment.resize_images(x, (16, 16), antialias=True)
-    assert counts() == (total + 2, tiled + 1, general + 1)
+    assert counts() == (total + 2, tiled + 1, aa + 1, general)
+    # an upscale and a steep downscale take the same kernel: no route by shape
+    augment.resize_images(x, (90, 7), antialias=True)
+    augment.random_resized_crop(x, gen, (64, 64), antialias=True)
+    assert counts() == (total + 4, tiled + 1, aa + 3, general)
+    augment.launch_resized_crop(x, torch.ones(3, 4, device="cuda"), None, (16, 16), True,
+                                kernel="general")
+    assert counts() == (total + 5, tiled + 1, aa + 3, general + 1)
     with pytest.raises(ValueError, match="no antialias"):
         augment.launch_resized_crop(x, torch.ones(3, 4, device="cuda"), None, (16, 16), True,
-                                    tiled=True)
+                                    kernel="tiled")
+    with pytest.raises(ValueError, match="antialias only"):
+        augment.launch_resized_crop(x, torch.ones(3, 4, device="cuda"), None, (16, 16), False,
+                                    kernel="aa")
 
 
 @pytest.mark.cuda
@@ -193,3 +248,90 @@ def test_crop_ab_parses_variant_files():
                 ["old=a.cu", "old=b.cu"]):
         with pytest.raises(ValueError):
             crop_ab.parse_variants(bad)
+
+
+def test_crop_ab_reports_ptxas_of_the_chosen_entry():
+    from petastorm_tpu_torch.examples.imagenet import crop_ab
+
+    stderr = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL_resized_crop_u8_kernelE' for 'sm_90a'",
+        "ptxas info    : Used 40 registers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL_resized_crop_u8_tiled_kernelE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, 256 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL_resized_crop_u8_aa_tiled_kernelILi3EEE' for 'sm_90a'",
+        "ptxas info    : Used 48 registers, 8 bytes smem"])
+    tiled = crop_ab.ptxas_report("tiled", stderr)
+    aa = crop_ab.ptxas_report("aa", stderr)
+    assert len(tiled) == 3 and "u8_tiled_kernel" in tiled[0] and "32 registers" in tiled[2]
+    assert len(aa) == 2 and "aa_tiled" in aa[0] and "48 registers" in aa[1]
+
+
+# -- the antialiased tiled kernel's launch plan, on the CPU ------------------
+
+_PLAN_SHAPES = [((256, 256, 3), (224, 224)), ((224, 224, 3), (224, 224)),
+                ((64, 64, 1), (17, 23)), ((20, 30, 5), (41, 7)), ((40, 50, 4), (19, 30)),
+                ((300, 517, 3), (37, 301)), ((512, 640, 3), (40, 50)),
+                ((16, 4096, 3), (16, 16)), ((96, 160, 3), (40, 50)), ((7, 9, 3), (300, 2))]
+
+
+def _most_nonzero_taps(in_size, out_size, inv, translation):
+    """The most nonzero weights any output position has in _weight_mats."""
+    mats = augment._weight_mats(in_size, out_size, inv, translation, True)
+    return int((mats != 0).sum(1).max())
+
+
+@pytest.mark.parametrize("hwc,out_hw", _PLAN_SHAPES, ids=[f"{a}->{b}" for a, b in _PLAN_SHAPES])
+@pytest.mark.parametrize("params", ["boxes", "full-boxes", "resize", "ulp-above"])
+def test_aa_plan_holds_every_tap_within_shared_memory(hwc, out_hw, params):
+    """The plan's tap capacities hold every nonzero tap the entry points can
+    give (drawn boxes, full-image boxes, resize_images' scale, and a scale one
+    float32 ulp above in/out), and its shared memory fits a block."""
+    h, w, c = hwc
+    oh, ow = out_hw
+    plan = augment.aa_launch_plan(h, w, c, oh, ow)
+    n = 64
+    if params == "resize":
+        p = torch.tensor([1.0 / (oh / h), 0.0, 1.0 / (ow / w), 0.0]).expand(n, 4)
+    elif params == "ulp-above":
+        up = [float(np.nextafter(np.float32(h / oh), np.float32(np.inf))),
+              float(np.nextafter(np.float32(w / ow), np.float32(np.inf)))]
+        p = torch.tensor([up[0], 0.0, up[1], 0.0]).expand(n, 4)
+    else:
+        scale = (1.0, 1.0) if params == "full-boxes" else (0.08, 1.0)
+        gen = torch.Generator().manual_seed(0)
+        boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cpu")
+        p = augment.crop_params(boxes, out_hw)
+    assert _most_nonzero_taps(h, oh, p[:, 0], p[:, 1]) <= plan.cap_y
+    assert _most_nonzero_taps(w, ow, p[:, 2], p[:, 3]) <= plan.cap_x
+    assert plan.shared_bytes <= augment.AA_MAX_SHARED_BYTES
+    assert 1 <= plan.rows <= oh and 1 <= plan.cols <= ow and plan.span >= 1
+    assert plan.group == min(c, 4)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 70000, 8, 8), (10 ** 6, 10 ** 6, 3, 1, 1),
+                                   (1, 2 ** 20, 4, 1, 3), (5000, 5000, 64, 2, 2)])
+def test_aa_plan_fits_a_block_at_any_shape(shape):
+    """Past the table sizes a block can hold the plan cuts the span and the
+    tap tables (the kernel walks chunks and computes taps past a table)."""
+    plan = augment.aa_launch_plan(*shape)
+    assert plan.shared_bytes <= augment.AA_MAX_SHARED_BYTES
+    assert min(plan) >= 1
+
+
+def test_aa_plan_at_the_evaluation_resize():
+    # one column tile of 224 spans the whole source row; 5 taps cover kernel_scale 8/7
+    plan = augment.aa_launch_plan(256, 256, 3, 224, 224)
+    assert plan == augment.AaPlan(rows=8, cols=224, cap_y=5, cap_x=5, span=256, group=3)
+    assert plan.shared_bytes == 24 * (8 + 224) + 4 * (8 * 256 * 3 + 8 * 224 * 3)
+    assert plan.scratch_bytes(256, 224, 224) == 256 * 448 * 24 + 4 * 256 * (224 * 5 + 224 * 5)
+
+
+def test_launch_refuses_unknown_kernels_and_cpu_tensors():
+    images = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        augment.launch_resized_crop(images, torch.zeros(2, 4), None, (4, 4), True, kernel="x")
+    for kernel in augment.RESIZED_CROP_KERNELS:
+        with pytest.raises(ValueError, match="CUDA"):
+            augment.launch_resized_crop(images, torch.zeros(2, 4), None, (4, 4), True,
+                                        kernel=kernel)
