@@ -236,6 +236,11 @@ class CompressedImageCodec(Codec):
         self._format = "jpeg" if image_codec == "jpg" else image_codec
         self._quality = int(quality)
 
+    @property
+    def image_codec(self) -> str:
+        """``'png'`` or ``'jpeg'``."""
+        return self._format
+
     def storage_type(self, field) -> pa.DataType:
         return pa.binary()
 

@@ -20,7 +20,9 @@
 //   * the 16 outputs of one load are stored as 16-byte vectors when the
 //     output address allows it (one alignment test for the whole launch);
 //   * C per-channel constants in shared memory, indexed by i % C, instead of
-//     the TPU kernel's per-position vectors of H*W*C floats.
+//     the TPU kernel's per-position vectors of H*W*C floats; above
+//     kMaxChannels they stay in a device buffer that the caller fills and
+//     are read through the read-only cache (no channel limit).
 // Launched on the caller's stream; allocates nothing.
 
 #include <cuda_bf16.h>
@@ -47,17 +49,26 @@ template <> __device__ __forceinline__ __half convert<__half>(float v) {
   return __float2half_rn(v);
 }
 
-template <typename T, bool kVectorStore>
+// kDeviceChannels: scale and bias are device arrays of `channels` floats
+// (d_scale, d_bias); otherwise they come by value in `k`.
+template <typename T, bool kVectorStore, bool kDeviceChannels>
 __global__ void __launch_bounds__(kThreads)
 normalize_u8_kernel(const uint8_t* __restrict__ in, T* __restrict__ out, long long n,
-                    long long head, long long n_vec, int channels, Channels k) {
-  __shared__ float s_scale[kMaxChannels];
-  __shared__ float s_bias[kMaxChannels];
-  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
-    s_scale[c] = k.scale[c];
-    s_bias[c] = k.bias[c];
+                    long long head, long long n_vec, int channels, Channels k,
+                    const float* __restrict__ d_scale, const float* __restrict__ d_bias) {
+  __shared__ float s_scale_buf[kDeviceChannels ? 1 : kMaxChannels];
+  __shared__ float s_bias_buf[kDeviceChannels ? 1 : kMaxChannels];
+  const float* s_scale = d_scale;
+  const float* s_bias = d_bias;
+  if (!kDeviceChannels) {
+    for (int c = threadIdx.x; c < channels; c += blockDim.x) {
+      s_scale_buf[c] = k.scale[c];
+      s_bias_buf[c] = k.bias[c];
+    }
+    __syncthreads();
+    s_scale = s_scale_buf;
+    s_bias = s_bias_buf;
   }
-  __syncthreads();
 
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -99,9 +110,9 @@ normalize_u8_kernel(const uint8_t* __restrict__ in, T* __restrict__ out, long lo
   }
 }
 
-template <typename T>
+template <typename T, bool kDeviceChannels>
 int launch(const uint8_t* in, void* out_raw, long long n, int channels, const Channels& k,
-           cudaStream_t stream) {
+           const float* d_scale, const float* d_bias, cudaStream_t stream) {
   T* out = static_cast<T*>(out_raw);
   long long head = (long long)((16 - ((uintptr_t)in & 15)) & 15);
   if (head > n) head = n;
@@ -117,36 +128,56 @@ int launch(const uint8_t* in, void* out_raw, long long n, int channels, const Ch
   if (blocks > max_blocks) blocks = max_blocks;
 
   if (vector_store) {
-    normalize_u8_kernel<T, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        in, out, n, head, n_vec, channels, k);
+    normalize_u8_kernel<T, true, kDeviceChannels><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        in, out, n, head, n_vec, channels, k, d_scale, d_bias);
   } else {
-    normalize_u8_kernel<T, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        in, out, n, head, n_vec, channels, k);
+    normalize_u8_kernel<T, false, kDeviceChannels><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        in, out, n, head, n_vec, channels, k, d_scale, d_bias);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kDeviceChannels>
+int dispatch(const void* in, void* out, long long n, int channels, const Channels& k,
+             const float* d_scale, const float* d_bias, int out_dtype, void* stream) {
+  const uint8_t* src = static_cast<const uint8_t*>(in);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (out_dtype) {
+    case 0: return launch<float, kDeviceChannels>(src, out, n, channels, k, d_scale, d_bias, s);
+    case 1:
+      return launch<__nv_bfloat16, kDeviceChannels>(src, out, n, channels, k, d_scale, d_bias,
+                                                    s);
+    case 2: return launch<__half, kDeviceChannels>(src, out, n, channels, k, d_scale, d_bias, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 // out_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  `scale` and `bias` are
-// host arrays of `channels` floats, passed to the kernel by value.  Returns a
-// cudaError_t (0 = launched), or -1 for arguments the kernel does not take.
+// host arrays of `channels` floats, at most kMaxChannels, passed to the
+// kernel by value.  Returns a cudaError_t (0 = launched), or -1 for arguments
+// the kernel does not take.
 extern "C" int pst_normalize_u8(const void* in, void* out, long long n, int channels,
                                 const float* scale, const float* bias, int out_dtype,
                                 void* stream) {
-  if (channels < 1 || channels > kMaxChannels || n < 0) return -1;
+  if (channels < 1 || channels > kMaxChannels || n < 0 || out_dtype < 0 || out_dtype > 2)
+    return -1;
   if (n == 0) return 0;
   Channels k;
   for (int c = 0; c < channels; ++c) {
     k.scale[c] = scale[c];
     k.bias[c] = bias[c];
   }
-  const uint8_t* src = static_cast<const uint8_t*>(in);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (out_dtype) {
-    case 0: return launch<float>(src, out, n, channels, k, s);
-    case 1: return launch<__nv_bfloat16>(src, out, n, channels, k, s);
-    case 2: return launch<__half>(src, out, n, channels, k, s);
-    default: return -1;
-  }
+  return dispatch<false>(in, out, n, channels, k, nullptr, nullptr, out_dtype, stream);
+}
+
+// Any channel count: `scale` and `bias` are device arrays of `channels`
+// floats, read by the kernel where they lie.  Returns as pst_normalize_u8.
+extern "C" int pst_normalize_u8_channels(const void* in, void* out, long long n, int channels,
+                                         const float* scale, const float* bias, int out_dtype,
+                                         void* stream) {
+  if (channels < 1 || n < 0 || out_dtype < 0 || out_dtype > 2) return -1;
+  if (n == 0) return 0;
+  return dispatch<true>(in, out, n, channels, Channels{}, scale, bias, out_dtype, stream);
 }

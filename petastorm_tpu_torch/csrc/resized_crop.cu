@@ -32,9 +32,13 @@
 //
 // Three kernels compute this function.
 //
-// resized_crop_u8_kernel, the general one (any number of taps, so antialiased
+// resized_crop_kernel, the general one (any number of taps, so antialiased
 // downscales too), gives one thread one output pixel and all its channels.
-// No path launches it: it is the byte oracle that the other two are held to.
+// No uint8 path launches it: it is the byte oracle that the other two are
+// held to (its uint8 instance).  Its float32 instance (float32 in and
+// out, the same arithmetic without the final round and clip) takes every
+// image that is not uint8; the wrapper converts other dtypes to float32 and
+// back, as the reference does.
 // Each thread builds both axes' taps and divides each tap weight by the sum
 // (six IEEE divisions a pixel), takes its pixel's indices apart with 64-bit
 // divisions and moves every byte with a load or store of its own.
@@ -174,11 +178,18 @@ __device__ __forceinline__ Axis make_axis(int o, int in_size, float inv_scale,
   return a;
 }
 
+// The stored value of a sum: rounded half to even and clipped for uint8,
+// as it is for float32.
+__device__ __forceinline__ uint8_t store_value(float v, uint8_t) {
+  return (uint8_t)fminf(fmaxf(rintf(v), 0.0f), 255.0f);
+}
+__device__ __forceinline__ float store_value(float v, float) { return v; }
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-resized_crop_u8_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int n,
-                       int h, int w, int c, int oh, int ow,
-                       const float* __restrict__ params, const uint8_t* __restrict__ flips,
-                       bool antialias) {
+resized_crop_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int h, int w, int c,
+                    int oh, int ow, const float* __restrict__ params,
+                    const uint8_t* __restrict__ flips, bool antialias) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long pixels = (long long)n * oh * ow;
   if (idx >= pixels) return;
@@ -191,12 +202,12 @@ resized_crop_u8_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out
   const Axis ax = make_axis(ox, w, p[2], p[3], antialias);
 
   const int store_x = (flips != nullptr && flips[img]) ? ow - 1 - ox : ox;
-  uint8_t* dst = out + (((long long)img * oh + oy) * ow + store_x) * c;
+  T* dst = out + (((long long)img * oh + oy) * ow + store_x) * c;
   if (ay.zero || ax.zero) {
-    for (int k = 0; k < c; ++k) dst[k] = 0;
+    for (int k = 0; k < c; ++k) dst[k] = T(0);
     return;
   }
-  const uint8_t* src = in + (long long)img * h * w * c;
+  const T* src = in + (long long)img * h * w * c;
 
   for (int c0 = 0; c0 < c; c0 += kChunk) {
     const int nc = c - c0 < kChunk ? c - c0 : kChunk;
@@ -208,7 +219,7 @@ resized_crop_u8_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out
       for (int iy = ay.lo; iy <= ay.hi; ++iy) {
         const float wy = __fdiv_rn(tap_weight(ay, iy), ay.total);
         if (wy == 0.0f) continue;
-        const uint8_t* px = src + ((long long)iy * w + ix) * c + c0;
+        const T* px = src + ((long long)iy * w + ix) * c + c0;
 #pragma unroll
         for (int k = 0; k < kChunk; ++k) {
           if (k < nc) col[k] = fmaf(wy, (float)px[k], col[k]);
@@ -219,7 +230,7 @@ resized_crop_u8_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out
     }
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
-      if (k < nc) dst[c0 + k] = (uint8_t)fminf(fmaxf(rintf(acc[k]), 0.0f), 255.0f);
+      if (k < nc) dst[c0 + k] = store_value(acc[k], T());
     }
   }
 }
@@ -718,18 +729,32 @@ int launch_aa(const dim3& grid, const AaPlan& plan, const AaTables& tables, cuda
 // inv_scale_x, translation_x); flips: device array of n bytes, or null for no
 // flips.  Returns a cudaError_t (0 = launched), or -1 for arguments the
 // kernel does not take.
-extern "C" int pst_resized_crop_u8(const void* in, void* out, int n, int h, int w, int c,
-                                   int oh, int ow, const float* params, const uint8_t* flips,
-                                   int antialias, void* stream) {
+template <typename T>
+int launch_general(const void* in, void* out, int n, int h, int w, int c, int oh, int ow,
+                   const float* params, const uint8_t* flips, int antialias, void* stream) {
   if (n < 0 || h < 1 || w < 1 || c < 1 || oh < 1 || ow < 1) return -1;
   if (n == 0) return 0;
   const long long pixels = (long long)n * oh * ow;
   const long long blocks = (pixels + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return -1;
-  resized_crop_u8_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), n, h, w, c, oh, ow, params,
-      flips, antialias != 0);
+  resized_crop_kernel<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), n, h, w, c, oh, ow, params, flips,
+      antialias != 0);
   return (int)cudaGetLastError();
+}
+
+extern "C" int pst_resized_crop_u8(const void* in, void* out, int n, int h, int w, int c,
+                                   int oh, int ow, const float* params, const uint8_t* flips,
+                                   int antialias, void* stream) {
+  return launch_general<uint8_t>(in, out, n, h, w, c, oh, ow, params, flips, antialias, stream);
+}
+
+// The general kernel's float32 instance: the arguments of
+// pst_resized_crop_u8 on float32 NHWC images, the sums stored unrounded.
+extern "C" int pst_resized_crop_f32(const void* in, void* out, int n, int h, int w, int c,
+                                    int oh, int ow, const float* params, const uint8_t* flips,
+                                    int antialias, void* stream) {
+  return launch_general<float>(in, out, n, h, w, c, oh, ow, params, flips, antialias, stream);
 }
 
 // The tiled kernel: the arguments of pst_resized_crop_u8 without antialias

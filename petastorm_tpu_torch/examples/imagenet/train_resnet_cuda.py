@@ -1,10 +1,15 @@
 """ImageNet-style ResNet-50 training fed by the port, on one CUDA GPU.
 
 Port of ``examples/imagenet/train_resnet_tpu.py`` (``generate_dataset`` and
-``train``) for its ``input_pipeline='petastorm'``, ``decode='host'``,
-``cache='null'``, ``scan_steps=1`` configuration: JPEG Parquet ->
-``make_reader`` (host decode) -> ``CudaDataLoader`` (uint8 to the card) ->
-the training step of ``_step_math``:
+``train``) for its ``input_pipeline='petastorm'``, ``cache='null'``,
+``scan_steps=1`` configuration, with ``decode='device'`` (the default, as
+there) or ``decode='host'``: JPEG Parquet -> ``make_reader`` -> ``CudaDataLoader``
+-> the training step of ``_step_math``.  With ``decode='host'`` the pool
+workers decode the JPEGs and uint8 pixels go to the card; with
+``decode='device'`` the workers run only the entropy decode, the coefficient
+planes go to the card and kernel B2 finishes the decode there.  Unlike the
+reference, ``decode='device'`` does not fall back to host decode when the
+entropy library cannot be built: it raises.  The step:
 
 1. random-resized-crop and horizontal flip in one launch of the resized-crop
    kernel (boxes and flips drawn from a ``torch.Generator`` seeded 17);
@@ -171,13 +176,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+DECODES = ("host", "device")
+
+
 def train(dataset_url: str, steps: int, global_batch: int, side: int,
-          num_classes: int = 1000, workers: int = 4, prefetch: int = 2,
-          device="cuda") -> Dict:
+          num_classes: int = 1000, decode: str = "device", workers: int = 4,
+          prefetch: int = 2, device="cuda") -> Dict:
     """Run one warm-up step and ``steps`` timed ResNet-50 training steps fed by
     the loader; returns samples/s, the input-wait share of the timed window
     (``device_idle_pct``), the stall against a rerun of as many steps on one
-    resident batch (``input_stall_pct``), and the model FLOP counts."""
+    resident batch (``input_stall_pct``), and the model FLOP counts.
+    ``decode``: ``'device'`` (hybrid JPEG decode, kernel B2) or ``'host'``."""
+    if decode not in DECODES:
+        raise ValueError(f"decode must be one of {DECODES}, got {decode!r}")
     device = resolve_device(device)
     model = ResNet50(num_classes=num_classes, dtype=torch.bfloat16, device=device,
                      generator=torch.Generator().manual_seed(0))
@@ -185,7 +196,8 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         model = model.to(memory_format=torch.channels_last)
     step = TrainStep(model, num_classes, side,
                      generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED))
-    reader = make_reader(dataset_url, num_epochs=None, workers_count=workers)
+    reader = make_reader(dataset_url, num_epochs=None, workers_count=workers,
+                         decode_placement={"image": decode})
     with CudaDataLoader(reader, batch_size=global_batch, device=device,
                         prefetch=prefetch) as feed:
         it = iter(feed)
@@ -220,6 +232,7 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
                         else "cpu"),
         "steps": steps,
         "global_batch": global_batch,
+        "decode": decode,
         "wall_s": dt,
         "final_loss": float(loss),
         "diagnostics": diagnostics,
@@ -236,6 +249,8 @@ if __name__ == "__main__":
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--prefetch", type=int, default=2)
     parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--decode", choices=DECODES, default="device",
+                        help="where the JPEG decode finishes (default: device, kernel B2)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--skip-generate", action="store_true",
                         help="dataset-url already holds the dataset")
@@ -244,7 +259,9 @@ if __name__ == "__main__":
     if not args.skip_generate:
         generate_dataset(url, args.rows, args.side)
     m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
-              workers=args.workers, prefetch=args.prefetch, device=args.device)
+              decode=args.decode, workers=args.workers, prefetch=args.prefetch,
+              device=args.device)
     print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
-          f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']}, input wait"
+          f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']} (decode"
+          f" {m['decode']}), input wait"
           f" {m['device_idle_pct']:.1f}% of the window, final loss {m['final_loss']:.4f}")

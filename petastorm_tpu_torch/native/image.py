@@ -1,0 +1,262 @@
+"""Hybrid JPEG decode, host half: entropy decode into DCT coefficient planes.
+
+The port's own copy of the entropy half of ``petastorm_tpu/native/image.py``
+(``_column_pointers`` ``:145``, ``JpegCoefLayout`` ``:247``,
+``jpeg_coef_layout`` ``:268``, ``read_jpeg_coefficients`` ``:291``,
+``pack_coef_columns`` ``:338``, ``_diagnose_coef_failure`` ``:379``,
+``unpack_coef_columns`` ``:461``, ``read_jpeg_coefficients_column``
+``:482``), over the port's library (``jpeg_coef.cpp``, built by
+``native/build.py``).  Only libjpeg's entropy decoder runs here; kernel B2
+(``ops/jpeg.py``) finishes the decode on the card.  ctypes releases the GIL
+for each C call, so the reader's thread pool entropy-decodes in parallel.
+A library that cannot be built raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+
+from petastorm_tpu_torch.errors import CodecError
+from petastorm_tpu_torch.native import build
+
+_JPEG_MAX_COMPS = 4
+_JPEG_META_LEN = 3 + 4 * _JPEG_MAX_COMPS
+
+#: separator of the derived column names: a device-decode field ``img``
+#: travels from the pool workers to the loader as ``img#p0..img#p{ncomp-1}``
+#: (int16 block planes), ``img#q`` (uint16 quant tables) and ``img#m`` (int32
+#: layout meta, the same in every row).  They are fixed-shape numpy columns,
+#: so batch assembly treats them as any other column.
+COEF_COLUMN_SEP = "#"
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.pst_jpeg_coef_layout.restype = ctypes.c_int
+    lib.pst_jpeg_coef_layout.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p]
+    lib.pst_jpeg_read_coefs.restype = ctypes.c_int
+    lib.pst_jpeg_read_coefs.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p,
+                                        ctypes.c_void_p]
+    lib.pst_jpeg_coef_batch.restype = ctypes.c_int
+    lib.pst_jpeg_coef_batch.argtypes = [
+        ctypes.c_void_p,  # const uint8_t* const* srcs (uint64 array)
+        ctypes.c_void_p,  # const uint64_t* lens
+        ctypes.c_int,     # n
+        ctypes.c_void_p,  # int16_t* const* outs
+        ctypes.c_void_p,  # const uint64_t* plane_strides
+        ctypes.c_void_p,  # uint16_t* qtabs
+        ctypes.c_void_p,  # const int32_t* meta
+        ctypes.c_int,     # nthreads
+    ]
+
+
+def load() -> ctypes.CDLL:
+    """The entropy half's library, built at first use; raises when it cannot be built."""
+    return build.load(_configure)
+
+
+def _column_pointers(column) -> Optional[tuple]:
+    """(ptrs uint64 array, lens uint64 array) for a binary arrow array, zero-copy."""
+    import pyarrow as pa
+
+    if column.null_count:
+        return None
+    typ = column.type
+    if typ == pa.binary():
+        off_dtype = np.int32
+    elif typ == pa.large_binary():
+        off_dtype = np.int64
+    else:
+        return None
+    buffers = column.buffers()  # [validity, offsets, data]
+    if len(buffers) != 3 or buffers[1] is None or buffers[2] is None:
+        return None
+    n = len(column)
+    offsets = np.frombuffer(
+        buffers[1], dtype=off_dtype, count=n + 1,
+        offset=column.offset * np.dtype(off_dtype).itemsize).astype(np.uint64)
+    ptrs = np.uint64(buffers[2].address) + offsets[:-1]
+    lens = offsets[1:] - offsets[:-1]
+    return ptrs, lens
+
+
+class JpegCoefLayout:
+    """Geometry of one JPEG's coefficient planes (all values in 8x8 blocks)."""
+
+    __slots__ = ("width", "height", "components")
+
+    def __init__(self, width: int, height: int, components):
+        self.width = width
+        self.height = height
+        #: per component: (h_samp, v_samp, blocks_w, blocks_h)
+        self.components = components
+
+    @property
+    def sampling(self) -> tuple:
+        """Per component ``(h_samp, v_samp)``."""
+        return tuple((h, v) for (h, v, _, _) in self.components)
+
+    def __eq__(self, other):
+        return (isinstance(other, JpegCoefLayout)
+                and (self.width, self.height, self.components)
+                == (other.width, other.height, other.components))
+
+    def __repr__(self):
+        return f"JpegCoefLayout({self.width}x{self.height}, comps={self.components})"
+
+
+def jpeg_coef_layout(buf: bytes) -> JpegCoefLayout:
+    """Parse a JPEG header into its coefficient-plane geometry (no entropy decode)."""
+    meta = np.zeros(_JPEG_META_LEN, dtype=np.int32)
+    rc = load().pst_jpeg_coef_layout(bytes(buf), len(buf), meta.ctypes.data)
+    if rc != 0:
+        raise CodecError(f"not a decodable JPEG (rc={rc})")
+    return _layout_from_meta(meta)
+
+
+def _layout_from_meta(meta) -> JpegCoefLayout:
+    """Inverse of ``_layout_meta``: int32 meta vector -> JpegCoefLayout."""
+    ncomp = int(meta[0])
+    comps = tuple(tuple(int(v) for v in meta[3 + 4 * c: 7 + 4 * c]) for c in range(ncomp))
+    return JpegCoefLayout(int(meta[1]), int(meta[2]), comps)
+
+
+def _layout_meta(layout: JpegCoefLayout) -> np.ndarray:
+    meta = np.zeros(_JPEG_META_LEN, dtype=np.int32)
+    meta[0] = len(layout.components)
+    meta[1] = layout.width
+    meta[2] = layout.height
+    for c, comp in enumerate(layout.components):
+        meta[3 + 4 * c: 7 + 4 * c] = comp
+    return meta
+
+
+def read_jpeg_coefficients(buf: bytes, layout: Optional[JpegCoefLayout] = None):
+    """Entropy-decode one JPEG into quantized DCT coefficient planes.
+
+    Returns ``(planes, qtabs, layout)``: ``planes[c]`` is int16
+    (blocks_h, blocks_w, 64) in natural order, ``qtabs`` is uint16 (ncomp, 64).
+    """
+    lib = load()
+    if layout is None:
+        layout = jpeg_coef_layout(buf)
+    planes = [np.empty((bh, bw, 64), dtype=np.int16) for (_, _, bw, bh) in layout.components]
+    qtabs = np.empty((len(layout.components), 64), dtype=np.uint16)
+    outs = (ctypes.c_void_p * len(planes))(*[p.ctypes.data for p in planes])
+    rc = lib.pst_jpeg_read_coefs(bytes(buf), len(buf), ctypes.cast(outs, ctypes.c_void_p),
+                                 qtabs.ctypes.data)
+    if rc != 0:
+        raise CodecError(f"JPEG coefficient read failed (rc={rc})")
+    return planes, qtabs, layout
+
+
+def read_jpeg_coefficients_column(column, nthreads: int = 1):
+    """Entropy-decode a column of same-geometry JPEGs into stacked planes.
+
+    One GIL-released C call over the whole column, reading the streams
+    zero-copy out of the arrow buffer when ``column`` is an arrow binary
+    array (or a list of bytes).  Returns ``(planes, qtabs, layout)``:
+    ``planes[c]`` is int16 (n, blocks_h, blocks_w, 64), ``qtabs`` uint16
+    (n, ncomp, 64).  Raises CodecError when a stream is corrupt or the
+    geometries differ.
+    """
+    lib = load()
+    if isinstance(column, (list, tuple)):
+        cells = [np.frombuffer(b, dtype=np.uint8) for b in column]
+        ptrs = np.array([c.ctypes.data for c in cells], dtype=np.uint64)
+        lens = np.array([len(c) for c in cells], dtype=np.uint64)
+        first = column[0] if column else b""
+    else:
+        pointers = _column_pointers(column)
+        if pointers is None:  # chunked or typed otherwise: copies of the cells
+            return read_jpeg_coefficients_column(column.to_pylist(), nthreads=nthreads)
+        ptrs, lens = pointers
+        first = column[0].as_py() if len(column) else b""
+    n = len(ptrs)
+    if n == 0:
+        raise CodecError("empty column")
+    layout = jpeg_coef_layout(first)
+    ncomp = len(layout.components)
+    planes = [np.empty((n, bh, bw, 64), dtype=np.int16) for (_, _, bw, bh) in layout.components]
+    qtabs = np.empty((n, ncomp, 64), dtype=np.uint16)
+    outs = (ctypes.c_void_p * ncomp)(*[p.ctypes.data for p in planes])
+    strides = np.array([p.strides[0] // 2 for p in planes], dtype=np.uint64)
+    meta = _layout_meta(layout)
+    rc = lib.pst_jpeg_coef_batch(ptrs.ctypes.data, lens.ctypes.data, n,
+                                 ctypes.cast(outs, ctypes.c_void_p), strides.ctypes.data,
+                                 qtabs.ctypes.data, meta.ctypes.data, nthreads)
+    if rc != 0:
+        raise CodecError(f"JPEG coefficient batch failed at cell {rc - 1} (corrupt stream"
+                         f" or geometry differs from {layout})")
+    return planes, qtabs, layout
+
+
+def pack_coef_columns(name: str, column, field=None, nthreads: int = 1) -> dict:
+    """Entropy-decode a jpeg column into its derived plane columns.
+
+    Worker side of ``decode_placement='device'``: one GIL-released C call per
+    rowgroup.  ``field`` (a Schema field) enables the check of the stored
+    size against the schema's.  Raises CodecError naming the cell and what to
+    do when a cell is corrupt or the column's geometry is not uniform.
+    """
+    try:
+        planes, qtabs, layout = read_jpeg_coefficients_column(column, nthreads=nthreads)
+    except CodecError as exc:
+        raise CodecError(f"decode_placement='device' field {name!r}:"
+                         f" {_diagnose_coef_failure(column, exc)}") from exc
+    if field is not None and (layout.height, layout.width) != tuple(field.shape[:2]):
+        raise CodecError(f"field {name!r}: stored jpeg is {layout.height}x{layout.width},"
+                         f" schema says {tuple(field.shape[:2])}")
+    n = len(qtabs)
+    out = {f"{name}{COEF_COLUMN_SEP}p{c}": p for c, p in enumerate(planes)}
+    out[f"{name}{COEF_COLUMN_SEP}q"] = qtabs
+    out[f"{name}{COEF_COLUMN_SEP}m"] = np.broadcast_to(_layout_meta(layout), (n, _JPEG_META_LEN))
+    return out
+
+
+_MIXED_GEOMETRY_GUIDANCE = (
+    "decode_placement='device' requires every stored jpeg to share one geometry and"
+    " subsampling (the card decodes a batch of one geometry in one launch)."
+    " Re-encode the images uniformly, or use decode_placement='host'")
+
+
+def _diagnose_coef_failure(column, exc) -> str:
+    """Turn a batch coefficient-read failure into guidance: a corrupt cell
+    (host decode would fail too) or mixed geometry (host decode works)."""
+    cells = column if isinstance(column, (list, tuple)) else column.to_pylist()
+    first = None
+    for i, cell in enumerate(cells):
+        try:
+            lay = jpeg_coef_layout(bytes(cell))
+        except CodecError:
+            return f"cell {i} is not a decodable jpeg (corrupt or truncated stream): {exc}"
+        if first is None:
+            first = lay
+        elif lay != first:
+            return f"cell {i} has geometry {lay} but cell 0 has {first}: {_MIXED_GEOMETRY_GUIDANCE}"
+    # headers parse and agree: corruption inside the entropy-coded data
+    return f"{exc}. If the dataset mixes jpeg geometries: {_MIXED_GEOMETRY_GUIDANCE}."
+
+
+def coef_layout(name: str, meta_col: np.ndarray) -> JpegCoefLayout:
+    """The one geometry of a batch's layout-meta rows (the ``#m`` column).
+    Raises when the rows disagree: batch assembly may have joined rowgroups
+    of different geometries."""
+    if len(meta_col) == 0:
+        raise CodecError(f"field {name!r}: empty coefficient batch")
+    if not (meta_col == meta_col[0]).all():
+        raise CodecError(
+            f"field {name!r}: jpeg geometry changes between rowgroups of this dataset;"
+            " the device decode path needs one uniform geometry - use"
+            " decode_placement='host'.")
+    return _layout_from_meta(meta_col[0])
+
+
+def unpack_coef_columns(name: str, columns: dict):
+    """Consumer side: the derived columns of one assembled batch ->
+    ``(planes, qtabs, layout)``, the rows' geometry checked by :func:`coef_layout`."""
+    layout = coef_layout(name, columns[f"{name}{COEF_COLUMN_SEP}m"])
+    planes = [columns[f"{name}{COEF_COLUMN_SEP}p{c}"] for c in range(len(layout.components))]
+    return planes, columns[f"{name}{COEF_COLUMN_SEP}q"], layout

@@ -17,9 +17,11 @@ CUDA tensor it runs in a hand-written Hopper kernel of
 ``csrc/resized_crop.cu`` (which replaces the XLA-compiled dense weight
 matrices of ``jax/_src/image/scale.py::compute_weight_mat``), with an optional
 per-image horizontal flip fused in: the tiled kernel without antialias, the
-antialiased tiled kernel with it; a dtype or method those kernels do not take
-raises.  The file's third kernel, the general one, is reachable only by
-naming it to :func:`launch_resized_crop`: it is the byte oracle of the card
+antialiased tiled kernel with it; a method those kernels do not take raises.
+The file's third kernel, the general one, takes every image that is not
+uint8, in its float32 instance (other dtypes are converted to float32 and
+back, as the reference does); its uint8 instance is reachable only by naming
+it to :func:`launch_resized_crop`: it is the byte oracle of the card
 checks.  On
 a CPU tensor it runs the plain PyTorch version ``_scale_and_translate``, which
 builds the same weight matrices with the same float32 expressions and
@@ -53,9 +55,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,     # const float* params (device, n x 4)
         ctypes.c_void_p,     # const uint8_t* flips (device, n) or null
     ]
-    lib.pst_resized_crop_u8.restype = ctypes.c_int
-    lib.pst_resized_crop_u8.argtypes = common + [ctypes.c_int,      # antialias
-                                                 ctypes.c_void_p]   # cudaStream_t
+    for general in (lib.pst_resized_crop_u8, lib.pst_resized_crop_f32):
+        general.restype = ctypes.c_int
+        general.argtypes = common + [ctypes.c_int,      # antialias
+                                     ctypes.c_void_p]   # cudaStream_t
     lib.pst_resized_crop_tiled_u8.restype = ctypes.c_int
     lib.pst_resized_crop_tiled_u8.argtypes = common + [ctypes.c_void_p]  # cudaStream_t
     lib.pst_resized_crop_aa_u8.restype = ctypes.c_int
@@ -343,7 +346,8 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
     """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA uint8
     NHWC tensor, on the current stream: ``"tiled"`` (two taps per axis, so
     ``antialias`` must be False), ``"aa"`` (the antialiased tiled kernel, so
-    ``antialias`` must be True) or ``"general"`` (one thread a pixel, either).
+    ``antialias`` must be True) or ``"general"`` (one thread a pixel, either;
+    it also takes float32 images and writes float32, unrounded).
     Each launch adds one to ``resized_crop_kernel.launches`` and to its
     kernel's own count (``launches_tiled``, ``launches_aa`` or
     ``launches_general``).
@@ -354,8 +358,10 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         raise ValueError(f"kernel must be one of {RESIZED_CROP_KERNELS}, got {kernel!r}")
     if images.device.type != "cuda":
         raise ValueError(f"resized_crop_kernel takes a CUDA tensor, got {images.device}")
-    if images.dtype != torch.uint8 or images.dim() != 4:
-        raise TypeError(f"resized-crop kernel takes uint8 NHWC images, got"
+    dtypes = (torch.uint8, torch.float32) if kernel == "general" else (torch.uint8,)
+    if images.dtype not in dtypes or images.dim() != 4:
+        raise TypeError(f"the {kernel} resized-crop kernel takes"
+                        f" {' or '.join(str(d) for d in dtypes)} NHWC images, got"
                         f" {images.dtype} {tuple(images.shape)}")
     if not images.is_contiguous():
         raise ValueError("resized-crop kernel takes a contiguous tensor; call .contiguous()")
@@ -375,7 +381,7 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         if flips.shape != (n,):
             raise ValueError(f"flips must be ({n},), got {tuple(flips.shape)}")
     lib = build.load("resized_crop", _configure)
-    out = torch.empty((n, oh, ow, c), dtype=torch.uint8, device=images.device)
+    out = torch.empty((n, oh, ow, c), dtype=images.dtype, device=images.device)
     args = (images.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, params.data_ptr(),
             None if flips is None else flips.data_ptr())
     with torch.cuda.device(images.device):
@@ -389,7 +395,9 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
             err = lib.pst_resized_crop_aa_u8(*args, *plan, scratch.data_ptr(), scratch.numel(),
                                              stream)
         else:
-            err = lib.pst_resized_crop_u8(*args, int(antialias), stream)
+            general = (lib.pst_resized_crop_u8 if images.dtype == torch.uint8
+                       else lib.pst_resized_crop_f32)
+            err = general(*args, int(antialias), stream)
     if err != 0:
         raise RuntimeError(f"resized-crop kernel launch failed (error {err})")
     if n:
@@ -420,17 +428,23 @@ resized_crop_kernel.launches_general = 0
 
 def _resample(images: torch.Tensor, params: torch.Tensor, flips: Optional[torch.Tensor],
               out_hw: Tuple[int, int], antialias: bool) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor.  On the
+    card uint8 takes the tiled kernels; any other dtype is resampled in
+    float32 by the general kernel and brought back to its dtype."""
     if images.device.type == "cpu":
         return _resized_crop_reference(images, params, flips, out_hw, antialias)
-    return resized_crop_kernel(images, params, flips, out_hw, antialias)
+    if images.dtype == torch.uint8:
+        return resized_crop_kernel(images, params, flips, out_hw, antialias)
+    out = launch_resized_crop(images.float().contiguous(), params, flips, out_hw, antialias,
+                              kernel="general")
+    return _restore_dtype(out, images.dtype)
 
 
 def resize_images(images: torch.Tensor, out_hw: Tuple[int, int], method: str = "bilinear",
                   antialias: bool = True) -> torch.Tensor:
     """Batched resize of (N, H, W, C) to (N, oh, ow, C), ``jax.image.resize``
-    semantics (antialiased by default).  uint8 comes back uint8; on a CPU
-    tensor float dtypes are kept, on a CUDA tensor only uint8 is taken."""
+    semantics (antialiased by default).  uint8 comes back uint8, float dtypes
+    are kept, other integers are rounded and clipped back."""
     _check_method(method)
     n, h, w, _ = images.shape
     oh, ow = out_hw
@@ -488,7 +502,8 @@ def random_resized_crop(images: torch.Tensor, generator: Optional[torch.Generato
 
     ``flips`` (N,) mirrors the flagged outputs in the same pass (the JAX
     training step's ``random_flip`` after the crop); None flips nothing.
-    On a CUDA tensor: one launch of the resized-crop kernel, uint8 only."""
+    On a CUDA tensor: one launch of the resized-crop kernel (for a dtype other
+    than uint8, the general kernel in float32, the dtype restored after)."""
     _check_method(method)
     n, h, w, _ = images.shape
     if boxes is None:

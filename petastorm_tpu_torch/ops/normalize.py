@@ -24,21 +24,23 @@ import torch
 from petastorm_tpu_torch.cuda import build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_CHANNELS = 64  # kMaxChannels in csrc/normalize.cu
+_MAX_CHANNELS = 64  # kMaxChannels in csrc/normalize.cu: constants passed by value
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    lib.pst_normalize_u8.restype = ctypes.c_int
-    lib.pst_normalize_u8.argtypes = [
-        ctypes.c_void_p,     # const uint8_t* in
-        ctypes.c_void_p,     # void* out
-        ctypes.c_longlong,   # n elements
-        ctypes.c_int,        # channels
-        ctypes.c_void_p,     # const float* scale (host, `channels` floats)
-        ctypes.c_void_p,     # const float* bias (host)
-        ctypes.c_int,        # out dtype code
-        ctypes.c_void_p,     # cudaStream_t
-    ]
+    for entry in (lib.pst_normalize_u8, lib.pst_normalize_u8_channels):
+        entry.restype = ctypes.c_int
+        entry.argtypes = [
+            ctypes.c_void_p,     # const uint8_t* in
+            ctypes.c_void_p,     # void* out
+            ctypes.c_longlong,   # n elements
+            ctypes.c_int,        # channels
+            ctypes.c_void_p,     # const float* scale (`channels` floats: host for
+                                 # pst_normalize_u8, device for _channels)
+            ctypes.c_void_p,     # const float* bias (likewise)
+            ctypes.c_int,        # out dtype code
+            ctypes.c_void_p,     # cudaStream_t
+        ]
 
 
 def channel_constants(mean, std, channels: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -69,7 +71,9 @@ def _normalize_reference(images: torch.Tensor, scale: np.ndarray, bias: np.ndarr
 def normalize_kernel(images: torch.Tensor, scale: np.ndarray, bias: np.ndarray,
                      out_dtype: torch.dtype) -> torch.Tensor:
     """Launch ``csrc/normalize.cu`` on a contiguous CUDA uint8 tensor, on the
-    current stream; ``normalize_kernel.launches`` counts the launches."""
+    current stream; ``normalize_kernel.launches`` counts the launches.  Up to
+    64 channels the constants go to the kernel by value; above, through a
+    device buffer."""
     if images.device.type != "cuda":
         raise ValueError(f"normalize_kernel takes a CUDA tensor, got {images.device}")
     if out_dtype not in _KERNEL_DTYPES:
@@ -78,18 +82,23 @@ def normalize_kernel(images: torch.Tensor, scale: np.ndarray, bias: np.ndarray,
     if not images.is_contiguous():
         raise ValueError("normalize kernel takes a contiguous tensor; call .contiguous()")
     channels = images.shape[-1]
-    if channels > _MAX_CHANNELS:
-        raise ValueError(f"normalize kernel takes at most {_MAX_CHANNELS} channels,"
-                         f" got {channels}")
     lib = build.load("normalize", _configure)
     out = torch.empty(images.shape, dtype=out_dtype, device=images.device)
     scale = np.ascontiguousarray(scale, np.float32)
     bias = np.ascontiguousarray(bias, np.float32)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device)
-        err = lib.pst_normalize_u8(images.data_ptr(), out.data_ptr(), images.numel(),
-                                   channels, scale.ctypes.data, bias.ctypes.data,
-                                   _KERNEL_DTYPES[out_dtype], stream.cuda_stream)
+        if channels <= _MAX_CHANNELS:
+            err = lib.pst_normalize_u8(images.data_ptr(), out.data_ptr(), images.numel(),
+                                       channels, scale.ctypes.data, bias.ctypes.data,
+                                       _KERNEL_DTYPES[out_dtype], stream.cuda_stream)
+        else:
+            # copied on the current stream, so the kernel reads them after the copy
+            constants = torch.from_numpy(np.stack([scale, bias])).to(images.device)
+            err = lib.pst_normalize_u8_channels(
+                images.data_ptr(), out.data_ptr(), images.numel(), channels,
+                constants[0].data_ptr(), constants[1].data_ptr(), _KERNEL_DTYPES[out_dtype],
+                stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"normalize kernel launch failed (error {err})")
     if images.numel():

@@ -5,18 +5,22 @@ Counterpart of ``petastorm_tpu/reader.py:73 make_reader``,
 ImageNet feed uses: field selection, the thread or serial pool, rowgroup
 shuffling by seed, epochs and static sharding.  Delivery follows the read
 plan's order with either pool, as the JAX reader does when it is given a
-``shuffle_seed``.  Predicates, selectors, caches, transforms, resume, ngrams,
-decode placement, telemetry and the ingest service are not part of this
-package yet.
+``shuffle_seed``.  ``decode_placement`` takes ``'host'`` and ``'device'``
+(the hybrid JPEG decode: entropy decode in the pool workers, the rest on the
+card in the loader).  Predicates, selectors, caches, transforms, resume,
+ngrams, the ``'device-mixed'`` and ``'auto'`` placements, telemetry and the
+ingest service are not part of this package yet.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Mapping, Optional, Sequence
 
 from petastorm_tpu_torch.batch import ColumnBatch
+from petastorm_tpu_torch.codecs import CompressedImageCodec
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError, ReaderClosedError
 from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
+from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import ReadPlan, WorkItem
 from petastorm_tpu_torch.pool import make_executor
 from petastorm_tpu_torch.schema import Schema
@@ -34,13 +38,20 @@ def make_reader(dataset_url: str,
                 shuffle_seed: Optional[int] = None,
                 num_epochs: Optional[int] = 1,
                 cur_shard: Optional[int] = None,
-                shard_count: Optional[int] = None) -> "Reader":
+                shard_count: Optional[int] = None,
+                decode_placement: Optional[Mapping[str, str]] = None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
-    (the loader's path).  ``num_epochs=None`` reads forever."""
+    (the loader's path).  ``num_epochs=None`` reads forever.
+
+    ``decode_placement``: field -> ``'host'`` or ``'device'``.  A ``'device'``
+    field (a fixed-shape JPEG image) is entropy-decoded in the workers and
+    finished on the card by ``cuda.CudaDataLoader``; such a reader is
+    consumed through that loader only."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
-                        num_epochs, cur_shard, shard_count, batched_output=False)
+                        num_epochs, cur_shard, shard_count, decode_placement,
+                        batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
@@ -52,23 +63,73 @@ def make_batch_reader(dataset_url: str,
                       shuffle_seed: Optional[int] = None,
                       num_epochs: Optional[int] = 1,
                       cur_shard: Optional[int] = None,
-                      shard_count: Optional[int] = None) -> "Reader":
+                      shard_count: Optional[int] = None,
+                      decode_placement: Optional[Mapping[str, str]] = None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
-    fields."""
+    fields.  ``decode_placement`` as for :func:`make_reader`."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
-                        num_epochs, cur_shard, shard_count, batched_output=True)
+                        num_epochs, cur_shard, shard_count, decode_placement,
+                        batched_output=True)
+
+
+def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
+                               read_fields: Sequence[str]) -> List[str]:
+    """The fields to decode on the device; raises on a placement the port
+    does not take.  The checks of ``petastorm_tpu/reader.py:1052-1140`` that
+    apply to ``'host'`` and ``'device'``."""
+    device_fields: List[str] = []
+    for name, place in (decode_placement or {}).items():
+        if place not in ("host", "device"):
+            raise PetastormTpuError(
+                f"decode_placement[{name!r}] must be 'host' or 'device', got {place!r}"
+                " ('device-mixed' and 'auto' are not part of this package yet)")
+        if name not in schema:
+            raise PetastormTpuError(f"decode_placement field {name!r} not in"
+                                    f" schema {list(schema.fields)}")
+        if place == "host":
+            continue
+        field = schema[name]
+        codec = field.codec
+        if not (isinstance(codec, CompressedImageCodec) and codec.image_codec == "jpeg"):
+            raise PetastormTpuError(
+                f"decode_placement='device' requires a jpeg CompressedImageCodec field;"
+                f" {name!r} has {type(codec).__name__}"
+                + (f"({codec.image_codec})" if isinstance(codec, CompressedImageCodec) else "")
+                + ". PNG's deflate stream cannot be entropy-split for decode on the"
+                " device - store images as jpeg for device decode.")
+        if not field.is_fixed_shape:
+            raise PetastormTpuError(
+                f"decode_placement='device' field {name!r} needs a fixed shape (got"
+                f" {field.shape}): a batch is decoded in one launch of one geometry")
+        if len(field.shape) not in (2, 3) or (len(field.shape) == 3
+                                              and field.shape[2] not in (1, 3)):
+            raise PetastormTpuError(
+                f"decode_placement='device' field {name!r} must be (H, W), (H, W, 1) or"
+                f" (H, W, 3); got {field.shape}")
+        if name not in read_fields:
+            raise PetastormTpuError(
+                f"decode_placement='device' field {name!r} is not being read (excluded by"
+                " schema_fields); drop it from decode_placement or add it to schema_fields")
+        device_fields.append(name)
+    if device_fields:
+        # the entropy half's library: a missing g++ or libjpeg raises here,
+        # not in the first worker
+        native_image.load()
+    return device_fields
 
 
 def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  results_queue_size, shuffle_row_groups, shuffle_seed, num_epochs,
-                 cur_shard, shard_count, batched_output) -> "Reader":
+                 cur_shard, shard_count, decode_placement, batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     info = open_dataset(dataset_url, require_stored_schema=not batched_output)
     full_schema = infer_or_load_schema(info)
     schema = full_schema.view(schema_fields) if schema_fields is not None else full_schema
+    read_fields = [f.name for f in schema]
+    device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields)
     plan = ReadPlan(info.row_groups, shard_index=cur_shard, shard_count=shard_count,
                     shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
     if not plan.epoch_items(0):
@@ -76,8 +137,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     if results_queue_size is None:
         results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
     executor = make_executor(reader_pool_type, workers_count, results_queue_size)
-    worker = RowGroupDecoderWorker(full_schema, [f.name for f in schema])
-    return Reader(schema, plan, executor, worker, num_epochs, batched_output)
+    worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields)
+    return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields)
 
 
 class Reader:
@@ -89,7 +150,8 @@ class Reader:
     """
 
     def __init__(self, schema: Schema, plan: ReadPlan, executor, worker,
-                 num_epochs: Optional[int], batched_output: bool):
+                 num_epochs: Optional[int], batched_output: bool,
+                 device_decode_fields: Sequence[str] = ()):
         self.schema = schema
         self.plan = plan
         self.num_epochs = num_epochs
@@ -100,6 +162,9 @@ class Reader:
         self._rows: Iterator = iter(())
         self._namedtuple_type = schema.make_namedtuple_type()
         self._stopped = False
+        #: fields read with decode_placement='device': their batches carry
+        #: coefficient planes, which only cuda.CudaDataLoader finishes
+        self.device_decode_fields: List[str] = list(device_decode_fields)
 
     def _items(self) -> Iterator[WorkItem]:
         epoch = 0
@@ -126,6 +191,14 @@ class Reader:
         return self
 
     def __next__(self):
+        if self.device_decode_fields:
+            # the workers shipped coefficient planes for these fields; yielding
+            # here would hand out planes where the schema promises pixels
+            raise PetastormTpuError(
+                f"fields {self.device_decode_fields} use decode_placement='device': their"
+                " batches carry JPEG coefficient planes, not pixels. Consume this reader"
+                " through petastorm_tpu_torch.cuda.CudaDataLoader (which finishes the"
+                " decode on the device), or use decode_placement='host' for row access.")
         if self.batched_output:
             batch = self._next_batch()
             return self._namedtuple_type(**{n: batch.columns[n] for n in self.schema.fields})

@@ -1,8 +1,12 @@
 """Rowgroup decode worker: a parquet rowgroup -> a decoded ColumnBatch.
 
 Counterpart of ``petastorm_tpu/worker.py:47 RowGroupDecoderWorker``, without
-the cache tiers, decode ROI, predicates, transforms and device-decode wire
-forms.
+the cache tiers, decode ROI, predicates and transforms.  A field read with
+``decode_placement='device'`` leaves the worker in the coefficient wire form
+(``petastorm_tpu/worker.py:527-541``): the entropy half of the JPEG decode
+runs here and the field travels as its derived plane columns
+(``native.image.pack_coef_columns``); the loader finishes the decode on the
+device.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.batch import ColumnBatch
+from petastorm_tpu_torch.native.image import pack_coef_columns
 from petastorm_tpu_torch.plan import WorkItem
 from petastorm_tpu_torch.schema import Schema
 
@@ -24,9 +29,12 @@ class RowGroupDecoderWorker:
     closure that keeps its own memory-mapped file handles, so each pool
     thread calls the factory once."""
 
-    def __init__(self, schema: Schema, read_fields: Sequence[str]):
+    def __init__(self, schema: Schema, read_fields: Sequence[str],
+                 device_decode_fields: Sequence[str] = ()):
         self._schema = schema
         self._read_fields = list(read_fields)
+        #: fields shipped as coefficient planes (decode_placement='device')
+        self._device_decode_fields = frozenset(device_decode_fields)
 
     def __call__(self) -> Callable[[WorkItem], ColumnBatch]:
         open_files: Dict[str, pq.ParquetFile] = {}
@@ -48,8 +56,11 @@ class RowGroupDecoderWorker:
             columns = {}
             for name in self._read_fields:
                 field = self._schema[name]
-                columns[name] = field.codec.decode_column(
-                    field, table.column(name).combine_chunks())
+                chunk = table.column(name).combine_chunks()
+                if name in self._device_decode_fields:
+                    columns.update(pack_coef_columns(name, chunk, field))
+                else:
+                    columns[name] = field.codec.decode_column(field, chunk)
             return ColumnBatch(columns, table.num_rows)
 
         return process

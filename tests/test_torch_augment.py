@@ -147,6 +147,43 @@ def test_resize_images_matches_jax(dtype, shape, out_hw, antialias):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=8 * 2.0 ** -15)
 
 
+# dtype -> (jax dtype, torch dtype, bound).  float32: within 2e-3.  The
+# crop's sample coordinate ((o + 0.5) * inv_scale - translation * inv_scale -
+# 0.5) may round an ulp apart between XLA and torch (up to 2^-18 at
+# coordinates below 64), which moves a weight by that much and the value by
+# it times the step between neighbouring pixels (up to 255): about 1e-3 an
+# axis; measured 9.0e-4 (the uint8 results hide it: a byte moves only at a
+# .5 boundary).  A narrower type within one of its ulps at 255 (both sides
+# round such float32 values); int16 within 1 (round half to even of them).
+_RESAMPLE_DTYPES = {
+    "float32": (jnp.float32, torch.float32, 2e-3),
+    "float16": (jnp.float16, torch.float16, 0.125),
+    "bfloat16": (jnp.bfloat16, torch.bfloat16, 1.0),
+    "int16": (jnp.int16, torch.int16, 1.0),
+}
+
+
+@pytest.mark.parametrize("dtype", list(_RESAMPLE_DTYPES))
+@pytest.mark.parametrize("antialias", [True, False])
+def test_resample_keeps_the_dtype_like_jax(dtype, antialias):
+    """resize_images and random_resized_crop resample any dtype in float32
+    and bring it back: floats are cast, integers rounded and clipped."""
+    jdt, tdt, bound = _RESAMPLE_DTYPES[dtype]
+    images = _images(3, (3, 40, 36, 3), np.float32)
+    x_jax = jnp.asarray(images).astype(jdt)
+    x = torch.from_numpy(np.array(x_jax.astype(jnp.float32))).to(tdt)
+    key = jax.random.PRNGKey(3)
+    for got, want in [
+            (augment.resize_images(x, (24, 30), antialias=antialias),
+             jax_augment.resize_images(x_jax, (24, 30), antialias=antialias)),
+            (augment.random_resized_crop(x, None, (24, 24), antialias=antialias,
+                                         boxes=_jax_boxes(key, 3, 40, 36)),
+             jax_augment.random_resized_crop(x_jax, key, (24, 24), antialias=antialias))]:
+        assert got.dtype == tdt and str(want.dtype) == dtype and got.shape == want.shape
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   rtol=0, atol=bound)
+
+
 @pytest.mark.parametrize("method", ["bicubic", "lanczos3", "nearest"])
 def test_other_methods_are_not_ported(method):
     images = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)

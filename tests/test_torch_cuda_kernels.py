@@ -12,10 +12,21 @@ byte only where the sum sits at a .5 boundary.  The tiled kernel (no
 antialias) and the antialiased tiled kernel must each agree with the
 general kernel on every byte.
 
+Resample of other dtypes (the general kernel's float32 instance): float32
+within 8 float32 ulp of 256 (the same weights, the sums in other orders); a
+narrower float type within one of its ulps at 255 on top (both round such
+float32 values); an integer type within 1.
+
 Normalize tolerance: float32 within 2 ulp taken at the larger of |out| and
 |bias| (the kernel contracts ``x*s+b`` into one FMA, the plain version rounds
 the product first, and that rounding is of the addends' size); bfloat16 and
 float16 within 1 ulp of their type at |out| on top of that.
+
+JPEG decode (kernel B2) against its plain version: uint8 at most 1 LSB apart
+on at most 0.1 % of the bytes, float32 within 2e-3 on values of 0-255 (the
+same float32 arithmetic, the IDCT's sums in other orders: the plain version
+contracts through cuBLAS); against cv2 max 6 and mean below 1, the
+reference's bound.
 """
 
 import numpy as np
@@ -68,6 +79,30 @@ def test_kernel_matches_plain_on_card(shape, out_dtype, offset):
     assert_within_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(), ulp_dt, bias)
     with pytest.raises(TypeError):
         torch_normalize.normalize_images(x, mean, std, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [65, 300])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off1"])
+def test_kernel_takes_any_channel_count_on_card(channels, out_dtype, offset):
+    """Above 64 channels the constants reach the kernel through a device buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (3, 7, 5, channels)
+    flat = torch.randint(0, 256, (int(np.prod(shape)) + offset,), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    x = flat[offset:].view(shape)
+    mean, std = np.linspace(0.1, 0.9, channels), np.linspace(0.2, 0.5, channels)
+    scale, bias = torch_normalize.channel_constants(mean, std, channels)
+    before = torch_normalize.normalize_kernel.launches
+    got = torch_normalize.normalize_images(x, mean, std, out_dtype)
+    assert torch_normalize.normalize_kernel.launches == before + 1
+    want = torch_normalize._normalize_reference(x, scale, bias, out_dtype)
+    ulp_dt = {torch.float32: np.float32, torch.bfloat16: "bfloat16",
+              torch.float16: np.float16}[out_dtype]
+    assert_within_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(), ulp_dt, bias)
 
 
 @pytest.mark.cuda
@@ -140,8 +175,52 @@ def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias, fli
         assert float((diff > 0).float().mean()) <= 0.001
     resized = augment.resize_images(x, out_hw, antialias=antialias)
     assert resized.shape == (n, *out_hw, shape[-1]) and resized.dtype == torch.uint8
-    with pytest.raises(TypeError):
-        augment.resize_images(x.float(), out_hw)
+    # float32 images take the general kernel's float32 instance, unrounded
+    general_launches = augment.resized_crop_kernel.launches_general
+    resized = augment.resize_images(x.float(), out_hw, antialias=antialias)
+    assert resized.dtype == torch.float32
+    assert augment.resized_crop_kernel.launches_general == general_launches + (1 if n else 0)
+    if n:
+        inv = torch.tensor([1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0],
+                           device="cuda")  # as resize_images
+        want = augment._resized_crop_reference(x.float(), inv.expand(n, 4), None, out_hw,
+                                               antialias)
+        torch.testing.assert_close(resized, want, rtol=0, atol=8 * 2.0 ** -15)
+
+
+_FLOAT_RESAMPLE = {torch.float32: 8 * 2.0 ** -15, torch.float16: 0.125 + 8 * 2.0 ** -15,
+                   torch.bfloat16: 1.0 + 8 * 2.0 ** -15, torch.int16: 1.0, torch.int32: 1.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(_FLOAT_RESAMPLE), ids=str)
+@pytest.mark.parametrize("shape,out_hw,antialias", [
+    ((256, 224, 224, 3), (224, 224), False), ((7, 97, 131, 3), (50, 61), True),
+    ((3, 20, 30, 5), (41, 7), True), ((6, 40, 50, 1), (21, 33), False)])
+@pytest.mark.parametrize("flipped", [True, False], ids=["flips", "no-flips"])
+def test_other_dtypes_resample_on_card(dtype, shape, out_hw, antialias, flipped):
+    """Images that are not uint8 are resampled in float32 by the general
+    kernel and brought back to their dtype, as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, w, _ = shape
+    x = (torch.rand(shape, generator=gen, device="cuda") * 255).to(dtype)
+    boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda") if flipped else None
+    k = augment.resized_crop_kernel
+    before = (k.launches_tiled, k.launches_aa, k.launches_general)
+    got = augment.random_resized_crop(x, None, out_hw, antialias=antialias, boxes=boxes,
+                                      flips=flips)
+    assert (k.launches_tiled, k.launches_aa, k.launches_general) == (before[0], before[1],
+                                                                     before[2] + 1)
+    assert got.dtype == dtype and got.shape == (n, *out_hw, shape[-1])
+    params = augment.crop_params(boxes, out_hw)
+    want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= _FLOAT_RESAMPLE[dtype], err
+    resized = augment.resize_images(x, out_hw, antialias=antialias)
+    assert resized.dtype == dtype and resized.shape == (n, *out_hw, shape[-1])
 
 
 @pytest.mark.cuda
@@ -335,3 +414,161 @@ def test_launch_refuses_unknown_kernels_and_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             augment.launch_resized_crop(images, torch.zeros(2, 4), None, (4, 4), True,
                                         kernel=kernel)
+
+
+# -- kernel B2: the device half of the hybrid JPEG decode ----------------------
+
+
+def _jpeg_planes(n, h, w, sampling=None, gray=False, progressive=False, seed=0):
+    """Coefficient planes of ``n`` cv2-encoded JPEGs (q90), from the port's
+    own entropy decode: (planes, qtabs, layout, streams)."""
+    import cv2
+
+    from petastorm_tpu_torch.native import image as native
+
+    rng = np.random.default_rng(seed)
+    bufs = []
+    for _ in range(n):
+        low = rng.integers(0, 256, (7, 7, 3)).astype(np.float32)
+        img = cv2.resize(low, (w, h), interpolation=cv2.INTER_CUBIC)
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+        params = [int(cv2.IMWRITE_JPEG_QUALITY), 90]
+        if sampling is not None:
+            params += [int(cv2.IMWRITE_JPEG_SAMPLING_FACTOR), int(getattr(cv2, sampling))]
+        if progressive:
+            params += [int(cv2.IMWRITE_JPEG_PROGRESSIVE), 1]
+        bufs.append(cv2.imencode(".jpeg", img[..., 0] if gray else img, params)[1].tobytes())
+    planes, qtabs, layout = native.read_jpeg_coefficients_column(bufs, nthreads=4)
+    return planes, qtabs, layout, bufs
+
+
+# (n, h, w, cv2 sampling flag, grayscale, progressive): the phase-3 shapes of
+# chip_smoke.py, and the samplings and widths a tile meets (4:1:1, 4:4:0, a
+# row wider than one tile)
+JPEG_CASES = {
+    "main-420": (256, 224, 224, None, False, False),
+    "444": (16, 224, 224, "IMWRITE_JPEG_SAMPLING_FACTOR_444", False, False),
+    "422": (16, 224, 224, "IMWRITE_JPEG_SAMPLING_FACTOR_422", False, False),
+    "411": (5, 37, 53, "IMWRITE_JPEG_SAMPLING_FACTOR_411", False, False),
+    "440": (5, 37, 53, "IMWRITE_JPEG_SAMPLING_FACTOR_440", False, False),
+    "gray": (16, 224, 224, None, True, False),
+    "37x53": (7, 37, 53, None, False, False),
+    "progressive": (16, 224, 224, None, False, True),
+    "wide-600": (3, 40, 600, None, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fancy", [True, False], ids=["fancy", "nearest"])
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+@pytest.mark.parametrize("case", list(JPEG_CASES))
+def test_jpeg_decode_kernel_matches_plain_on_card(case, out_dtype, fancy):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import jpeg
+
+    planes, qtabs, layout, _ = _jpeg_planes(*JPEG_CASES[case])
+    dp = [torch.from_numpy(p).cuda() for p in planes]
+    dq = torch.from_numpy(qtabs.astype(np.int32)).cuda()
+    before = jpeg.jpeg_decode_kernel.launches
+    got = jpeg.decode_from_layout(dp, dq, layout, out_dtype, fancy_upsampling=fancy)
+    assert jpeg.jpeg_decode_kernel.launches == before + 1
+    want = jpeg._decode_reference(dp, dq, (layout.height, layout.width), layout.sampling,
+                                  out_dtype, fancy)
+    assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+    diff = (got.double() - want.double()).abs()
+    if out_dtype == torch.uint8:
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+    else:
+        assert diff.max().item() <= 2e-3, diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main-420", "444", "gray", "37x53", "progressive"])
+def test_jpeg_decode_kernel_close_to_cv2_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    import cv2
+
+    from petastorm_tpu_torch.ops import jpeg
+
+    n, h, w, sampling, gray, progressive = JPEG_CASES[case]
+    _, _, _, bufs = _jpeg_planes(min(n, 16), h, w, sampling, gray, progressive)
+    got = jpeg.decode_jpeg_column(bufs, device="cuda").cpu().numpy()
+    flag = cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR
+    want = np.stack([cv2.imdecode(np.frombuffer(b, np.uint8), flag) for b in bufs])
+    if not gray:
+        want = want[..., ::-1]  # cv2 decodes to BGR
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 6 and diff.mean() < 1.0, (diff.max(), diff.mean())
+
+
+@pytest.mark.cuda
+def test_jpeg_decode_kernel_refuses_what_it_does_not_take_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import jpeg
+
+    planes, qtabs, layout, _ = _jpeg_planes(2, 37, 53)
+    dp = [torch.from_numpy(p).cuda() for p in planes]
+    dq = torch.from_numpy(qtabs.astype(np.int32)).cuda()
+    with pytest.raises(TypeError):
+        jpeg.decode_from_layout(dp, dq, layout, torch.float16)
+    with pytest.raises(TypeError):
+        jpeg.decode_from_layout([p.int() for p in dp], dq, layout)
+    with pytest.raises(ValueError):
+        jpeg.decode_from_layout([dp[0].cpu(), dp[1], dp[2]], dq, layout)
+    # a plane view off a 16-byte boundary is copied, not refused
+    flat = torch.zeros(dp[0].numel() + 1, dtype=torch.int16, device="cuda")
+    shifted = flat[1:].view(dp[0].shape)
+    shifted.copy_(dp[0])
+    got = jpeg.decode_from_layout([shifted, dp[1], dp[2]], dq, layout)
+    assert torch.equal(got, jpeg.decode_from_layout(dp, dq, layout))
+    # uint16 quant tables as the host half writes them are taken too
+    assert torch.equal(jpeg.decode_from_layout(dp, torch.from_numpy(qtabs).cuda(), layout), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_loader_finishes_device_decode_on_card(tmp_path, drop_last):
+    """decode_placement='device' through the reader and CudaDataLoader: one
+    B2 launch a batch, labels in the host route's order, images within the
+    reference's bound of the host route, flat gray padding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import cv2
+
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
+    from petastorm_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(0)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (37, 53, 3), CompressedImageCodec("jpeg", 90))])
+    rows = []
+    for i in range(70):
+        low = rng.integers(0, 256, (5, 5, 3)).astype(np.float32)
+        img = np.clip(cv2.resize(low, (53, 37)) + rng.normal(0, 8, (37, 53, 3)), 0, 255)
+        rows.append({"label": i, "image": img.astype(np.uint8)})
+    write_dataset(str(tmp_path / "ds"), schema, rows, row_group_size_rows=9)
+
+    def run(place):
+        reader = make_reader(str(tmp_path / "ds"), workers_count=3, shuffle_seed=0,
+                             num_epochs=1, decode_placement={"image": place})
+        with CudaDataLoader(reader, 16, device="cuda", drop_last=drop_last) as loader:
+            return [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in b.items()}
+                    for b in loader]
+
+    before = jpeg.jpeg_decode_kernel.launches
+    device = run("device")
+    assert jpeg.jpeg_decode_kernel.launches - before == len(device)
+    host = run("host")
+    assert len(device) == len(host) == (4 if drop_last else 5)
+    for d, h in zip(device, host):
+        assert torch.equal(d["label"], h["label"])
+        assert d["image"].dtype == torch.uint8 and d["image"].shape == (16, 37, 53, 3)
+        n = d.get(VALID_ROWS, 16)
+        diff = (d["image"][:n].int() - h["image"][:n].int()).abs()
+        assert diff.max().item() <= 6 and diff.float().mean().item() < 1.0
+        assert bool((d["image"][n:] == 128).all())

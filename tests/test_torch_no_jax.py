@@ -53,5 +53,9 @@ def test_every_port_module_is_scanned():
     for required in ("chip_smoke.py", "petastorm_tpu_torch/ops/normalize.py",
                      "petastorm_tpu_torch/cuda/loader.py", "petastorm_tpu_torch/reader.py",
                      "petastorm_tpu_torch/models/resnet.py", "petastorm_tpu_torch/ops/augment.py",
-                     "petastorm_tpu_torch/examples/imagenet/train_resnet_cuda.py"):
+                     "petastorm_tpu_torch/examples/imagenet/train_resnet_cuda.py",
+                     "petastorm_tpu_torch/ops/jpeg.py", "petastorm_tpu_torch/worker.py",
+                     "petastorm_tpu_torch/native/__init__.py",
+                     "petastorm_tpu_torch/native/build.py",
+                     "petastorm_tpu_torch/native/image.py"):
         assert required in names
