@@ -7,7 +7,9 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. build: every ``petastorm_tpu_torch/csrc/*.cu`` compiled from the checkout,
    one ``nvcc`` per source, and the entropy half of the hybrid JPEG decode
-   (``petastorm_tpu_torch/native/jpeg_coef.cpp``, g++), all at once;
+   (``petastorm_tpu_torch/native/jpeg_coef.cpp``, g++), all at once; the
+   registers, stack and spills ptxas reported for each JPEG decode kernel
+   and their SASS instruction counts (``cuobjdump``);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (and ragged and unaligned ones), with its time, the
    plain version's time, the least time the card could take and, where one
@@ -16,9 +18,13 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    equal on every byte to the general kernel wherever both apply, and
    timed in turns against it; float images through the general kernel's
    float32 instance and normalize at 65 and 300 channels; the JPEG decode
-   kernel (B2) on coefficient planes of cv2-encoded images at the training
-   batch (256 x 224 x 224, 4:2:0), 4:4:4, 4:2:2, grayscale, 37 x 53,
-   progressive and float32 output, and against cv2 at the main shape;
+   (B2) on coefficient planes of cv2-encoded images at the training batch
+   (256 x 224 x 224, 4:2:0), 4:4:4, 4:2:2, grayscale, 37 x 53, progressive
+   and float32 output: the tiled kernel, which the path takes, equal on
+   every byte (uint8) and bit (float32) to the general kernel of the first
+   port and both against the plain version, against cv2 at the main shape,
+   and timed in turns against the general kernel, hot and with the L2
+   flushed before each launch;
 4. main path (inference): an ImageNet-shaped JPEG dataset (4096 rows of
    224x224x3, 16 rowgroups) through ``make_reader`` ->
    ``CudaDataLoader(batch_size=256)`` -> ``normalize_images`` -> ``ResNet50``
@@ -37,7 +43,8 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    The reader decodes on the host (``decode_placement={'image': 'host'}``);
 6. train path, device decode: phase 5 over the same dataset with
    ``decode_placement={'image': 'device'}`` (entropy decode in the workers,
-   B2 on the card): samples/s, the input-wait share, one B2 launch a step,
+   B2 on the card): samples/s, the input-wait share, one launch of B2's
+   tiled kernel a step and none of the general one,
    the labels in phase 5's order, and the first batch's images against
    phase 5's (decoded by cv2) within the reference's bound;
 7. reader decode rate: the dataset read for 4 epochs (64 rowgroups, about 4x
@@ -103,6 +110,46 @@ def time_ms(fn, samples=21, launches=10, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def captured(fn, launches):
+    """A CUDA graph of ``launches`` calls of ``fn`` (after a warm-up call):
+    replaying it runs the same kernel launches without the wrapper's host
+    work between them, which a kernel shorter than that work would wait on."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    torch.cuda.synchronize()
+    return graph
+
+
+def time_graph_ms(fn, samples=21, launches=10):
+    """:func:`time_ms` of ``launches`` back-to-back launches replayed from a
+    CUDA graph (see :func:`captured`), per launch."""
+    graph = captured(fn, launches)
+    return time_ms(graph.replay, samples=samples, launches=1) / launches
+
+
+def time_cold_ms(fn, samples=21, flush_bytes=128 << 20):
+    """Median over ``samples`` of one launch (replayed from a CUDA graph)
+    between two CUDA events, each after writing a ``flush_bytes`` buffer
+    (more than the 50 MB L2), so that the launch finds its inputs in device
+    memory only."""
+    graph = captured(fn, 1)
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for i in range(samples):
+        flush.fill_(i & 0xFF)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return float(np.median(times))
 
 
@@ -513,15 +560,24 @@ def jpeg_bound(layout, n):
 
 
 def check_jpeg(planes, qtabs, layout, out_dtype, what):
-    """B2 against its plain version on the same planes on the card.  Bound:
-    uint8 at most 1 LSB apart on at most 0.1 % of the bytes, float32 within
-    2e-3 (the same float32 arithmetic, the IDCT's sums in other orders).
-    Returns (max difference, share of values differing)."""
+    """B2 as the path runs it (the tiled kernel) equal to the general kernel
+    on every byte (uint8) or bit (float32), and against the plain version on
+    the same planes on the card.  Bound there: uint8 at most 1 LSB apart on
+    at most 0.1 % of the bytes, float32 within 2e-3 (the same float32
+    arithmetic, the IDCT's sums in other orders).  Returns (max difference,
+    share of values differing)."""
     size = (layout.height, layout.width)
-    launches = jpeg.jpeg_decode_kernel.launches
+    counts = lambda: (jpeg.jpeg_decode_kernel.launches_tiled,  # noqa: E731
+                      jpeg.jpeg_decode_kernel.launches_general)
+    tiled, general = counts()
     got = jpeg.decode_from_layout(planes, qtabs, layout, out_dtype)
-    if jpeg.jpeg_decode_kernel.launches != launches + 1:
-        raise AssertionError(f"the JPEG decode at {what} did not launch kernel B2")
+    if counts() != (tiled + 1, general):
+        raise AssertionError(f"the JPEG decode at {what} did not launch B2's tiled kernel once")
+    oracle = jpeg.launch_jpeg_decode(planes, qtabs, size, layout.sampling, out_dtype,
+                                     kernel="general")
+    bits = (lambda t: t.view(torch.int32)) if out_dtype == torch.float32 else (lambda t: t)
+    if got.shape != oracle.shape or not torch.equal(bits(got), bits(oracle)):
+        raise AssertionError(f"B2's tiled and general kernels differ at {what} {out_dtype}")
     want = jpeg._decode_reference(planes, qtabs, size, layout.sampling, out_dtype)
     diff = (got.double() - want.double()).abs()
     err, share = diff.max().item(), (diff > 0).double().mean().item()
@@ -532,11 +588,32 @@ def check_jpeg(planes, qtabs, layout, out_dtype, what):
     return err, share
 
 
+B2_INSTANCES = {"0": "tiled 4:2:0", "1": "tiled 4:2:2", "2": "tiled 4:4:4", "3": "tiled gray",
+                "4": "tiled generic"}
+
+
+def b2_compiler_facts():
+    """ptxas's registers, stack and spills and the SASS instruction count of
+    each kernel in ``csrc/jpeg_decode.cu`` (the tiled kernel's instances by
+    the geometry they take), from the build the script made."""
+    import re
+
+    sass = build.sass_instruction_counts("jpeg_decode")
+    facts = {}
+    for mangled, report in build.ptxas_report("jpeg_decode").items():
+        m = re.search(r"jpeg_decode_tiled_kernelILi(\d)E", mangled)
+        name = B2_INSTANCES[m.group(1)] if m else "general"
+        facts[name] = {**report, "sass_instructions": sass.get(mangled)}
+    return facts
+
+
 def jpeg_entry():
     """B2 held to its plain version on the card at the training batch's
     shape and at every geometry the route meets, on coefficient planes from
-    the port's own entropy decode of cv2-encoded streams; against cv2 at the
-    main shape; its time, the plain version's, and the bound."""
+    the port's own entropy decode of cv2-encoded streams, the tiled kernel
+    equal to the general one throughout; against cv2 at the main shape; the
+    two kernels' times in turns (hot) and after an L2 flush (cold), the
+    plain version's, and the bound."""
     rng = np.random.default_rng(1)
     checks = {}
     for name, n, (h, w), sampling, gray, progressive in [
@@ -565,20 +642,44 @@ def jpeg_entry():
     main_err = checks[f"main 4:2:0 {tuple(dp[0].shape)} {layout.sampling} {torch.uint8}"]
     read, written, flops = jpeg_bound(layout, BATCH)
     bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    # the tiled kernel and the general kernel on the same planes, in
+    # turns (tiled, general, general, tiled), launched from CUDA graphs (the
+    # wrapper's host work per call outlasts the tiled kernel); then each
+    # after an L2 flush; and back to back through the wrapper, host included
+    tiled = lambda: jpeg.jpeg_decode_kernel(dp, dq, size, layout.sampling)  # noqa: E731
+    general = lambda: jpeg.launch_jpeg_decode(dp, dq, size, layout.sampling,  # noqa: E731
+                                              kernel="general")
+    turns = [time_graph_ms(tiled), time_graph_ms(general), time_graph_ms(general),
+             time_graph_ms(tiled)]
+    cold = {"tiled": time_cold_ms(tiled), "general": time_cold_ms(general)}
+    wrapper = {"tiled": time_ms(tiled), "general": time_ms(general)}
+    bound_ms = max(bytes_ms, ops_ms)
     entry = {
         "name": "jpeg_decode_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/jpeg_decode.cu",
+        "function": "jpeg_decode_tiled_kernel",
         "replaces": "petastorm_tpu/ops/jpeg.py:103",
         "max_abs_err": main_err["max_abs_err"],
-        "ms": time_ms(lambda: jpeg.jpeg_decode_kernel(dp, dq, size, layout.sampling)),
+        "ms": (turns[0] + turns[3]) / 2, "prev_ms": (turns[1] + turns[2]) / 2,
         "plain_ms": time_ms(lambda: jpeg._decode_reference(dp, dq, size, layout.sampling)),
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else
-        "operations", "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
     }
     phase("kernels", jpeg_decode_u8={
-        "checks": checks, "shape": [BATCH, SIDE, SIDE, 3], "sampling": list(layout.sampling),
-        "vs_cv2": vs_cv2, "ms": entry["ms"],
-        "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"], "bytes_read": read,
+        "checks": checks, "equals_general": True, "shape": [BATCH, SIDE, SIDE, 3],
+        "sampling": list(layout.sampling), "vs_cv2": vs_cv2, "ms": entry["ms"],
+        "prev_ms": entry["prev_ms"], "turns_ms_tiled_general_general_tiled": turns,
+        "share_of_bound": bound_ms / entry["ms"],
+        "prev_share_of_bound": bound_ms / entry["prev_ms"],
+        "timing": "10 launches replayed from a CUDA graph between CUDA events, median of 21",
+        "cold_ms": cold["tiled"], "cold_prev_ms": cold["general"],
+        "cold_method": "median of 21 single launches from a CUDA graph, each after writing a"
+                       " 128 MB buffer",
+        "through_wrapper_ms": wrapper["tiled"], "through_wrapper_prev_ms": wrapper["general"],
+        "plan": jpeg.decode_launch_plan(BATCH, size, tuple(layout.sampling),
+                                        tuple(tuple(p.shape[1:3]) for p in dp), True,
+                                        jpeg._sm_count(torch.cuda.current_device()))._asdict(),
+        "plain_ms": entry["plain_ms"], "bound_ms": bound_ms, "bytes_read": read,
         "bytes_written": written, "flops": flops,
         "library_call": "none: no PyTorch call computes it"})
     return entry
@@ -773,6 +874,8 @@ def train_epoch(path, decode):
     augment.resized_crop_kernel.launches_aa = 0
     augment.resized_crop_kernel.launches_general = 0
     jpeg.jpeg_decode_kernel.launches = 0
+    jpeg.jpeg_decode_kernel.launches_tiled = 0
+    jpeg.jpeg_decode_kernel.launches_general = 0
     losses, labels_seen, steps, first = [], [], 0, None
     with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader:
         start = time.perf_counter()
@@ -795,21 +898,24 @@ def train_epoch(path, decode):
     launches = {"normalize_u8": normalize.normalize_kernel.launches,
                 "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
                 "resized_crop_aa_u8": augment.resized_crop_kernel.launches_aa,
-                "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches}
+                "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches_tiled}
     general_launches = augment.resized_crop_kernel.launches_general
+    general_b2 = jpeg.jpeg_decode_kernel.launches_general
     losses = torch.stack(losses).float().cpu()
 
     want_steps = N_ROWS // BATCH
     if steps != want_steps:
         raise AssertionError(f"{steps} training steps ({decode} decode), expected {want_steps}")
     # every crop of the step is without antialias: the tiled kernel, never the
-    # antialiased one, and no path launches the general one; B2 once a step
-    # when the decode finishes on the card, never otherwise
+    # antialiased one, and no path launches the general one; B2's tiled
+    # kernel once a step when the decode finishes on the card, never
+    # otherwise, and B2's general kernel never
     want = {"normalize_u8": steps, "resized_crop_flip_u8": steps, "resized_crop_aa_u8": 0,
             "jpeg_decode_u8": steps if decode == "device" else 0}
-    if general_launches:
-        raise AssertionError(f"the general resized-crop kernel launched {general_launches}"
-                             f" times in {steps} steps, expected 0")
+    if general_launches or general_b2:
+        raise AssertionError(f"the general resized-crop and JPEG decode kernels launched"
+                             f" {general_launches} and {general_b2} times in {steps} steps,"
+                             f" expected 0")
     for name, count in launches.items():
         if count != want[name]:
             raise AssertionError(f"kernel {name} launched {count} times in {steps} steps"
@@ -934,7 +1040,8 @@ def main():
         libs = build.build_all()
         libs["jpeg_coef"] = entropy.result()
     phase("build", seconds=time.perf_counter() - t0, libjpeg=native_build.find_libjpeg(),
-          libraries={k: os.path.relpath(v) for k, v in libs.items()})
+          libraries={k: os.path.relpath(v) for k, v in libs.items()},
+          jpeg_decode_kernels=b2_compiler_facts())
 
     kernels = kernels_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

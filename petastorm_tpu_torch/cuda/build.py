@@ -5,7 +5,10 @@ The port's own copy of the idea in ``petastorm_tpu/native/build.py``: each
 plain-C shared library under ``petastorm_tpu_torch/_lib/``, keyed by a hash of
 the source and the flags, and loaded with ``ctypes``.  Only the sources in the
 checkout are used.  A missing toolkit or a failed build raises: a CUDA tensor
-never falls back to the plain version.
+never falls back to the plain version.  ptxas's report (``-Xptxas -v``:
+registers, shared memory and spills of each kernel) is kept beside each
+library (:func:`ptxas_report`), and :func:`sass_instruction_counts` counts
+each kernel's SASS instructions with the toolkit's ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +28,7 @@ SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
 LIB_DIR = os.path.join(_PKG_DIR, "_lib")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -50,6 +54,10 @@ def lib_path(name: str) -> str:
     return os.path.join(LIB_DIR, f"lib{name}-{tag}.so")
 
 
+def _report_path(path: str) -> str:
+    return path[:-len(".so")] + ".ptxas.txt"
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` if its library is not built yet; returns its path."""
     path = lib_path(name)
@@ -63,9 +71,64 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    # build to a temporary name, then rename: concurrent builders race benignly
+    # build to temporary names, then rename (the report first, so a library
+    # never lacks it): concurrent builders race benignly
+    with open(tmp + ".txt", "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp + ".txt", _report_path(path))
     os.replace(tmp, path)
     return path
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu`` (mangled name), what ptxas reported
+    when it built the library: ``registers``, ``shared_bytes`` (static),
+    ``spill_stores``, ``spill_loads`` and ``stack_bytes``."""
+    with open(_report_path(build(name))) as f:
+        text = f.read()
+    out: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        facts = out[kernel]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            facts.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            facts["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            facts["shared_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_instruction_counts(name: str) -> Dict[str, int]:
+    """SASS instructions of each kernel (mangled name) in ``csrc/<name>.cu``'s
+    library, from ``cuobjdump -sass``; empty where the toolkit has no
+    ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", build(name)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: Dict[str, int] = {}
+    kernel = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            counts[kernel] = 0
+        elif kernel is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[kernel] += 1
+    return counts
 
 
 def load(name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

@@ -13,9 +13,14 @@ ships quantized DCT coefficient planes; everything arithmetic happens here:
   4x (and for ``fancy_upsampling=False``);
 * BT.601 YCbCr -> RGB, then round half to even and clip for uint8.
 
-On a CUDA tensor the whole function runs in kernel B2, the hand-written
+On a CUDA tensor the whole function runs in kernel B2, a hand-written
 Hopper kernel of ``csrc/jpeg_decode.cu``, and in nothing else: what the
-kernel does not take raises.  On a CPU tensor it runs the plain PyTorch
+kernel does not take raises.  The source has two kernels with the same float
+operations in the same order, so equal outputs: the tiled kernel, which every
+launch takes (its launch plan is :func:`decode_launch_plan`, a plain function
+of the shapes), and the general kernel of the first port, reached only by
+``launch_jpeg_decode(..., kernel="general")``, the byte oracle and timing
+yardstick of ``chip_smoke.py`` and the card tests.  On a CPU tensor it runs the plain PyTorch
 version ``_decode_reference``, which writes out the reference's
 ``_idct_basis`` (``:38``), ``_idct_blocks`` (``:48``),
 ``_upsample_axis_fancy`` (``:66``), ``_upsample_to`` (``:81``) and
@@ -31,7 +36,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+import math
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +47,21 @@ from petastorm_tpu_torch.device import resolve_device
 
 _OUT_DTYPES = {torch.uint8: 0, torch.float32: 1}
 _MAX_COMPS = 3  # kMaxComps in csrc/jpeg_decode.cu
+
+JPEG_DECODE_KERNELS = ("tiled", "general")
+# the tiled kernel's layout (csrc/jpeg_decode.cu: kHeaderBytes, the warps'
+# scratch of kTiledThreads / 8 blocks of kScratchStride floats,
+# kTiledBlocksPerSM, kMaxSharedBytes) and the card's shared memory
+_HEADER_BYTES = 2048
+_SCRATCH_BYTES = 256 // 8 * 72 * 4
+TILED_BLOCKS_PER_SM = 3
+MAX_SHARED_BYTES = 232448       # one block's dynamic shared memory on sm_90
+SM_SHARED_BYTES = 233472        # an H100 SM's shared memory
+_BLOCK_RESERVED_BYTES = 1024    # kept by the runtime for each resident block
+# the most a block may take so that TILED_BLOCKS_PER_SM blocks share an SM
+TILED_TARGET_SHARED_BYTES = SM_SHARED_BYTES // TILED_BLOCKS_PER_SM - _BLOCK_RESERVED_BYTES
+H100_SMS = 132
+_TARGET_TILE_ROWS = 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,6 +149,141 @@ def _check_geometry(planes, qtabs, image_size, sampling):
     return comps
 
 
+class DecodePlan(NamedTuple):
+    """The tiled kernel's launch plan (``csrc/jpeg_decode.cu``,
+    ``make_tiled_params`` checks it against its own)."""
+    kind: str                 # the instance: "420", "422", "444", "gray" or "generic"
+    tile_rows: int            # output rows of a tile (whole MCU rows)
+    tile_cols: int            # output columns of a tile (whole MCUs)
+    tiles_y: int
+    tiles_x: int
+    ctas: int                 # persistent blocks
+    stage_blocks: Tuple[Tuple[int, int], ...]  # per component: block rows, columns staged at most
+    region_rows: Tuple[int, ...]   # per component: rows of its region of samples
+    region_strides: Tuple[int, ...]  # per component: floats between region rows
+    stage_bytes: int          # one of the two stages: quant tables and staged blocks
+    shared_bytes: int         # a block's dynamic shared memory
+
+    def ints(self) -> list:
+        """The plan as ``pst_jpeg_decode_tiled`` takes it."""
+        return [self.tile_rows, self.tile_cols, self.ctas, self.stage_bytes, self.shared_bytes,
+                *[x for rc in self.stage_blocks for x in rc]]
+
+
+def _tiled_kind(factors: Sequence[Tuple[int, int]], fancy: bool) -> str:
+    """The tiled kernel's instance for components upsampled by ``factors``
+    ((fy, fx) each): luma at full size and two chroma components alike get a
+    fused instance, everything else the generic one."""
+    if len(factors) == 1:
+        return "gray"
+    (fy0, fx0), (fy1, fx1), (fy2, fx2) = factors
+    if (fy0, fx0) == (1, 1) and (fy1, fx1) == (fy2, fx2):
+        if (fy1, fx1) == (1, 1):
+            return "444"
+        if fancy and (fy1, fx1) == (2, 2):
+            return "420"
+        if fancy and (fy1, fx1) == (1, 2):
+            return "422"
+    return "generic"
+
+
+def _region_stride(width: int, rem: int) -> int:
+    """region_stride in the source: >= width and ``rem`` more than a multiple of 32."""
+    return width + ((rem - width % 32) + 32) % 32
+
+
+@functools.lru_cache(maxsize=64)
+def decode_launch_plan(n: int, image_size: Tuple[int, int],
+                       sampling: Tuple[Tuple[int, int], ...],
+                       blocks: Tuple[Tuple[int, int], ...], fancy: bool = True,
+                       sms: int = H100_SMS) -> DecodePlan:
+    """The tiled kernel's plan from the shapes alone: ``n`` images of
+    ``image_size``, per component its (h, v) ``sampling`` and its plane's
+    (blocks_h, blocks_w) ``blocks``; ``sms`` multiprocessors.
+
+    A tile is whole MCU rows, about 16 output rows, by the image's whole
+    width in MCUs, narrowed by halves while a block's shared memory exceeds
+    ``TILED_TARGET_SHARED_BYTES`` (three blocks an SM).  A component stages
+    the block rows (columns) of its tile's samples: ``v * mcu_rows`` (``h *
+    mcu_cols``), two more where the triangle filter reads a neighbour beyond
+    the tile, never more than its plane has; its region holds the samples the
+    tile reads.  At the ImageNet batch (256 x 224 x 224, 4:2:0): tiles of
+    16 x 224, 72,192 bytes, 396 blocks on 132 SMs."""
+    height, width = image_size
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    factors = tuple((max_v // v, max_h // h) for h, v in sampling)
+    kind = _tiled_kind(factors, fancy)
+    mcu_rows = max(1, _TARGET_TILE_ROWS // (8 * max_v))
+
+    def plan(mcu_cols: int) -> DecodePlan:
+        tile_rows, tile_cols = 8 * max_v * mcu_rows, 8 * max_h * mcu_cols
+        stage, r_floats = 256 * len(sampling), 0
+        caps, region_rows, strides = [], [], []
+        for (h, v), (fy, fx), (bh, bw) in zip(sampling, factors, blocks):
+            fancy_y, fancy_x = int(fancy and fy == 2), int(fancy and fx == 2)
+            rows = min(v * mcu_rows + 2 * fancy_y, bh)
+            cols = min(h * mcu_cols + 2 * fancy_x, bw)
+            caps.append((rows, cols))
+            stage += 128 * rows * cols
+            # rows a fast instance reads 8 at once as float4s start in 8 bank groups
+            rows8 = kind != "generic" and (fy, fx) == (1, 1)
+            region_rows.append(8 * v * mcu_rows + 2 * fancy_y)
+            strides.append(_region_stride(8 * cols, 4 if rows8 else 16))
+            r_floats += region_rows[-1] * strides[-1]
+        shared = _HEADER_BYTES + 2 * stage + _SCRATCH_BYTES + 4 * r_floats
+        tiles_y, tiles_x = -(-height // tile_rows), -(-width // tile_cols)
+        per_sm = max(1, min(TILED_BLOCKS_PER_SM,
+                            SM_SHARED_BYTES // (shared + _BLOCK_RESERVED_BYTES)))
+        return DecodePlan(kind, tile_rows, tile_cols, tiles_y, tiles_x,
+                          max(1, min(n * tiles_y * tiles_x, sms * per_sm)), tuple(caps),
+                          tuple(region_rows), tuple(strides), stage, shared)
+
+    mcu_cols = -(-width // (8 * max_h))
+    p = plan(mcu_cols)
+    while p.shared_bytes > TILED_TARGET_SHARED_BYTES and mcu_cols > 1:
+        mcu_cols = -(-mcu_cols // 2)
+        p = plan(mcu_cols)
+    if p.shared_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"no tile of the tiled JPEG decode kernel fits {image_size} {sampling}")
+    return p
+
+
+class TileSpan(NamedTuple):
+    """One component's share of a tile (``comp_tile`` in the source):
+    the samples it reads and the blocks staged for them."""
+    rows: Tuple[int, int]     # first and last sample row, clamped to the cropped plane
+    cols: Tuple[int, int]
+    block_rows: Tuple[int, int]  # staged: first block row, count
+    block_cols: Tuple[int, int]
+
+
+def _axis_span(lo: int, hi: int, f: int, fancy: bool, size: int) -> Tuple[int, int]:
+    first, last = (lo // 2 - 1, (hi - 1) // 2 + 1) if fancy else (lo // f, (hi - 1) // f)
+    return min(max(first, 0), size - 1), min(max(last, 0), size - 1)
+
+
+def tile_spans(plan: DecodePlan, image_size: Tuple[int, int],
+               sampling: Tuple[Tuple[int, int], ...], fancy: bool, ty: int,
+               tx: int) -> Tuple[Tuple[int, int, int, int], Tuple[TileSpan, ...]]:
+    """Tile (ty, tx) of ``plan``: its output rows and columns (y0, y1, x0,
+    x1) and each component's :class:`TileSpan`, as the kernel works them out."""
+    height, width = image_size
+    y0, x0 = ty * plan.tile_rows, tx * plan.tile_cols
+    y1, x1 = min(y0 + plan.tile_rows, height), min(x0 + plan.tile_cols, width)
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    spans = []
+    for h, v in sampling:
+        fy, fx = max_v // v, max_h // h
+        ch, cw = -(-height * v // max_v), -(-width * h // max_h)
+        rows = _axis_span(y0, y1, fy, fancy and fy == 2, ch)
+        cols = _axis_span(x0, x1, fx, fancy and fx == 2, cw)
+        spans.append(TileSpan(rows, cols, (rows[0] // 8, rows[1] // 8 - rows[0] // 8 + 1),
+                              (cols[0] // 8, cols[1] // 8 - cols[0] // 8 + 1)))
+    return (y0, y1, x0, x1), tuple(spans)
+
+
 def _decode_reference(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,
                       image_size: Tuple[int, int], sampling: Tuple[Tuple[int, int], ...],
                       out_dtype: torch.dtype = torch.uint8,
@@ -151,8 +307,7 @@ def _decode_reference(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    lib.pst_jpeg_decode.restype = ctypes.c_int
-    lib.pst_jpeg_decode.argtypes = [
+    common = [
         ctypes.c_int,                      # ncomp
         ctypes.c_void_p,                   # const int16_t* const* planes (device pointers)
         ctypes.c_void_p,                   # const int* blocks_h, blocks_w per component
@@ -163,19 +318,37 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,                   # const float* idct basis (host, 64)
         ctypes.c_void_p,                   # void* out (device, n x H x W x channels)
         ctypes.c_int,                      # out dtype code
+    ]
+    lib.pst_jpeg_decode.restype = ctypes.c_int
+    lib.pst_jpeg_decode.argtypes = common + [ctypes.c_void_p]  # cudaStream_t
+    lib.pst_jpeg_decode_tiled.restype = ctypes.c_int
+    lib.pst_jpeg_decode_tiled.argtypes = common + [
+        ctypes.c_void_p,                   # const int* plan (host)
+        ctypes.c_int,                      # plan length
         ctypes.c_void_p,                   # cudaStream_t
     ]
 
 
-def jpeg_decode_kernel(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_jpeg_decode(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,
                        image_size: Tuple[int, int], sampling: Tuple[Tuple[int, int], ...],
-                       out_dtype: torch.dtype = torch.uint8,
-                       fancy_upsampling: bool = True) -> torch.Tensor:
-    """Launch kernel B2 (``csrc/jpeg_decode.cu``) on CUDA planes, on the
-    current stream: int16 (N, bh, bw, 64) planes and (N, ncomp, 64) integer
-    quant tables (int32 as the loader delivers them; other integer types are
-    converted) -> (N, H, W, 3) or, for one component, (N, H, W).
-    ``jpeg_decode_kernel.launches`` counts the launches."""
+                       out_dtype: torch.dtype = torch.uint8, fancy_upsampling: bool = True,
+                       kernel: str = "tiled") -> torch.Tensor:
+    """Launch one kernel of ``csrc/jpeg_decode.cu`` on CUDA planes, on the
+    current stream: ``"tiled"`` (the kernel every path takes, with
+    :func:`decode_launch_plan`) or ``"general"`` (the first port's kernel,
+    equal to it on every byte, for comparisons).  int16 (N, bh, bw, 64)
+    planes and (N, ncomp, 64) integer quant tables (int32 as the loader
+    delivers them; other integer types are converted) -> (N, H, W, 3) or, for
+    one component, (N, H, W).  Each launch adds one to
+    ``jpeg_decode_kernel.launches`` and to its kernel's own count
+    (``launches_tiled`` or ``launches_general``)."""
+    if kernel not in JPEG_DECODE_KERNELS:
+        raise ValueError(f"kernel must be one of {JPEG_DECODE_KERNELS}, got {kernel!r}")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"jpeg decode kernel writes uint8 or float32, not {out_dtype}")
     _check_geometry(planes, qtabs, image_size, sampling)
@@ -192,37 +365,60 @@ def jpeg_decode_kernel(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,
         raise ValueError(f"image size {image_size}")
     lead = tuple(qtabs.shape[:-2])
     n = int(np.prod(lead)) if lead else 1
-    qtabs = qtabs.reshape(n, len(planes), 64).to(torch.int32).contiguous()
-    flat = []
-    for p in planes:
-        p = p.reshape(n, *p.shape[-3:]).contiguous()
-        if p.data_ptr() % 16:  # the kernel reads a block row as one 16-byte vector
-            p = p.clone()
-        flat.append(p)
+
+    def aligned(t):  # the tiled kernel copies planes and quant tables in 16-byte units
+        t = t.contiguous()
+        return t.clone() if t.data_ptr() % 16 else t
+
+    qtabs = aligned(qtabs.reshape(n, len(planes), 64).to(torch.int32))
+    flat = [aligned(p.reshape(n, *p.shape[-3:])) for p in planes]
     channels = 3 if len(planes) == 3 else 1
     out = torch.empty((n, height, width, channels), dtype=out_dtype, device=device)
     if n:
         lib = build.load("jpeg_decode", _configure)
         ptrs = (ctypes.c_void_p * _MAX_COMPS)(*[p.data_ptr() for p in flat])
-        blocks = (ctypes.c_int * (2 * _MAX_COMPS))(*[d for p in flat for d in p.shape[1:3]])
+        blocks = tuple(tuple(p.shape[1:3]) for p in flat)
+        cblocks = (ctypes.c_int * (2 * _MAX_COMPS))(*[d for b in blocks for d in b])
         samp = (ctypes.c_int * (2 * _MAX_COMPS))(*[f for s in sampling for f in s])
         basis = _idct_basis()
+        args = (len(planes), ctypes.addressof(ptrs), ctypes.addressof(cblocks),
+                ctypes.addressof(samp), qtabs.data_ptr(), n, height, width,
+                int(bool(fancy_upsampling)), basis.ctypes.data, out.data_ptr(),
+                _OUT_DTYPES[out_dtype])
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.pst_jpeg_decode(len(planes), ctypes.addressof(ptrs),
-                                      ctypes.addressof(blocks), ctypes.addressof(samp),
-                                      qtabs.data_ptr(), n,
-                                      height, width, int(bool(fancy_upsampling)),
-                                      basis.ctypes.data, out.data_ptr(),
-                                      _OUT_DTYPES[out_dtype], stream)
+            if kernel == "tiled":
+                plan = decode_launch_plan(n, (height, width), tuple(map(tuple, sampling)), blocks,
+                                          bool(fancy_upsampling), _sm_count(device.index))
+                ints = plan.ints()
+                err = lib.pst_jpeg_decode_tiled(*args, (ctypes.c_int * len(ints))(*ints),
+                                                len(ints), stream)
+            else:
+                err = lib.pst_jpeg_decode(*args, stream)
         if err != 0:
-            raise RuntimeError(f"jpeg decode kernel launch failed (error {err})")
+            raise RuntimeError(f"jpeg decode {kernel} kernel launch failed (error {err})")
         jpeg_decode_kernel.launches += 1
+        counter = f"launches_{kernel}"
+        setattr(jpeg_decode_kernel, counter, getattr(jpeg_decode_kernel, counter) + 1)
     out = out.reshape(*lead, height, width, channels)
     return out if channels == 3 else out[..., 0]
 
 
+def jpeg_decode_kernel(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,
+                       image_size: Tuple[int, int], sampling: Tuple[Tuple[int, int], ...],
+                       out_dtype: torch.dtype = torch.uint8,
+                       fancy_upsampling: bool = True) -> torch.Tensor:
+    """Kernel B2 on CUDA planes: the tiled kernel (see
+    :func:`launch_jpeg_decode`).  ``jpeg_decode_kernel.launches`` counts
+    every B2 launch, ``.launches_tiled`` and ``.launches_general`` each
+    kernel's."""
+    return launch_jpeg_decode(planes, qtabs, image_size, sampling, out_dtype, fancy_upsampling,
+                              kernel="tiled")
+
+
 jpeg_decode_kernel.launches = 0
+jpeg_decode_kernel.launches_tiled = 0
+jpeg_decode_kernel.launches_general = 0
 
 
 def decode_coefficients(planes: Sequence[torch.Tensor], qtabs: torch.Tensor,

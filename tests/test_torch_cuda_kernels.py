@@ -26,7 +26,9 @@ JPEG decode (kernel B2) against its plain version: uint8 at most 1 LSB apart
 on at most 0.1 % of the bytes, float32 within 2e-3 on values of 0-255 (the
 same float32 arithmetic, the IDCT's sums in other orders: the plain version
 contracts through cuBLAS); against cv2 max 6 and mean below 1, the
-reference's bound.
+reference's bound.  B2's tiled kernel, which every path takes, must equal
+its general kernel on every byte (uint8) and bit (float32): the same float
+operations in the same order.
 """
 
 import numpy as np
@@ -483,6 +485,50 @@ def test_jpeg_decode_kernel_matches_plain_on_card(case, out_dtype, fancy):
         assert diff.max().item() <= 2e-3, diff.max().item()
 
 
+# the edges of the tiled kernel's plan: one pixel, and a row wider than a tile
+JPEG_EDGE_CASES = {"1x1": (2, 1, 1, None, False, False), "17x600": (2, 17, 600, None, False, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fancy", [True, False], ids=["fancy", "nearest"])
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+@pytest.mark.parametrize("case", list(JPEG_CASES) + list(JPEG_EDGE_CASES))
+def test_jpeg_tiled_kernel_equals_general_on_card(case, out_dtype, fancy):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import jpeg
+
+    planes, qtabs, layout, _ = _jpeg_planes(*{**JPEG_CASES, **JPEG_EDGE_CASES}[case])
+    dp = [torch.from_numpy(p).cuda() for p in planes]
+    dq = torch.from_numpy(qtabs.astype(np.int32)).cuda()
+    size = (layout.height, layout.width)
+    tiled = jpeg.launch_jpeg_decode(dp, dq, size, layout.sampling, out_dtype, fancy,
+                                    kernel="tiled")
+    general = jpeg.launch_jpeg_decode(dp, dq, size, layout.sampling, out_dtype, fancy,
+                                      kernel="general")
+    assert tiled.dtype == general.dtype == out_dtype and tiled.shape == general.shape
+    if out_dtype == torch.float32:
+        tiled, general = tiled.view(torch.int32), general.view(torch.int32)
+    assert torch.equal(tiled, general), int((tiled != general).sum())
+
+
+@pytest.mark.cuda
+def test_jpeg_decode_path_takes_the_tiled_kernel_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import jpeg
+
+    planes, qtabs, layout, bufs = _jpeg_planes(4, 37, 53)
+    dp = [torch.from_numpy(p).cuda() for p in planes]
+    dq = torch.from_numpy(qtabs.astype(np.int32)).cuda()
+    k = jpeg.jpeg_decode_kernel
+    before = (k.launches, k.launches_tiled, k.launches_general)
+    jpeg.decode_from_layout(dp, dq, layout)
+    jpeg.decode_jpeg_column(bufs, device="cuda")
+    assert (k.launches, k.launches_tiled, k.launches_general) == (
+        before[0] + 2, before[1] + 2, before[2])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["main-420", "444", "gray", "37x53", "progressive"])
 def test_jpeg_decode_kernel_close_to_cv2_on_card(case):
@@ -560,9 +606,9 @@ def test_loader_finishes_device_decode_on_card(tmp_path, drop_last):
             return [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in b.items()}
                     for b in loader]
 
-    before = jpeg.jpeg_decode_kernel.launches
+    before = jpeg.jpeg_decode_kernel.launches_tiled
     device = run("device")
-    assert jpeg.jpeg_decode_kernel.launches - before == len(device)
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == len(device)
     host = run("host")
     assert len(device) == len(host) == (4 if drop_last else 5)
     for d, h in zip(device, host):
@@ -572,3 +618,40 @@ def test_loader_finishes_device_decode_on_card(tmp_path, drop_last):
         diff = (d["image"][:n].int() - h["image"][:n].int()).abs()
         assert diff.max().item() <= 6 and diff.float().mean().item() < 1.0
         assert bool((d["image"][n:] == 128).all())
+
+
+# -- the build's compiler report (no card needed) --------------------------------
+
+
+PTXAS_REPORT = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi0EEv6Params' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi0EEv6Params
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 920 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z7generalv' for 'sm_90a'
+ptxas info    : Function properties for _Z7generalv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 55 registers, used 1 barriers, 64 bytes smem, 848 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_read_per_kernel(tmp_path, monkeypatch):
+    from petastorm_tpu_torch.cuda import build
+
+    monkeypatch.setattr(build, "LIB_DIR", str(tmp_path))
+    lib = build.lib_path("jpeg_decode")
+    open(lib, "w").close()  # stands for the built library
+    with open(lib[:-len(".so")] + ".ptxas.txt", "w") as f:
+        f.write(PTXAS_REPORT)
+    assert build.ptxas_report("jpeg_decode") == {
+        "_Z6kernelILi0EEv6Params": {"stack_bytes": 16, "spill_stores": 8, "spill_loads": 4,
+                                    "registers": 80, "shared_bytes": 0},
+        "_Z7generalv": {"stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+                        "registers": 55, "shared_bytes": 64}}
+
+
+def test_sass_counts_need_the_toolkits_cuobjdump(tmp_path, monkeypatch):
+    from petastorm_tpu_torch.cuda import build
+
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(tmp_path / "nvcc"))
+    assert build.sass_instruction_counts("jpeg_decode") == {}

@@ -273,6 +273,200 @@ def test_bound_at_the_imagenet_batch():
     assert 0.6e9 < flops < 1.0e9
 
 
+# -- kernel B2's tiled kernel: its launch plan, on the CPU ---------------------------
+#
+# The tiled kernel runs only on the card (``test_torch_cuda_kernels.py`` holds
+# it equal to the general kernel there); its plan is a plain function of the
+# shapes, so the tiles it cuts are checked here against what the reference
+# reads.
+
+# name -> (cv2 sampling flag, (h, w), grayscale): the geometries of the card
+# tests' JPEG_CASES, then a 1x1 image, 9x17, and widths around a tile's
+PLAN_CASES = {
+    "main-420": (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, (224, 224), False),
+    "444": (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, (224, 224), False),
+    "422": (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422, (224, 224), False),
+    "411": (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411, (37, 53), False),
+    "440": (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440, (37, 53), False),
+    "gray": (None, (224, 224), True),
+    "37x53": (None, (37, 53), False),
+    "wide-600": (None, (40, 600), False),
+    "1x1": (None, (1, 1), False),
+    "9x17": (None, (9, 17), False),
+    "w255": (None, (24, 255), False),
+    "w256": (None, (24, 256), False),
+    "w257": (None, (24, 257), False),
+    "17x600": (None, (17, 600), False),
+    "422-17x600": (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422, (17, 600), False),
+}
+
+
+def _plan_layout(name, n=1):
+    flag, (h, w), gray = PLAN_CASES[name]
+    bufs = [_encode(_smooth(h, w, seed, 1 if gray else 3), flag) for seed in range(n)]
+    return bufs, native.jpeg_coef_layout(bufs[0])
+
+
+def _reads(lo, hi, f, fancy, size):
+    """The sample indices the reference reads for outputs [lo, hi) along an
+    axis upsampled by f (``_upsample_to``): the triangle filter's own and
+    neighbour samples, replicated at the edge, or nearest."""
+    out = np.arange(lo, hi)
+    if fancy:
+        own = np.minimum(out // 2, size - 1)
+        nb = np.clip(np.where(out % 2, out // 2 + 1, out // 2 - 1), 0, size - 1)
+        return np.concatenate([own, nb])
+    return out // f
+
+
+@pytest.mark.parametrize("fancy", [True, False], ids=["fancy", "nearest"])
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_tile_plan_stages_exactly_the_blocks_each_tile_reads(name, fancy):
+    _, layout = _plan_layout(name)
+    size, sampling = (layout.height, layout.width), layout.sampling
+    blocks = tuple((bh, bw) for (_, _, bw, bh) in layout.components)
+    plan = jpeg.decode_launch_plan(256, size, sampling, blocks, fancy)
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    assert plan.tile_rows % (8 * max_v) == 0 and plan.tile_cols % (8 * max_h) == 0
+    assert plan.tiles_y == -(-size[0] // plan.tile_rows)
+    assert plan.tiles_x == -(-size[1] // plan.tile_cols)
+    assert plan.stage_bytes == 256 * len(sampling) + sum(128 * r * c for r, c in plan.stage_blocks)
+    assert plan.shared_bytes <= jpeg.MAX_SHARED_BYTES
+    assert 1 <= plan.ctas <= 256 * plan.tiles_y * plan.tiles_x
+    for ty in range(plan.tiles_y):
+        for tx in range(plan.tiles_x):
+            (y0, y1, x0, x1), spans = jpeg.tile_spans(plan, size, sampling, fancy, ty, tx)
+            assert y1 == min(y0 + plan.tile_rows, size[0]) and x1 == min(x0 + plan.tile_cols,
+                                                                       size[1])
+            for c, ((h, v), span) in enumerate(zip(sampling, spans)):
+                fy, fx = max_v // v, max_h // h
+                ch, cw = -(-size[0] * v // max_v), -(-size[1] * h // max_h)
+                rows = _reads(y0, y1, fy, fancy and fy == 2, ch)
+                cols = _reads(x0, x1, fx, fancy and fx == 2, cw)
+                # the samples read, their blocks staged, nothing else
+                assert span.rows == (rows.min(), rows.max())
+                assert span.cols == (cols.min(), cols.max())
+                assert span.block_rows == (rows.min() // 8, rows.max() // 8 - rows.min() // 8 + 1)
+                assert span.block_cols == (cols.min() // 8, cols.max() // 8 - cols.min() // 8 + 1)
+                # inside the plane, the stage and the region
+                (sb0, nsb), (sc0, nsc) = span.block_rows, span.block_cols
+                bh, bw = blocks[c]
+                assert 0 <= sb0 and sb0 + nsb <= bh and 0 <= sc0 and sc0 + nsc <= bw
+                assert nsb <= plan.stage_blocks[c][0] and nsc <= plan.stage_blocks[c][1]
+                assert span.rows[1] - span.rows[0] < plan.region_rows[c]
+                assert 8 * nsc <= plan.region_strides[c]
+
+
+def test_tile_plan_at_the_imagenet_batch():
+    """256 x 224 x 224 at 4:2:0: tiles of one MCU row across the width; the
+    chroma stages its block row and the halo rows above and below; both
+    stages and the regions fit three blocks an SM (at least the two the
+    kernel needs)."""
+    plan = jpeg.decode_launch_plan(256, (224, 224), ((2, 2), (1, 1), (1, 1)),
+                                   ((28, 28), (14, 14), (14, 14)))
+    assert (plan.kind, plan.tile_rows, plan.tile_cols) == ("420", 16, 224)
+    assert (plan.tiles_y, plan.tiles_x) == (14, 1)
+    assert plan.stage_blocks == ((2, 28), (3, 14), (3, 14))
+    assert plan.stage_bytes == 3 * 256 + 128 * (2 * 28 + 2 * 3 * 14)
+    assert plan.region_rows == (16, 10, 10)
+    assert plan.shared_bytes == 72192 <= jpeg.MAX_SHARED_BYTES
+    per_sm = jpeg.SM_SHARED_BYTES // (plan.shared_bytes + 1024)
+    assert per_sm >= 3 >= 2
+    assert plan.ctas == 132 * 3
+    assert plan.ints() == [16, 224, 396, plan.stage_bytes, 72192, 2, 28, 3, 14, 3, 14]
+
+
+@pytest.mark.parametrize("sampling,kind", [
+    (((2, 2), (1, 1), (1, 1)), ("420", "generic")),
+    (((2, 1), (1, 1), (1, 1)), ("422", "generic")),
+    (((1, 1), (1, 1), (1, 1)), ("444", "444")),
+    (((1, 1),), ("gray", "gray")),
+    (((4, 1), (1, 1), (1, 1)), ("generic", "generic")),
+    (((1, 2), (1, 1), (1, 1)), ("generic", "generic")),
+])
+def test_tile_plan_picks_the_instance(sampling, kind):
+    blocks = tuple((8 * v, 8 * h) for h, v in sampling)
+    got = tuple(jpeg.decode_launch_plan(4, (64, 64), sampling, blocks, fancy).kind
+                for fancy in (True, False))
+    assert got == kind
+
+
+def _tile_walk_decode(planes, qtabs, layout, plan, fancy):
+    """Each tile of ``plan`` decoded in numpy from its staged blocks alone:
+    the IDCT of those blocks (the plain version's), the tile's pixels
+    upsampled from samples read only inside them, the color, the rounding."""
+    size, sampling = (layout.height, layout.width), layout.sampling
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    n = qtabs.shape[0]
+    out = np.zeros((n, *size, len(sampling)), np.float32)
+    for ty in range(plan.tiles_y):
+        for tx in range(plan.tiles_x):
+            (y0, y1, x0, x1), spans = jpeg.tile_spans(plan, size, sampling, fancy, ty, tx)
+            for c, ((h, v), span) in enumerate(zip(sampling, spans)):
+                (sb0, nsb), (sc0, nsc) = span.block_rows, span.block_cols
+                staged = torch.from_numpy(planes[c][:, sb0:sb0 + nsb, sc0:sc0 + nsc])
+                samples = jpeg._idct_blocks(staged, torch.from_numpy(qtabs[:, c].astype(np.int32)))
+                samples = samples.numpy()
+                fy, fx = max_v // v, max_h // h
+                ch, cw = -(-size[0] * v // max_v), -(-size[1] * h // max_h)
+
+                def index(lo, hi, f, fancy_axis, extent, first):
+                    o = np.arange(lo, hi)
+                    if fancy_axis:
+                        a = np.minimum(o // 2, extent - 1)
+                        b = np.clip(np.where(o % 2, o // 2 + 1, o // 2 - 1), 0, extent - 1)
+                    else:
+                        a = b = o // f
+                    a, b = a - 8 * first, b - 8 * first
+                    assert a.min() >= 0 and b.min() >= 0  # read inside the staged blocks
+                    return a, b
+
+                ra, rb = index(y0, y1, fy, fancy and fy == 2, ch, sb0)
+                ca, cb = index(x0, x1, fx, fancy and fx == 2, cw, sc0)
+                assert max(ra.max(), rb.max()) < 8 * nsb and max(ca.max(), cb.max()) < 8 * nsc
+                tri = lambda near, far: (np.float32(3) * near + far) * np.float32(0.25)  # noqa
+                va = samples[:, ra][:, :, ca]
+                vb = samples[:, ra][:, :, cb]
+                if fancy and fy == 2:
+                    va = tri(va, samples[:, rb][:, :, ca])
+                    vb = tri(vb, samples[:, rb][:, :, cb])
+                out[:, y0:y1, x0:x1, c] = tri(va, vb) if fancy and fx == 2 else va
+    if len(sampling) == 3:
+        out = (out - np.float32([0, 128, 128])) @ jpeg._YCC_TO_RGB.T
+    return np.clip(np.round(out), 0, 255).astype(np.uint8).squeeze(-1 if len(sampling) == 1
+                                                                    else ())
+
+
+@pytest.mark.parametrize("fancy", [True, False], ids=["fancy", "nearest"])
+@pytest.mark.parametrize("name", ["main-420", "444", "422", "411", "440", "gray", "37x53",
+                                  "17x600", "422-17x600", "1x1", "9x17"])
+def test_tile_walk_from_staged_blocks_matches_plain_decode(name, fancy):
+    bufs, _ = _plan_layout(name, n=2)
+    planes, qtabs, layout = native.read_jpeg_coefficients_column(bufs)
+    size, sampling = (layout.height, layout.width), layout.sampling
+    blocks = tuple(tuple(p.shape[1:3]) for p in planes)
+    plan = jpeg.decode_launch_plan(2, size, sampling, blocks, fancy)
+    got = _tile_walk_decode(planes, qtabs, layout, plan, fancy)
+    want = jpeg._decode_reference(*_torch_planes(planes, qtabs), size, sampling,
+                                  fancy_upsampling=fancy).numpy()
+    assert got.shape == want.shape
+    _assert_bytes_close(got, want)
+
+
+def test_launch_refuses_unknown_kernels_and_cpu_tensors():
+    planes, qtabs, layout = native.read_jpeg_coefficients_column(_bufs("420", 2))
+    tp, tq = _torch_planes(planes, qtabs)
+    size = (layout.height, layout.width)
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        jpeg.launch_jpeg_decode(tp, tq, size, layout.sampling, kernel="fast")
+    for kernel in jpeg.JPEG_DECODE_KERNELS:
+        with pytest.raises(ValueError, match="CUDA"):
+            jpeg.launch_jpeg_decode(tp, tq, size, layout.sampling, kernel=kernel)
+    assert jpeg.JPEG_DECODE_KERNELS == ("tiled", "general")
+
+
 # -- the route through the reader and the loader ---------------------------------
 
 
