@@ -49,7 +49,21 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    phase 5's (decoded by cv2) within the reference's bound;
 7. reader decode rate: the dataset read for 4 epochs (64 rowgroups, about 4x
    the reader's in-flight window) with no model, host decode against entropy
-   decode only, with the same workers, beside the machine's core count.
+   decode only, with the same workers, beside the machine's core count;
+8. train path, device decode, shuffled: phase 6 with the loader's shuffle
+   buffer (``shuffling_queue_capacity=2048``, the default floor of 1024,
+   ``buffer_seed=0``) and its two producer threads: 16 steps, the epoch's
+   labels as a multiset equal to phase 6's, in another order, and in the
+   order the port's ``shuffle.iter_batched`` gives on the CPU over phase 6's
+   labels (its draws depend only on the buffer's sizes); B2's tiled kernel,
+   B3 and B1 once a step; samples/s beside phase 6's, the input-wait share,
+   peak device memory, and the seconds a batch the assembly (shuffle, pad)
+   and transfer (pinned staging, copies, B2) threads worked;
+9. the torch adapter: ``petastorm_tpu_torch.pytorch.BatchedDataLoader`` over
+   the dataset (host decode, ``shuffling_queue_capacity=2048``, ``seed=0``,
+   ``transform_fn`` moving each tensor to the card) into ``normalize_images``
+   and ResNet-50 inference for one epoch: 16 batches, the labels of a CPU run
+   of the same adapter, B1 once a batch, samples/s beside phase 4's.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -73,6 +87,9 @@ if __name__ == "__main__" and not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset  # noqa: E402
+from petastorm_tpu_torch import pytorch as torch_adapter  # noqa: E402
+from petastorm_tpu_torch import shuffle  # noqa: E402
+from petastorm_tpu_torch.batch import ColumnBatch  # noqa: E402
 from petastorm_tpu_torch.cuda import build  # noqa: E402
 from petastorm_tpu_torch.cuda.loader import CudaDataLoader  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
@@ -86,6 +103,7 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 N_ROWS, ROWS_PER_GROUP, BATCH, WARMUP_STEPS = 4096, 256, 256, 2
 RATE_EPOCHS = 4
+SHUFFLE_CAPACITY = 2048        # phases 8-9: rows in the host shuffle buffer
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -764,7 +782,7 @@ def main_path_phase(tmp, kernels):
           peak_device_memory_bytes=peak, launches=launches,
           dataset_bytes=data_bytes, dataset_write_s=write_s,
           labels_match=True, logits_vs_f32_plain={"max_abs_err": ref_err, "bound": ref_tol})
-    return path
+    return path, (steps - WARMUP_STEPS) * BATCH / timed
 
 
 def leaves_flat(step):
@@ -852,10 +870,11 @@ def device_time_by_op(step, images, labels, steps=3, top=12):
     return sum(t for _, t in times), times[:top]
 
 
-def train_epoch(path, decode):
+def train_epoch(path, decode, loader_kwargs=None):
     """One epoch of the training path over the phase-4 dataset, the reader
-    decoding with ``decode_placement={'image': decode}``; every kernel count
-    set to 0 just before the epoch and read just after it."""
+    decoding with ``decode_placement={'image': decode}`` and the loader
+    taking ``loader_kwargs``; every kernel count set to 0 just before the
+    epoch and read just after it."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -877,7 +896,8 @@ def train_epoch(path, decode):
     jpeg.jpeg_decode_kernel.launches_tiled = 0
     jpeg.jpeg_decode_kernel.launches_general = 0
     losses, labels_seen, steps, first = [], [], 0, None
-    with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader:
+    with CudaDataLoader(reader, batch_size=BATCH, device="cuda",
+                        **(loader_kwargs or {})) as loader:
         start = time.perf_counter()
         for batch in loader:
             labels = batch["label"] % 1000
@@ -894,7 +914,8 @@ def train_epoch(path, decode):
                 timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
         torch.cuda.synchronize()
         end = time.perf_counter()
-        wait = loader.diagnostics()["consumer_wait_s"] - wait0
+        diagnostics = loader.diagnostics()
+        wait = diagnostics["consumer_wait_s"] - wait0
     launches = {"normalize_u8": normalize.normalize_kernel.launches,
                 "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
                 "resized_crop_aa_u8": augment.resized_crop_kernel.launches_aa,
@@ -927,7 +948,8 @@ def train_epoch(path, decode):
             "labels": torch.cat(labels_seen).cpu(), "losses": losses, "steps": steps,
             "workers": workers, "launches": launches, "general_launches": general_launches,
             "peak": torch.cuda.max_memory_allocated(), "epoch_s": end - start, "timed": timed,
-            "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait}
+            "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait,
+            "diagnostics": diagnostics}
 
 
 def train_path_phase(path, kernels):
@@ -998,6 +1020,109 @@ def train_path_device_decode_phase(path, kernels, host):
           launches=run["launches"], general_resized_crop_launches=run["general_launches"],
           losses=run["losses"].tolist(), labels_match_host_order=True,
           first_batch_vs_cv2=vs_cv2)
+    return {"labels": run["labels"], "samples_per_s": run["samples_per_s"]}
+
+
+def shuffled_train_path_phase(path, device):
+    """Phase 6's path with the loader's shuffle buffer: the epoch's labels as
+    a multiset equal to phase 6's, in another order, and in the order the
+    port's ``shuffle.iter_batched`` gives on the CPU over phase 6's labels
+    in plan order (rowgroups of 256 = phase 6's batches) with the same seed
+    and sizes: the buffer's draws depend on its sizes only."""
+    run = train_epoch(path, "device", {"shuffling_queue_capacity": SHUFFLE_CAPACITY,
+                                       "buffer_seed": 0})
+    labels, plan_order = run["labels"].numpy(), device["labels"].numpy()
+    if not np.array_equal(np.sort(labels), np.sort(plan_order)):
+        raise AssertionError("the shuffled epoch delivered other labels than phase 6")
+    if np.array_equal(labels, plan_order):
+        raise AssertionError("the shuffled epoch delivered phase 6's order")
+    rowgroups = (ColumnBatch({"label": plan_order[i:i + ROWS_PER_GROUP]}, ROWS_PER_GROUP)
+                 for i in range(0, len(plan_order), ROWS_PER_GROUP))
+    buffer = shuffle.RandomShufflingBuffer(SHUFFLE_CAPACITY, SHUFFLE_CAPACITY // 2, seed=0)
+    want = np.concatenate([b.columns["label"]
+                           for b in shuffle.iter_batched(rowgroups, buffer, BATCH)])
+    if not np.array_equal(labels, want):
+        raise AssertionError("the shuffled epoch's order differs from shuffle.iter_batched's"
+                             " on the CPU")
+    steps, timed, diag = run["steps"], run["timed"], run["diagnostics"]
+    phase("train_path_device_decode_shuffled", decode="device",
+          shuffling_queue_capacity=SHUFFLE_CAPACITY, min_after_retrieve=SHUFFLE_CAPACITY // 2,
+          buffer_seed=0, steps=steps, timed_steps=steps - WARMUP_STEPS, batch=BATCH,
+          workers=run["workers"], samples_per_s=run["samples_per_s"],
+          unshuffled_samples_per_s=device["samples_per_s"], epoch_s=run["epoch_s"],
+          step_ms=1e3 * timed / (steps - WARMUP_STEPS), consumer_wait_share=run["wait"] / timed,
+          peak_device_memory_bytes=run["peak"], launches=run["launches"],
+          general_resized_crop_launches=run["general_launches"],
+          losses=run["losses"].tolist(),
+          assemble_ms_per_batch=1e3 * diag["assemble_s"] / steps,
+          transfer_ms_per_batch=1e3 * diag["transfer_s"] / steps,
+          straggler_releases=diag["straggler_releases"],
+          labels_match_phase6_multiset=True, order_matches_cpu_shuffle=True)
+
+
+def adapter_loader(path, device):
+    """A reader of one epoch of the phase-4 dataset (host decode) and
+    ``pytorch.BatchedDataLoader`` over it, each batch's tensors moved to
+    ``device`` by its ``transform_fn``."""
+    cores = os.cpu_count() or 2
+    reader = make_reader(path, workers_count=max(1, min(cores - 1, 16)), shuffle_seed=0,
+                         num_epochs=1, decode_placement={"image": "host"})
+    return reader, torch_adapter.BatchedDataLoader(
+        reader, batch_size=BATCH, shuffling_queue_capacity=SHUFFLE_CAPACITY, seed=0,
+        transform_fn=lambda b: {k: v.to(device) for k, v in b.items()})
+
+
+def adapter_phase(path, main_samples_per_s):
+    """The reference-style torch feed (the adapter, pageable copies in its
+    ``transform_fn``) into normalize and the ResNet-50 forward, against a CPU
+    run of the same adapter."""
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    reader, loader = adapter_loader(path, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    normalize.normalize_kernel.launches = 0
+    delivered, steps, wait = [], 0, 0.0
+    with reader, torch.inference_mode():
+        batches = iter(loader)
+        start = time.perf_counter()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if steps >= WARMUP_STEPS:
+                wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            if batch["image"].device.type != "cuda":
+                raise AssertionError(f"the adapter delivered {batch['image'].device}")
+            logits = model(normalize.normalize_images(batch["image"], MEAN, STD))
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 1000):
+                raise AssertionError(f"adapter step {steps}: bad logits {tuple(logits.shape)}")
+            delivered.append(batch["label"])
+            steps += 1
+            if steps == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                timed_start = time.perf_counter()
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    launches = normalize.normalize_kernel.launches
+    if steps != N_ROWS // BATCH or launches != steps:
+        raise AssertionError(f"the adapter gave {steps} batches and {launches} normalize"
+                             f" launches, expected {N_ROWS // BATCH} of each")
+    reader, cpu_loader = adapter_loader(path, "cpu")
+    with reader:
+        cpu_labels = torch.cat([b["label"] for b in cpu_loader])
+    if not torch.equal(torch.cat(delivered).cpu(), cpu_labels):
+        raise AssertionError("the adapter on the card delivered other labels than on the CPU")
+    timed = end - timed_start
+    phase("torch_adapter", shuffling_queue_capacity=SHUFFLE_CAPACITY, seed=0, batches=steps,
+          timed_steps=steps - WARMUP_STEPS, batch=BATCH,
+          samples_per_s=(steps - WARMUP_STEPS) * BATCH / timed,
+          cuda_data_loader_samples_per_s=main_samples_per_s, epoch_s=end - start,
+          consumer_wait_share=wait / timed,
+          peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
+          launches={"normalize_u8": launches}, labels_match_cpu_run=True)
 
 
 def reader_rate_phase(path):
@@ -1045,10 +1170,12 @@ def main():
 
     kernels = kernels_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = main_path_phase(tmp, kernels)
+        path, main_samples_per_s = main_path_phase(tmp, kernels)
         host = train_path_phase(path, kernels)
-        train_path_device_decode_phase(path, kernels, host)
+        device = train_path_device_decode_phase(path, kernels, host)
         reader_rate_phase(path)
+        shuffled_train_path_phase(path, device)
+        adapter_phase(path, main_samples_per_s)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

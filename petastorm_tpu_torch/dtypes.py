@@ -4,7 +4,9 @@ Counterpart of ``petastorm_tpu/dtypes.py:54-117``.  The storage mapping is the
 same table; the device-feed policy follows the JAX package's torch loader
 (``petastorm_tpu/pytorch.py:30-75``): torch has no uint16/uint32/uint64, so
 they widen to int32/int64/int64, and 64-bit types are kept as they are.
-Strings, objects and datetimes never go to a device.
+``keep_wide=False`` applies the JAX package's feed table instead
+(``petastorm_tpu/dtypes.py:92-115``: int64 -> int32, float64 -> float32 as
+well).  Strings, objects and datetimes never go to a device.
 """
 
 from __future__ import annotations
@@ -37,10 +39,19 @@ _ARROW_TO_NUMPY = {
     pa.large_binary(): np.dtype("object"),
 }
 
+#: numpy dtypes torch cannot represent -> the dtype they widen to (also the
+#: torch adapter's promotions, reference pytorch.py:39-56)
 _TORCH_FEED_PROMOTIONS = {
     np.dtype("uint16"): np.dtype("int32"),
     np.dtype("uint32"): np.dtype("int64"),
     np.dtype("uint64"): np.dtype("int64"),
+}
+
+#: the JAX package's device-feed table, taken with ``keep_wide=False``
+_NARROW_FEED_PROMOTIONS = {
+    **_TORCH_FEED_PROMOTIONS,
+    np.dtype("int64"): np.dtype("int32"),
+    np.dtype("float64"): np.dtype("float32"),
 }
 
 
@@ -63,14 +74,17 @@ def arrow_to_numpy(atype: pa.DataType) -> np.dtype:
     raise SchemaError(f"No numpy mapping for arrow type {atype!r}")
 
 
-def torch_feed_dtype(dtype) -> np.dtype:
-    """Dtype a column is cast to before it becomes a torch tensor."""
+def torch_feed_dtype(dtype, keep_wide: bool = True) -> np.dtype:
+    """Dtype a column is cast to before it becomes a torch tensor: 64-bit
+    types kept (``keep_wide=True``) or narrowed to 32 bits as the JAX
+    package feeds them (``keep_wide=False``)."""
     dtype = np.dtype(dtype)
     if dtype.kind in ("U", "S", "O", "M", "m"):
         raise SchemaError(
             f"dtype {dtype!r} cannot be fed to a device; keep it host-side or"
             " convert it to a numeric type")
-    return _TORCH_FEED_PROMOTIONS.get(dtype, dtype)
+    table = _TORCH_FEED_PROMOTIONS if keep_wide else _NARROW_FEED_PROMOTIONS
+    return table.get(dtype, dtype)
 
 
 def sanitize_value(value, dtype):

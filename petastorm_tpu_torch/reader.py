@@ -5,7 +5,8 @@ Counterpart of ``petastorm_tpu/reader.py:73 make_reader``,
 ImageNet feed uses: field selection, the thread or serial pool, rowgroup
 shuffling by seed, epochs and static sharding.  Delivery follows the read
 plan's order with either pool, as the JAX reader does when it is given a
-``shuffle_seed``.  ``decode_placement`` takes ``'host'`` and ``'device'``
+``shuffle_seed``; ``deterministic`` takes the JAX reader's three values and
+``'off'`` keeps the plan order too (one of the orders ``'off'`` allows).  ``decode_placement`` takes ``'host'`` and ``'device'``
 (the hybrid JPEG decode: entropy decode in the pool workers, the rest on the
 card in the loader).  Predicates, selectors, caches, transforms, resume,
 ngrams, the ``'device-mixed'`` and ``'auto'`` placements, telemetry and the
@@ -24,6 +25,7 @@ from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import ReadPlan, WorkItem
 from petastorm_tpu_torch.pool import make_executor
 from petastorm_tpu_torch.schema import Schema
+from petastorm_tpu_torch.seeding import resolve_deterministic
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker
 
 _DEFAULT_RESULTS_QUEUE_BATCHES = 10
@@ -39,7 +41,8 @@ def make_reader(dataset_url: str,
                 num_epochs: Optional[int] = 1,
                 cur_shard: Optional[int] = None,
                 shard_count: Optional[int] = None,
-                decode_placement: Optional[Mapping[str, str]] = None) -> "Reader":
+                decode_placement: Optional[Mapping[str, str]] = None,
+                deterministic: Optional[str] = "auto") -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -47,11 +50,16 @@ def make_reader(dataset_url: str,
     ``decode_placement``: field -> ``'host'`` or ``'device'``.  A ``'device'``
     field (a fixed-shape JPEG image) is entropy-decoded in the workers and
     finished on the card by ``cuda.CudaDataLoader``; such a reader is
-    consumed through that loader only."""
+    consumed through that loader only.
+
+    ``deterministic``: ``'seed'``, ``'off'`` or ``'auto'`` (``'seed'`` when a
+    ``shuffle_seed`` is given).  Under ``'seed'`` an unseeded loader shuffle
+    buffer derives its seed from ``shuffle_seed``, and the loader's
+    straggler release is off."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
-                        batched_output=False)
+                        deterministic, batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
@@ -64,14 +72,16 @@ def make_batch_reader(dataset_url: str,
                       num_epochs: Optional[int] = 1,
                       cur_shard: Optional[int] = None,
                       shard_count: Optional[int] = None,
-                      decode_placement: Optional[Mapping[str, str]] = None) -> "Reader":
+                      decode_placement: Optional[Mapping[str, str]] = None,
+                      deterministic: Optional[str] = "auto") -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
-    fields.  ``decode_placement`` as for :func:`make_reader`."""
+    fields.  ``decode_placement`` and ``deterministic`` as for
+    :func:`make_reader`."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
-                        batched_output=True)
+                        deterministic, batched_output=True)
 
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
@@ -122,9 +132,11 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
 
 def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  results_queue_size, shuffle_row_groups, shuffle_seed, num_epochs,
-                 cur_shard, shard_count, decode_placement, batched_output) -> "Reader":
+                 cur_shard, shard_count, decode_placement, deterministic,
+                 batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
+    deterministic = resolve_deterministic(deterministic, shuffle_seed)
     info = open_dataset(dataset_url, require_stored_schema=not batched_output)
     full_schema = infer_or_load_schema(info)
     schema = full_schema.view(schema_fields) if schema_fields is not None else full_schema
@@ -138,7 +150,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
     executor = make_executor(reader_pool_type, workers_count, results_queue_size)
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields)
-    return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields)
+    return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
+                  deterministic=deterministic, shuffle_seed=shuffle_seed)
 
 
 class Reader:
@@ -151,8 +164,12 @@ class Reader:
 
     def __init__(self, schema: Schema, plan: ReadPlan, executor, worker,
                  num_epochs: Optional[int], batched_output: bool,
-                 device_decode_fields: Sequence[str] = ()):
+                 device_decode_fields: Sequence[str] = (), deterministic: str = "off",
+                 shuffle_seed: Optional[int] = None):
         self.schema = schema
+        #: ``'seed'`` or ``'off'`` (``make_reader``'s ``deterministic``, resolved)
+        self.deterministic = deterministic
+        self.shuffle_seed = shuffle_seed
         self.plan = plan
         self.num_epochs = num_epochs
         self.batched_output = batched_output

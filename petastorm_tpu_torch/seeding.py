@@ -1,9 +1,13 @@
 """Seed derivation for the read plan.
 
-Counterpart of ``petastorm_tpu/seeding.py:47-103``.  The derivation is
+Counterpart of ``petastorm_tpu/seeding.py:47-103``, ``:104
+reader_buffer_seed`` and ``:215 resolve_deterministic``.  The derivation is
 bit-identical to the JAX package's (same version tag, same blake2b key
-encoding), because the plan's epoch order is drawn from it: a dataset read
-with the same seed visits its rowgroups in the same order in both packages.
+encoding), because the plan's epoch order and the shuffle buffers' draws come
+from it: a dataset read with the same seed visits its rowgroups in the same
+order, and an unseeded buffer under ``deterministic='seed'`` draws the same
+rows, in both packages.  The stream certificate (``StreamDigest``) is not
+part of this package yet.
 """
 
 from __future__ import annotations
@@ -57,3 +61,27 @@ def seed_stream(seed: Optional[int], epoch: int, domain: str,
                 *extra) -> np.random.Generator:
     """A numpy Generator seeded by :func:`derive_seed`."""
     return np.random.default_rng(derive_seed(seed, epoch, domain, *extra))
+
+
+def reader_buffer_seed(reader, domain: str,
+                       explicit_seed: Optional[int] = None) -> Optional[int]:
+    """The buffer seed every delivery adapter uses: an ``explicit_seed``
+    wins; otherwise, when ``reader`` runs ``deterministic='seed'`` delivery,
+    a seed derived from the reader's ``shuffle_seed`` for ``domain``;
+    otherwise ``None`` (each run mixes differently)."""
+    if explicit_seed is not None:
+        return explicit_seed
+    if getattr(reader, "deterministic", "off") != "seed":
+        return None
+    return derive_seed(getattr(reader, "shuffle_seed", None), 0, domain)
+
+
+def resolve_deterministic(deterministic, shuffle_seed: Optional[int]) -> str:
+    """``make_reader(deterministic=)`` as ``'seed'`` or ``'off'``: ``'auto'``
+    (or ``None``) is ``'seed'`` exactly when a ``shuffle_seed`` was given."""
+    if deterministic in (None, "auto"):
+        return "seed" if shuffle_seed is not None else "off"
+    if deterministic in ("seed", "off"):
+        return deterministic
+    raise PetastormTpuError(
+        f"deterministic must be 'seed', 'off' or 'auto'; got {deterministic!r}")

@@ -620,6 +620,54 @@ def test_loader_finishes_device_decode_on_card(tmp_path, drop_last):
         assert bool((d["image"][n:] == 128).all())
 
 
+@pytest.mark.cuda
+def test_shuffled_device_decode_loader_matches_cpu_run_on_card(tmp_path):
+    """The loader's shuffle buffer over coefficient planes, finished by B2 on
+    the card, against the same loader on the CPU (B2's plain version): the
+    same labels in the same order, the same padded tail and valid mask, and
+    images within B2's bound of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import cv2
+
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
+    from petastorm_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(1)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (37, 53, 3), CompressedImageCodec("jpeg", 90))])
+    rows = []
+    for i in range(70):
+        low = rng.integers(0, 256, (5, 5, 3)).astype(np.float32)
+        img = np.clip(cv2.resize(low, (53, 37)) + rng.normal(0, 8, (37, 53, 3)), 0, 255)
+        rows.append({"label": i, "image": img.astype(np.uint8)})
+    write_dataset(str(tmp_path / "ds"), schema, rows, row_group_size_rows=9)
+
+    def run(device):
+        reader = make_reader(str(tmp_path / "ds"), workers_count=3, shuffle_seed=0,
+                             num_epochs=1, decode_placement={"image": "device"})
+        with CudaDataLoader(reader, 16, device=device, drop_last=False,
+                            shuffling_queue_capacity=40, buffer_seed=1,
+                            valid_mask_field="mask") as loader:
+            return [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in b.items()}
+                    for b in loader]
+
+    before = jpeg.jpeg_decode_kernel.launches_tiled
+    card = run("cuda")
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == len(card) == 5
+    cpu = run("cpu")
+    assert len(cpu) == len(card)
+    for c, p in zip(card, cpu):
+        assert torch.equal(c["label"], p["label"]) and torch.equal(c["mask"], p["mask"])
+        assert c.get(VALID_ROWS) == p.get(VALID_ROWS)
+        diff = (c["image"].int() - p["image"].int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+    labels = torch.cat([c["label"][:c.get(VALID_ROWS, 16)] for c in card])
+    assert sorted(labels.tolist()) == list(range(70)) and labels.tolist() != list(range(70))
+
+
 # -- the build's compiler report (no card needed) --------------------------------
 
 

@@ -57,5 +57,6 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/ops/jpeg.py", "petastorm_tpu_torch/worker.py",
                      "petastorm_tpu_torch/native/__init__.py",
                      "petastorm_tpu_torch/native/build.py",
-                     "petastorm_tpu_torch/native/image.py"):
+                     "petastorm_tpu_torch/native/image.py", "petastorm_tpu_torch/shuffle.py",
+                     "petastorm_tpu_torch/pytorch.py", "petastorm_tpu_torch/seeding.py"):
         assert required in names

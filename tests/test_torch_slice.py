@@ -23,8 +23,9 @@ from petastorm_tpu.reader import make_reader as jax_make_reader
 
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset
 from petastorm_tpu_torch.convert import resnet_state_from_flax
-from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader, iter_assembled
+from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
 from petastorm_tpu_torch.batch import ColumnBatch
+from petastorm_tpu_torch.shuffle import NoopShufflingBuffer, iter_batched
 from petastorm_tpu_torch.models.resnet import ResNet
 from petastorm_tpu_torch.ops import normalize_images
 
@@ -130,8 +131,7 @@ def _batches(sizes):
 @pytest.mark.parametrize("sizes,batch", [([5, 5, 5], 4), ([3], 8), ([8, 8], 8),
                                          ([1, 1, 1, 1, 1], 2), ([0, 7, 0, 2], 3)])
 def test_assembly_exact_sizes_in_order(sizes, batch):
-    groups = list(iter_assembled(_batches(sizes), batch))
-    rows = [np.concatenate([b.columns["x"][s:e] for b, s, e in g]) for g in groups]
+    rows = [b.columns["x"] for b in iter_batched(_batches(sizes), NoopShufflingBuffer(), batch)]
     assert all(len(r) == batch for r in rows[:-1])
     assert 0 < len(rows[-1]) <= batch
     np.testing.assert_array_equal(np.concatenate(rows), np.arange(sum(sizes)))
@@ -148,39 +148,35 @@ class _FakeEvent:
         self.log.append("sync")
 
 
-def test_pinned_slot_reused_only_after_its_copy_completed(dataset):
+def test_pinned_slot_reused_only_after_its_copy_completed(dataset, monkeypatch):
     """The rotation over staging slots waits on each slot's previous copy
     event before writing into it again (checked without a GPU by swapping the
-    copy for a recorder)."""
+    copy for a recorder and running both producer stages in turn)."""
+    import queue
+
     from petastorm_tpu_torch.cuda import loader as loader_mod
 
     reader = make_reader(dataset, reader_pool_type="serial", shuffle_seed=0, num_epochs=1)
     ld = CudaDataLoader(reader, BATCH, device="cpu", prefetch=2)
     ld._cuda = True
-    ld._slots = [loader_mod._Slot(ld._layout, BATCH, pin=False) for _ in range(3)]
     log, events = [], []
     original_fill = ld._fill
 
-    def fill(dest, pieces):
-        slot = next(s for s in ld._slots if s.host is dest)
+    def fill(dest, item):
+        slot = next(s for ring in ld._slots.values() for s in ring if s.host is dest)
         assert slot.copied is None or slot.copied.done, "slot overwritten before its copy ended"
         log.append("fill")
-        return original_fill(dest, pieces)
+        return original_fill(dest, item)
 
-    class _Stream:
+    class _Context:
+        def __init__(self, *args):
+            pass
+
         def __enter__(self):
             return self
 
         def __exit__(self, *exc):
             pass
-
-    def fake_stream(_stream):
-        return _Stream()
-
-    ld._fill = fill
-    ld._copy_stream = None
-    real_stream, real_event = torch.cuda.stream, torch.cuda.Event
-    torch.cuda.stream = fake_stream
 
     def make_event():
         ev = _FakeEvent(log)
@@ -188,15 +184,24 @@ def test_pinned_slot_reused_only_after_its_copy_completed(dataset):
         events.append(ev)
         return ev
 
-    torch.cuda.Event = make_event
-    ld._device = torch.device("cpu")
-    try:
-        delivered = []
-        ld._put = lambda value: delivered.append(value)
-        ld._produce()
-    finally:
-        torch.cuda.stream, torch.cuda.Event = real_stream, real_event
+    class _UnpinnedSlot(loader_mod._Slot):
+        def __init__(self, layout, batch_size, pin):
+            super().__init__(layout, batch_size, pin=False)
+
+    monkeypatch.setattr(loader_mod, "_Slot", _UnpinnedSlot)
+    monkeypatch.setattr(torch.cuda, "stream", _Context)
+    monkeypatch.setattr(torch.cuda, "device", _Context)
+    monkeypatch.setattr(torch.cuda, "Event", make_event)
+    ld._fill = fill
+    # both stages in turn on this thread, through unbounded queues
+    ld._host_q, ld._out = queue.Queue(), queue.Queue()
+    ld._assemble()
+    ld._transfer()
+    delivered = [ld._out.get_nowait() for _ in range(ld._out.qsize())]
     n_batches = N_ROWS // BATCH
     assert log.count("fill") == n_batches
-    assert log.count("sync") == n_batches - len(ld._slots)
+    (ring,) = ld._slots.values()
+    assert log.count("sync") == n_batches - len(ring)
+    assert len(events) == n_batches
     assert isinstance(delivered[-1], loader_mod._Done)
+    assert [copied for _, copied in delivered[:-1]] == events
