@@ -6,8 +6,10 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
 1. env: torch/CUDA versions, and the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. build: every ``petastorm_tpu_torch/csrc/*.cu`` compiled from the checkout,
-   one ``nvcc`` per source, and the entropy half of the hybrid JPEG decode
-   (``petastorm_tpu_torch/native/jpeg_coef.cpp``, g++), all at once; the
+   one ``nvcc`` per source, the entropy half of the hybrid JPEG decode
+   (``petastorm_tpu_torch/native/jpeg_coef.cpp``, g++) and the batched host
+   decode (``native/image_decode.cpp``, g++, linking libjpeg and libpng), all
+   at once, with the libjpeg and libpng they link; the
    registers, stack and spills ptxas reported for each JPEG decode kernel
    and their SASS instruction counts (``cuobjdump``);
 3. kernels: each kernel against its plain PyTorch version on the card at the
@@ -31,7 +33,9 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    (bf16, seeded random weights) for one epoch: samples/s, the consumer's
    input-wait share, peak device memory, the delivered labels against the
    written ones, finite logits, the kernels' launch counts, and the first
-   images' logits against a float32 run of the plain path;
+   images' logits against a float32 run of the plain path; the reader's
+   native decode counters show every image of the epoch decoded by the
+   batched native call (``batch_images``), none per cell;
 5. train path: the same dataset (labels mod 1000) through ``make_reader`` ->
    ``CudaDataLoader(batch_size=256)`` -> the trainer's step (resized crop +
    flip, normalize, ResNet-50 with float32 leaves computing in bf16, one-hot
@@ -40,16 +44,25 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    the achieved FLOP rate against a measured bf16 matmul peak, a finite loss
    at every step, the kernels' launch counts, and one bf16 step against one
    float32 step of the plain path from the same weights, boxes and flips.
-   The reader decodes on the host (``decode_placement={'image': 'host'}``);
+   The reader decodes on the host (``decode_placement={'image': 'host'}``),
+   every image through the batched native call;
 6. train path, device decode: phase 5 over the same dataset with
    ``decode_placement={'image': 'device'}`` (entropy decode in the workers,
    B2 on the card): samples/s, the input-wait share, one launch of B2's
    tiled kernel a step and none of the general one,
    the labels in phase 5's order, and the first batch's images against
-   phase 5's (decoded by cv2) within the reference's bound;
+   phase 5's (the host's native libjpeg decode, which phase 7 holds to cv2
+   byte for byte) within the reference's bound;
 7. reader decode rate: the dataset read for 4 epochs (64 rowgroups, about 4x
-   the reader's in-flight window) with no model, host decode against entropy
-   decode only, with the same workers, beside the machine's core count;
+   the reader's in-flight window) with no model: the native host decode at
+   ``decode_threads='auto'``, the same with ``decode_roi={'image':
+   ('random', 160, 160)}``, and entropy decode only with the same fan-out,
+   with the same workers, beside the machine's core count; one thread of the
+   plain per-cell cv2 decode against one thread of ``decode_column_native``
+   over the same 256-cell column; the native decode equal to the per-cell
+   cv2 decode on every byte of the dataset, and the reader's ROI crops equal
+   to slices of the full decode at the offsets a CPU run of the worker's
+   ``_roi_for`` gives;
 8. train path, device decode, shuffled: phase 6 with the loader's shuffle
    buffer (``shuffling_queue_capacity=2048``, the default floor of 1024,
    ``buffer_seed=0``) and its two producer threads: 16 steps, the epoch's
@@ -63,7 +76,13 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    the dataset (host decode, ``shuffling_queue_capacity=2048``, ``seed=0``,
    ``transform_fn`` moving each tensor to the card) into ``normalize_images``
    and ResNet-50 inference for one epoch: 16 batches, the labels of a CPU run
-   of the same adapter, B1 once a batch, samples/s beside phase 4's.
+   of the same adapter, B1 once a batch, every image decoded natively,
+   samples/s beside phase 4's;
+10. inference with the window drained: phase 4's path (host decode) for 4
+   epochs of the dataset, 64 batches, about 4x the reader's in-flight
+   window: samples/s over all timed batches and over the batches after the
+   window drained, the input-wait share of each, B1 once a batch, every
+   label 4 times and every image decoded natively.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -87,6 +106,7 @@ if __name__ == "__main__" and not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset  # noqa: E402
+from petastorm_tpu_torch import codecs  # noqa: E402
 from petastorm_tpu_torch import pytorch as torch_adapter  # noqa: E402
 from petastorm_tpu_torch import shuffle  # noqa: E402
 from petastorm_tpu_torch.batch import ColumnBatch  # noqa: E402
@@ -97,12 +117,16 @@ from petastorm_tpu_torch.models import ResNet50  # noqa: E402
 from petastorm_tpu_torch.native import build as native_build  # noqa: E402
 from petastorm_tpu_torch.native import image as native_image  # noqa: E402
 from petastorm_tpu_torch.ops import augment, jpeg, normalize  # noqa: E402
+from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
+from petastorm_tpu_torch.worker import RowGroupDecoderWorker  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 N_ROWS, ROWS_PER_GROUP, BATCH, WARMUP_STEPS = 4096, 256, 256, 2
-RATE_EPOCHS = 4
+RATE_EPOCHS = 4               # phases 7 and 10: epochs read, 64 rowgroups
+ROI = ("random", 160, 160)    # phase 7: the decode_roi read
+DRAINED_FROM = 32             # phase 10: batches after this one read a drained window
 SHUFFLE_CAPACITY = 2048        # phases 8-9: rows in the host shuffle buffer
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
@@ -110,6 +134,20 @@ MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
 def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def check_native_decode(stats, images, what, kind="batch"):
+    """The reader's native decode counters after ``images`` images: all of
+    them through the batched native call of ``kind`` (``batch``: full
+    decode, ``roi``: crop windows, ``coef_batch``: entropy only), none per
+    cell or by another call.  Returns the counters."""
+    want = dict.fromkeys(stats, 0)
+    want[f"{kind}_images"] = images
+    want[f"{kind}_calls"] = stats[f"{kind}_calls"]
+    if stats != want or not stats[f"{kind}_calls"]:
+        raise AssertionError(f"{what}: native decode counters {stats}, expected {images}"
+                             f" {kind} images and no other decode")
+    return stats
 
 
 def time_ms(fn, samples=21, launches=10, warmup=3):
@@ -748,6 +786,7 @@ def main_path_phase(tmp, kernels):
         wait = loader.diagnostics()["consumer_wait_s"] - wait0
     launches = {"normalize_u8": normalize.normalize_kernel.launches}
     peak = torch.cuda.max_memory_allocated()
+    decoded = check_native_decode(reader.decode_stats(), N_ROWS, "phase 4")
 
     want_steps = N_ROWS // BATCH
     if steps != want_steps:
@@ -780,7 +819,7 @@ def main_path_phase(tmp, kernels):
           workers=workers, samples_per_s=(steps - WARMUP_STEPS) * BATCH / timed,
           epoch_s=end - start, consumer_wait_share=wait / timed,
           peak_device_memory_bytes=peak, launches=launches,
-          dataset_bytes=data_bytes, dataset_write_s=write_s,
+          dataset_bytes=data_bytes, dataset_write_s=write_s, decode_stats=decoded,
           labels_match=True, logits_vs_f32_plain={"max_abs_err": ref_err, "bound": ref_tol})
     return path, (steps - WARMUP_STEPS) * BATCH / timed
 
@@ -943,13 +982,15 @@ def train_epoch(path, decode, loader_kwargs=None):
                                  f" ({decode} decode), expected {want[name]}")
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    decoded = check_native_decode(reader.decode_stats(), N_ROWS, f"training, {decode} decode",
+                                  "batch" if decode == "host" else "coef_batch")
     timed = end - timed_start
     return {"step": step, "model": model, "first": first, "flops": flops,
             "labels": torch.cat(labels_seen).cpu(), "losses": losses, "steps": steps,
             "workers": workers, "launches": launches, "general_launches": general_launches,
             "peak": torch.cuda.max_memory_allocated(), "epoch_s": end - start, "timed": timed,
             "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait,
-            "diagnostics": diagnostics}
+            "diagnostics": diagnostics, "decode_stats": decoded}
 
 
 def train_path_phase(path, kernels):
@@ -976,7 +1017,7 @@ def train_path_phase(path, kernels):
           measured_peak_bf16_flops_per_s=peak_flops,
           profiled_device_ms_per_step=device_ms,
           device_busy_share=device_ms / (1e3 * timed / (steps - WARMUP_STEPS)),
-          device_ms_per_step_by_op=by_op,
+          device_ms_per_step_by_op=by_op, decode_stats=run["decode_stats"],
           share_of_measured_peak=(flops_per_sample * samples_per_s / peak_flops
                                   if peak_flops else None),
           step_vs_f32_plain=step_check)
@@ -988,7 +1029,8 @@ def train_path_device_decode_phase(path, kernels, host):
     """Phase 5's training path with the decode finished on the card (B2), on
     the same dataset and seeds: the same labels in the same order, and the
     first batch's images within the reference's bound (max 6, mean below 1)
-    of phase 5's, which cv2 decoded on the host."""
+    of phase 5's, which the host decoded natively with libjpeg (the bytes of
+    cv2's decode: phase 7 holds the two equal)."""
     run = train_epoch(path, "device")
     kernels["jpeg_decode_u8"]["launches"] = run["launches"]["jpeg_decode_u8"]
     if not torch.equal(run["labels"], host["labels"]):
@@ -1019,7 +1061,7 @@ def train_path_device_decode_phase(path, kernels, host):
           consumer_wait_share=run["wait"] / timed, peak_device_memory_bytes=run["peak"],
           launches=run["launches"], general_resized_crop_launches=run["general_launches"],
           losses=run["losses"].tolist(), labels_match_host_order=True,
-          first_batch_vs_cv2=vs_cv2)
+          decode_stats=run["decode_stats"], first_batch_vs_host_decode=vs_cv2)
     return {"labels": run["labels"], "samples_per_s": run["samples_per_s"]}
 
 
@@ -1056,7 +1098,7 @@ def shuffled_train_path_phase(path, device):
           losses=run["losses"].tolist(),
           assemble_ms_per_batch=1e3 * diag["assemble_s"] / steps,
           transfer_ms_per_batch=1e3 * diag["transfer_s"] / steps,
-          straggler_releases=diag["straggler_releases"],
+          straggler_releases=diag["straggler_releases"], decode_stats=run["decode_stats"],
           labels_match_phase6_multiset=True, order_matches_cpu_shuffle=True)
 
 
@@ -1107,6 +1149,7 @@ def adapter_phase(path, main_samples_per_s):
         torch.cuda.synchronize()
         end = time.perf_counter()
     launches = normalize.normalize_kernel.launches
+    decoded = check_native_decode(reader.decode_stats(), N_ROWS, "the torch adapter")
     if steps != N_ROWS // BATCH or launches != steps:
         raise AssertionError(f"the adapter gave {steps} batches and {launches} normalize"
                              f" launches, expected {N_ROWS // BATCH} of each")
@@ -1122,33 +1165,188 @@ def adapter_phase(path, main_samples_per_s):
           cuda_data_loader_samples_per_s=main_samples_per_s, epoch_s=end - start,
           consumer_wait_share=wait / timed,
           peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
-          launches={"normalize_u8": launches}, labels_match_cpu_run=True)
+          launches={"normalize_u8": launches}, decode_stats=decoded, labels_match_cpu_run=True)
+
+
+def read_rate(path, workers, **kwargs):
+    """The reader alone over RATE_EPOCHS epochs of the dataset (no loader, no
+    model): rows/s, its decode counters, and the first rowgroup it gave."""
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=RATE_EPOCHS,
+                         **kwargs)
+    rows, rowgroups, first = 0, 0, None
+    with reader:
+        start = time.perf_counter()
+        for batch in reader.iter_batches():
+            rows += batch.num_rows
+            rowgroups += 1
+            first = batch if first is None else first
+        seconds = time.perf_counter() - start
+    if rows != RATE_EPOCHS * N_ROWS:
+        raise AssertionError(f"the reader gave {rows} rows over {RATE_EPOCHS} epochs")
+    return ({"rows_per_s": rows / seconds, "rows": rows, "rowgroups": rowgroups,
+             "seconds": seconds}, reader.decode_stats(), first, reader.plan.epoch_items(0)[0])
+
+
+def one_thread_decode(path):
+    """One thread over one 256-cell column: the plain per-cell cv2 decode
+    (the codec's per-cell path) against ``decode_column_native``, in turns;
+    returns (ms each, median of 5, and the two results of the last turn)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
+
+    field = infer_or_load_schema(open_dataset(path))["image"]
+    pf = pq.ParquetFile(pa.memory_map(open_dataset(path).row_groups[0].path))
+    column = pf.read_row_group(0, columns=["image"]).column("image").combine_chunks()
+    times = {"per_cell_cv2": [], "native": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        plain = codecs.Codec.decode_column(field.codec, field, column)
+        t1 = time.perf_counter()
+        out = np.empty((len(column),) + field.shape, np.uint8)
+        if not native_image.decode_column_native(column, out, nthreads=1):
+            raise AssertionError("decode_column_native did not take the column")
+        t2 = time.perf_counter()
+        times["per_cell_cv2"].append(1e3 * (t1 - t0))
+        times["native"].append(1e3 * (t2 - t1))
+    return {k: float(np.median(v)) for k, v in times.items()}, plain, out, len(column)
+
+
+def native_vs_cv2(path):
+    """The native decode against the per-cell cv2 decode on every image of
+    the dataset (each rowgroup's column in one native call): the number of
+    bytes that differ and the largest difference; raises unless 0."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
+
+    info = open_dataset(path)
+    field = infer_or_load_schema(info)["image"]
+    differing, largest, images = 0, 0, 0
+    for rg in info.row_groups:
+        pf = pq.ParquetFile(pa.memory_map(rg.path))
+        column = pf.read_row_group(rg.row_group, columns=["image"]).column("image")
+        column = column.combine_chunks()
+        out = np.empty((len(column),) + field.shape, np.uint8)
+        native_image.decode_column_native(column, out)
+        diff = np.abs(out.astype(np.int16) - codecs.Codec.decode_column(
+            field.codec, field, column).astype(np.int16))
+        differing, largest = differing + int((diff > 0).sum()), max(largest, int(diff.max()))
+        images += len(column)
+    if differing:
+        raise AssertionError(f"the native decode differs from cv2's on {differing} bytes of"
+                             f" {images} images, by up to {largest}")
+    return {"images": images, "bytes_differing": differing, "max_diff": largest}
 
 
 def reader_rate_phase(path):
-    """The reader alone over RATE_EPOCHS epochs of the dataset (no loader, no
-    model): rows/s with the JPEG decode on the host (cv2 per cell) and with
-    the entropy decode only (the device route's host half), same workers."""
+    """The reader alone over RATE_EPOCHS epochs (64 rowgroups) of the dataset:
+    rows/s of the native host decode at ``decode_threads='auto'``, of the
+    same with ``decode_roi``, and of the entropy decode only with the same
+    fan-out, same workers; the one-thread decode of one column, native
+    against per-cell cv2; the native bytes against cv2's on every image;
+    the reader's ROI crops against slices of the full decode at the
+    offsets of a CPU run of the worker's ``_roi_for``."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
-    rates = {}
-    for place in ("host", "device"):
-        reader = make_reader(path, workers_count=workers, shuffle_seed=0,
-                             num_epochs=RATE_EPOCHS, decode_placement={"image": place})
-        rows, rowgroups = 0, 0
-        with reader:
-            start = time.perf_counter()
-            for batch in reader.iter_batches():
-                rows += batch.num_rows
-                rowgroups += 1
-            seconds = time.perf_counter() - start
-        if rows != RATE_EPOCHS * N_ROWS:
-            raise AssertionError(f"the reader gave {rows} rows over {RATE_EPOCHS} epochs")
-        rates[place] = {"rows_per_s": rows / seconds, "rows": rows, "rowgroups": rowgroups,
-                        "seconds": seconds}
-    phase("reader_decode_rate", cpu_count=cores, workers=workers, epochs=RATE_EPOCHS,
-          in_flight_window_rowgroups=workers + 10, host=rates["host"],
-          device_entropy_only=rates["device"])
+    decode_threads = max(1, len(os.sched_getaffinity(0)) // workers)  # the reader's 'auto'
+    rates, stats = {}, {}
+    rates["native"], stats["native"], _, _ = read_rate(path, workers)
+    check_native_decode(stats["native"], RATE_EPOCHS * N_ROWS, "phase 7, native")
+    rates["native_roi"], stats["native_roi"], roi_batch, roi_item = read_rate(
+        path, workers, decode_roi={"image": ROI})
+    check_native_decode(stats["native_roi"], RATE_EPOCHS * N_ROWS, "phase 7, ROI", "roi")
+    rates["entropy_only"], stats["entropy_only"], _, _ = read_rate(
+        path, workers, decode_placement={"image": "device"})
+    check_native_decode(stats["entropy_only"], RATE_EPOCHS * N_ROWS, "phase 7, entropy",
+                        "coef_batch")
+
+    one_thread_ms, plain, native, cells = one_thread_decode(path)
+    if not np.array_equal(plain, native):
+        raise AssertionError("one thread: the native decode differs from per-cell cv2")
+    vs_cv2 = native_vs_cv2(path)
+
+    # the ROI read's first rowgroup: its crops are slices of the full native
+    # decode of that rowgroup at the offsets _roi_for gives on the CPU
+    full_reader = make_reader(path, workers_count=1, shuffle_seed=0, num_epochs=1)
+    with full_reader:
+        full = next(full_reader.iter_batches())
+    if full_reader.plan.epoch_items(0)[0] != roi_item:
+        raise AssertionError("the full read began with another rowgroup than the ROI read")
+    worker = RowGroupDecoderWorker(full_reader.schema, ["image"], decode_roi={"image": ROI})
+    ys, xs, crop_h, crop_w = worker._roi_for("image", roi_item, roi_item.num_rows)
+    for i in range(roi_item.num_rows):
+        want = full.columns["image"][i, ys[i]:ys[i] + crop_h, xs[i]:xs[i] + crop_w]
+        if not np.array_equal(roi_batch.columns["image"][i], want):
+            raise AssertionError(f"ROI row {i}: not the slice of the full decode at _roi_for's"
+                                 f" offset ({ys[i]}, {xs[i]})")
+    phase("reader_decode_rate", cpu_count=cores, workers=workers,
+          decode_threads=decode_threads, epochs=RATE_EPOCHS,
+          in_flight_window_rowgroups=workers + 10, host_native=rates["native"],
+          host_native_roi={"decode_roi": list(ROI), **rates["native_roi"]},
+          device_entropy_only=rates["entropy_only"], decode_stats=stats,
+          one_thread_column={"cells": cells, "ms": one_thread_ms,
+                             "native_speedup": one_thread_ms["per_cell_cv2"]
+                             / one_thread_ms["native"], "equal": True},
+          native_vs_cv2=vs_cv2,
+          roi_vs_sliced_full_decode={"rowgroup": roi_item.row_group.global_index,
+                                     "rows": roi_item.num_rows, "equal": True,
+                                     "offsets_from": "RowGroupDecoderWorker._roi_for"})
+
+
+def drained_inference_phase(path, main_samples_per_s):
+    """Phase 4's inference path (host decode) over RATE_EPOCHS epochs: 64
+    batches, about 4x the reader's in-flight window, so the later batches
+    wait on the decode itself.  Samples/s and input-wait share over all
+    timed batches and over those from DRAINED_FROM on."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=RATE_EPOCHS,
+                         decode_placement={"image": "host"})
+    torch.cuda.synchronize()
+    normalize.normalize_kernel.launches = 0
+    delivered, steps, marks = [], 0, {}
+    with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader, \
+            torch.inference_mode():
+        for batch in loader:
+            logits = model(normalize.normalize_images(batch["image"], MEAN, STD))
+            delivered.append(batch["label"])
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 1000):
+                raise AssertionError(f"batch {steps}: bad logits {tuple(logits.shape)}")
+            steps += 1
+            if steps in (WARMUP_STEPS, DRAINED_FROM):
+                torch.cuda.synchronize()
+                marks[steps] = (time.perf_counter(), loader.diagnostics()["consumer_wait_s"])
+        torch.cuda.synchronize()
+        end = (time.perf_counter(), loader.diagnostics()["consumer_wait_s"])
+    launches = normalize.normalize_kernel.launches
+    want_steps = RATE_EPOCHS * N_ROWS // BATCH
+    if steps != want_steps or launches != steps:
+        raise AssertionError(f"{steps} batches and {launches} normalize launches, expected"
+                             f" {want_steps} of each")
+    counts = np.bincount(torch.cat(delivered).cpu().numpy(), minlength=N_ROWS)
+    if not (counts == RATE_EPOCHS).all():
+        raise AssertionError(f"labels over {RATE_EPOCHS} epochs are not each label"
+                             f" {RATE_EPOCHS} times")
+    decoded = check_native_decode(reader.decode_stats(), RATE_EPOCHS * N_ROWS, "phase 10")
+
+    def rates(first_batch):
+        (t0, w0), (t1, w1) = marks[first_batch], end
+        return {"batches": steps - first_batch, "seconds": t1 - t0,
+                "samples_per_s": (steps - first_batch) * BATCH / (t1 - t0),
+                "consumer_wait_share": (w1 - w0) / (t1 - t0)}
+
+    phase("inference_drained", epochs=RATE_EPOCHS, batches=steps, batch=BATCH,
+          workers=workers, in_flight_window_rowgroups=workers + 10,
+          drained_from_batch=DRAINED_FROM, all_timed=rates(WARMUP_STEPS),
+          after_window_drained=rates(DRAINED_FROM),
+          phase4_samples_per_s=main_samples_per_s, launches={"normalize_u8": launches},
+          decode_stats=decoded, labels_each_4_times=True)
 
 
 def main():
@@ -1160,11 +1358,13 @@ def main():
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        entropy = pool.submit(native_build.build)  # g++, beside the nvcc builds
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        # g++, beside the nvcc builds
+        host = {name: pool.submit(native_build.build, name) for name in native_build.LIBS}
         libs = build.build_all()
-        libs["jpeg_coef"] = entropy.result()
+        libs.update({name: job.result() for name, job in host.items()})
     phase("build", seconds=time.perf_counter() - t0, libjpeg=native_build.find_libjpeg(),
+          libpng=native_build.find_libpng(),
           libraries={k: os.path.relpath(v) for k, v in libs.items()},
           jpeg_decode_kernels=b2_compiler_facts())
 
@@ -1176,6 +1376,7 @@ def main():
         reader_rate_phase(path)
         shuffled_train_path_phase(path, device)
         adapter_phase(path, main_samples_per_s)
+        drained_inference_phase(path, main_samples_per_s)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,15 +7,24 @@ the ImageNet feed uses: ``ScalarCodec``, ``NdarrayCodec`` and
 standard RGB PNG/JPEG streams), so a dataset written by either package decodes
 in the other.
 
-Image decode runs per cell through OpenCV, with PIL as the fallback
-(``petastorm_tpu/codecs.py:535-590``).  The JAX package's batched native
-libjpeg decode is not part of this package yet.
+A fixed-shape uint8 image column decodes in one native call
+(``native.image.decode_column_native``: libjpeg/libpng with the GIL
+released, optionally only each image's crop window), as
+``petastorm_tpu/codecs.py:589-627``; every other image column decodes per
+cell through OpenCV, with PIL where OpenCV is missing, which is also the
+native decode's plain version.  The worker threads its options down to
+``decode_column`` through :func:`decode_options` (``:46-113``, without the
+process pool's ``batch_slots``).
 """
 
 from __future__ import annotations
 
 import ast
+import contextlib
 import io
+import logging
+import os
+import threading
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Optional, Tuple, Type
 
@@ -24,8 +33,70 @@ import pyarrow as pa
 
 from petastorm_tpu_torch import dtypes
 from petastorm_tpu_torch.errors import CodecError
+from petastorm_tpu_torch.native import image as native_image
 
 _CODEC_REGISTRY: Dict[str, Type["Codec"]] = {}
+
+_DECODE_THREADS: Optional[int] = None
+
+
+def _decode_threads() -> int:
+    """``PETASTORM_TPU_DECODE_THREADS``: the native decode's fan-out for a
+    caller that sets none (a worker passes its own through
+    :func:`decode_options`).  Parsed once; a malformed value warns and
+    gives 1."""
+    global _DECODE_THREADS
+    if _DECODE_THREADS is None:
+        raw = os.environ.get("PETASTORM_TPU_DECODE_THREADS", "1")
+        try:
+            _DECODE_THREADS = max(1, int(raw))
+        except ValueError:
+            logging.getLogger(__name__).warning(
+                "Ignoring malformed PETASTORM_TPU_DECODE_THREADS=%r; using 1", raw)
+            _DECODE_THREADS = 1
+    return _DECODE_THREADS
+
+
+_DECODE_CTX = threading.local()
+
+
+class DecodeOptions:
+    """Options the rowgroup worker threads down to ``decode_column`` without
+    widening every codec's signature:
+
+    * ``nthreads`` - fan-out of the native batched decode (the worker sizes
+      it to its share of the host's cores; overrides the
+      ``PETASTORM_TPU_DECODE_THREADS`` default);
+    * ``roi`` - ``(crop_ys, crop_xs, crop_h, crop_w)`` partial decode of
+      image columns (``make_reader(decode_roi=...)``): only the kept window
+      is decoded (native path) or sliced (per-cell path) - output rows are
+      ``(crop_h, crop_w[, C])``.
+    """
+
+    __slots__ = ("nthreads", "roi")
+
+    def __init__(self, nthreads: Optional[int] = None, roi: Optional[Tuple] = None):
+        self.nthreads = nthreads
+        self.roi = roi
+
+
+@contextlib.contextmanager
+def decode_options(nthreads: Optional[int] = None, roi: Optional[Tuple] = None):
+    """Install :class:`DecodeOptions` for decode calls on this thread."""
+    prev = getattr(_DECODE_CTX, "opts", None)
+    _DECODE_CTX.opts = DecodeOptions(nthreads=nthreads, roi=roi)
+    try:
+        yield
+    finally:
+        _DECODE_CTX.opts = prev
+
+
+def _current_opts() -> DecodeOptions:
+    opts = getattr(_DECODE_CTX, "opts", None)
+    return opts if opts is not None else _DEFAULT_OPTS
+
+
+_DEFAULT_OPTS = DecodeOptions()
 
 
 def register_codec(cls: Type["Codec"]) -> Type["Codec"]:
@@ -61,6 +132,26 @@ def _check_array(field, value) -> np.ndarray:
         raise CodecError(
             f"field {field.name!r}: dtype mismatch {value.dtype} vs schema {field.dtype}")
     return value
+
+
+def _slice_roi(decoded: np.ndarray, roi: Tuple) -> np.ndarray:
+    """Per-cell ROI: crop a fully decoded stacked column to the ROI windows
+    (the native partial decode's result, without its savings)."""
+    ys, xs, crop_h, crop_w = roi
+    n = len(decoded)
+    ys = np.broadcast_to(np.asarray(ys, dtype=np.int64), (n,))
+    xs = np.broadcast_to(np.asarray(xs, dtype=np.int64), (n,))
+    if decoded.dtype == object:
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            # a null cell passes through uncropped
+            out[i] = (None if decoded[i] is None else np.ascontiguousarray(
+                decoded[i][ys[i]:ys[i] + crop_h, xs[i]:xs[i] + crop_w]))
+        return out
+    out = np.empty((n, crop_h, crop_w) + decoded.shape[3:], decoded.dtype)
+    for i in range(n):
+        out[i] = decoded[i, ys[i]:ys[i] + crop_h, xs[i]:xs[i] + crop_w]
+    return out
 
 
 def _stack_cells(field, cells) -> np.ndarray:
@@ -294,6 +385,29 @@ class CompressedImageCodec(Codec):
             img = img[..., None]
         return np.ascontiguousarray(img.astype(field.dtype, copy=False))
 
+    def decode_column(self, field, column: pa.Array) -> np.ndarray:
+        """A fixed-shape uint8 image column decodes in one native call,
+        into one contiguous array, cropped to the active ROI if there is
+        one; every other column decodes per cell (then crops)."""
+        opts = _current_opts()
+        roi = opts.roi
+        if native_decodable(field) and column.null_count == 0:
+            if roi is not None:
+                ys, xs, crop_h, crop_w = roi
+                out = np.empty((len(column), crop_h, crop_w) + field.shape[2:], np.uint8)
+                native_roi, full_shape = (ys, xs), field.shape[:2]
+            else:
+                out = np.empty((len(column),) + field.shape, np.uint8)
+                native_roi, full_shape = None, None
+            nthreads = opts.nthreads if opts.nthreads is not None else _decode_threads()
+            if native_image.decode_column_native(column, out, nthreads=nthreads,
+                                                 roi=native_roi, full_shape=full_shape):
+                return out
+        decoded = super().decode_column(field, column)
+        if roi is not None:
+            decoded = _slice_roi(decoded, roi)
+        return decoded
+
     @staticmethod
     def _pil_decode(field, value: bytes) -> np.ndarray:
         from PIL import Image
@@ -309,3 +423,12 @@ class CompressedImageCodec(Codec):
 
     def to_json(self):
         return {"codec": self.codec_name, "image_codec": self._format, "quality": self._quality}
+
+
+def native_decodable(field) -> bool:
+    """Whether ``field``'s columns decode in one native call (those without
+    nulls): a fixed-shape uint8 ``CompressedImageCodec`` image of shape (H,
+    W), (H, W, 1) or (H, W, 3)."""
+    return (isinstance(field.codec, CompressedImageCodec) and field.is_fixed_shape
+            and field.dtype == np.dtype("uint8")
+            and (len(field.shape) == 2 or (len(field.shape) == 3 and field.shape[2] in (1, 3))))

@@ -1,20 +1,30 @@
-"""Hybrid JPEG decode, host half: entropy decode into DCT coefficient planes.
+"""Host halves of the image decode, over the port's native libraries.
 
-The port's own copy of the entropy half of ``petastorm_tpu/native/image.py``
-(``_column_pointers`` ``:145``, ``JpegCoefLayout`` ``:247``,
-``jpeg_coef_layout`` ``:268``, ``read_jpeg_coefficients`` ``:291``,
-``pack_coef_columns`` ``:338``, ``_diagnose_coef_failure`` ``:379``,
-``unpack_coef_columns`` ``:461``, ``read_jpeg_coefficients_column``
-``:482``), over the port's library (``jpeg_coef.cpp``, built by
-``native/build.py``).  Only libjpeg's entropy decoder runs here; kernel B2
-(``ops/jpeg.py``) finishes the decode on the card.  ctypes releases the GIL
-for each C call, so the reader's thread pool entropy-decodes in parallel.
-A library that cannot be built raises: there is no fallback.
+The port's own copy of ``petastorm_tpu/native/image.py``:
+
+- the batched host decode: ``decode_column_native`` (``:170``) decodes a
+  whole arrow column of PNG/JPEG streams into one preallocated uint8 array
+  in one C call (``image_decode.cpp``), reading the streams zero-copy out of
+  the arrow buffer, optionally only each image's crop window;
+- the entropy half of the hybrid JPEG decode (``_column_pointers`` ``:145``,
+  ``JpegCoefLayout`` ``:247``, ``jpeg_coef_layout`` ``:268``,
+  ``read_jpeg_coefficients`` ``:291``, ``pack_coef_columns`` ``:338``,
+  ``_diagnose_coef_failure`` ``:379``, ``unpack_coef_columns`` ``:461``,
+  ``read_jpeg_coefficients_column`` ``:482``) over ``jpeg_coef.cpp``:
+  only libjpeg's entropy decoder runs here, and kernel B2
+  (``ops/jpeg.py``) finishes the decode on the card;
+- the per-thread decode counters and ``decode_stats`` (``:27-56``).
+
+Both libraries are built by ``native/build.py`` at first use.  ctypes
+releases the GIL for each C call, so the reader's thread pool decodes in
+parallel.  A library that cannot be built raises: there is no fallback
+(the JAX package warns once and decodes per cell instead).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
@@ -31,6 +41,36 @@ _JPEG_META_LEN = 3 + 4 * _JPEG_MAX_COMPS
 #: layout meta, the same in every row).  They are fixed-shape numpy columns,
 #: so batch assembly treats them as any other column.
 COEF_COLUMN_SEP = "#"
+
+#: per-thread native decode counters (monotonic).  The reader's workers fold
+#: each rowgroup's delta into the reader's totals (``Reader.decode_stats``);
+#: thread-local, so a worker's delta never holds a sibling thread's decodes.
+_STATS_TLS = threading.local()
+_STAT_KEYS = ("batch_calls", "batch_images", "roi_calls", "roi_images",
+              "coef_batch_calls", "coef_batch_images")
+
+
+def _tls_stats() -> dict:
+    stats = getattr(_STATS_TLS, "stats", None)
+    if stats is None:
+        stats = _STATS_TLS.stats = {k: 0 for k in _STAT_KEYS}
+    return stats
+
+
+def _count(**deltas) -> None:
+    stats = _tls_stats()
+    for name, d in deltas.items():
+        stats[name] += d
+
+
+def decode_stats() -> dict:
+    """Snapshot of THIS thread's cumulative native-decode counters."""
+    return dict(_tls_stats())
+
+
+#: the one command that builds the batched decode library
+BUILD_COMMAND = ("python -c \"from petastorm_tpu_torch.native import build;"
+                 " print(build.build('image_decode'))\"")
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -52,9 +92,49 @@ def _configure(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _configure_decode(lib: ctypes.CDLL) -> None:
+    lib.pst_decode_image_batch.restype = ctypes.c_int
+    lib.pst_decode_image_batch.argtypes = [
+        ctypes.c_void_p,  # const uint8_t* const* srcs (uint64 array)
+        ctypes.c_void_p,  # const uint64_t* lens
+        ctypes.c_int,     # n
+        ctypes.c_void_p,  # uint8_t* out
+        ctypes.c_uint64,  # stride
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, c
+        ctypes.c_int,     # nthreads
+    ]
+    lib.pst_decode_image.restype = ctypes.c_int
+    lib.pst_decode_image.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.pst_decode_image_batch_roi.restype = ctypes.c_int
+    lib.pst_decode_image_batch_roi.argtypes = [
+        ctypes.c_void_p,  # srcs
+        ctypes.c_void_p,  # lens
+        ctypes.c_int,     # n
+        ctypes.c_void_p,  # out
+        ctypes.c_uint64,  # stride
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # full h, w, c
+        ctypes.c_void_p,  # crop_ys (int32)
+        ctypes.c_void_p,  # crop_xs (int32)
+        ctypes.c_int, ctypes.c_int,  # crop_h, crop_w
+        ctypes.c_int,     # nthreads
+    ]
+
+
 def load() -> ctypes.CDLL:
     """The entropy half's library, built at first use; raises when it cannot be built."""
-    return build.load(_configure)
+    return build.load("jpeg_coef", _configure)
+
+
+def load_decoder() -> ctypes.CDLL:
+    """The batched decode library, built at first use.  Raises when it cannot
+    be built, saying how to build it: a column the native path takes never
+    drops to the per-cell decode."""
+    try:
+        return build.load("image_decode", _configure_decode)
+    except RuntimeError as exc:
+        raise RuntimeError(f"the native image decode library is unavailable: {exc}\n"
+                           f"Build it once with: {BUILD_COMMAND}") from exc
 
 
 def _column_pointers(column) -> Optional[tuple]:
@@ -80,6 +160,70 @@ def _column_pointers(column) -> Optional[tuple]:
     ptrs = np.uint64(buffers[2].address) + offsets[:-1]
     lens = offsets[1:] - offsets[:-1]
     return ptrs, lens
+
+
+def decode_column_native(column, out: np.ndarray, nthreads: int = 1,
+                         roi: Optional[tuple] = None,
+                         full_shape: Optional[tuple] = None) -> bool:
+    """Decode a binary arrow column of PNG/JPEG streams into ``out``.
+
+    ``out`` must be contiguous uint8 of shape (n, h, w, c) or (n, h, w).
+    ``nthreads > 1`` fans the batch out over the library's own threads (the
+    whole call releases the GIL either way).
+
+    ROI (partial) decode: with ``roi=(crop_ys, crop_xs)`` (per-image int
+    offsets, scalars broadcast) and ``full_shape=(H, W)`` (the stored image
+    geometry), each image decodes only the ``out``-shaped window anchored at
+    its offset - rows below the crop are never entropy-decoded, and the
+    result is byte-identical to slicing a full decode (crops need not be
+    8x8-block aligned).
+
+    Returns False (without touching ``out``) when the column does not fit
+    the native path: nulls, another dtype or channel count, a non-binary
+    arrow type.  Raises CodecError naming the cell on a decode failure, and
+    RuntimeError when the library cannot be built.
+    """
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        return False
+    if out.ndim == 3:
+        n, h, w = out.shape
+        c = 1
+    elif out.ndim == 4:
+        n, h, w, c = out.shape
+    else:
+        return False
+    if c not in (1, 3, 4):
+        return False
+    pointers = _column_pointers(column)
+    if pointers is None:
+        return False
+    ptrs, lens = pointers
+    if len(ptrs) != n:
+        return False
+    lib = load_decoder()
+    if n == 0:
+        return True
+    if roi is not None:
+        full_h, full_w = full_shape
+        ys = np.ascontiguousarray(np.broadcast_to(np.asarray(roi[0], dtype=np.int32), (n,)))
+        xs = np.ascontiguousarray(np.broadcast_to(np.asarray(roi[1], dtype=np.int32), (n,)))
+        rc = lib.pst_decode_image_batch_roi(
+            ptrs.ctypes.data, lens.ctypes.data, n, out.ctypes.data, np.uint64(out.strides[0]),
+            full_h, full_w, c, ys.ctypes.data, xs.ctypes.data, h, w, nthreads)
+        if rc == 0:
+            _count(roi_calls=1, roi_images=n)
+    else:
+        rc = lib.pst_decode_image_batch(
+            ptrs.ctypes.data, lens.ctypes.data, n, out.ctypes.data, np.uint64(out.strides[0]),
+            h, w, c, nthreads)
+        if rc == 0:
+            _count(batch_calls=1, batch_images=n)
+    if rc != 0:
+        raise CodecError(
+            f"native image decode failed at cell {rc - 1} (expected shape ({h}, {w}, {c}) uint8"
+            + (f" cropped from {full_shape}" if roi is not None else "")
+            + "; corrupt stream, crop outside image, or shape mismatch)")
+    return True
 
 
 class JpegCoefLayout:
@@ -190,6 +334,7 @@ def read_jpeg_coefficients_column(column, nthreads: int = 1):
     if rc != 0:
         raise CodecError(f"JPEG coefficient batch failed at cell {rc - 1} (corrupt stream"
                          f" or geometry differs from {layout})")
+    _count(coef_batch_calls=1, coef_batch_images=n)
     return planes, qtabs, layout
 
 

@@ -8,17 +8,23 @@ plan's order with either pool, as the JAX reader does when it is given a
 ``shuffle_seed``; ``deterministic`` takes the JAX reader's three values and
 ``'off'`` keeps the plan order too (one of the orders ``'off'`` allows).  ``decode_placement`` takes ``'host'`` and ``'device'``
 (the hybrid JPEG decode: entropy decode in the pool workers, the rest on the
-card in the loader).  Predicates, selectors, caches, transforms, resume,
+card in the loader).  Host decode of image columns is the batched native
+decode, fanned out over ``decode_threads`` and cropped by ``decode_roi``
+(``petastorm_tpu/reader.py:740-802``, ``:966-1049``).  Predicates, selectors, caches, transforms, resume,
 ngrams, the ``'device-mixed'`` and ``'auto'`` placements, telemetry and the
 ingest service are not part of this package yet.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Mapping, Optional, Sequence
+import dataclasses
+import os
+from typing import Iterator, List, Mapping, Optional, Sequence, Union
+
+import numpy as np
 
 from petastorm_tpu_torch.batch import ColumnBatch
-from petastorm_tpu_torch.codecs import CompressedImageCodec
+from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError, ReaderClosedError
 from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
 from petastorm_tpu_torch.native import image as native_image
@@ -34,7 +40,7 @@ _DEFAULT_RESULTS_QUEUE_BATCHES = 10
 def make_reader(dataset_url: str,
                 schema_fields: Optional[Sequence] = None,
                 reader_pool_type: str = "thread",
-                workers_count: int = 4,
+                workers_count: Union[int, str] = 4,
                 results_queue_size: Optional[int] = None,
                 shuffle_row_groups: bool = True,
                 shuffle_seed: Optional[int] = None,
@@ -42,7 +48,9 @@ def make_reader(dataset_url: str,
                 cur_shard: Optional[int] = None,
                 shard_count: Optional[int] = None,
                 decode_placement: Optional[Mapping[str, str]] = None,
-                deterministic: Optional[str] = "auto") -> "Reader":
+                deterministic: Optional[str] = "auto",
+                decode_threads: Union[int, str] = "auto",
+                decode_roi: Optional[Mapping[str, tuple]] = None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -55,17 +63,29 @@ def make_reader(dataset_url: str,
     ``deterministic``: ``'seed'``, ``'off'`` or ``'auto'`` (``'seed'`` when a
     ``shuffle_seed`` is given).  Under ``'seed'`` an unseeded loader shuffle
     buffer derives its seed from ``shuffle_seed``, and the loader's
-    straggler release is off."""
+    straggler release is off.
+
+    ``workers_count``: pool threads; ``'auto'`` is ``max(1, min(10, cores -
+    1))`` of the usable cores.  ``decode_threads``: fan-out of the native
+    image decode (and of the entropy decode) inside each worker; ``'auto'``
+    is ``cores // workers_count``, at least 1.
+
+    ``decode_roi``: partial image decode - decode only the pixels a crop
+    keeps.  ``{'image': (y, x, h, w)}`` decodes a fixed window,
+    ``('center', h, w)`` centers it, ``('random', h, w)`` draws per-image
+    offsets (seeded per rowgroup, so a re-read decodes the same crops).  The
+    delivered column, and the reader's ``schema``, have shape ``(h, w[,
+    C])``; the result is byte-identical to slicing a full decode."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
-                        deterministic, batched_output=False)
+                        deterministic, decode_threads, decode_roi, batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
                       schema_fields: Optional[Sequence] = None,
                       reader_pool_type: str = "thread",
-                      workers_count: int = 4,
+                      workers_count: Union[int, str] = 4,
                       results_queue_size: Optional[int] = None,
                       shuffle_row_groups: bool = True,
                       shuffle_seed: Optional[int] = None,
@@ -73,15 +93,16 @@ def make_batch_reader(dataset_url: str,
                       cur_shard: Optional[int] = None,
                       shard_count: Optional[int] = None,
                       decode_placement: Optional[Mapping[str, str]] = None,
-                      deterministic: Optional[str] = "auto") -> "Reader":
+                      deterministic: Optional[str] = "auto",
+                      decode_threads: Union[int, str] = "auto",
+                      decode_roi: Optional[Mapping[str, tuple]] = None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
-    fields.  ``decode_placement`` and ``deterministic`` as for
-    :func:`make_reader`."""
+    fields.  The other arguments as for :func:`make_reader`."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
-                        deterministic, batched_output=True)
+                        deterministic, decode_threads, decode_roi, batched_output=True)
 
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
@@ -130,10 +151,106 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
     return device_fields
 
 
+_ROI_MODES = ("center", "random")
+
+
+def _normalize_roi_spec(name: str, spec) -> tuple:
+    """Validate/normalize one decode_roi entry; returns the spec tuple."""
+    spec = tuple(spec)
+    if len(spec) == 3 and spec[0] in _ROI_MODES:
+        mode, h, w = spec
+        if not (isinstance(h, int) and isinstance(w, int) and h > 0 and w > 0):
+            raise PetastormTpuError(
+                f"decode_roi[{name!r}]: ({mode!r}, h, w) needs positive int"
+                f" crop dims; got {spec}")
+        return spec
+    if len(spec) == 4 and all(isinstance(v, int) for v in spec):
+        y, x, h, w = spec
+        if y < 0 or x < 0 or h < 1 or w < 1:
+            raise PetastormTpuError(
+                f"decode_roi[{name!r}]: (y, x, h, w) needs y, x >= 0 and"
+                f" h, w >= 1; got {spec}")
+        return spec
+    raise PetastormTpuError(
+        f"decode_roi[{name!r}] must be (y, x, h, w), ('center', h, w) or"
+        f" ('random', h, w); got {spec!r}")
+
+
+def _roi_crop_hw(spec: tuple) -> tuple:
+    return (spec[1], spec[2]) if spec[0] in _ROI_MODES else (spec[2], spec[3])
+
+
+def _validate_decode_roi(decode_roi, schema: Schema, read_fields, decode_placement) -> None:
+    """The checks of ``petastorm_tpu/reader.py:988`` that apply to the port
+    (it has no ngram or sequence fields), with the same messages."""
+    for name, spec in decode_roi.items():
+        spec = _normalize_roi_spec(name, spec)
+        if name not in schema:
+            raise PetastormTpuError(f"decode_roi field {name!r} not in schema"
+                                    f" {[f.name for f in schema]}")
+        if name not in read_fields:
+            raise PetastormTpuError(
+                f"decode_roi field {name!r} is not being read (excluded by"
+                " schema_fields)")
+        if decode_placement and decode_placement.get(name, "host") != "host":
+            raise PetastormTpuError(
+                f"decode_roi field {name!r} cannot also use decode_placement="
+                f"{decode_placement[name]!r}: coefficient planes carry the"
+                " full image (crop on-device instead, ops/augment.py)")
+        field = schema[name]
+        if not (field.is_fixed_shape and field.dtype == np.dtype("uint8")
+                and isinstance(field.codec, CompressedImageCodec)
+                and len(field.shape) in (2, 3)):
+            raise PetastormTpuError(
+                f"decode_roi field {name!r} must be a fixed-shape uint8"
+                f" CompressedImageCodec image; got {field.codec!r} shape"
+                f" {field.shape} dtype {field.dtype}")
+        full_h, full_w = field.shape[:2]
+        crop_h, crop_w = _roi_crop_hw(spec)
+        y0 = 0 if spec[0] in _ROI_MODES else spec[0]
+        x0 = 0 if spec[0] in _ROI_MODES else spec[1]
+        if y0 + crop_h > full_h or x0 + crop_w > full_w:
+            raise PetastormTpuError(
+                f"decode_roi[{name!r}] crop {spec} exceeds the stored image"
+                f" geometry ({full_h}, {full_w})")
+
+
+def _apply_roi_schema(schema: Schema, decode_roi) -> Schema:
+    """Crop-shaped view of ``schema``: decode_roi fields' leading (H, W)
+    become the crop dims (what the delivered columns actually are)."""
+    fields = []
+    for f in schema:
+        spec = decode_roi.get(f.name)
+        if spec is not None:
+            f = dataclasses.replace(f, shape=_roi_crop_hw(spec) + tuple(f.shape[2:]))
+        fields.append(f)
+    return Schema(schema.name, fields)
+
+
+def _usable_cores() -> int:
+    """Cores this process may run on (affinity-aware)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def _size_pool(workers_count, decode_threads) -> tuple:
+    """``(workers, decode_threads)`` with ``'auto'`` resolved as the JAX
+    reader does: one core left for the consumer and at most 10 workers;
+    each worker's decode fans out over its share of the cores."""
+    cores = _usable_cores()
+    if workers_count == "auto":
+        workers_count = max(1, min(10, cores - 1))
+    if decode_threads == "auto":
+        decode_threads = max(1, cores // max(1, int(workers_count)))
+    return int(workers_count), int(decode_threads)
+
+
 def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  results_queue_size, shuffle_row_groups, shuffle_seed, num_epochs,
-                 cur_shard, shard_count, decode_placement, deterministic,
-                 batched_output) -> "Reader":
+                 cur_shard, shard_count, decode_placement, deterministic, decode_threads,
+                 decode_roi, batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
@@ -141,15 +258,26 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     full_schema = infer_or_load_schema(info)
     schema = full_schema.view(schema_fields) if schema_fields is not None else full_schema
     read_fields = [f.name for f in schema]
+    if decode_roi:
+        _validate_decode_roi(decode_roi, full_schema, read_fields, decode_placement)
+        # the delivered columns are crop-shaped; the worker keeps the full
+        # schema (it needs the stored geometry to place the crops)
+        schema = _apply_roi_schema(schema, decode_roi)
     device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields)
+    if any(native_decodable(full_schema[f]) for f in read_fields if f not in device_fields):
+        # the batched decode's library: a missing g++, libjpeg or libpng
+        # raises here, not in the first worker
+        native_image.load_decoder()
     plan = ReadPlan(info.row_groups, shard_index=cur_shard, shard_count=shard_count,
                     shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
     if not plan.epoch_items(0):
         raise NoDataAvailableError(f"No rowgroups to read in {dataset_url!r}")
     if results_queue_size is None:
         results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
+    workers_count, decode_threads = _size_pool(workers_count, decode_threads)
     executor = make_executor(reader_pool_type, workers_count, results_queue_size)
-    worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields)
+    worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
+                                   decode_threads=decode_threads, decode_roi=decode_roi)
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                   deterministic=deterministic, shuffle_seed=shuffle_seed)
 
@@ -182,6 +310,14 @@ class Reader:
         #: fields read with decode_placement='device': their batches carry
         #: coefficient planes, which only cuda.CudaDataLoader finishes
         self.device_decode_fields: List[str] = list(device_decode_fields)
+        self._worker = worker
+
+    def decode_stats(self) -> dict:
+        """The native decode counters (``batch_calls``, ``batch_images``,
+        ``roi_calls``, ``roi_images``, ``coef_batch_calls``,
+        ``coef_batch_images``) summed over every rowgroup the workers
+        decoded so far: the proof that image columns took the batched path."""
+        return self._worker.decode_stats()
 
     def _items(self) -> Iterator[WorkItem]:
         epoch = 0

@@ -575,6 +575,40 @@ def test_jpeg_decode_kernel_refuses_what_it_does_not_take_on_card():
 
 
 @pytest.mark.cuda
+def test_loader_stages_native_roi_decode_on_card(tmp_path):
+    """Host decode with a random decode_roi: the workers decode each image's
+    crop window natively, and CudaDataLoader stages the cropped rowgroups
+    onto the card equal to a CPU run of the same reader."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+
+    rng = np.random.default_rng(0)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (45, 61, 3), CompressedImageCodec("jpeg", 90))])
+    rows = [{"label": i, "image": rng.integers(0, 256, (45, 61, 3), dtype=np.uint8)}
+            for i in range(40)]
+    write_dataset(str(tmp_path / "ds"), schema, rows, row_group_size_rows=8)
+
+    def run(device):
+        reader = make_reader(str(tmp_path / "ds"), workers_count=3, shuffle_seed=0,
+                             num_epochs=1, decode_roi={"image": ("random", 27, 35)})
+        with CudaDataLoader(reader, 8, device=device) as loader:
+            batches = [{k: v.cpu() for k, v in b.items()} for b in loader]
+        return batches, reader.decode_stats()
+
+    card, stats = run("cuda")
+    cpu, _ = run("cpu")
+    assert stats["roi_images"] == 40 and stats["batch_images"] == 0
+    assert len(card) == len(cpu) == 5
+    for c, h in zip(card, cpu):
+        assert c["image"].shape == (8, 27, 35, 3) and c["image"].dtype == torch.uint8
+        assert torch.equal(c["label"], h["label"]) and torch.equal(c["image"], h["image"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("drop_last", [True, False])
 def test_loader_finishes_device_decode_on_card(tmp_path, drop_last):
     """decode_placement='device' through the reader and CudaDataLoader: one

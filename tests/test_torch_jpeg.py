@@ -145,7 +145,7 @@ def test_entropy_half_links_pillows_libjpeg():
     decodes the same planes."""
     bundled = native_build.pillow_libjpeg()
     assert bundled is not None and ".so.62" in bundled
-    lib = native_build.load(native._configure, libjpeg=bundled)
+    lib = native_build.load("jpeg_coef", native._configure, libjpeg=bundled)
     buf = _bufs("37x53", 1)[0]
     layout = native.jpeg_coef_layout(buf)
     planes = [np.empty((bh, bw, 64), np.int16) for (_, _, bw, bh) in layout.components]
