@@ -82,7 +82,28 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    epochs of the dataset, 64 batches, about 4x the reader's in-flight
    window: samples/s over all timed batches and over the batches after the
    window drained, the input-wait share of each, B1 once a batch, every
-   label 4 times and every image decoded natively.
+   label 4 times and every image decoded natively;
+11. stacked training with device decode: phase 6's path with the loader's
+   ``stack_batches=4`` and the trainer's ``ScanStep`` (4 whole training
+   steps captured once in a CUDA graph, replayed once a unit) over the
+   dataset with ``num_epochs=None``: one warm-up unit and the capture, then
+   3 timed units; samples/s beside phase 6's, the input-wait share, peak
+   device memory, one B2 launch over 1024 images a unit, B1 and B3 4 times
+   a replay (the launch counters count the capture; ``torch.profiler``
+   counts the kernels of one replay by name), and one unit replayed from
+   the graph against the same unit run as 4 eager steps from the same
+   weights, momentum and draws: the draws equal, the losses and leaves
+   within twice the spread of two eager runs;
+12. drain, checkpoint and resume: the host-decode training path
+   (``drop_last=False``, ``num_epochs=1``, a small reader window) trains 6
+   steps, drains the loader and trains on what it drained, saves model,
+   optimizer, generator and loader cursor with ``checkpoint.save_checkpoint``,
+   then a fresh model, optimizer, reader and loader restore it and train to
+   the epoch's end: the labels of the two halves in phase 5's order, the
+   resumed reader's digest equal to phase 5's reader's, the restored leaves
+   and momentum equal to the saved ones bit for bit, and the first resumed
+   step's loss within phase 11's bound of phase 5's same step; the times of
+   the save and the restore.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -110,8 +131,10 @@ from petastorm_tpu_torch import codecs  # noqa: E402
 from petastorm_tpu_torch import pytorch as torch_adapter  # noqa: E402
 from petastorm_tpu_torch import shuffle  # noqa: E402
 from petastorm_tpu_torch.batch import ColumnBatch  # noqa: E402
+from petastorm_tpu_torch.checkpoint import (make_checkpoint_manager, restore_checkpoint,  # noqa: E402
+                                            resume_reader_kwargs, save_checkpoint)
 from petastorm_tpu_torch.cuda import build  # noqa: E402
-from petastorm_tpu_torch.cuda.loader import CudaDataLoader  # noqa: E402
+from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
 from petastorm_tpu_torch.native import build as native_build  # noqa: E402
@@ -128,6 +151,8 @@ RATE_EPOCHS = 4               # phases 7 and 10: epochs read, 64 rowgroups
 ROI = ("random", 160, 160)    # phase 7: the decode_roi read
 DRAINED_FROM = 32             # phase 10: batches after this one read a drained window
 SHUFFLE_CAPACITY = 2048        # phases 8-9: rows in the host shuffle buffer
+SCAN_K = 4                     # phase 11: training steps a stacked unit and a graph replay
+CHECKPOINT_AFTER = 6           # phase 12: steps trained before the drain
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -710,6 +735,7 @@ def jpeg_entry():
     cold = {"tiled": time_cold_ms(tiled), "general": time_cold_ms(general)}
     wrapper = {"tiled": time_ms(tiled), "general": time_ms(general)}
     bound_ms = max(bytes_ms, ops_ms)
+    stacked = stacked_jpeg_entry(dp, dq, layout, torch.from_numpy(got).cuda())
     entry = {
         "name": "jpeg_decode_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/jpeg_decode.cu",
@@ -737,8 +763,31 @@ def jpeg_entry():
                                         jpeg._sm_count(torch.cuda.current_device()))._asdict(),
         "plain_ms": entry["plain_ms"], "bound_ms": bound_ms, "bytes_read": read,
         "bytes_written": written, "flops": flops,
-        "library_call": "none: no PyTorch call computes it"})
+        "library_call": "none: no PyTorch call computes it", "stacked": stacked})
     return entry
+
+
+def stacked_jpeg_entry(dp, dq, layout, main_out):
+    """B2 at phase 11's size: one launch over a stacked unit's SCAN_K x BATCH
+    images (the main batch's planes repeated), each copy equal on every byte
+    to the main batch's decode; its time from CUDA graphs, hot and after an
+    L2 flush, and its bound."""
+    size = (layout.height, layout.width)
+    planes = [p.repeat(SCAN_K, 1, 1, 1) for p in dp]
+    qtabs = dq.repeat(SCAN_K, 1, 1)
+    fn = lambda: jpeg.jpeg_decode_kernel(planes, qtabs, size, layout.sampling)  # noqa: E731
+    out = fn().view(SCAN_K, *main_out.shape)
+    if not all(torch.equal(out[k], main_out) for k in range(SCAN_K)):
+        raise AssertionError(f"B2 over {SCAN_K} x {BATCH} images differs from the main batch's")
+    n = SCAN_K * BATCH
+    read, written, flops = jpeg_bound(layout, n)
+    bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    ms = time_graph_ms(fn)
+    return {"images": n, "ms": ms, "cold_ms": time_cold_ms(fn),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": max(bytes_ms, ops_ms) / ms, "bytes_read": read,
+            "bytes_written": written, "flops": flops, "equals_main_batch": True}
 
 
 def main_path_phase(tmp, kernels):
@@ -926,14 +975,7 @@ def train_epoch(path, decode, loader_kwargs=None):
                          decode_placement={"image": decode})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    normalize.normalize_kernel.launches = 0
-    augment.resized_crop_kernel.launches = 0
-    augment.resized_crop_kernel.launches_tiled = 0
-    augment.resized_crop_kernel.launches_aa = 0
-    augment.resized_crop_kernel.launches_general = 0
-    jpeg.jpeg_decode_kernel.launches = 0
-    jpeg.jpeg_decode_kernel.launches_tiled = 0
-    jpeg.jpeg_decode_kernel.launches_general = 0
+    reset_launch_counts()
     losses, labels_seen, steps, first = [], [], 0, None
     with CudaDataLoader(reader, batch_size=BATCH, device="cuda",
                         **(loader_kwargs or {})) as loader:
@@ -990,7 +1032,16 @@ def train_epoch(path, decode, loader_kwargs=None):
             "workers": workers, "launches": launches, "general_launches": general_launches,
             "peak": torch.cuda.max_memory_allocated(), "epoch_s": end - start, "timed": timed,
             "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait,
-            "diagnostics": diagnostics, "decode_stats": decoded}
+            "diagnostics": diagnostics, "decode_stats": decoded, "digest": reader.stream_digest}
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0."""
+    normalize.normalize_kernel.launches = 0
+    for counts, names in ((augment.resized_crop_kernel, ("", "_tiled", "_aa", "_general")),
+                          (jpeg.jpeg_decode_kernel, ("", "_tiled", "_general"))):
+        for suffix in names:
+            setattr(counts, "launches" + suffix, 0)
 
 
 def train_path_phase(path, kernels):
@@ -1022,7 +1073,7 @@ def train_path_phase(path, kernels):
                                   if peak_flops else None),
           step_vs_f32_plain=step_check)
     return {"labels": run["labels"], "first_images": first[0].cpu(),
-            "samples_per_s": samples_per_s}
+            "samples_per_s": samples_per_s, "losses": run["losses"], "digest": run["digest"]}
 
 
 def train_path_device_decode_phase(path, kernels, host):
@@ -1349,6 +1400,273 @@ def drained_inference_phase(path, main_samples_per_s):
           decode_stats=decoded, labels_each_4_times=True)
 
 
+def kernel_counts_by_name(fn, names):
+    """``torch.profiler`` over one call of ``fn``: for each ``label: part`` of
+    ``names`` the number of device kernels whose name holds ``part``, and the
+    number of device kernels seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {label: sum(part in k for k in kernels) for label, part in names.items()}, len(kernels)
+
+
+def leaves_and_momentum(step):
+    return [t.detach() for t in step.leaves + step.momentum()]
+
+
+def graph_vs_eager(step, scan, images, labels):
+    """One unit replayed from the graph against the same unit run as SCAN_K
+    eager steps, twice, each from the same leaves, momentum and generator
+    state.  The draws must be equal bit for bit; the losses and leaves of the
+    graph within twice the spread of the two eager runs (cuDNN's backward is
+    not bit-deterministic; a spread of 0 asks for equality).  Leaves the
+    state as it found it.  Returns the comparison and the loss bound."""
+    snapshot = [t.clone() for t in leaves_and_momentum(step)], step.generator.get_state()
+
+    def restore():
+        with torch.no_grad():
+            for t, saved in zip(leaves_and_momentum(step), snapshot[0]):
+                t.copy_(saved)
+        step.generator.set_state(snapshot[1])
+
+    restore()
+    graph_losses = scan(images, labels).double()
+    torch.cuda.synchronize()
+    graph_draws = scan.last_draws
+    graph_leaves = leaves_flat(step)
+    eager = []
+    for _ in range(2):
+        restore()
+        losses, boxes, flips = [], [], []
+        for k in range(SCAN_K):
+            losses.append(step(images[k], labels[k]))
+            boxes.append(step.last_draws[0])
+            flips.append(step.last_draws[1])
+        eager.append((torch.stack(losses).double(), leaves_flat(step), torch.stack(boxes),
+                      torch.stack(flips)))
+    restore()
+    if not (torch.equal(graph_draws[0], eager[0][2]) and torch.equal(graph_draws[1], eager[0][3])):
+        raise AssertionError("the graph's crop boxes or flips differ from the eager loop's")
+    spread = {"loss": (eager[0][0] - eager[1][0]).abs().max().item(),
+              "leaf": (eager[0][1] - eager[1][1]).abs().max().item()}
+    err = {"loss": (graph_losses - eager[0][0]).abs().max().item(),
+           "leaf": (graph_leaves - eager[0][1]).abs().max().item()}
+    bound = {name: 2 * v for name, v in spread.items()}
+    if not all(err[name] <= bound[name] for name in err):
+        raise AssertionError(f"the graph's unit differs from the eager loop's by {err}, beyond"
+                             f" twice the eager runs' own spread {spread}")
+    return {"draws_equal": True, "max_abs_err": err, "eager_spread": spread, "bound": bound,
+            "graph_losses": graph_losses.tolist(), "eager_losses": eager[0][0].tolist()}, \
+        bound["loss"]
+
+
+def scan_train_phase(path, device):
+    """Phase 6's training path (device decode) with ``stack_batches=SCAN_K``
+    and the trainer's ``ScanStep``: the first unit runs eagerly and the graph
+    is captured, the next 3 units are timed replays.  Every kernel count set
+    to 0 just before the path and read just after it: B2 once a unit (as many
+    launches as units the loader staged, prefetched ones included, since
+    ``num_epochs=None``), B1 and B3 SCAN_K times in the warm-up unit and
+    SCAN_K times in the capture, none counted by a replay, and SCAN_K each
+    in one profiled replay."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    step = trainer.TrainStep(model, 1000, SIDE, generator=torch.Generator(device="cuda")
+                             .manual_seed(trainer.AUGMENT_SEED))
+    scan = trainer.ScanStep(step, SCAN_K)
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=None,
+                         decode_placement={"image": "device"})
+    units = N_ROWS // BATCH // SCAN_K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, labels_seen = [], []
+    with CudaDataLoader(reader, batch_size=BATCH, device="cuda",
+                        stack_batches=SCAN_K) as loader:
+        it = iter(loader)
+        start = time.perf_counter()
+        unit = next(it)
+        if unit["image"].shape != (SCAN_K, BATCH, SIDE, SIDE, 3) or VALID_ROWS in unit:
+            raise AssertionError(f"stacked unit {tuple(unit['image'].shape)}, keys {list(unit)}")
+        labels_seen.append(unit["label"])
+        losses.append(scan(unit["image"], unit["label"] % 1000))  # warm-up and capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - start
+        captured = {"normalize_u8": normalize.normalize_kernel.launches,
+                    "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled}
+        timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+        for _ in range(units - 1):
+            unit = next(it)
+            labels_seen.append(unit["label"])
+            losses.append(scan(unit["image"], unit["label"] % 1000))
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        wait = loader.diagnostics()["consumer_wait_s"] - wait0
+        peak = torch.cuda.max_memory_allocated()
+        after = {"normalize_u8": normalize.normalize_kernel.launches,
+                 "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled}
+        replays = scan.replays
+        images, labels = unit["image"], unit["label"] % 1000
+        by_name, device_kernels = kernel_counts_by_name(
+            lambda: scan(images, labels),
+            {"normalize_u8": "normalize_u8_kernel",
+             "resized_crop_flip_u8": "resized_crop_u8_tiled_kernel"})
+        vs_eager, loss_bound = graph_vs_eager(step, scan, images, labels)
+    diagnostics = loader.diagnostics()
+    b2 = {"tiled": jpeg.jpeg_decode_kernel.launches_tiled,
+          "general": jpeg.jpeg_decode_kernel.launches_general,
+          "units_staged": diagnostics["units_staged"]}
+    # the reader decodes ahead of the loader (num_epochs=None): every image
+    # through the entropy call, at least those of the staged units
+    decoded = reader.decode_stats()
+    others = {k: v for k, v in decoded.items() if not k.startswith("coef_batch")}
+    if any(others.values()) or decoded["coef_batch_images"] < b2["units_staged"] * SCAN_K * BATCH:
+        raise AssertionError(f"phase 11: native decode counters {decoded}")
+
+    labels_seen = torch.cat([lab.reshape(-1) for lab in labels_seen]).cpu()
+    if not torch.equal(labels_seen, device["labels"]):
+        raise AssertionError("the stacked epoch delivered other labels, or in another order,"
+                             " than phase 6")
+    if b2["tiled"] != b2["units_staged"] or b2["general"] or b2["units_staged"] < units:
+        raise AssertionError(f"B2 launches {b2} for {units} units consumed: expected one tiled"
+                             " launch a staged unit")
+    per_replay = {"normalize_u8": SCAN_K, "resized_crop_flip_u8": SCAN_K}
+    for name, k in per_replay.items():
+        if captured[name] != 2 * k or after[name] != captured[name]:
+            raise AssertionError(f"{name}: {captured[name]} launches counted by the warm-up and"
+                                 f" the capture, {after[name]} after {replays} replays;"
+                                 f" expected {2 * k} and no more")
+    if by_name != per_replay:
+        raise AssertionError(f"one profiled replay ran {by_name} of B1 and B3 among"
+                             f" {device_kernels} kernels, expected {per_replay}")
+    if augment.resized_crop_kernel.launches_aa or augment.resized_crop_kernel.launches_general:
+        raise AssertionError("phase 11 launched another resized-crop kernel than the tiled one")
+    losses = torch.cat(losses).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    timed = end - timed_start
+    samples_per_s = (units - 1) * SCAN_K * BATCH / timed
+    phase("scan_train_device_decode", decode="device", scan_steps=SCAN_K,
+          stack_batches=SCAN_K, units=units, timed_units=units - 1, batch=BATCH,
+          workers=workers, samples_per_s=samples_per_s,
+          phase6_samples_per_s=device["samples_per_s"],
+          vs_phase6=samples_per_s / device["samples_per_s"],
+          step_ms=1e3 * timed / ((units - 1) * SCAN_K), consumer_wait_share=wait / timed,
+          warmup_and_capture_s=capture_s, peak_device_memory_bytes=peak,
+          launches={"jpeg_decode_u8": b2["tiled"], "units_staged": b2["units_staged"],
+                    "jpeg_decode_images_per_launch": SCAN_K * BATCH,
+                    "normalize_u8": SCAN_K * (1 + replays),
+                    "resized_crop_flip_u8": SCAN_K * (1 + replays)},
+          counted_at_warmup_and_capture=captured, graph_replays=replays,
+          profiled_replay_kernels=by_name, profiled_replay_device_kernels=device_kernels,
+          losses=losses.tolist(), labels_match_phase6_order=True, decode_stats=decoded,
+          graph_vs_eager=vs_eager)
+    return {"loss_bound": loss_bound, "samples_per_s": samples_per_s}
+
+
+def checkpoint_resume_phase(path, host, loss_bound):
+    """The host-decode training path for one epoch, cut by a drain and a
+    checkpoint after CHECKPOINT_AFTER steps and resumed in a fresh model,
+    optimizer, reader and loader; held to phase 5's uninterrupted epoch
+    (same seeds, same rowgroup order): labels, digest, and the first resumed
+    step's loss within phase 11's bound."""
+    def fresh_step():
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        model = model.to(memory_format=torch.channels_last)
+        return trainer.TrainStep(model, 1000, SIDE, generator=torch.Generator(device="cuda")
+                                 .manual_seed(trainer.AUGMENT_SEED))
+
+    def reader(**kwargs):
+        # 2 workers and 1 result slot: the reader's and the loader's windows
+        # (3 + 4 rowgroups) leave part of the 16-rowgroup epoch to the resume
+        return make_reader(path, workers_count=2, results_queue_size=1, shuffle_seed=0,
+                           num_epochs=1, decode_placement={"image": "host"}, **kwargs)
+
+    def train(step, batch):
+        if VALID_ROWS in batch:
+            raise AssertionError(f"a padded batch of {batch[VALID_ROWS]} rows")
+        labels.append(batch["label"])
+        losses.append(float(step(batch["image"], batch["label"] % 1000)))
+
+    labels, losses = [], []
+    step = fresh_step()
+    with CudaDataLoader(reader(), batch_size=BATCH, device="cuda", drop_last=False,
+                        prefetch=1) as loader:
+        it = iter(loader)
+        for _ in range(CHECKPOINT_AFTER):
+            train(step, next(it))
+        drained = 0
+        for batch in loader.drain():
+            train(step, batch)
+            drained += 1
+        loader_state = loader.state_dict()
+    torch.cuda.synchronize()
+    saved = [t.clone() for t in leaves_and_momentum(step)]
+    steps_before = len(losses)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as directory:
+        manager = make_checkpoint_manager(directory, max_to_keep=2)
+        t0 = time.perf_counter()
+        save_checkpoint(manager, steps_before, step.state_dict(), loader_state)
+        save_s = time.perf_counter() - t0
+        state_bytes = sum(os.path.getsize(os.path.join(manager.step_dir(steps_before), f))
+                          for f in os.listdir(manager.step_dir(steps_before)))
+        del step
+        resumed = fresh_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_state, restored_loader = restore_checkpoint(manager,
+                                                          template=resumed.state_dict())
+        resumed.load_state_dict(train_state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    restored = leaves_and_momentum(resumed)
+    if len(restored) != len(saved) or not all(torch.equal(a, b)
+                                              for a, b in zip(restored, saved)):
+        raise AssertionError("the restored leaves or momentum differ from the saved ones")
+    resumed_reader = reader(**resume_reader_kwargs(restored_loader))
+    with CudaDataLoader(resumed_reader, batch_size=BATCH, device="cuda", drop_last=False,
+                        prefetch=1) as loader:
+        for batch in loader:
+            train(resumed, batch)
+    digest = resumed_reader.stream_digest
+
+    if len(losses) == steps_before:
+        raise AssertionError("the drain consumed the whole epoch: nothing was left to resume")
+    if not torch.equal(torch.cat(labels).cpu(), host["labels"]):
+        raise AssertionError("the drained and resumed halves delivered other labels, or in"
+                             " another order, than one uninterrupted epoch")
+    if digest["combined"] != host["digest"]["combined"]:
+        raise AssertionError(f"resumed digest {digest} differs from an uninterrupted reader's"
+                             f" {host['digest']}")
+    first_err = abs(losses[steps_before] - float(host["losses"][steps_before]))
+    if not first_err <= loss_bound:
+        raise AssertionError(f"first resumed step's loss {losses[steps_before]} differs from the"
+                             f" uninterrupted run's {float(host['losses'][steps_before])} by"
+                             f" {first_err} (bound {loss_bound})")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    phase("drain_checkpoint_resume", decode="host", steps_before_drain=CHECKPOINT_AFTER,
+          drained_batches=drained, steps_before_checkpoint=steps_before,
+          resumed_steps=len(losses) - steps_before, reader_position=loader_state["reader"],
+          delivered_batches=loader_state["delivered_batches"], checkpoint_bytes=state_bytes,
+          save_s=save_s, restore_s=restore_s, restored_bit_equal=True,
+          labels_match_uninterrupted=True, digest=digest["combined"],
+          digest_matches_uninterrupted=True,
+          first_resumed_loss={"resumed": losses[steps_before],
+                              "uninterrupted": float(host["losses"][steps_before]),
+                              "abs_err": first_err, "bound": loss_bound},
+          losses=losses)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1377,6 +1695,8 @@ def main():
         shuffled_train_path_phase(path, device)
         adapter_phase(path, main_samples_per_s)
         drained_inference_phase(path, main_samples_per_s)
+        scan = scan_train_phase(path, device)
+        checkpoint_resume_phase(path, host, scan["loss_bound"])
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,14 +13,17 @@ CUDA device, with its two-stage producer:
   pinned host staging buffer, pads its rows to ``batch_size``, copies it to
   the device with ``non_blocking`` copies on a dedicated ``torch.cuda.Stream``,
   finishes device-decode fields there with kernel B2, and records the event
-  the consumer waits on.
+  the consumer waits on.  With ``stack_batches=K`` it groups K consecutive
+  batches into one ``(K, batch_size, ...)`` unit first (``:986
+  _emit_stack``): one staging buffer and one copy per field, and one B2
+  launch over the K batches' images.
 
-Both queues hold ``prefetch`` batches.  The consumer's current stream waits
-on the copy's CUDA event, and the delivered tensors are marked with
-``record_stream`` so the caching allocator keeps them alive for the
-consumer's work.  The staging buffers are keyed by the batch's (field, row
-shape, dtype) signature, because padding buckets and ``transform_fn`` may
-change a column's shape or dtype from batch to batch; a buffer is written
+Both queues hold ``prefetch`` batches (units, when stacked).  The consumer's
+current stream waits on the copy's CUDA event, and the delivered tensors are
+marked with ``record_stream`` so the caching allocator keeps them alive for
+the consumer's work.  The staging buffers are keyed by the batch's (field,
+row shape, dtype) signature, because padding buckets and ``transform_fn``
+may change a column's shape or dtype from batch to batch; a buffer is written
 again only after the event of its previous copy has completed: overwriting
 pinned memory that a copy is still reading would corrupt a batch silently.
 
@@ -31,13 +34,17 @@ tables widened to int32; padding rows get zero planes and quant tables of 1,
 which decode to flat gray), and the decode is finished on the device by
 kernel B2 (``ops.jpeg``) on the copy stream, before the copy's event is
 recorded: the counterpart of ``petastorm_tpu/jax/loader.py:1411
-_decode_on_device`` without the mesh.
+_decode_on_device`` (and ``:1145 _decode_stack``) without the mesh.
+
+``drain()`` and ``state_dict()`` (``:1617``, ``:1816``) give the training
+job its data cursor: drain quiesces the reader and yields what is in flight,
+after which the reader's cursor is exact.
 
 With ``device="cpu"`` the same two threads deliver plain CPU tensors, with
 no pinned memory and no streams, and the decode runs B2's plain version.
-Stacked delivery, the device shuffle buffer, drain and checkpoint state,
-``transfer_commit``, ``trace_dir``, telemetry and ``set_prefetch`` are not
-part of this package yet.
+The device shuffle buffer, the default cross-process collective of a
+multi-process ``drain()``, ``transfer_commit``, ``trace_dir``, telemetry and
+``set_prefetch`` are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Callable, Deque, Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -160,9 +167,8 @@ class _Slot:
     """One set of host staging buffers (pinned for CUDA) and the event of the
     last device copy that read them."""
 
-    def __init__(self, layout: Dict[str, Tuple[tuple, np.dtype]], batch_size: int,
-                 pin: bool):
-        self.host = {name: torch.empty((batch_size,) + shape, dtype=_torch_dtype(dtype),
+    def __init__(self, layout: Dict[str, Tuple[tuple, np.dtype]], lead: tuple, pin: bool):
+        self.host = {name: torch.empty(lead + shape, dtype=_torch_dtype(dtype),
                                        pin_memory=pin)
                      for name, (shape, dtype) in layout.items()}
         self.copied: Optional[torch.cuda.Event] = None
@@ -204,6 +210,21 @@ class CudaDataLoader:
       1.0 for real rows, 0.0 for padding.
     * ``prefetch``: batches each stage holds ahead of the consumer (``None``:
       2).
+    * ``stack_batches=K`` (``jax/loader.py:157-167``): each delivered unit
+      stacks K consecutive batches as ``(K, batch_size, ...)`` tensors,
+      shipped in one pinned staging copy per field, for a consumer that runs
+      K training steps per launch (the trainer's ``scan_steps``: a CUDA
+      graph of K steps).  ``transform_fn`` runs per batch, before stacking.
+      A device-decode field's K batches decode in one B2 launch over
+      ``K * batch_size`` images.  ``drop_last=True`` also drops a final
+      short stack; with ``drop_last=False`` the missing steps and rows are
+      zero-padded, ``'_valid_rows'`` becomes an int64 ``(K,)`` tensor (on
+      the host) and the valid mask is ``(K, batch_size)``;
+      ``drain()`` and ``state_dict()`` count whole stacks.  Host fields
+      stack to ``(K, batch_size, ...)`` numpy arrays (missing rows: zeros,
+      or None for objects).  Multi-bucket ``pad_shapes`` are refused (the K
+      batches could take different buckets); the JAX loader also refuses
+      its device shuffle buffer here, which this package does not have yet.
 
     ``diagnostics()['consumer_wait_s']`` is the time ``__next__`` spent
     waiting for the producer: the input-bound share of a training loop;
@@ -224,9 +245,15 @@ class CudaDataLoader:
                  transform_fn: Optional[Callable[[Dict[str, np.ndarray]],
                                                  Dict[str, np.ndarray]]] = None,
                  valid_mask_field: Optional[str] = None,
-                 straggler_release_s: Union[None, float, str] = "auto"):
+                 straggler_release_s: Union[None, float, str] = "auto",
+                 stack_batches: int = 1):
         if batch_size < 1:
             raise PetastormTpuError("batch_size must be >= 1")
+        if stack_batches < 1:
+            raise PetastormTpuError("stack_batches must be >= 1")
+        self._stack = int(stack_batches)
+        #: leading dims of every staged column: (K, batch) stacked, else (batch,)
+        self._lead = ((self._stack,) if self._stack > 1 else ()) + (batch_size,)
         prefetch = 2 if prefetch is None else prefetch
         if prefetch < 1:
             raise PetastormTpuError("prefetch must be >= 1")
@@ -260,6 +287,14 @@ class CudaDataLoader:
         self._pad_shapes = {name: _normalize_buckets(name, spec)
                             for name, spec in (pad_shapes or {}).items()}
         self._pad_values = pad_values
+        if self._stack > 1:
+            bucketed = [n for n, b in self._pad_shapes.items() if len(b) > 1]
+            if bucketed:
+                raise PetastormTpuError(
+                    f"stack_batches={self._stack} needs one static shape per"
+                    f" field, but {bucketed} use multi-bucket pad_shapes (the"
+                    " bucket choice could differ between the K stacked"
+                    " batches); give them a single pad target instead.")
         for name in self._fields:
             if name in device_decode:
                 continue
@@ -331,8 +366,12 @@ class CudaDataLoader:
         self._failure: Optional[BaseException] = None
         self._sentinel_pending = False
         self._consumer_wait_s = 0.0
-        self._delivered = 0
+        self._delivered = 0  # units: batches, or stacks of K
+        self._units_staged = 0
         self._straggler_releases = 0
+        #: delivered tensor field -> (row shape, dtype) of the last unit: the
+        #: shapes of drain()'s alignment pads when no unit is left to copy
+        self._emitted_layout: Dict[str, Tuple[tuple, torch.dtype]] = {}
         #: seconds of work of each producer stage (each written by one thread:
         #: the assembly thread, the fetch thread's _prepare, the transfer thread)
         self._assemble_s = 0.0
@@ -474,52 +513,86 @@ class CudaDataLoader:
         return {name: (col.shape[1:], torch_feed_dtype(col.dtype, self._keep_wide))
                 for name, col in {**item.cols, **item.coef}.items()}
 
-    def _fill(self, dest: Dict[str, torch.Tensor], item: _HostBatch) -> None:
-        """Copy the batch's rows into ``dest`` (cast to the feed dtypes) and
-        pad the rest: zeros, and 1 for quant tables, so that padded
-        coefficient rows decode to flat gray."""
-        rows = item.rows
-        for name, col in {**item.cols, **item.coef}.items():
-            out = dest[name].numpy()
-            out[:rows] = col
-            if rows < self._batch_size:
-                is_qtab = name in item.coef and name.endswith(f"{COEF_COLUMN_SEP}q")
-                out[rows:] = 1 if is_qtab else 0
+    def _fill(self, dest: Dict[str, torch.Tensor], group: List[_HostBatch]) -> None:
+        """Copy the batches' rows into ``dest`` (cast to the feed dtypes) and
+        pad the rest, missing steps of a short stack included: zeros, and 1
+        for quant tables, so that padded coefficient rows decode to flat
+        gray."""
+        for name, buf in dest.items():
+            steps = buf.numpy()
+            if self._stack == 1:
+                steps = steps[None]
+            is_qtab = name.endswith(f"{COEF_COLUMN_SEP}q") and name in group[0].coef
+            pad = 1 if is_qtab else 0
+            for k, item in enumerate(group):
+                steps[k, :item.rows] = item.cols[name] if name in item.cols else item.coef[name]
+                steps[k, item.rows:] = pad
+            steps[len(group):] = pad
 
     def _finish(self, staged: Dict[str, torch.Tensor],
                 item: _HostBatch) -> Dict[str, torch.Tensor]:
-        """The delivered batch: staged columns as they are, device-decode
-        fields decoded from their planes (kernel B2 on a CUDA device)."""
+        """The delivered unit: staged columns as they are, device-decode
+        fields decoded from their planes (kernel B2 on a CUDA device), all
+        steps of a stack in one launch."""
         out = {name: staged[name] for name in item.cols}
+        lead = self._lead
         for name, layout in item.layouts.items():
             planes = [staged[f"{name}{COEF_COLUMN_SEP}p{c}"]
                       for c in range(len(layout.components))]
-            image = decode_from_layout(planes, staged[f"{name}{COEF_COLUMN_SEP}q"], layout)
-            if len(self._schema[name].shape) == 3 and image.dim() == 3:
+            qtabs = staged[f"{name}{COEF_COLUMN_SEP}q"]
+            if len(lead) > 1:  # (K, B, ...) -> (K * B, ...): one launch for the stack
+                planes = [p.reshape((-1,) + p.shape[2:]) for p in planes]
+                qtabs = qtabs.reshape((-1,) + qtabs.shape[2:])
+            image = decode_from_layout(planes, qtabs, layout)
+            image = image.reshape(lead + image.shape[1:])
+            if len(self._schema[name].shape) == 3 and image.dim() == len(lead) + 2:
                 image = image[..., None]  # a declared (H, W, 1) grayscale shape
             out[name] = image
         return out
 
     def _slot(self, layout: Dict[str, Tuple[tuple, np.dtype]]) -> _Slot:
         """The next staging slot of this layout's ring (made at its first
-        batch), once the last copy that read it has completed."""
+        unit), once the last copy that read it has completed."""
         key = tuple((name, shape, dtype.str) for name, (shape, dtype) in layout.items())
         ring = self._slots.get(key)
         if ring is None:
             ring = self._slots[key] = collections.deque(
-                _Slot(layout, self._batch_size, True) for _ in range(self._prefetch + 1))
+                _Slot(layout, self._lead, True) for _ in range(self._prefetch + 1))
         slot = ring[0]
         ring.rotate(-1)
         if slot.copied is not None:
             slot.copied.synchronize()  # its last copy has read the buffer
         return slot
 
-    def _stage(self, item: _HostBatch):
-        """Host batch -> (device batch, the event its copy and decode record)."""
+    def _check_stack(self, group: List[_HostBatch],
+                     layout: Dict[str, Tuple[tuple, np.dtype]]) -> None:
+        """The K batches of a stack need one staged layout and, for a
+        device-decode field, one JPEG geometry (``jax/loader.py:1157``)."""
+        for item in group[1:]:
+            if self._layout(item) != layout:
+                raise PetastormTpuError(
+                    f"stack_batches={self._stack}: the stacked batches have different"
+                    f" column shapes or dtypes ({self._layout(item)} after {layout}); a"
+                    " transform_fn must give every batch the same layout")
+            for name, lay in item.layouts.items():
+                first = group[0].layouts[name]
+                if ((lay.height, lay.width, lay.components)
+                        != (first.height, first.width, first.components)):
+                    raise PetastormTpuError(
+                        f"field {name!r}: jpeg geometry changed between stacked"
+                        " batches - decode_placement='device' requires one"
+                        " geometry dataset-wide (use 'device-mixed')")
+
+    def _stage(self, group: List[_HostBatch]):
+        """One batch, or the K batches of a stack -> (device unit, the event
+        its copy and decode record)."""
+        item = group[0]
         layout = self._layout(item)
+        if self._stack > 1:
+            self._check_stack(group, layout)
         if self._cuda:
             slot = self._slot(layout)
-            self._fill(slot.host, item)
+            self._fill(slot.host, group)
             with torch.cuda.device(self._device), torch.cuda.stream(self._copy_stream):
                 staged = {name: host.to(self._device, non_blocking=True)
                           for name, host in slot.host.items()}
@@ -530,17 +603,31 @@ class CudaDataLoader:
                 slot.copied.record(self._copy_stream)
             copied = slot.copied
         else:
-            staged = {name: torch.empty((self._batch_size,) + shape, dtype=_torch_dtype(dt))
+            staged = {name: torch.empty(self._lead + shape, dtype=_torch_dtype(dt))
                       for name, (shape, dt) in layout.items()}
-            self._fill(staged, item)
+            self._fill(staged, group)
             batch, copied = self._finish(staged, item), None
-        batch.update(item.host)
-        if item.rows < self._batch_size:
-            batch[VALID_ROWS] = item.rows
+        for name, tensor in batch.items():
+            self._emitted_layout[name] = (tuple(tensor.shape[len(self._lead):]), tensor.dtype)
+        if self._stack == 1:
+            batch.update(item.host)
+            if item.rows < self._batch_size:
+                batch[VALID_ROWS] = item.rows
+            return batch, copied
+        valids = [it.rows for it in group]
+        missing = self._stack - len(group)
+        for name in self._host_fields:
+            steps = [_pad_host_col(it.host[name], self._batch_size) for it in group]
+            batch[name] = np.stack(steps + [_host_filler(steps[-1])] * missing)
+        if missing or any(v < self._batch_size for v in valids):
+            batch[VALID_ROWS] = torch.tensor(valids + [0] * missing, dtype=torch.int64)
         return batch, copied
 
     def _transfer(self) -> None:
-        """Stage 2: host batches -> staged, copied (and decoded) batches."""
+        """Stage 2: host batches -> staged, copied (and decoded) units.  With
+        ``stack_batches=K`` it groups K consecutive batches into one unit; a
+        short final group is zero-padded (``drop_last=False``) or dropped."""
+        group: List[_HostBatch] = []
         try:
             while not self._stop.is_set():
                 try:
@@ -554,18 +641,27 @@ class CudaDataLoader:
                     return
                 if isinstance(item, _Done):
                     break
-                t0 = time.perf_counter()
-                value = self._stage(item)
-                self._transfer_s += time.perf_counter() - t0
-                self._push(value)
+                group.append(item)
+                if len(group) == self._stack:
+                    self._stage_and_push(group)
+                    group = []
             else:
                 return  # stopped
+            if group and not self._drop_last:
+                self._stage_and_push(group)
             self._push(_Done())
             self._sentinel_pending = True
         except BaseException as exc:  # noqa: BLE001 - delivered to the consumer
             self._push(_Error(exc))
             self._sentinel_pending = True
             self._abort_upstream()
+
+    def _stage_and_push(self, group: List[_HostBatch]) -> None:
+        t0 = time.perf_counter()
+        value = self._stage(group)
+        self._units_staged += 1
+        self._transfer_s += time.perf_counter() - t0
+        self._push(value)
 
     def _abort_upstream(self) -> None:
         """A producer stage failed: stop the other stage and the reader (the
@@ -631,7 +727,7 @@ class CudaDataLoader:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(copied)
             for tensor in batch.values():
-                if isinstance(tensor, torch.Tensor):
+                if isinstance(tensor, torch.Tensor) and tensor.is_cuda:
                     tensor.record_stream(stream)
         self._delivered += 1
         return batch
@@ -641,14 +737,149 @@ class CudaDataLoader:
         depth = self._out.qsize()
         if self._sentinel_pending:  # the end-of-stream marker is not a batch
             depth = max(depth - 1, 0)
-        return {"consumer_wait_s": self._consumer_wait_s,
-                "batches_delivered": self._delivered,
-                "prefetch_depth": depth,
-                "prefetch_capacity": self._out.maxsize,
-                "host_queue_depth": self._host_q.qsize(),
-                "straggler_releases": self._straggler_releases,
-                "assemble_s": self._assemble_s + self._fetch_prepare_s,
-                "transfer_s": self._transfer_s}
+        out = {"consumer_wait_s": self._consumer_wait_s,
+               "batches_delivered": self._delivered,
+               "units_staged": self._units_staged,
+               "prefetch_depth": depth,
+               "prefetch_capacity": self._out.maxsize,
+               "host_queue_depth": self._host_q.qsize(),
+               "straggler_releases": self._straggler_releases,
+               "assemble_s": self._assemble_s + self._fetch_prepare_s,
+               "transfer_s": self._transfer_s}
+        if self._stack > 1:
+            out["stack_batches"] = self._stack
+        return out
+
+    # -- checkpoint and resume ----------------------------------------------
+
+    def drain(self, all_gather_counts: Optional[Callable[[int], Sequence[int]]] = None):
+        """Quiesce the reader and return an iterator over every unit still in
+        flight: the assembled ones, the shuffle buffer's remainder and, under
+        ``drop_last=False``, the zero-padded tail.  Once it is consumed the
+        loader is exhausted and ``state_dict()`` is an exact cursor: a resume
+        re-reads no row.  The quiesce happens in this call, not at the first
+        ``next``::
+
+            for unit in loader.drain():   # train on what is already in flight
+                step(unit)
+            save(loader.state_dict())     # exact
+
+        ``all_gather_counts``: processes drain unequal counts, and a step
+        that runs collectives would hang the short ones.  Given this
+        callable (own count -> every process's count), the loader drains
+        locally, and the processes short of the largest count yield zero
+        units carrying ``'_valid_rows': 0`` (a zero ``(K,)`` tensor when
+        stacked) and a zero valid mask, shaped like the last unit (or, when
+        none was emitted, from the schema).  ``'_valid_rows'`` is local to a
+        process: a consumer weights by ``valid_mask_field`` and runs every
+        step.  ``None``: one process (the default collective over
+        ``torch.distributed`` is not part of this package yet).
+
+        With ``drop_last=True`` a final partial batch's rows are dropped as at
+        an epoch end, and with ``stack_batches=K`` the short stack too: up to
+        K-1 full batches whose rows the reader's cursor has passed are lost.
+        A job that checkpoints mid-epoch should use ``drop_last=False``.
+        """
+        if not hasattr(self._reader, "quiesce"):
+            raise PetastormTpuError(
+                f"Reader {type(self._reader).__name__} does not support"
+                " quiesce(); drain-to-cursor needs a petastorm_tpu_torch Reader")
+        self._reader.quiesce()
+
+        def _rest():
+            while True:
+                try:
+                    yield next(self)
+                except StopIteration:
+                    return
+
+        if all_gather_counts is None:
+            return _rest()
+        local = list(_rest())
+        target = int(max(all_gather_counts(len(local))))
+
+        def _aligned():
+            yield from local
+            template = local[-1] if local else None
+            layout = None
+            for _ in range(target - len(local)):
+                if template is not None:
+                    pad = {name: (torch.zeros_like(value) if isinstance(value, torch.Tensor)
+                                  else value)  # host fields pass through
+                           for name, value in template.items() if name != VALID_ROWS}
+                else:
+                    # this process drained nothing while a peer did: the pads
+                    # come from the schema, so it still steps with its peers
+                    layout = layout or self._pad_batch_layout()
+                    pad = {name: (torch.zeros(shape, dtype=dtype, device=self._device)
+                                  if isinstance(dtype, torch.dtype) else np.zeros(shape, dtype))
+                           for name, (shape, dtype) in layout.items()}
+                pad[VALID_ROWS] = (torch.zeros(self._stack, dtype=torch.int64)
+                                   if self._stack > 1 else 0)
+                yield pad
+        return _aligned()
+
+    def _pad_batch_layout(self) -> Dict[str, Tuple[tuple, object]]:
+        """field -> (shape, dtype) of a drain pad when this process delivered
+        no unit (``jax/loader.py:1748``): a torch dtype for a device tensor, a
+        numpy dtype for a host field.  The last emitted unit's layout wins
+        (it reflects ``transform_fn``); else the schema's shapes."""
+        layout: Dict[str, Tuple[tuple, object]] = {}
+        names = list(self._emitted_layout) if self._emitted_layout else list(self._fields)
+        if self._valid_mask is not None and self._valid_mask not in names:
+            names.append(self._valid_mask)
+        for name in names:
+            if name in self._emitted_layout:
+                trailing, dtype = self._emitted_layout[name]
+            elif name == self._valid_mask:
+                trailing, dtype = (), torch.float32
+            elif name in self._decode_fields:
+                trailing, dtype = tuple(self._schema[name].shape), torch.uint8
+            else:
+                if self._transform_fn is not None:
+                    raise PetastormTpuError(
+                        "drain() alignment on a zero-batch host cannot derive"
+                        f" the padded shape of field {name!r}: a transform_fn"
+                        " is set and no batch was ever emitted here to learn"
+                        " its output shape - checkpoint at a step boundary"
+                        " instead")
+                buckets = self._pad_shapes.get(name)
+                if buckets and len(buckets) > 1:
+                    raise PetastormTpuError(
+                        "drain() alignment on a zero-batch host cannot pick a"
+                        f" pad bucket for field {name!r} (multi-bucket"
+                        " pad_shapes): peers pad from their own last batch's"
+                        " bucket, so a guess here could silently diverge the"
+                        " pod's global shapes - checkpoint at a step boundary"
+                        " instead")
+                field = self._schema[name]
+                trailing = tuple(buckets[0]) if buckets else tuple(field.shape)
+                dtype = _torch_dtype(torch_feed_dtype(field.dtype, self._keep_wide))
+            layout[name] = (self._lead + trailing, dtype)
+        for name in self._host_fields:
+            field = self._schema[name]
+            shape = tuple(d if d is not None else 0 for d in field.shape)
+            dtype = field.dtype if field.dtype.kind not in "USOMm" else np.dtype(object)
+            layout[name] = (self._lead + shape, dtype)
+        return layout
+
+    def state_dict(self) -> Dict:
+        """Data cursor to save beside a training checkpoint
+        (``jax/loader.py:1816``): ``reader`` is the reader's cursor (for
+        ``make_reader(..., resume_from=...)``, see
+        ``checkpoint.resume_reader_kwargs``), ``delivered_batches`` counts
+        delivered units (stacks when ``stack_batches=K``).  Mid-epoch the
+        reader's cursor runs ahead of the units delivered by the in-flight
+        window (both stage queues, the shuffle buffer, the accumulating
+        stack); call ``drain()`` first for an exact one."""
+        if not hasattr(self._reader, "state_dict"):
+            raise PetastormTpuError(
+                f"Reader {type(self._reader).__name__} does not support"
+                " state_dict(); checkpoint/resume needs a petastorm_tpu_torch Reader")
+        return {"reader": self._reader.state_dict(),
+                "delivered_batches": self._delivered,
+                "global_batch": self._batch_size,
+                "stack_batches": self._stack}
 
     def stop(self) -> None:
         """Stop both producer threads and the reader, and wait for them."""
@@ -666,6 +897,24 @@ class CudaDataLoader:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def _host_filler(tmpl: np.ndarray) -> np.ndarray:
+    """A missing stack step of a host field (``jax/loader.py:1952``): None
+    cells for objects, zeros otherwise."""
+    if tmpl.dtype == object:
+        return np.full(tmpl.shape, None, dtype=object)
+    return np.zeros_like(tmpl)
+
+
+def _pad_host_col(col: np.ndarray, rows: int) -> np.ndarray:
+    """A host field's column padded to ``rows`` for stacking
+    (``jax/loader.py:1960``), with :func:`_host_filler`'s policy."""
+    col = np.asarray(col)
+    if len(col) >= rows:
+        return col
+    return np.concatenate([col, _host_filler(np.empty((rows - len(col),) + col.shape[1:],
+                                                      col.dtype))])
 
 
 def _normalize_buckets(name: str, spec) -> list:

@@ -1,10 +1,14 @@
 """ImageNet-style ResNet-50 training fed by the port, on one CUDA GPU.
 
 Port of ``examples/imagenet/train_resnet_tpu.py`` (``generate_dataset`` and
-``train``) for its ``input_pipeline='petastorm'``, ``cache='null'``,
-``scan_steps=1`` configuration, with ``decode='device'`` (the default, as
-there) or ``decode='host'``: JPEG Parquet -> ``make_reader`` -> ``CudaDataLoader``
--> the training step of ``_step_math``.  With ``decode='host'`` the pool
+``train``) for its ``input_pipeline='petastorm'``, ``cache='null'``
+configuration, with ``decode='device'`` (the default, as there) or
+``decode='host'``: JPEG Parquet -> ``make_reader`` -> ``CudaDataLoader``
+-> the training step of ``_step_math``.  ``scan_steps=K`` is the
+counterpart of ``train_scan`` (``train_resnet_tpu.py:203-215``): the loader
+delivers ``(K, batch, ...)`` stacks (``stack_batches=K``) and, on CUDA, K
+whole steps are captured once in a ``torch.cuda.CUDAGraph`` and replayed
+once per stack (:class:`ScanStep`).  With ``decode='host'`` the pool
 workers decode the JPEGs and uint8 pixels go to the card; with
 ``decode='device'`` the workers run only the entropy decode, the coefficient
 planes go to the card and kernel B2 finishes the decode there.  Unlike the
@@ -84,7 +88,10 @@ class TrainStep:
     ``step(images_u8, labels)`` draws crop boxes and flips from ``generator``
     (on the images' device), runs augment -> normalize -> model -> loss ->
     SGD-momentum, and returns the loss (not synchronised).  ``boxes`` and
-    ``flips`` may be passed instead, as :func:`random_resized_crop` takes them.
+    ``flips`` may be passed instead, as :func:`random_resized_crop` takes them;
+    ``last_draws`` holds the last step's.  ``state_dict()`` is the train state
+    a checkpoint saves: the model's and the optimizer's state and the
+    generator's.
     """
 
     def __init__(self, model: ResNet, num_classes: int, side: int,
@@ -97,6 +104,25 @@ class TrainStep:
             stat.requires_grad_(True)
         self.leaves: List[torch.Tensor] = list(model.parameters()) + model.batch_stats()
         self.optimizer = torch.optim.SGD(self.leaves, lr=LR, momentum=MOMENTUM)
+        self.last_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def state_dict(self) -> Dict:
+        """The model's and optimizer's ``state_dict()`` and the generator's
+        state (None without a generator)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "generator": None if self.generator is None else self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s train state (the leaves in place)."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.generator is not None and state.get("generator") is not None:
+            self.generator.set_state(state["generator"])
+
+    def momentum(self) -> List[Optional[torch.Tensor]]:
+        """Each leaf's momentum buffer (None before the first step)."""
+        return [self.optimizer.state.get(leaf, {}).get("momentum_buffer")
+                for leaf in self.leaves]
 
     def update(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Loss of the model on normalized ``x``, backward, one SGD-momentum step."""
@@ -114,10 +140,112 @@ class TrainStep:
             boxes = draw_crop_boxes(n, h, w, self.generator, device=images_u8.device)
         if flips is None:
             flips = draw_flips(n, self.generator, images_u8.device)
+        self.last_draws = (boxes, flips)
         # crop + flip in one resized-crop launch on the card, then normalize to bf16
         crops = random_resized_crop(images_u8, None, (self.side, self.side), boxes=boxes,
                                     flips=flips)
         return self.update(normalize_images(crops), labels)
+
+
+class ScanStep:
+    """K training steps of ``step`` per call: the counterpart of the JAX
+    trainer's ``train_scan`` (``lax.scan`` over K steps in one dispatch).
+
+    ``scan(images, labels)`` takes a ``(K, B, H, W, 3)`` uint8 stack and
+    ``(K, B)`` labels and returns the K losses as a ``(K,)`` tensor.  It
+    first draws the K steps' crop boxes and flips from ``step.generator``,
+    eagerly and in the eager loop's order (boxes, then flips, per step), so
+    they equal K calls of ``step`` bit for bit; ``boxes`` (K, B, 4) and
+    ``flips`` (K, B) may be passed instead.
+
+    On CUDA the first call runs its stack as K eager steps on a side stream
+    (SGD makes its momentum buffers, cuDNN picks its algorithms and the
+    kernels are built), the first step under ``FlopCounterMode``
+    (``flops_per_step``), and then captures K whole steps (crop + flip,
+    normalize, forward, backward, SGD-momentum) in one ``torch.cuda.CUDAGraph``
+    over static input, draw and loss buffers.  Every later call copies its
+    stack and draws into those buffers and replays the graph once.  A failed
+    capture raises; there is no eager fallback.  On the CPU every call runs
+    the K steps eagerly.  ``last_draws`` holds the last unit's (boxes,
+    flips); ``replays`` counts replays; the kernels' launch counters count
+    the captured launches once, at capture.
+    """
+
+    def __init__(self, step: TrainStep, scan_steps: int):
+        if scan_steps < 1:
+            raise ValueError("scan_steps must be >= 1")
+        self.step = step
+        self.scan_steps = scan_steps
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.flops_per_step: Optional[int] = None
+        self.replays = 0
+        self.last_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._losses: Optional[torch.Tensor] = None
+
+    def draw(self, n: int, h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K steps' (boxes, flips), drawn as K eager steps draw them."""
+        gen = self.step.generator
+        boxes, flips = [], []
+        for _ in range(self.scan_steps):
+            boxes.append(draw_crop_boxes(n, h, w, gen, device=device))
+            flips.append(draw_flips(n, gen, device))
+        return torch.stack(boxes), torch.stack(flips)
+
+    def eager(self, images: torch.Tensor, labels: torch.Tensor, boxes: torch.Tensor,
+              flips: torch.Tensor) -> torch.Tensor:
+        """The K steps one after the other, as K calls of ``step``."""
+        losses = []
+        for k in range(self.scan_steps):
+            if k == 0 and self.flops_per_step is None:
+                self.flops_per_step, loss = count_flops(self.step, images[0], labels[0],
+                                                        boxes[0], flips[0])
+            else:
+                loss = self.step(images[k], labels[k], boxes=boxes[k], flips=flips[k])
+            losses.append(loss)
+        return torch.stack(losses)
+
+    def __call__(self, images: torch.Tensor, labels: torch.Tensor,
+                 boxes: Optional[torch.Tensor] = None,
+                 flips: Optional[torch.Tensor] = None) -> torch.Tensor:
+        k, n, h, w, _ = images.shape
+        if k != self.scan_steps:
+            raise ValueError(f"a stack of {self.scan_steps} steps was expected, got {k}")
+        if boxes is None:
+            boxes, flips = self.draw(n, h, w, images.device)
+        self.last_draws = (boxes, flips)
+        if images.device.type != "cuda":
+            return self.eager(images, labels, boxes, flips)
+        if self.graph is None:
+            return self._warm_up_and_capture(images, labels, boxes, flips)
+        for name, value in (("images", images), ("labels", labels), ("boxes", boxes),
+                            ("flips", flips)):
+            self._static[name].copy_(value)
+        self.graph.replay()
+        self.replays += 1
+        return self._losses.clone()
+
+    def _warm_up_and_capture(self, images, labels, boxes, flips) -> torch.Tensor:
+        """Run the first stack eagerly on a side stream, then capture the graph."""
+        device = images.device
+        self._static = {"images": images.clone(), "labels": labels.clone(),
+                        "boxes": boxes.clone(), "flips": flips.clone()}
+        static = self._static
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            losses = self.eager(static["images"], static["labels"], static["boxes"],
+                                static["flips"])
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.step.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's threads keep copying and decoding meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._losses = torch.stack([
+                self.step(static["images"][i], static["labels"][i], boxes=static["boxes"][i],
+                          flips=static["flips"][i]) for i in range(self.scan_steps)])
+        self.graph = graph
+        return losses
 
 
 def count_flops(fn, *args) -> Tuple[int, object]:
@@ -181,14 +309,20 @@ DECODES = ("host", "device")
 
 def train(dataset_url: str, steps: int, global_batch: int, side: int,
           num_classes: int = 1000, decode: str = "device", workers: int = 4,
-          prefetch: int = 2, device="cuda") -> Dict:
-    """Run one warm-up step and ``steps`` timed ResNet-50 training steps fed by
-    the loader; returns samples/s, the input-wait share of the timed window
-    (``device_idle_pct``), the stall against a rerun of as many steps on one
-    resident batch (``input_stall_pct``), and the model FLOP counts.
-    ``decode``: ``'device'`` (hybrid JPEG decode, kernel B2) or ``'host'``."""
+          prefetch: int = 2, device="cuda", scan_steps: int = 1) -> Dict:
+    """Run one warm-up unit and ``steps`` timed ResNet-50 training steps fed
+    by the loader; returns samples/s, the input-wait share of the timed
+    window (``device_idle_pct``), the stall against a rerun of as many units
+    on one resident unit (``input_stall_pct``), and the model FLOP counts.
+    ``decode``: ``'device'`` (hybrid JPEG decode, kernel B2) or ``'host'``.
+    ``scan_steps=K``: a unit is a stack of K batches run by :class:`ScanStep`
+    (a CUDA graph of K steps on the card); ``steps`` rounds up to whole units
+    and ``flops_per_sample`` comes from a single eager step of the warm-up
+    (``train_resnet_tpu.py:386-391``)."""
     if decode not in DECODES:
         raise ValueError(f"decode must be one of {DECODES}, got {decode!r}")
+    if scan_steps < 1:
+        raise ValueError("scan_steps must be >= 1")
     device = resolve_device(device)
     model = ResNet50(num_classes=num_classes, dtype=torch.bfloat16, device=device,
                      generator=torch.Generator().manual_seed(0))
@@ -198,31 +332,43 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
                      generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED))
     reader = make_reader(dataset_url, num_epochs=None, workers_count=workers,
                          decode_placement={"image": decode})
+    if scan_steps > 1:
+        scan = ScanStep(step, scan_steps)
+        run_unit = lambda unit: scan(unit["image"], unit["label"])[-1]  # noqa: E731
+    else:
+        run_unit = lambda unit: step(unit["image"], unit["label"])  # noqa: E731
     with CudaDataLoader(reader, batch_size=global_batch, device=device,
-                        prefetch=prefetch) as feed:
+                        prefetch=prefetch, stack_batches=scan_steps) as feed:
         it = iter(feed)
         first = next(it)
-        # warm-up (cuDNN set-up, kernel builds), counted for the FLOP figures
-        flops_per_step, loss = count_flops(step, first["image"], first["label"])
+        # warm-up (cuDNN set-up, kernel builds, the graph's capture), and the
+        # FLOP count of one eager step
+        if scan_steps > 1:
+            loss = run_unit(first)
+            flops_per_step = scan.flops_per_step
+        else:
+            flops_per_step, loss = count_flops(step, first["image"], first["label"])
         _sync(device)
         wait0 = feed.diagnostics()["consumer_wait_s"]
+        done, units = 0, 0
         t0 = time.perf_counter()
-        for _ in range(steps):
-            batch = next(it)
-            loss = step(batch["image"], batch["label"])
+        while done < steps:
+            loss = run_unit(next(it))
+            done += scan_steps
+            units += 1
         _sync(device)
         dt = time.perf_counter() - t0
         input_wait_s = feed.diagnostics()["consumer_wait_s"] - wait0
-        # compute floor: as many steps on one resident batch, no input inside the loop
+        # compute floor: as many units on one resident unit, no input inside the loop
         resident = next(it)
         t1 = time.perf_counter()
-        for _ in range(steps):
-            step(resident["image"], resident["label"])
+        for _ in range(units):
+            run_unit(resident)
         _sync(device)
         compute_dt = time.perf_counter() - t1
         diagnostics = feed.diagnostics()
     return {
-        "samples_per_sec": steps * global_batch / dt,
+        "samples_per_sec": done * global_batch / dt,
         "device_idle_pct": 100.0 * input_wait_s / dt,
         "input_stall_pct": 100.0 * max(0.0, dt - compute_dt) / dt,
         "compute_floor_wall_s": compute_dt,
@@ -230,7 +376,8 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         "measured_peak_flops": measure_peak_flops(device),
         "device_kind": (torch.cuda.get_device_name(device) if device.type == "cuda"
                         else "cpu"),
-        "steps": steps,
+        "steps": done,
+        "scan_steps": scan_steps,
         "global_batch": global_batch,
         "decode": decode,
         "wall_s": dt,
@@ -252,6 +399,9 @@ if __name__ == "__main__":
     parser.add_argument("--decode", choices=DECODES, default="device",
                         help="where the JPEG decode finishes (default: device, kernel B2)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--scan-steps", type=int, default=1,
+                        help="training steps per unit: a CUDA graph of K steps replayed per"
+                             " stacked unit (stack_batches=K)")
     parser.add_argument("--skip-generate", action="store_true",
                         help="dataset-url already holds the dataset")
     args = parser.parse_args()
@@ -260,8 +410,8 @@ if __name__ == "__main__":
         generate_dataset(url, args.rows, args.side)
     m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
               decode=args.decode, workers=args.workers, prefetch=args.prefetch,
-              device=args.device)
+              device=args.device, scan_steps=args.scan_steps)
     print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
           f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']} (decode"
-          f" {m['decode']}), input wait"
+          f" {m['decode']}, {m['scan_steps']} steps a unit), input wait"
           f" {m['device_idle_pct']:.1f}% of the window, final loss {m['final_loss']:.4f}")

@@ -4,8 +4,12 @@ Counterpart of ``petastorm_tpu/pool.py:572 SerialExecutor`` and
 ``:749 ThreadedExecutor``.  Both deliver results in the order the items were
 ventilated, so a reader's output is a pure function of its plan whatever the
 worker count (the JAX reader gets the same from its ``deterministic='seed'``
-reorder stage).  The process pool, hedging, liveness and requeue machinery
-are not part of this package yet.
+reorder stage).  ``quiesce()`` is the counterpart of ``:2265
+Ventilator.pause_and_join``: no item is issued after it, every item issued
+before it still delivers, and it returns the exact count issued.  ``imap``
+takes the absolute ordinal of its first item (``start``), so that count is
+an absolute position in the item stream.  The process pool, hedging,
+liveness and requeue machinery are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -27,18 +31,34 @@ class SerialExecutor:
     def __init__(self):
         self._factory: Optional[WorkerFactory] = None
         self._stopped = False
+        self._paused = False
+        self._issued = 0
+        self._lock = threading.Lock()  # quiesce comes from another thread
 
     def start(self, worker_factory: WorkerFactory) -> None:
         self._factory = worker_factory
 
-    def imap(self, items: Iterable[Any]) -> Iterator[Any]:
+    def imap(self, items: Iterable[Any], start: int = 0) -> Iterator[Any]:
+        """Yield ``worker(item)`` for each item; the first is item ``start``
+        of the stream."""
         if self._factory is None:
             raise PetastormTpuError("Executor not started")
         fn = self._factory()
+        self._issued = start
         for item in items:
-            if self._stopped:
-                return
+            with self._lock:
+                if self._stopped or self._paused:
+                    return
+                self._issued += 1
             yield fn(item)
+
+    def quiesce(self, start: int = 0) -> int:
+        """Issue no further item; returns the absolute count issued (``start``
+        if ``imap`` has not begun).  An item is issued as it is taken, so
+        every issued item delivers."""
+        with self._lock:
+            self._paused = True
+            return max(self._issued, start)
 
     def stop(self) -> None:
         self._stopped = True
@@ -71,6 +91,9 @@ class ThreadedExecutor:
         self._done = threading.Condition()
         self._total: Optional[int] = None  # items ventilated, once the source ends
         self._stop = threading.Event()
+        self._pause = threading.Event()
+        self._ventilator: Optional[threading.Thread] = None
+        self._start = 0
         self._threads = []
         self._factory: Optional[WorkerFactory] = None
 
@@ -82,15 +105,22 @@ class ThreadedExecutor:
             t.start()
             self._threads.append(t)
 
+    def _take_slot(self) -> bool:
+        """Wait for an in-flight slot; False once stopped or quiesced."""
+        while not self._window.acquire(timeout=_POLL_S):
+            if self._stop.is_set() or self._pause.is_set():
+                return False
+        if self._stop.is_set() or self._pause.is_set():
+            self._window.release()
+            return False
+        return True
+
     def _ventilate(self, items: Iterable[Any]) -> None:
         ordinal = 0
         try:
             for item in items:
-                while not self._window.acquire(timeout=_POLL_S):
-                    if self._stop.is_set():
-                        return
-                if self._stop.is_set():
-                    return
+                if not self._take_slot():
+                    break
                 self._in_q.put((ordinal, item))
                 ordinal += 1
         except BaseException as exc:  # noqa: BLE001 - delivered to the consumer
@@ -124,12 +154,17 @@ class ThreadedExecutor:
             self._results[ordinal] = result
             self._done.notify_all()
 
-    def imap(self, items: Iterable[Any]) -> Iterator[Any]:
-        """Yield ``worker(item)`` for each item, in order."""
+    def imap(self, items: Iterable[Any], start: int = 0) -> Iterator[Any]:
+        """Yield ``worker(item)`` for each item, in order; the first is item
+        ``start`` of the stream."""
         if self._factory is None:
             raise PetastormTpuError("Executor not started")
-        threading.Thread(target=self._ventilate, args=(items,),
-                         name="petastorm-torch-ventilator", daemon=True).start()
+        self._start = start
+        if self._pause.is_set():
+            return
+        self._ventilator = threading.Thread(target=self._ventilate, args=(items,),
+                                            name="petastorm-torch-ventilator", daemon=True)
+        self._ventilator.start()
         ordinal = 0
         while True:
             with self._done:
@@ -145,6 +180,16 @@ class ThreadedExecutor:
             if isinstance(result, _Failure):
                 raise result.exc
             yield result
+
+    def quiesce(self, start: int = 0) -> int:
+        """Stop ventilating and wait for the ventilator; returns the absolute
+        count of items issued (``start`` if ``imap`` has not begun).  The
+        issued items still deliver: ``imap`` ends after the last of them."""
+        self._pause.set()
+        if self._ventilator is None:
+            return start
+        self._ventilator.join()
+        return self._start + (self._total or 0)
 
     def stop(self) -> None:
         self._stop.set()

@@ -10,9 +10,14 @@ plan's order with either pool, as the JAX reader does when it is given a
 (the hybrid JPEG decode: entropy decode in the pool workers, the rest on the
 card in the loader).  Host decode of image columns is the batched native
 decode, fanned out over ``decode_threads`` and cropped by ``decode_roi``
-(``petastorm_tpu/reader.py:740-802``, ``:966-1049``).  Predicates, selectors, caches, transforms, resume,
-ngrams, the ``'device-mixed'`` and ``'auto'`` placements, telemetry and the
-ingest service are not part of this package yet.
+(``petastorm_tpu/reader.py:740-802``, ``:966-1049``).  A reader resumes
+from a cursor (``resume_from``, ``:865-890``), also under a new shard layout
+(``elastic_resume``, ``:349``, ``:684-700``), and gives its cursor
+(``Reader.quiesce`` ``:1925``, ``Reader.state_dict`` ``:1938``) and its
+stream certificate (``Reader.stream_digest`` ``:1743``, folded as ``:1662``
+folds it).  Predicates, selectors, caches, transforms, ngrams, the
+``'device-mixed'`` and ``'auto'`` placements, telemetry and the ingest
+service are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -28,10 +33,11 @@ from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError, ReaderClosedError
 from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
 from petastorm_tpu_torch.native import image as native_image
-from petastorm_tpu_torch.plan import ReadPlan, WorkItem
+from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, elastic_resume_plan,
+                                      resolve_cursor)
 from petastorm_tpu_torch.pool import make_executor
 from petastorm_tpu_torch.schema import Schema
-from petastorm_tpu_torch.seeding import resolve_deterministic
+from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker
 
 _DEFAULT_RESULTS_QUEUE_BATCHES = 10
@@ -50,7 +56,8 @@ def make_reader(dataset_url: str,
                 decode_placement: Optional[Mapping[str, str]] = None,
                 deterministic: Optional[str] = "auto",
                 decode_threads: Union[int, str] = "auto",
-                decode_roi: Optional[Mapping[str, tuple]] = None) -> "Reader":
+                decode_roi: Optional[Mapping[str, tuple]] = None,
+                resume_from: Optional[dict] = None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -75,11 +82,18 @@ def make_reader(dataset_url: str,
     ``('center', h, w)`` centers it, ``('random', h, w)`` draws per-image
     offsets (seeded per rowgroup, so a re-read decodes the same crops).  The
     delivered column, and the reader's ``schema``, have shape ``(h, w[,
-    C])``; the result is byte-identical to slicing a full decode."""
+    C])``; the result is byte-identical to slicing a full decode.
+
+    ``resume_from``: a ``Reader.state_dict()`` (or ``loader.state_dict()
+    ['reader']``) to start at that cursor, with the dataset, shard, seed,
+    shuffle and epoch settings of the run that took it; its stream digest
+    continues.  ``elastic_resume(states)`` resumes under another shard
+    layout."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
-                        deterministic, decode_threads, decode_roi, batched_output=False)
+                        deterministic, decode_threads, decode_roi, resume_from,
+                        batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
@@ -95,14 +109,31 @@ def make_batch_reader(dataset_url: str,
                       decode_placement: Optional[Mapping[str, str]] = None,
                       deterministic: Optional[str] = "auto",
                       decode_threads: Union[int, str] = "auto",
-                      decode_roi: Optional[Mapping[str, tuple]] = None) -> "Reader":
+                      decode_roi: Optional[Mapping[str, tuple]] = None,
+                      resume_from: Optional[dict] = None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
     fields.  The other arguments as for :func:`make_reader`."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
-                        deterministic, decode_threads, decode_roi, batched_output=True)
+                        deterministic, decode_threads, decode_roi, resume_from,
+                        batched_output=True)
+
+
+def elastic_resume(states: Sequence[dict]) -> dict:
+    """``resume_from`` token for resuming under another shard layout.
+
+    ``states``: every old shard's ``Reader.state_dict()``, ordered by old
+    shard index.  Pass the token to ``make_reader(...,
+    resume_from=elastic_resume(states), cur_shard=<new>, shard_count=<new>,
+    num_epochs=<epochs remaining, counting the partial one>)`` on every new
+    shard, with the other plan settings of the checkpointed run.  The
+    leftover of the epoch in progress is dealt across the new shards; the
+    resumed reader's cursor records the translation, and a cursor taken
+    inside the leftover epoch is refused when resumed again.
+    """
+    return {"elastic": {"states": [dict(s) for s in states]}}
 
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
@@ -250,7 +281,7 @@ def _size_pool(workers_count, decode_threads) -> tuple:
 def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  results_queue_size, shuffle_row_groups, shuffle_seed, num_epochs,
                  cur_shard, shard_count, decode_placement, deterministic, decode_threads,
-                 decode_roi, batched_output) -> "Reader":
+                 decode_roi, resume_from, batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
@@ -268,10 +299,37 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         # the batched decode's library: a missing g++, libjpeg or libpng
         # raises here, not in the first worker
         native_image.load_decoder()
-    plan = ReadPlan(info.row_groups, shard_index=cur_shard, shard_count=shard_count,
-                    shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
-    if not plan.epoch_items(0):
-        raise NoDataAvailableError(f"No rowgroups to read in {dataset_url!r}")
+    if resume_from is not None and "elastic" in resume_from:
+        # the old shards' cursors determine the leftover of the epoch in
+        # progress; every other plan setting must be the checkpointed run's
+        plan = elastic_resume_plan(
+            info.row_groups, resume_from["elastic"]["states"],
+            new_shard_index=cur_shard if cur_shard is not None else 0,
+            new_shard_count=shard_count if shard_count is not None else 1,
+            shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
+    else:
+        plan = ReadPlan(info.row_groups, shard_index=cur_shard, shard_count=shard_count,
+                        shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
+        if not plan.epoch_items(0):
+            raise NoDataAvailableError(f"No rowgroups to read in {dataset_url!r}")
+    start_item, digest_state = 0, None
+    if resume_from is not None and "elastic" not in resume_from:
+        # the digest chain continues across the split (an elastic resume
+        # deals several old shards' leftovers: it starts a fresh chain)
+        digest_state = resume_from.get("stream_digest")
+        if "elastic_rebased" in resume_from:
+            # a cursor of an elastically resumed reader: its rebased
+            # coordinates translated back to this plan's item stream
+            start_item, base_ipe = resolve_cursor(resume_from)
+            plan_ipe = len(plan.epoch_items(0))
+            if plan_ipe != base_ipe:
+                raise PetastormTpuError(
+                    f"cursor was taken under a layout with {base_ipe}"
+                    f" items/epoch but this reader's plan has {plan_ipe};"
+                    " shard count or plan settings differ - use"
+                    " elastic_resume() with every shard's state instead")
+        else:
+            start_item = int(resume_from.get("position", 0))
     if results_queue_size is None:
         results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
     workers_count, decode_threads = _size_pool(workers_count, decode_threads)
@@ -279,7 +337,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
                                    decode_threads=decode_threads, decode_roi=decode_roi)
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
-                  deterministic=deterministic, shuffle_seed=shuffle_seed)
+                  deterministic=deterministic, shuffle_seed=shuffle_seed,
+                  start_item=start_item, digest_state=digest_state)
 
 
 class Reader:
@@ -293,7 +352,10 @@ class Reader:
     def __init__(self, schema: Schema, plan: ReadPlan, executor, worker,
                  num_epochs: Optional[int], batched_output: bool,
                  device_decode_fields: Sequence[str] = (), deterministic: str = "off",
-                 shuffle_seed: Optional[int] = None):
+                 shuffle_seed: Optional[int] = None, start_item: int = 0,
+                 digest_state: Optional[dict] = None):
+        if start_item < 0:
+            raise PetastormTpuError("start_item must be >= 0")
         self.schema = schema
         #: ``'seed'`` or ``'off'`` (``make_reader``'s ``deterministic``, resolved)
         self.deterministic = deterministic
@@ -311,6 +373,13 @@ class Reader:
         #: coefficient planes, which only cuda.CudaDataLoader finishes
         self.device_decode_fields: List[str] = list(device_decode_fields)
         self._worker = worker
+        #: cursor: the pool delivers in plan order, so the items consumed
+        #: are exactly the prefix [0, start_item + consumed) of the stream
+        self._start_item = start_item
+        self._consumed_items = 0
+        self._items_per_epoch = len(plan.epoch_items(0))
+        self._epoch_items_cache: dict = {}
+        self._digest = StreamDigest(digest_state)
 
     def decode_stats(self) -> dict:
         """The native decode counters (``batch_calls``, ``batch_images``,
@@ -320,17 +389,98 @@ class Reader:
         return self._worker.decode_stats()
 
     def _items(self) -> Iterator[WorkItem]:
-        epoch = 0
+        """The item stream from ``start_item``: whole epochs skipped, then an
+        offset into the first (``petastorm_tpu/pool.py:2203``)."""
+        ipe = self._items_per_epoch
+        epoch, offset = divmod(self._start_item, ipe) if ipe > 0 else (0, 0)
         while self.num_epochs is None or epoch < self.num_epochs:
-            yield from self.plan.epoch_items(epoch)
+            yield from self.plan.epoch_items(epoch)[offset:]
+            offset = 0
             epoch += 1
 
     def _next_batch(self) -> ColumnBatch:
         if self._stopped:
             raise ReaderClosedError("Reader is stopped")
         if self._batches is None:
-            self._batches = self._executor.imap(self._items())
-        return next(self._batches)
+            self._batches = self._executor.imap(self._items(), start=self._start_item)
+        batch = next(self._batches)
+        self._digest_deliver(self._start_item + self._consumed_items, batch)
+        self._consumed_items += 1
+        return batch
+
+    # -- cursor and stream certificate --------------------------------------
+
+    def _locate_ordinal(self, ordinal: int):
+        """(epoch, index within it) of an absolute item ordinal."""
+        plan = self.plan
+        if isinstance(plan, ElasticResumePlan):
+            leftover = plan.leftover_len
+            if ordinal < leftover:
+                return 0, ordinal
+            ipe = plan.base_items_per_epoch
+            if ipe <= 0:
+                return 0, ordinal
+            return 1 + (ordinal - leftover) // ipe, (ordinal - leftover) % ipe
+        ipe = self._items_per_epoch
+        if ipe <= 0:
+            return 0, ordinal
+        return ordinal // ipe, ordinal % ipe
+
+    def _digest_deliver(self, ordinal: int, batch: ColumnBatch) -> None:
+        """Fold one delivered batch into the stream certificate, with its
+        work item recomputed from the plan (two epochs of items cached)."""
+        epoch, idx = self._locate_ordinal(ordinal)
+        items = self._epoch_items_cache.get(epoch)
+        if items is None:
+            while len(self._epoch_items_cache) >= 2:
+                self._epoch_items_cache.pop(min(self._epoch_items_cache))
+            items = self._epoch_items_cache[epoch] = self.plan.epoch_items(epoch)
+        item = items[idx] if 0 <= idx < len(items) else None
+        if item is not None:
+            start, stop = item.row_slice()
+            self._digest.record_batch(epoch, ordinal, item.row_group.global_index,
+                                      item.row_group.row_group, start, stop, batch.num_rows)
+        else:
+            self._digest.record_batch(epoch, ordinal, -1, -1, 0, 0, batch.num_rows)
+
+    @property
+    def stream_digest(self) -> dict:
+        """The stream certificate so far (``StreamDigest.summary()``): crc
+        chains per epoch and combined over the delivered work items and batch
+        boundaries.  Two readers of the same plan that delivered the same
+        items give the same value, whatever their worker counts."""
+        return self._digest.summary()
+
+    def quiesce(self) -> int:
+        """Issue no further work item; the issued ones still deliver, and
+        iteration ends after the last of them.  ``state_dict()`` is then an
+        exact cursor once the stream is consumed: resuming re-reads no row.
+        Returns the absolute ordinal the stream stops at."""
+        return self._executor.quiesce(self._start_item)
+
+    def state_dict(self) -> dict:
+        """Work-item cursor for ``make_reader(..., resume_from=state)``.
+
+        ``position`` counts the items delivered, a prefix of the item stream
+        (the pool delivers in plan order).  Under a loader it can run ahead
+        of the batches the loader delivered by the loader's in-flight window;
+        ``loader.drain()`` makes it exact.  ``ordinal_exact`` is always true
+        here (the JAX reader's is false when a transport dropped the
+        ordinals).  ``stream_digest`` is the chain state a resume continues.
+        """
+        state = {"position": self._start_item + self._consumed_items,
+                 "items_per_epoch": self._items_per_epoch,
+                 "ordinal_exact": True,
+                 "stream_digest": self._digest.state()}
+        if isinstance(self.plan, ElasticResumePlan):
+            # rebased coordinates: the translation lets this cursor resume
+            # (plainly or elastically) once past the leftover epoch
+            state["elastic_rebased"] = {
+                "leftover_len": self.plan.leftover_len,
+                "resume_epoch": self.plan.resume_epoch,
+                "base_items_per_epoch": self.plan.base_items_per_epoch,
+            }
+        return state
 
     def iter_batches(self) -> Iterator[ColumnBatch]:
         """Yield decoded rowgroups as ColumnBatches; ends cleanly on stop."""

@@ -29,12 +29,20 @@ contracts through cuBLAS); against cv2 max 6 and mean below 1, the
 reference's bound.  B2's tiled kernel, which every path takes, must equal
 its general kernel on every byte (uint8) and bit (float32): the same float
 operations in the same order.
+
+The trainer's K-step CUDA graph (``ScanStep``) against the same steps run
+eagerly: the draws equal bit for bit, the losses and leaves within twice
+the spread of two eager runs (cuDNN's backward need not be bit-deterministic,
+so two eager runs are the measure of what may differ; a spread of 0 asks for
+equality).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer
+from petastorm_tpu_torch.models.resnet import ResNet
 from petastorm_tpu_torch.ops import augment
 from petastorm_tpu_torch.ops import normalize as torch_normalize
 
@@ -737,3 +745,57 @@ def test_sass_counts_need_the_toolkits_cuobjdump(tmp_path, monkeypatch):
 
     monkeypatch.setattr(build, "nvcc_path", lambda: str(tmp_path / "nvcc"))
     assert build.sass_instruction_counts("jpeg_decode") == {}
+
+
+@pytest.mark.cuda
+def test_scan_graph_replay_equals_eager_loop_on_the_card():
+    """On the card: the captured K-step graph against the same unit run as K
+    eager steps from the same weights, momentum and draws.  Draws equal bit
+    for bit; losses and leaves within twice the spread of two eager runs
+    (cuDNN's backward need not be bit-deterministic; a spread of 0 asks for
+    equality)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    classes, side, scan_k = 10, 32, 3
+    model = ResNet([1, 1], num_classes=classes, num_filters=8, dtype=torch.bfloat16,
+                   device="cuda", generator=torch.Generator().manual_seed(0))
+    step = trainer.TrainStep(model, classes, side,
+                             generator=torch.Generator(device="cuda").manual_seed(17))
+    scan = trainer.ScanStep(step, scan_k)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randint(0, 256, (scan_k, 8, 40, 48, 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    labels = torch.randint(0, classes, (scan_k, 8), device="cuda", generator=gen)
+    scan(images, labels)  # warm-up and capture
+    scan(images, labels)
+    snapshot = ([t.detach().clone() for t in step.leaves + step.momentum()],
+                step.generator.get_state())
+
+    def restore():
+        with torch.no_grad():
+            for t, saved in zip(step.leaves + step.momentum(), snapshot[0]):
+                t.copy_(saved)
+        step.generator.set_state(snapshot[1])
+
+    def flat():
+        return torch.cat([t.detach().flatten().double() for t in step.leaves])
+
+    restore()
+    graph_losses = scan(images, labels).double()
+    graph_draws = scan.last_draws
+    graph_leaves = flat()
+    eager = []
+    for _ in range(2):
+        restore()
+        losses, draws = [], []
+        for k in range(scan_k):
+            losses.append(step(images[k], labels[k]))
+            draws.append(step.last_draws)
+        eager.append((torch.stack(losses).double(), flat(),
+                      torch.stack([b for b, _ in draws]), torch.stack([f for _, f in draws])))
+    assert torch.equal(graph_draws[0], eager[0][2]) and torch.equal(graph_draws[1], eager[0][3])
+    loss_spread = (eager[0][0] - eager[1][0]).abs().max().item()
+    leaf_spread = (eager[0][1] - eager[1][1]).abs().max().item()
+    assert (graph_losses - eager[0][0]).abs().max().item() <= 2 * loss_spread
+    assert (graph_leaves - eager[0][1]).abs().max().item() <= 2 * leaf_spread
+    assert scan.replays == 2

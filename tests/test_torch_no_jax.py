@@ -58,5 +58,7 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/native/__init__.py",
                      "petastorm_tpu_torch/native/build.py",
                      "petastorm_tpu_torch/native/image.py", "petastorm_tpu_torch/shuffle.py",
-                     "petastorm_tpu_torch/pytorch.py", "petastorm_tpu_torch/seeding.py"):
+                     "petastorm_tpu_torch/pytorch.py", "petastorm_tpu_torch/seeding.py",
+                     "petastorm_tpu_torch/checkpoint.py", "petastorm_tpu_torch/plan.py",
+                     "petastorm_tpu_torch/pool.py"):
         assert required in names

@@ -245,3 +245,90 @@ def test_batchnorm_gradients_match_flax():
                                        atol=1e-4, err_msg=name)
     np.testing.assert_allclose(x_t.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_x),
                                rtol=1e-5, atol=1e-5)
+
+
+# -- scan_steps: K steps per unit -------------------------------------------------
+
+SCAN_K = 3
+
+
+def _port_pair(variables):
+    """Two port trainers on the same flax weights."""
+    steps = []
+    for _ in range(2):
+        model = ResNet([1, 1], num_classes=CLASSES, num_filters=8, dtype=torch.float32,
+                       device="cpu")
+        model.load_state_dict(resnet_state_from_flax(variables), strict=True)
+        steps.append(trainer.TrainStep(model, CLASSES, SIDE))
+    return steps
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scan_steps_equal_single_steps_and_the_jax_steps(seed):
+    """K eager steps through :class:`ScanStep` on the CPU, with explicit draws,
+    equal K single ``TrainStep`` calls exactly (loss and every leaf), and stay
+    within this file's ``augment`` bounds of K JAX ``_step_math`` steps."""
+    flax_model = FlaxResNet(stage_sizes=[1, 1], num_filters=8, num_classes=CLASSES,
+                            dtype=jnp.float32)
+    variables = _randomized(flax_model.init(jax.random.PRNGKey(seed),
+                                            jnp.zeros((1, SIDE, SIDE, 3), jnp.float32)), seed + 7)
+    scanned, single = _port_pair(variables)
+    scan = trainer.ScanStep(scanned, SCAN_K)
+    tx, jax_step = _jax_step_fn(flax_model)
+    params, opt_state = variables, tx.init(variables)
+
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (SCAN_K, 6, 40, 48, 3), dtype=np.uint8)
+    labels = rng.integers(0, CLASSES, (SCAN_K, 6)).astype(np.int32)
+    boxes, flips, want_losses = [], [], []
+    for i in range(SCAN_K):
+        key = jax.random.fold_in(jax.random.PRNGKey(17), i)
+        params, opt_state, want_loss = jax_step(params, opt_state, jnp.asarray(images[i]),
+                                                jnp.asarray(labels[i]), key)
+        want_losses.append(float(want_loss))
+        k1, k2 = jax.random.split(key)
+        boxes.append(_jax_boxes(k1, 6, 40, 48))
+        flips.append(_jax_flips(k2, 6))
+    images_t, labels_t = torch.from_numpy(images), torch.from_numpy(labels).long()
+    losses = scan(images_t, labels_t, boxes=torch.stack(boxes), flips=torch.stack(flips))
+    assert losses.shape == (SCAN_K,) and scan.flops_per_step > 0
+    single_losses = torch.stack([single(images_t[i], labels_t[i], boxes=boxes[i], flips=flips[i])
+                                 for i in range(SCAN_K)])
+    assert torch.equal(losses, single_losses)
+    for a, b in zip(scanned.leaves, single.leaves):
+        assert torch.equal(a, b)
+    for got, want in zip(losses.tolist(), want_losses):
+        assert abs(got - want) <= 1e-4 * abs(want)
+    want = _leaves(jax.device_get(params))
+    got = _leaves(flax_from_resnet_state(scanned.model.state_dict()))
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=5e-3 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_scan_draws_equal_the_eager_loop():
+    """Without explicit draws, a unit draws its K boxes and flips as K eager
+    steps draw them, from the same generator."""
+    model = ResNet([1], num_classes=4, num_filters=8, dtype=torch.float32, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    scan = trainer.ScanStep(trainer.TrainStep(model, 4, 16,
+                                              generator=torch.Generator().manual_seed(17)), 2)
+    gen = torch.Generator().manual_seed(17)
+    boxes, flips = scan.draw(3, 20, 24, "cpu")
+    for k in range(2):
+        assert torch.equal(boxes[k], trainer.draw_crop_boxes(3, 20, 24, gen, device="cpu"))
+        assert torch.equal(flips[k], trainer.draw_flips(3, gen, "cpu"))
+    with pytest.raises(ValueError, match="stack of 2 steps"):
+        scan(torch.zeros((3, 2, 20, 24, 3), dtype=torch.uint8), torch.zeros((3, 2)).long())
+
+
+def test_trainer_scan_steps_runs_on_cpu(tmp_path):
+    url = str(tmp_path / "imagenet")
+    trainer.generate_dataset(url, rows=32, side=64)
+    m = trainer.train(url, steps=4, global_batch=4, side=64, num_classes=10, device="cpu",
+                      decode="host", scan_steps=2)
+    assert m["scan_steps"] == 2 and m["steps"] == 4 and m["global_batch"] == 4
+    assert m["diagnostics"]["stack_batches"] == 2
+    assert m["diagnostics"]["batches_delivered"] >= 1 + 2 + 1  # warm-up, timed, resident
+    assert m["flops_per_sample"] > 0 and np.isfinite(m["final_loss"])
+
