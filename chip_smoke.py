@@ -103,7 +103,27 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    resumed reader's digest equal to phase 5's reader's, the restored leaves
    and momentum equal to the saved ones bit for bit, and the first resumed
    step's loss within phase 11's bound of phase 5's same step; the times of
-   the save and the restore.
+   the save and the restore;
+13. shuffled inference: phase 4's path for one epoch three ways in one call:
+   unshuffled, through the loader's host shuffle buffer (2048 rows,
+   ``buffer_seed=0``) and through its device shuffle buffer
+   (``device_shuffle_capacity=8``: 8 x 256 = 2048 rows, a 308 MB store on
+   the card, ``device_shuffle_seed=0``), the last twice: each shuffled
+   epoch's labels the unshuffled epoch's as a multiset in another order, the
+   two device-buffer runs in one order, B1 once a batch; for each way
+   samples/s, the input-wait share, ``assemble_s`` and ``transfer_s`` a
+   batch and peak device memory, and the device buffer's exchange a push
+   (CUDA events on the copy stream); a push alone at the main shapes under
+   ``torch.cuda.set_sync_debug_mode('error')``: no host sync; a push alone
+   on the idle card, timed against the least time of its bytes;
+14. warm-cache training: phase 6's path (device decode: B2, B3, B1, the
+   step) for 3 epochs with ``cache_type='memory'`` against the same with
+   ``'null'``: 16 misses and 32 hits, the entropy decode in the first epoch
+   only, the labels, every batch's image sum and the digest equal, the first
+   batch's images after B2 bit for bit; samples/s an epoch, the cache's
+   resident bytes; then the reader alone (entropy decode) for 4 epochs
+   without a cache, with the memory tier and with the local-disk tier in a
+   temporary directory: rows/s of the first epoch against the later ones.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -133,7 +153,7 @@ from petastorm_tpu_torch import shuffle  # noqa: E402
 from petastorm_tpu_torch.batch import ColumnBatch  # noqa: E402
 from petastorm_tpu_torch.checkpoint import (make_checkpoint_manager, restore_checkpoint,  # noqa: E402
                                             resume_reader_kwargs, save_checkpoint)
-from petastorm_tpu_torch.cuda import build  # noqa: E402
+from petastorm_tpu_torch.cuda import build, device_buffer  # noqa: E402
 from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
@@ -153,6 +173,8 @@ DRAINED_FROM = 32             # phase 10: batches after this one read a drained 
 SHUFFLE_CAPACITY = 2048        # phases 8-9: rows in the host shuffle buffer
 SCAN_K = 4                     # phase 11: training steps a stacked unit and a graph replay
 CHECKPOINT_AFTER = 6           # phase 12: steps trained before the drain
+DEVICE_SHUFFLE_CAPACITY = 8    # phase 13: batches in the device shuffle buffer (2048 rows)
+CACHE_EPOCHS = 3               # phase 14: epochs trained from one warm cache
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -958,11 +980,13 @@ def device_time_by_op(step, images, labels, steps=3, top=12):
     return sum(t for _, t in times), times[:top]
 
 
-def train_epoch(path, decode, loader_kwargs=None):
-    """One epoch of the training path over the phase-4 dataset, the reader
-    decoding with ``decode_placement={'image': decode}`` and the loader
-    taking ``loader_kwargs``; every kernel count set to 0 just before the
-    epoch and read just after it."""
+def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
+    """``epochs`` epochs (one by default) of the training path over the
+    phase-4 dataset, the reader decoding with ``decode_placement={'image':
+    decode}`` and taking ``reader_kwargs``, the loader taking
+    ``loader_kwargs``; every kernel count set to 0 just before the run and
+    read just after it.  With a ``cache_type`` the native decode runs in the
+    first epoch only."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -971,18 +995,22 @@ def train_epoch(path, decode, loader_kwargs=None):
     step = trainer.TrainStep(model, 1000, SIDE,
                              generator=torch.Generator(device="cuda").manual_seed(
                                  trainer.AUGMENT_SEED))
-    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
-                         decode_placement={"image": decode})
+    reader_kwargs = reader_kwargs or {}
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=epochs,
+                         decode_placement={"image": decode}, **reader_kwargs)
+    steps_per_epoch = N_ROWS // BATCH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    losses, labels_seen, steps, first = [], [], 0, None
+    losses, labels_seen, image_sums, steps, first = [], [], [], 0, None
+    epoch_marks = []  # (seconds, consumer wait) at the end of each epoch
     with CudaDataLoader(reader, batch_size=BATCH, device="cuda",
                         **(loader_kwargs or {})) as loader:
         start = time.perf_counter()
         for batch in loader:
             labels = batch["label"] % 1000
             labels_seen.append(batch["label"])
+            image_sums.append(batch["image"].sum(dtype=torch.int64))
             if first is None:
                 first = (batch["image"].clone(), labels.clone())
                 flops, loss = trainer.count_flops(step, batch["image"], labels)
@@ -993,6 +1021,9 @@ def train_epoch(path, decode, loader_kwargs=None):
             if steps == WARMUP_STEPS:
                 torch.cuda.synchronize()
                 timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+            if epochs > 1 and steps % steps_per_epoch == 0:
+                torch.cuda.synchronize()
+                epoch_marks.append((time.perf_counter(), loader.diagnostics()["consumer_wait_s"]))
         torch.cuda.synchronize()
         end = time.perf_counter()
         diagnostics = loader.diagnostics()
@@ -1005,7 +1036,7 @@ def train_epoch(path, decode, loader_kwargs=None):
     general_b2 = jpeg.jpeg_decode_kernel.launches_general
     losses = torch.stack(losses).float().cpu()
 
-    want_steps = N_ROWS // BATCH
+    want_steps = epochs * steps_per_epoch
     if steps != want_steps:
         raise AssertionError(f"{steps} training steps ({decode} decode), expected {want_steps}")
     # every crop of the step is without antialias: the tiled kernel, never the
@@ -1024,7 +1055,9 @@ def train_epoch(path, decode, loader_kwargs=None):
                                  f" ({decode} decode), expected {want[name]}")
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    decoded = check_native_decode(reader.decode_stats(), N_ROWS, f"training, {decode} decode",
+    cached = reader_kwargs.get("cache_type", "null") != "null"
+    decoded = check_native_decode(reader.decode_stats(), N_ROWS * (1 if cached else epochs),
+                                  f"training, {decode} decode",
                                   "batch" if decode == "host" else "coef_batch")
     timed = end - timed_start
     return {"step": step, "model": model, "first": first, "flops": flops,
@@ -1032,7 +1065,9 @@ def train_epoch(path, decode, loader_kwargs=None):
             "workers": workers, "launches": launches, "general_launches": general_launches,
             "peak": torch.cuda.max_memory_allocated(), "epoch_s": end - start, "timed": timed,
             "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait,
-            "diagnostics": diagnostics, "decode_stats": decoded, "digest": reader.stream_digest}
+            "diagnostics": diagnostics, "decode_stats": decoded, "digest": reader.stream_digest,
+            "image_sums": torch.stack(image_sums).cpu(), "cache_stats": reader.cache_stats(),
+            "timed_start": (timed_start, wait0), "epoch_marks": epoch_marks}
 
 
 def reset_launch_counts():
@@ -1667,6 +1702,232 @@ def checkpoint_resume_phase(path, host, loss_bound):
           losses=losses)
 
 
+def inference_epoch(path, model, loader_kwargs=None):
+    """Phase 4's inference path (host decode, B1, the forward) for one epoch
+    with the loader taking ``loader_kwargs``; B1's count set to 0 just
+    before and read just after.  Returns the labels in delivery order, the
+    rates and the loader's stage seconds a batch."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
+                         decode_placement={"image": "host"})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    normalize.normalize_kernel.launches = 0
+    delivered, steps = [], 0
+    with CudaDataLoader(reader, batch_size=BATCH, device="cuda",
+                        **(loader_kwargs or {})) as loader, torch.inference_mode():
+        for batch in loader:
+            logits = model(normalize.normalize_images(batch["image"], MEAN, STD))
+            delivered.append(batch["label"])
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 1000):
+                raise AssertionError(f"batch {steps}: bad logits {tuple(logits.shape)}")
+            steps += 1
+            if steps == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        diag = loader.diagnostics()
+    launches = normalize.normalize_kernel.launches
+    if steps != N_ROWS // BATCH or launches != steps:
+        raise AssertionError(f"{steps} batches and {launches} normalize launches, expected"
+                             f" {N_ROWS // BATCH} of each ({loader_kwargs})")
+    decoded = check_native_decode(reader.decode_stats(), N_ROWS, f"phase 13 {loader_kwargs}")
+    timed = end - timed_start
+    return {"labels": torch.cat(delivered).cpu(),
+            "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed,
+            "consumer_wait_share": (diag["consumer_wait_s"] - wait0) / timed,
+            "assemble_ms_per_batch": 1e3 * diag["assemble_s"] / steps,
+            "transfer_ms_per_batch": 1e3 * diag["transfer_s"] / steps,
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {"normalize_u8": launches}, "decode_stats": decoded}
+
+
+def shuffled_inference_phase(path, main_samples_per_s):
+    """Phase 4's inference path three ways in one call: unshuffled, through
+    the host shuffle buffer (SHUFFLE_CAPACITY rows, ``buffer_seed=0``) and
+    through the device shuffle buffer (DEVICE_SHUFFLE_CAPACITY batches,
+    ``device_shuffle_seed=0``), the last twice.  Each shuffled epoch's labels
+    are the unshuffled epoch's as a multiset, in another order; the two
+    device-buffer runs give one order.  The device buffer's exchange is
+    timed a push with CUDA events on the copy stream it runs on; a push
+    alone at the main shapes must synchronize nothing with the host."""
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    device_kwargs = {"device_shuffle_capacity": DEVICE_SHUFFLE_CAPACITY,
+                     "device_shuffle_seed": 0}
+    runs = {"unshuffled": inference_epoch(path, model),
+            "host_buffer": inference_epoch(path, model, {
+                "shuffling_queue_capacity": SHUFFLE_CAPACITY, "buffer_seed": 0})}
+    exchange = {"events": [], "host_s": []}
+    real_exchange = device_buffer._exchange
+
+    def timed_exchange(store, batch, slot, perm):
+        # called on the loader's transfer thread inside its copy stream
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = real_exchange(store, batch, slot, perm)
+        end.record()
+        exchange["host_s"].append(time.perf_counter() - t0)
+        exchange["events"].append((start, end))
+        return out
+
+    device_buffer._exchange = timed_exchange
+    try:
+        runs["device_buffer"] = inference_epoch(path, model, device_kwargs)
+    finally:
+        device_buffer._exchange = real_exchange
+    torch.cuda.synchronize()
+    exchange_ms = [start.elapsed_time(end) for start, end in exchange["events"]]
+    again = inference_epoch(path, model, device_kwargs)
+
+    plain = runs["unshuffled"]["labels"].numpy()
+    for name in ("host_buffer", "device_buffer"):
+        labels = runs[name]["labels"].numpy()
+        if not np.array_equal(np.sort(labels), np.sort(plain)):
+            raise AssertionError(f"phase 13, {name}: other labels than the unshuffled epoch")
+        if np.array_equal(labels, plain):
+            raise AssertionError(f"phase 13, {name}: the unshuffled epoch's order")
+    if not torch.equal(again["labels"], runs["device_buffer"]["labels"]):
+        raise AssertionError("phase 13: two device-buffer runs with one seed gave two orders")
+    pushes = N_ROWS // BATCH - DEVICE_SHUFFLE_CAPACITY
+    if len(exchange_ms) != pushes:
+        raise AssertionError(f"phase 13: {len(exchange_ms)} exchanges, expected {pushes}")
+
+    # a push at the main shapes, alone: no host sync (the slot is drawn on
+    # the host, the permutation on the card)
+    buf = device_buffer.DeviceShufflingBuffer(DEVICE_SHUFFLE_CAPACITY, seed=0, device="cuda")
+    batch = {"image": torch.zeros(MAIN_SHAPE, dtype=torch.uint8, device="cuda"),
+             "label": torch.arange(BATCH, device="cuda")}
+    for _ in range(DEVICE_SHUFFLE_CAPACITY):
+        buf.push(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            buf.push(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # a push on an idle card (the in-run exchanges share it with the forward)
+    # against the least time of its bytes: the slot and the batch read once,
+    # the emitted batch and the new slot written once
+    alone_ms = time_ms(lambda: buf.push(batch))
+    slot_bytes = BATCH * SIDE * SIDE * 3 + BATCH * 8
+    exchange_bound_ms = 1e3 * 4 * slot_bytes / HBM_BYTES_PER_S
+    del buf, batch
+
+    phase("inference_shuffled", batch=BATCH, steps=N_ROWS // BATCH,
+          timed_steps=N_ROWS // BATCH - WARMUP_STEPS,
+          shuffling_queue_capacity=SHUFFLE_CAPACITY,
+          device_shuffle_capacity=DEVICE_SHUFFLE_CAPACITY,
+          device_store_bytes=DEVICE_SHUFFLE_CAPACITY * slot_bytes,
+          phase4_samples_per_s=main_samples_per_s,
+          runs={name: {k: v for k, v in run.items() if k != "labels"}
+                for name, run in runs.items()},
+          device_buffer_rerun_samples_per_s=again["samples_per_s"],
+          exchange={"pushes": pushes, "device_ms_median": float(np.median(exchange_ms)),
+                    "device_ms_mean": float(np.mean(exchange_ms)),
+                    "device_ms_max": float(np.max(exchange_ms)),
+                    "host_ms_median": 1e3 * float(np.median(exchange["host_s"])),
+                    "alone_ms": alone_ms, "bytes_bound_ms": exchange_bound_ms},
+          labels_multisets_equal=True, orders_differ_from_unshuffled=True,
+          device_buffer_same_seed_same_order=True, push_without_host_sync=True)
+
+
+def cached_read_rate(path, workers, cache_type, **kwargs):
+    """The reader alone over RATE_EPOCHS epochs with ``cache_type``, entropy
+    decode only: rows/s of the cold first epoch (the pool's start-up
+    included) and of the warm rest, and the cache's and decode's counters;
+    ``'null'`` is the same reader with every epoch cold."""
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=RATE_EPOCHS,
+                         decode_placement={"image": "device"}, cache_type=cache_type, **kwargs)
+    rows, marks = 0, []
+    with reader:
+        start = time.perf_counter()
+        for batch in reader.iter_batches():
+            rows += batch.num_rows
+            if rows % N_ROWS == 0:
+                marks.append(time.perf_counter())
+        stats, decoded = reader.cache_stats(), reader.decode_stats()
+    if rows != RATE_EPOCHS * N_ROWS or len(marks) != RATE_EPOCHS:
+        raise AssertionError(f"the cached reader gave {rows} rows over {RATE_EPOCHS} epochs")
+    groups = N_ROWS // ROWS_PER_GROUP
+    want = (0, 0) if cache_type == "null" else (groups, groups * (RATE_EPOCHS - 1))
+    if (stats["misses"], stats["hits"]) != want:
+        raise AssertionError(f"{cache_type} cache: {stats}, expected {want[0]} misses and"
+                             f" {want[1]} hits")
+    check_native_decode(decoded, N_ROWS * (RATE_EPOCHS if cache_type == "null" else 1),
+                        f"phase 14, {cache_type} reader", "coef_batch")
+    return {"cold_rows_per_s": N_ROWS / (marks[0] - start),
+            "warm_rows_per_s": (RATE_EPOCHS - 1) * N_ROWS / (marks[-1] - marks[0]),
+            "cache_stats": stats}
+
+
+def warm_cache_train_phase(path):
+    """Phase 6's training path (device decode: B2, B3, B1, the step) for
+    CACHE_EPOCHS epochs with ``cache_type='memory'``, against the same run
+    with ``'null'``: one miss a rowgroup and a hit a rowgroup a later epoch,
+    the entropy decode in the first epoch only, the labels and every batch's
+    image sum (after B2) equal, the first batch's images bit for bit.  Then
+    the reader alone, cold epoch against warm, in memory and on local disk."""
+    groups = N_ROWS // ROWS_PER_GROUP
+    runs = {cache: train_epoch(path, "device", epochs=CACHE_EPOCHS,
+                               reader_kwargs={"cache_type": cache})
+            for cache in ("null", "memory")}
+    null, warm = runs["null"], runs["memory"]
+    stats = warm["cache_stats"]
+    if (stats["misses"], stats["hits"]) != (groups, groups * (CACHE_EPOCHS - 1)):
+        raise AssertionError(f"phase 14: cache {stats}, expected {groups} misses and"
+                             f" {groups * (CACHE_EPOCHS - 1)} hits")
+    if not torch.equal(warm["labels"], null["labels"]):
+        raise AssertionError("phase 14: the cached run delivered other labels or order")
+    if not torch.equal(warm["image_sums"], null["image_sums"]):
+        raise AssertionError("phase 14: the cached run's images differ from the uncached run's")
+    if not torch.equal(warm["first"][0], null["first"][0]):
+        raise AssertionError("phase 14: the first batch's images after B2 differ")
+    if warm["digest"] != null["digest"]:
+        raise AssertionError("phase 14: the cached run's stream digest differs")
+    for run in runs.values():
+        if run["launches"]["jpeg_decode_u8"] != run["steps"]:
+            raise AssertionError(f"phase 14: B2 launched {run['launches']} in {run['steps']}"
+                                 " steps")
+
+    def per_epoch(run):
+        marks = [run["timed_start"]] + run["epoch_marks"]
+        out = []
+        for k, ((t0, w0), (t1, w1)) in enumerate(zip(marks, marks[1:])):
+            steps = N_ROWS // BATCH - (WARMUP_STEPS if k == 0 else 0)
+            out.append({"epoch": k + 1, "steps": steps, "samples_per_s": steps * BATCH / (t1 - t0),
+                        "consumer_wait_share": (w1 - w0) / (t1 - t0)})
+        return out
+
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    reader_alone = {cache: cached_read_rate(path, workers, cache)
+                    for cache in ("null", "memory")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache_dir:
+        reader_alone["local-disk"] = cached_read_rate(path, workers, "local-disk",
+                                                      cache_location=cache_dir)
+        disk_bytes = sum(os.path.getsize(os.path.join(cache_dir, f))
+                         for f in os.listdir(cache_dir))
+    reader_alone["local-disk"]["directory_bytes"] = disk_bytes
+    phase("warm_cache_train_device_decode", decode="device", epochs=CACHE_EPOCHS,
+          rowgroups=groups, batch=BATCH, workers=null["workers"],
+          cache_stats=stats, cache_resident_bytes=stats["bytes"],
+          decode_stats={"null": null["decode_stats"], "memory": warm["decode_stats"]},
+          per_epoch={"null": per_epoch(null), "memory": per_epoch(warm)},
+          samples_per_s={"null": null["samples_per_s"], "memory": warm["samples_per_s"]},
+          peak_device_memory_bytes={"null": null["peak"], "memory": warm["peak"]},
+          launches={"null": null["launches"], "memory": warm["launches"]},
+          assemble_ms_per_batch={k: 1e3 * r["diagnostics"]["assemble_s"] / r["steps"]
+                                 for k, r in runs.items()},
+          reader_alone_entropy_only=reader_alone, labels_equal=True, image_sums_equal=True,
+          first_batch_bit_equal=True, digest_equal=True)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1697,6 +1958,8 @@ def main():
         drained_inference_phase(path, main_samples_per_s)
         scan = scan_train_phase(path, device)
         checkpoint_resume_phase(path, host, scan["loss_bound"])
+        shuffled_inference_phase(path, main_samples_per_s)
+        warm_cache_train_phase(path)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,9 @@ CUDA device, with its two-stage producer:
   the consumer waits on.  With ``stack_batches=K`` it groups K consecutive
   batches into one ``(K, batch_size, ...)`` unit first (``:986
   _emit_stack``): one staging buffer and one copy per field, and one B2
-  launch over the K batches' images.
+  launch over the K batches' images.  With ``device_shuffle_capacity`` the
+  full batches then pass through the device shuffle buffer
+  (``device_buffer.py``), on the copy stream and before the event.
 
 Both queues hold ``prefetch`` batches (units, when stacked).  The consumer's
 current stream waits on the copy's CUDA event, and the delivered tensors are
@@ -42,9 +44,9 @@ after which the reader's cursor is exact.
 
 With ``device="cpu"`` the same two threads deliver plain CPU tensors, with
 no pinned memory and no streams, and the decode runs B2's plain version.
-The device shuffle buffer, the default cross-process collective of a
-multi-process ``drain()``, ``transfer_commit``, ``trace_dir``, telemetry and
-``set_prefetch`` are not part of this package yet.
+The default cross-process collective of a multi-process ``drain()``,
+``transfer_commit``, ``trace_dir``, telemetry and ``set_prefetch`` are not
+part of this package yet.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch.batch import ColumnBatch
+from petastorm_tpu_torch.cuda.device_buffer import DeviceShufflingBuffer
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.dtypes import torch_feed_dtype
 from petastorm_tpu_torch.errors import CodecError, PetastormTpuError
@@ -223,8 +226,19 @@ class CudaDataLoader:
       ``drain()`` and ``state_dict()`` count whole stacks.  Host fields
       stack to ``(K, batch_size, ...)`` numpy arrays (missing rows: zeros,
       or None for objects).  Multi-bucket ``pad_shapes`` are refused (the K
-      batches could take different buckets); the JAX loader also refuses
-      its device shuffle buffer here, which this package does not have yet.
+      batches could take different buckets), and so is the device shuffle
+      buffer, which holds single batches.
+    * ``device_shuffle_capacity`` > 0 (``jax/loader.py:211-212``) shuffles
+      whole batches on the device as well: an exchange buffer of that many
+      batches (``device_buffer.DeviceShufflingBuffer``) on the copy stream,
+      after the staging copy and B2 and before the event ``__next__`` waits
+      on, so its store never leaves the card.  ``device_shuffle_seed`` seeds
+      it; without one it derives from the reader's ``shuffle_seed`` under
+      ``deterministic='seed'``.  At the stream's end the resident batches
+      drain (shuffled), then the zero-padded tail (``'_valid_rows'``), which
+      skips the buffer, then the end.  Refused with ``stack_batches``,
+      ``host_fields`` and multi-bucket ``pad_shapes``, as the JAX loader
+      refuses them.
 
     ``diagnostics()['consumer_wait_s']`` is the time ``__next__`` spent
     waiting for the producer: the input-bound share of a training loop;
@@ -246,7 +260,9 @@ class CudaDataLoader:
                                                  Dict[str, np.ndarray]]] = None,
                  valid_mask_field: Optional[str] = None,
                  straggler_release_s: Union[None, float, str] = "auto",
-                 stack_batches: int = 1):
+                 stack_batches: int = 1,
+                 device_shuffle_capacity: int = 0,
+                 device_shuffle_seed: Optional[int] = None):
         if batch_size < 1:
             raise PetastormTpuError("batch_size must be >= 1")
         if stack_batches < 1:
@@ -295,6 +311,12 @@ class CudaDataLoader:
                     f" field, but {bucketed} use multi-bucket pad_shapes (the"
                     " bucket choice could differ between the K stacked"
                     " batches); give them a single pad target instead.")
+            if device_shuffle_capacity:
+                raise PetastormTpuError(
+                    "stack_batches cannot be combined with"
+                    " device_shuffle_capacity: the HBM exchange buffer holds"
+                    " single batches. Use the host shuffling buffer"
+                    " (shuffling_queue_capacity) instead.")
         for name in self._fields:
             if name in device_decode:
                 continue
@@ -340,6 +362,26 @@ class CudaDataLoader:
                 " release matters more than bit-identical batches")
             self._straggler_s = None
         buffer_seed = reader_buffer_seed(reader, "loader.shuffle_buffer", buffer_seed)
+        self._device_buffer: Optional[DeviceShufflingBuffer] = None
+        if device_shuffle_capacity:
+            device_shuffle_seed = reader_buffer_seed(
+                reader, "loader.device_shuffle", device_shuffle_seed)
+            if self._host_fields:
+                raise PetastormTpuError(
+                    "device_shuffle_capacity cannot be combined with"
+                    " host_fields: host-side values cannot live in the HBM"
+                    " buffer. Use the host shuffling buffer"
+                    " (shuffling_queue_capacity) instead.")
+            bucketed = [n for n, b in self._pad_shapes.items() if len(b) > 1]
+            if bucketed:
+                raise PetastormTpuError(
+                    f"device_shuffle_capacity needs uniform batch shapes, but"
+                    f" {bucketed} use multi-bucket pad_shapes; give them a"
+                    " single pad target instead.")
+            self._device_buffer = DeviceShufflingBuffer(
+                device_shuffle_capacity, seed=device_shuffle_seed, device=self._device)
+        #: padded tail units held back to follow the device buffer's drain
+        self._tail_units: List[tuple] = []
         if shuffling_queue_capacity and shuffling_queue_capacity > 0:
             min_after = (min_after_retrieve if min_after_retrieve is not None
                          else shuffling_queue_capacity // 2)
@@ -583,9 +625,37 @@ class CudaDataLoader:
                         " batches - decode_placement='device' requires one"
                         " geometry dataset-wide (use 'device-mixed')")
 
+    def _shuffle_on_device(self, batch: Dict[str, torch.Tensor],
+                           item: _HostBatch) -> Optional[Dict[str, torch.Tensor]]:
+        """A full batch through the device shuffle buffer, when there is one:
+        the batch it emits, or None while it fills.  The padded tail skips
+        it."""
+        if self._device_buffer is None or item.rows < self._batch_size:
+            return batch
+        return self._device_buffer.push(batch)
+
+    def _drain_device_buffer(self) -> List[tuple]:
+        """The device buffer's resident batches (shuffled) and the held-back
+        tails, as (unit, event) pairs, in the order they are delivered."""
+        if self._device_buffer is None:
+            return []
+        t0 = time.perf_counter()
+        if self._cuda:
+            with torch.cuda.device(self._device), torch.cuda.stream(self._copy_stream):
+                residents = list(self._device_buffer.drain())
+                drained = torch.cuda.Event()
+                drained.record(self._copy_stream)
+        else:
+            residents, drained = list(self._device_buffer.drain()), None
+        self._transfer_s += time.perf_counter() - t0
+        units = [(batch, drained) for batch in residents] + self._tail_units
+        self._tail_units = []
+        return units
+
     def _stage(self, group: List[_HostBatch]):
         """One batch, or the K batches of a stack -> (device unit, the event
-        its copy and decode record)."""
+        its copy and decode record), or None when the device shuffle buffer
+        keeps it."""
         item = group[0]
         layout = self._layout(item)
         if self._stack > 1:
@@ -596,9 +666,9 @@ class CudaDataLoader:
             with torch.cuda.device(self._device), torch.cuda.stream(self._copy_stream):
                 staged = {name: host.to(self._device, non_blocking=True)
                           for name, host in slot.host.items()}
-                # the decode runs on the copy stream, after the copy and
-                # before the event the consumer waits on
-                batch = self._finish(staged, item)
+                # the decode and the device shuffle run on the copy stream,
+                # after the copy and before the event the consumer waits on
+                batch = self._shuffle_on_device(self._finish(staged, item), item)
                 slot.copied = torch.cuda.Event()
                 slot.copied.record(self._copy_stream)
             copied = slot.copied
@@ -606,13 +676,21 @@ class CudaDataLoader:
             staged = {name: torch.empty(self._lead + shape, dtype=_torch_dtype(dt))
                       for name, (shape, dt) in layout.items()}
             self._fill(staged, group)
-            batch, copied = self._finish(staged, item), None
+            batch = self._shuffle_on_device(self._finish(staged, item), item)
+            copied = None
+        if batch is None:
+            return None  # the device buffer took the batch and emitted none
         for name, tensor in batch.items():
             self._emitted_layout[name] = (tuple(tensor.shape[len(self._lead):]), tensor.dtype)
         if self._stack == 1:
             batch.update(item.host)
             if item.rows < self._batch_size:
                 batch[VALID_ROWS] = item.rows
+                if self._device_buffer is not None:
+                    # a consumer reads the padded tail as the epoch's end:
+                    # it follows the buffer's drain (jax/loader.py:973-983)
+                    self._tail_units.append((batch, copied))
+                    return None
             return batch, copied
         valids = [it.rows for it in group]
         missing = self._stack - len(group)
@@ -649,6 +727,8 @@ class CudaDataLoader:
                 return  # stopped
             if group and not self._drop_last:
                 self._stage_and_push(group)
+            for unit in self._drain_device_buffer():
+                self._push(unit)
             self._push(_Done())
             self._sentinel_pending = True
         except BaseException as exc:  # noqa: BLE001 - delivered to the consumer
@@ -661,7 +741,8 @@ class CudaDataLoader:
         value = self._stage(group)
         self._units_staged += 1
         self._transfer_s += time.perf_counter() - t0
-        self._push(value)
+        if value is not None:
+            self._push(value)
 
     def _abort_upstream(self) -> None:
         """A producer stage failed: stop the other stage and the reader (the
@@ -754,10 +835,10 @@ class CudaDataLoader:
 
     def drain(self, all_gather_counts: Optional[Callable[[int], Sequence[int]]] = None):
         """Quiesce the reader and return an iterator over every unit still in
-        flight: the assembled ones, the shuffle buffer's remainder and, under
-        ``drop_last=False``, the zero-padded tail.  Once it is consumed the
-        loader is exhausted and ``state_dict()`` is an exact cursor: a resume
-        re-reads no row.  The quiesce happens in this call, not at the first
+        flight: the assembled ones, the remainders of the host and device
+        shuffle buffers and, under ``drop_last=False``, the zero-padded tail.
+        Once it is consumed the loader is exhausted and ``state_dict()`` is an
+        exact cursor: a resume re-reads no row.  The quiesce happens in this call, not at the first
         ``next``::
 
             for unit in loader.drain():   # train on what is already in flight
@@ -870,8 +951,10 @@ class CudaDataLoader:
         ``checkpoint.resume_reader_kwargs``), ``delivered_batches`` counts
         delivered units (stacks when ``stack_batches=K``).  Mid-epoch the
         reader's cursor runs ahead of the units delivered by the in-flight
-        window (both stage queues, the shuffle buffer, the accumulating
-        stack); call ``drain()`` first for an exact one."""
+        window: both stage queues (2x ``prefetch``), the host shuffle buffer,
+        the accumulating stack, and all ``device_shuffle_capacity`` resident
+        batches of the device buffer.  Keep the buffers small (or zero) where
+        a tight resume matters, or call ``drain()`` first for an exact one."""
         if not hasattr(self._reader, "state_dict"):
             raise PetastormTpuError(
                 f"Reader {type(self._reader).__name__} does not support"

@@ -1,8 +1,10 @@
 """ImageNet-style ResNet-50 training fed by the port, on one CUDA GPU.
 
 Port of ``examples/imagenet/train_resnet_tpu.py`` (``generate_dataset`` and
-``train``) for its ``input_pipeline='petastorm'``, ``cache='null'``
-configuration, with ``decode='device'`` (the default, as there) or
+``train``) for its ``input_pipeline='petastorm'`` configuration, with
+``cache='null'``, ``'memory'`` or ``'local-disk'`` (the reader's
+``cache_type``: epochs after the first skip the Parquet read and the host
+half of the decode), with ``decode='device'`` (the default, as there) or
 ``decode='host'``: JPEG Parquet -> ``make_reader`` -> ``CudaDataLoader``
 -> the training step of ``_step_math``.  ``scan_steps=K`` is the
 counterpart of ``train_scan`` (``train_resnet_tpu.py:203-215``): the loader
@@ -309,12 +311,16 @@ DECODES = ("host", "device")
 
 def train(dataset_url: str, steps: int, global_batch: int, side: int,
           num_classes: int = 1000, decode: str = "device", workers: int = 4,
-          prefetch: int = 2, device="cuda", scan_steps: int = 1) -> Dict:
+          prefetch: int = 2, device="cuda", scan_steps: int = 1,
+          cache: str = "null") -> Dict:
     """Run one warm-up unit and ``steps`` timed ResNet-50 training steps fed
     by the loader; returns samples/s, the input-wait share of the timed
     window (``device_idle_pct``), the stall against a rerun of as many units
     on one resident unit (``input_stall_pct``), and the model FLOP counts.
     ``decode``: ``'device'`` (hybrid JPEG decode, kernel B2) or ``'host'``.
+    ``cache``: the reader's ``cache_type`` (``train_resnet_tpu.py:244-249``);
+    with ``decode='device'`` it holds the coefficient planes, and B2 still
+    runs every step.
     ``scan_steps=K``: a unit is a stack of K batches run by :class:`ScanStep`
     (a CUDA graph of K steps on the card); ``steps`` rounds up to whole units
     and ``flops_per_sample`` comes from a single eager step of the warm-up
@@ -331,7 +337,7 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
     step = TrainStep(model, num_classes, side,
                      generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED))
     reader = make_reader(dataset_url, num_epochs=None, workers_count=workers,
-                         decode_placement={"image": decode})
+                         decode_placement={"image": decode}, cache_type=cache)
     if scan_steps > 1:
         scan = ScanStep(step, scan_steps)
         run_unit = lambda unit: scan(unit["image"], unit["label"])[-1]  # noqa: E731
@@ -380,6 +386,8 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         "scan_steps": scan_steps,
         "global_batch": global_batch,
         "decode": decode,
+        "cache": cache,
+        "cache_stats": reader.cache_stats(),
         "wall_s": dt,
         "final_loss": float(loss),
         "diagnostics": diagnostics,
@@ -398,6 +406,9 @@ if __name__ == "__main__":
     parser.add_argument("--num-classes", type=int, default=1000)
     parser.add_argument("--decode", choices=DECODES, default="device",
                         help="where the JPEG decode finishes (default: device, kernel B2)")
+    parser.add_argument("--cache", choices=("null", "memory", "local-disk"), default="null",
+                        help="the reader's cache_type: warm epochs skip the Parquet read and"
+                             " the host decode")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--scan-steps", type=int, default=1,
                         help="training steps per unit: a CUDA graph of K steps replayed per"
@@ -410,8 +421,8 @@ if __name__ == "__main__":
         generate_dataset(url, args.rows, args.side)
     m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
               decode=args.decode, workers=args.workers, prefetch=args.prefetch,
-              device=args.device, scan_steps=args.scan_steps)
+              device=args.device, scan_steps=args.scan_steps, cache=args.cache)
     print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
           f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']} (decode"
-          f" {m['decode']}, {m['scan_steps']} steps a unit), input wait"
+          f" {m['decode']}, cache {m['cache']}, {m['scan_steps']} steps a unit), input wait"
           f" {m['device_idle_pct']:.1f}% of the window, final loss {m['final_loss']:.4f}")

@@ -93,6 +93,9 @@ class ThreadedExecutor:
         self._stop = threading.Event()
         self._pause = threading.Event()
         self._ventilator: Optional[threading.Thread] = None
+        #: makes creating, starting and publishing the ventilator one step
+        #: to quiesce(): it finds no ventilator, or a started one
+        self._ventilator_lock = threading.Lock()
         self._start = 0
         self._threads = []
         self._factory: Optional[WorkerFactory] = None
@@ -160,11 +163,13 @@ class ThreadedExecutor:
         if self._factory is None:
             raise PetastormTpuError("Executor not started")
         self._start = start
-        if self._pause.is_set():
-            return
-        self._ventilator = threading.Thread(target=self._ventilate, args=(items,),
-                                            name="petastorm-torch-ventilator", daemon=True)
-        self._ventilator.start()
+        with self._ventilator_lock:
+            if self._pause.is_set():  # a quiesce() came first: issue nothing
+                return
+            ventilator = threading.Thread(target=self._ventilate, args=(items,),
+                                          name="petastorm-torch-ventilator", daemon=True)
+            ventilator.start()
+            self._ventilator = ventilator
         ordinal = 0
         while True:
             with self._done:
@@ -185,10 +190,12 @@ class ThreadedExecutor:
         """Stop ventilating and wait for the ventilator; returns the absolute
         count of items issued (``start`` if ``imap`` has not begun).  The
         issued items still deliver: ``imap`` ends after the last of them."""
-        self._pause.set()
-        if self._ventilator is None:
+        with self._ventilator_lock:
+            self._pause.set()
+            ventilator = self._ventilator
+        if ventilator is None:
             return start
-        self._ventilator.join()
+        ventilator.join()  # _total is final once the ventilator has ended
         return self._start + (self._total or 0)
 
     def stop(self) -> None:

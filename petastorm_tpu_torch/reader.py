@@ -15,9 +15,10 @@ from a cursor (``resume_from``, ``:865-890``), also under a new shard layout
 (``elastic_resume``, ``:349``, ``:684-700``), and gives its cursor
 (``Reader.quiesce`` ``:1925``, ``Reader.state_dict`` ``:1938``) and its
 stream certificate (``Reader.stream_digest`` ``:1743``, folded as ``:1662``
-folds it).  Predicates, selectors, caches, transforms, ngrams, the
-``'device-mixed'`` and ``'auto'`` placements, telemetry and the ingest
-service are not part of this package yet.
+folds it).  ``cache_type`` caches decoded rowgroups in memory or on local
+disk (``cache.py``).  Predicates, selectors, the shared cache tier,
+transforms, ngrams, the ``'device-mixed'`` and ``'auto'`` placements,
+telemetry and the ingest service are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Iterator, List, Mapping, Optional, Sequence, Union
 import numpy as np
 
 from petastorm_tpu_torch.batch import ColumnBatch
+from petastorm_tpu_torch.cache import make_cache
 from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError, ReaderClosedError
 from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
@@ -57,7 +59,10 @@ def make_reader(dataset_url: str,
                 deterministic: Optional[str] = "auto",
                 decode_threads: Union[int, str] = "auto",
                 decode_roi: Optional[Mapping[str, tuple]] = None,
-                resume_from: Optional[dict] = None) -> "Reader":
+                resume_from: Optional[dict] = None,
+                cache_type: str = "null",
+                cache_location: Optional[str] = None,
+                cache_size_limit: Optional[int] = None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -88,12 +93,23 @@ def make_reader(dataset_url: str,
     ['reader']``) to start at that cursor, with the dataset, shard, seed,
     shuffle and epoch settings of the run that took it; its stream digest
     continues.  ``elastic_resume(states)`` resumes under another shard
-    layout."""
+    layout.
+
+    ``cache_type``: decoded-rowgroup cache.  ``'null'`` (default) decodes
+    every read; ``'memory'`` keeps decoded rowgroups in this process (an LRU
+    capped at ``cache_size_limit`` bytes, default 4 GiB) and
+    ``'local-disk'`` as pickle files in ``cache_location`` (default
+    ``<tmp>/petastorm_tpu_torch_cache``, capped at 10 GiB), so epochs after
+    the first skip the Parquet read and the decode.  A
+    ``decode_placement='device'`` field is cached as its coefficient planes:
+    a hit skips the entropy decode, and the loader still finishes the decode
+    on the device.  ``Reader.cache_stats()`` counts the hits and misses.
+    The host-wide ``'shared'`` tier is not part of this package yet."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
-                        batched_output=False)
+                        cache_type, cache_location, cache_size_limit, batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
@@ -110,7 +126,10 @@ def make_batch_reader(dataset_url: str,
                       deterministic: Optional[str] = "auto",
                       decode_threads: Union[int, str] = "auto",
                       decode_roi: Optional[Mapping[str, tuple]] = None,
-                      resume_from: Optional[dict] = None) -> "Reader":
+                      resume_from: Optional[dict] = None,
+                      cache_type: str = "null",
+                      cache_location: Optional[str] = None,
+                      cache_size_limit: Optional[int] = None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
     fields.  The other arguments as for :func:`make_reader`."""
@@ -118,7 +137,7 @@ def make_batch_reader(dataset_url: str,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
-                        batched_output=True)
+                        cache_type, cache_location, cache_size_limit, batched_output=True)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -281,7 +300,8 @@ def _size_pool(workers_count, decode_threads) -> tuple:
 def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  results_queue_size, shuffle_row_groups, shuffle_seed, num_epochs,
                  cur_shard, shard_count, decode_placement, deterministic, decode_threads,
-                 decode_roi, resume_from, batched_output) -> "Reader":
+                 decode_roi, resume_from, cache_type, cache_location, cache_size_limit,
+                 batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
@@ -333,9 +353,11 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     if results_queue_size is None:
         results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
     workers_count, decode_threads = _size_pool(workers_count, decode_threads)
+    cache = make_cache(cache_type, cache_location, cache_size_limit)
     executor = make_executor(reader_pool_type, workers_count, results_queue_size)
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
-                                   decode_threads=decode_threads, decode_roi=decode_roi)
+                                   decode_threads=decode_threads, decode_roi=decode_roi,
+                                   cache=cache, dataset_url=dataset_url)
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                   deterministic=deterministic, shuffle_seed=shuffle_seed,
                   start_item=start_item, digest_state=digest_state)
@@ -387,6 +409,12 @@ class Reader:
         ``coef_batch_images``) summed over every rowgroup the workers
         decoded so far: the proof that image columns took the batched path."""
         return self._worker.decode_stats()
+
+    def cache_stats(self) -> dict:
+        """The rowgroup cache's ``hits`` and ``misses`` (and, for
+        ``cache_type='memory'``, the ``entries`` and estimated ``bytes``
+        resident); zeros without a cache."""
+        return self._worker.cache.stats()
 
     def _items(self) -> Iterator[WorkItem]:
         """The item stream from ``start_item``: whole epochs skipped, then an

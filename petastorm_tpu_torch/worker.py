@@ -1,7 +1,7 @@
 """Rowgroup decode worker: a parquet rowgroup -> a decoded ColumnBatch.
 
 Counterpart of ``petastorm_tpu/worker.py:47 RowGroupDecoderWorker``, without
-the cache tiers, predicates and transforms.  Image columns decode in one
+the shared cache tier, predicates and transforms.  Image columns decode in one
 native call each (``codecs.CompressedImageCodec.decode_column``), fanned out
 over ``decode_threads`` and cropped to the field's ``decode_roi``
 (``:447-479``, ``:545-551``).  A field read with ``decode_placement='device'``
@@ -9,10 +9,22 @@ leaves the worker in the coefficient wire form (``:527-541``): the entropy
 half of the JPEG decode runs here, over ``decode_threads`` too, and the field
 travels as its derived plane columns (``native.image.pack_coef_columns``);
 the loader finishes the decode on the device.
+
+Every rowgroup is looked up in the reader's cache first (``:342-346``),
+under a key built as ``:384-412`` builds it: the dataset URL's md5, the
+file, the rowgroup, its row span, a tag over the read fields, the
+device-decode fields and ``decode_roi``, and the file's size and mtime.  A
+hit skips the Parquet read and the decode: on the hybrid route the entry
+holds the coefficient planes, so only the entropy decode is skipped.  The
+pool's threads fill a key once: a rowgroup read again while its first read
+still decodes (the next epoch's items are issued before this one's are
+done) waits for that read and hits, so a warm epoch decodes nothing.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import threading
 from typing import Callable, Dict, Mapping, Optional, Sequence
 
@@ -21,6 +33,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.batch import ColumnBatch
+from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.codecs import decode_options
 from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import WorkItem
@@ -28,6 +41,9 @@ from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import seed_stream
 
 _MAX_OPEN_FILES = 8
+#: part of every cache key: a directory the JAX package's cache also uses
+#: never serves one package the other's entries
+_CACHE_KEY_TAG = "petastorm_tpu_torch:1"
 
 
 class RowGroupDecoderWorker:
@@ -37,7 +53,8 @@ class RowGroupDecoderWorker:
 
     def __init__(self, schema: Schema, read_fields: Sequence[str],
                  device_decode_fields: Sequence[str] = (), decode_threads: int = 1,
-                 decode_roi: Optional[Mapping[str, tuple]] = None):
+                 decode_roi: Optional[Mapping[str, tuple]] = None,
+                 cache: Optional[CacheBase] = None, dataset_url: str = ""):
         self._schema = schema
         self._read_fields = list(read_fields)
         #: fields shipped as coefficient planes (decode_placement='device')
@@ -49,6 +66,20 @@ class RowGroupDecoderWorker:
         self._decode_roi = dict(decode_roi or {})
         self._stats_lock = threading.Lock()
         self._stats = dict.fromkeys(native_image.decode_stats(), 0)
+        #: the reader's rowgroup cache (``cache.make_cache``)
+        self.cache = cache or NullCache()
+        self._cache_is_null = isinstance(self.cache, NullCache)
+        self._cache_prefix = hashlib.md5(dataset_url.encode()).hexdigest()
+        tag = (",".join(self._read_fields)
+               # the stored form of a device-decode field is its coefficient planes
+               + "|rawcoef1:" + ",".join(sorted(self._device_decode_fields))
+               + "|roi:" + repr(sorted((k, tuple(v)) for k, v in self._decode_roi.items()))
+               + "|" + _CACHE_KEY_TAG)
+        self._fields_tag = hashlib.md5(tag.encode()).hexdigest()[:8]
+        self._file_fps: Dict[str, str] = {}
+        #: key -> [lock, users]: the fill in progress of each key
+        self._filling: Dict[str, list] = {}
+        self._filling_lock = threading.Lock()
 
     def decode_stats(self) -> dict:
         """The native decode counters (``native.image.decode_stats`` keys)
@@ -77,6 +108,40 @@ class RowGroupDecoderWorker:
         y, x, crop_h, crop_w = spec
         return (int(y), int(x), crop_h, crop_w)
 
+    def _file_fingerprint(self, path: str) -> str:
+        """``size:mtime_ns`` of a dataset file, memoized per path: a file
+        rewritten in place changes the key (``petastorm_tpu/worker.py:366``)."""
+        fp = self._file_fps.get(path)
+        if fp is None:
+            try:
+                st = os.stat(path)
+                fp = f"{st.st_size}:{st.st_mtime_ns}"
+            except OSError:
+                fp = "?"
+            self._file_fps[path] = fp
+        return fp
+
+    def _cache_key(self, item: WorkItem) -> str:
+        """The cache key of one work item (``petastorm_tpu/worker.py:384``)."""
+        start, stop = item.row_slice()
+        rg = item.row_group
+        return (f"{self._cache_prefix}:{rg.path}:{rg.row_group}:{start}:{stop}"
+                f":{self._fields_tag}:{self._file_fingerprint(rg.path)}")
+
+    def _cached(self, key: str, fill: Callable[[], ColumnBatch]) -> ColumnBatch:
+        """``cache.get(key, fill)``, one thread at a time for one key."""
+        with self._filling_lock:
+            entry = self._filling.setdefault(key, [threading.Lock(), 0])
+            entry[1] += 1
+        try:
+            with entry[0]:
+                return self.cache.get(key, fill)
+        finally:
+            with self._filling_lock:
+                entry[1] -= 1
+                if not entry[1]:
+                    del self._filling[key]
+
     def __call__(self) -> Callable[[WorkItem], ColumnBatch]:
         open_files: Dict[str, pq.ParquetFile] = {}
 
@@ -88,9 +153,8 @@ class RowGroupDecoderWorker:
                 pf = open_files[path] = pq.ParquetFile(pa.memory_map(path))
             return pf
 
-        def process(item: WorkItem) -> ColumnBatch:
+        def load(item: WorkItem) -> ColumnBatch:
             rg = item.row_group
-            before = native_image.decode_stats()
             # the pool provides the parallelism; arrow's own fan-out per read
             # only adds handoff cost
             table = parquet_file(rg.path).read_row_group(
@@ -107,10 +171,19 @@ class RowGroupDecoderWorker:
                     with decode_options(nthreads=self._decode_threads,
                                         roi=self._roi_for(name, item, n)):
                         columns[name] = field.codec.decode_column(field, chunk)
+            return ColumnBatch(columns, n)
+
+        def process(item: WorkItem) -> ColumnBatch:
+            before = native_image.decode_stats()
+            if self._cache_is_null:
+                batch = load(item)
+            else:
+                batch = self._cached(self._cache_key(item), lambda: load(item))
+            # this thread's counters: a hit decoded nothing and adds nothing
             after = native_image.decode_stats()
             with self._stats_lock:
                 for key, value in after.items():
                     self._stats[key] += value - before[key]
-            return ColumnBatch(columns, n)
+            return batch
 
         return process

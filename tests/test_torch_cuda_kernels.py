@@ -748,6 +748,61 @@ def test_sass_counts_need_the_toolkits_cuobjdump(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_device_shuffle_loader_on_card(tmp_path):
+    """``device_shuffle_capacity`` on the card, after B2 on the copy stream:
+    every row once (each label's image equal to the unshuffled run's), in
+    another order, the same order again for the same seed, the padded tail
+    last; a push of the buffer alone synchronizes nothing with the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.device_buffer import DeviceShufflingBuffer
+    from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
+
+    rng = np.random.default_rng(0)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (48, 64, 3), CompressedImageCodec("jpeg", 90))])
+    write_dataset(str(tmp_path / "ds"), schema,
+                  [{"label": i, "image": rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)}
+                   for i in range(100)], row_group_size_rows=8)
+
+    def run(**kwargs):
+        reader = make_reader(str(tmp_path / "ds"), workers_count=3, shuffle_seed=0,
+                             num_epochs=1, decode_placement={"image": "device"})
+        with CudaDataLoader(reader, 8, device="cuda", drop_last=False, **kwargs) as loader:
+            batches = [{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                        for k, v in b.items()} for b in loader]
+        labels = torch.cat([b["label"][:b.get(VALID_ROWS, 8)] for b in batches])
+        images = torch.cat([b["image"][:b.get(VALID_ROWS, 8)] for b in batches])
+        return batches, labels, images
+
+    plain, plain_labels, plain_images = run()
+    batches, labels, images = run(device_shuffle_capacity=4, device_shuffle_seed=3)
+    assert [VALID_ROWS in b for b in batches] == [False] * 12 + [True]
+    assert sorted(labels.tolist()) == sorted(plain_labels.tolist()) == list(range(100))
+    assert labels.tolist() != plain_labels.tolist()
+    by_label = plain_images[torch.argsort(plain_labels)]
+    assert torch.equal(images, by_label[labels])
+    _, again, _ = run(device_shuffle_capacity=4, device_shuffle_seed=3)
+    assert torch.equal(again, labels)
+
+    buf = DeviceShufflingBuffer(4, seed=0, device="cuda")
+    batch = {"image": torch.zeros((256, 224, 224, 3), dtype=torch.uint8, device="cuda"),
+             "label": torch.arange(256, device="cuda")}
+    for _ in range(4):
+        buf.push(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            out = buf.push(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out["image"].shape == (256, 224, 224, 3) and out["label"].shape == (256,)
+
+
+@pytest.mark.cuda
 def test_scan_graph_replay_equals_eager_loop_on_the_card():
     """On the card: the captured K-step graph against the same unit run as K
     eager steps from the same weights, momentum and draws.  Draws equal bit

@@ -154,6 +154,20 @@ def test_trainer_runs_on_cpu(tmp_path):
     assert m["measured_peak_flops"] is None and m["device_kind"] == "cpu"
 
 
+@pytest.mark.parametrize("decode", ["host", "device"])
+def test_trainer_cache_flag_runs_on_cpu(tmp_path, decode):
+    """``cache='memory'`` (``train_resnet_tpu.py:244-249``): one worker reads
+    the 8 rowgroups once each, and every later read is a hit (the 4 units of
+    8 rows read 2 epochs at least)."""
+    url = str(tmp_path / "imagenet")
+    trainer.generate_dataset(url, rows=16, side=64)
+    m = trainer.train(url, steps=2, global_batch=8, side=64, num_classes=10, device="cpu",
+                      decode=decode, workers=1, cache="memory")
+    assert m["cache"] == "memory" and m["steps"] == 2 and np.isfinite(m["final_loss"])
+    stats = m["cache_stats"]
+    assert stats["misses"] == 8 and stats["hits"] >= 8 and stats["entries"] == 8
+
+
 def test_flops_counted_for_a_step_cover_forward_and_backward():
     model = ResNet([1, 1], num_classes=CLASSES, num_filters=8, dtype=torch.float32,
                    device="cpu")
