@@ -90,10 +90,10 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    3 timed units; samples/s beside phase 6's, the input-wait share, peak
    device memory, one B2 launch over 1024 images a unit, B1 and B3 4 times
    a replay (the launch counters count the capture; ``torch.profiler``
-   counts the kernels of one replay by name), and one unit replayed from
-   the graph against the same unit run as 4 eager steps from the same
-   weights, momentum and draws: the draws equal, the losses and leaves
-   within twice the spread of two eager runs;
+   counts the kernels of three replays by name, held exactly in the fullest
+   record), and one unit replayed from the graph against the same unit run
+   as 4 eager steps from the same weights, momentum and draws: the draws
+   equal, the losses and leaves within twice the spread of two eager runs;
 12. drain, checkpoint and resume: the host-decode training path
    (``drop_last=False``, ``num_epochs=1``, a small reader window) trains 6
    steps, drains the loader and trains on what it drained, saves model,
@@ -123,7 +123,28 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    batch's images after B2 bit for bit; samples/s an epoch, the cache's
    resident bytes; then the reader alone (entropy decode) for 4 epochs
    without a cache, with the memory tier and with the local-disk tier in a
-   temporary directory: rows/s of the first epoch against the later ones.
+   temporary directory: rows/s of the first epoch against the later ones;
+15. filtered training, device decode: a rowgroup index built on a copy of
+   the dataset (``etl.indexing.build_rowgroup_index``), read with a
+   ``SingleIndexSelector`` keeping 12 of the 16 rowgroups,
+   ``predicate=in_pseudorandom_split([0.75, 0.25], 0, 'label')`` and
+   ``shuffle_row_drop_partitions=2`` for 2 epochs through phase 6's
+   training path: samples/s beside phase 6's, the input-wait share, B2, B3
+   and B1 once a step, the labels in the order of a CPU run of the same
+   reader (serial pool), their multiset the host's filtered set twice, the
+   digest the CPU run's, and the entropy decode counting only the rows that
+   survive; then two shards in ``shard_mode='epoch'`` in turn, 2 epochs each,
+   through the loader, B2, B1 and the forward: disjoint in each epoch, their
+   union the filtered set, dealt differently in the two epochs, each
+   shard's labels and digest its CPU run's;
+16. transformed training, host decode, warm transform cache: a
+   ``TransformSpec`` writing ``target`` = ``label`` mod 1000 (removing
+   ``label``) with ``cache_type='memory'`` for 2 epochs through phase 5's
+   training path on ``target``: samples/s an epoch, 16 transform misses and
+   16 hits, one epoch's native decode only, ``transform_cache_info``'s
+   verdict, B3 and B1 once a step, the targets in a CPU run's order; then
+   one epoch of ``pytorch.BatchedDataLoader`` over the same reader into
+   inference, its targets those of a CPU run of the adapter.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -132,6 +153,7 @@ without a CUDA GPU it exits non-zero at once.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -139,6 +161,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pyarrow.parquet as pq
 import torch
 
 if __name__ == "__main__" and not torch.cuda.is_available():
@@ -155,12 +178,17 @@ from petastorm_tpu_torch.checkpoint import (make_checkpoint_manager, restore_che
                                             resume_reader_kwargs, save_checkpoint)
 from petastorm_tpu_torch.cuda import build, device_buffer  # noqa: E402
 from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader  # noqa: E402
+from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_index  # noqa: E402
+from petastorm_tpu_torch.etl.metadata import open_dataset  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
 from petastorm_tpu_torch.native import build as native_build  # noqa: E402
 from petastorm_tpu_torch.native import image as native_image  # noqa: E402
 from petastorm_tpu_torch.ops import augment, jpeg, normalize  # noqa: E402
 from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
+from petastorm_tpu_torch.predicates import in_pseudorandom_split  # noqa: E402
+from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
+from petastorm_tpu_torch.transform import TransformSpec, transform_cache_info  # noqa: E402
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -980,13 +1008,16 @@ def device_time_by_op(step, images, labels, steps=3, top=12):
     return sum(t for _, t in times), times[:top]
 
 
-def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
+def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
+                label_field="label", rows=None, decoded_images=None):
     """``epochs`` epochs (one by default) of the training path over the
     phase-4 dataset, the reader decoding with ``decode_placement={'image':
     decode}`` and taking ``reader_kwargs``, the loader taking
     ``loader_kwargs``; every kernel count set to 0 just before the run and
-    read just after it.  With a ``cache_type`` the native decode runs in the
-    first epoch only."""
+    read just after it.  The step trains on ``label_field`` mod 1000.  With a
+    ``cache_type`` the native decode runs in the first epoch only.  A reader
+    that selects rows delivers ``rows`` rows over all its epochs (full
+    batches of them are trained) and decodes ``decoded_images`` images."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -999,6 +1030,7 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
     reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=epochs,
                          decode_placement={"image": decode}, **reader_kwargs)
     steps_per_epoch = N_ROWS // BATCH
+    want_steps = epochs * steps_per_epoch if rows is None else rows // BATCH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1008,8 +1040,8 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
                         **(loader_kwargs or {})) as loader:
         start = time.perf_counter()
         for batch in loader:
-            labels = batch["label"] % 1000
-            labels_seen.append(batch["label"])
+            labels = batch[label_field] % 1000
+            labels_seen.append(batch[label_field])
             image_sums.append(batch["image"].sum(dtype=torch.int64))
             if first is None:
                 first = (batch["image"].clone(), labels.clone())
@@ -1021,7 +1053,7 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
             if steps == WARMUP_STEPS:
                 torch.cuda.synchronize()
                 timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
-            if epochs > 1 and steps % steps_per_epoch == 0:
+            if epochs > 1 and rows is None and steps % steps_per_epoch == 0:
                 torch.cuda.synchronize()
                 epoch_marks.append((time.perf_counter(), loader.diagnostics()["consumer_wait_s"]))
         torch.cuda.synchronize()
@@ -1036,7 +1068,6 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
     general_b2 = jpeg.jpeg_decode_kernel.launches_general
     losses = torch.stack(losses).float().cpu()
 
-    want_steps = epochs * steps_per_epoch
     if steps != want_steps:
         raise AssertionError(f"{steps} training steps ({decode} decode), expected {want_steps}")
     # every crop of the step is without antialias: the tiled kernel, never the
@@ -1056,7 +1087,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None):
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"non-finite training loss: {losses.tolist()}")
     cached = reader_kwargs.get("cache_type", "null") != "null"
-    decoded = check_native_decode(reader.decode_stats(), N_ROWS * (1 if cached else epochs),
+    if decoded_images is None:
+        decoded_images = N_ROWS * (1 if cached else epochs)
+    decoded = check_native_decode(reader.decode_stats(), decoded_images,
                                   f"training, {decode} decode",
                                   "batch" if decode == "host" else "coef_batch")
     timed = end - timed_start
@@ -1435,19 +1468,47 @@ def drained_inference_phase(path, main_samples_per_s):
           decode_stats=decoded, labels_each_4_times=True)
 
 
-def kernel_counts_by_name(fn, names):
+def kernel_counts_by_name(fn, names, margin_s=0.05):
     """``torch.profiler`` over one call of ``fn``: for each ``label: part`` of
-    ``names`` the number of device kernels whose name holds ``part``, and the
-    number of device kernels seen."""
+    ``names`` the number of device kernels whose name holds ``part``, the
+    number of device kernels seen, and the first kernel's start after the
+    trace's (us).  ``margin_s`` of host idle time inside the trace on both
+    sides keeps the call's kernels away from the window's edges."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         fn()
         torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {label: sum(part in k for k in kernels) for label, part in names.items()}, len(kernels)
+        time.sleep(margin_s)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {label: sum(part in e.name for e in kernels) for label, part in names.items()}
+    first_us = min((e.time_range.start for e in kernels), default=None)
+    return counts, len(kernels), first_us
+
+
+def replay_kernel_counts(fn, names, expected, observations=3):
+    """``observations`` profiles of one call of ``fn`` each (see
+    ``kernel_counts_by_name``).  The profiler can lose device records: on
+    an H100 a replay of 7662 kernels was once recorded as 7558, one B1 and
+    one B3 among the lost ones.  So the counts by name are held to
+    ``expected`` exactly in every observation that saw the most device
+    kernels, the fullest record, and no observation may count more than
+    ``expected``.  Returns the observations."""
+    seen = []
+    for _ in range(observations):
+        counts, total, first_us = kernel_counts_by_name(fn, names)
+        seen.append({"kernels": counts, "device_kernels": total, "first_kernel_us": first_us})
+    fullest = max(o["device_kernels"] for o in seen)
+    for o in seen:
+        over = any(o["kernels"][name] > k for name, k in expected.items())
+        if over or (o["device_kernels"] == fullest and o["kernels"] != expected):
+            raise AssertionError(f"profiled replays ran {seen} (the fullest record has"
+                                 f" {fullest} device kernels), expected {expected} of B1"
+                                 " and B3 in each")
+    return seen
 
 
 def leaves_and_momentum(step):
@@ -1508,7 +1569,7 @@ def scan_train_phase(path, device):
     launches as units the loader staged, prefetched ones included, since
     ``num_epochs=None``), B1 and B3 SCAN_K times in the warm-up unit and
     SCAN_K times in the capture, none counted by a replay, and SCAN_K each
-    in one profiled replay."""
+    in profiled replays (``replay_kernel_counts``)."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -1550,10 +1611,11 @@ def scan_train_phase(path, device):
                  "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled}
         replays = scan.replays
         images, labels = unit["image"], unit["label"] % 1000
-        by_name, device_kernels = kernel_counts_by_name(
+        profiled = replay_kernel_counts(
             lambda: scan(images, labels),
             {"normalize_u8": "normalize_u8_kernel",
-             "resized_crop_flip_u8": "resized_crop_u8_tiled_kernel"})
+             "resized_crop_flip_u8": "resized_crop_u8_tiled_kernel"},
+            {"normalize_u8": SCAN_K, "resized_crop_flip_u8": SCAN_K})
         vs_eager, loss_bound = graph_vs_eager(step, scan, images, labels)
     diagnostics = loader.diagnostics()
     b2 = {"tiled": jpeg.jpeg_decode_kernel.launches_tiled,
@@ -1579,9 +1641,6 @@ def scan_train_phase(path, device):
             raise AssertionError(f"{name}: {captured[name]} launches counted by the warm-up and"
                                  f" the capture, {after[name]} after {replays} replays;"
                                  f" expected {2 * k} and no more")
-    if by_name != per_replay:
-        raise AssertionError(f"one profiled replay ran {by_name} of B1 and B3 among"
-                             f" {device_kernels} kernels, expected {per_replay}")
     if augment.resized_crop_kernel.launches_aa or augment.resized_crop_kernel.launches_general:
         raise AssertionError("phase 11 launched another resized-crop kernel than the tiled one")
     losses = torch.cat(losses).float().cpu()
@@ -1601,7 +1660,7 @@ def scan_train_phase(path, device):
                     "normalize_u8": SCAN_K * (1 + replays),
                     "resized_crop_flip_u8": SCAN_K * (1 + replays)},
           counted_at_warmup_and_capture=captured, graph_replays=replays,
-          profiled_replay_kernels=by_name, profiled_replay_device_kernels=device_kernels,
+          profiled_replays=profiled,
           losses=losses.tolist(), labels_match_phase6_order=True, decode_stats=decoded,
           graph_vs_eager=vs_eager)
     return {"loss_bound": loss_bound, "samples_per_s": samples_per_s}
@@ -1928,6 +1987,240 @@ def warm_cache_train_phase(path):
           first_batch_bit_equal=True, digest_equal=True)
 
 
+FILTER_DROPPED_GROUPS = (2, 5, 9, 13)  # phase 15: rowgroups the selector leaves out
+FILTER_SPLIT = ([0.75, 0.25], 0)       # phase 15: the pseudorandom split kept
+
+
+def label_to_target(cols):
+    """Phase 16's transform: ``target`` = ``label`` mod 1000, ``image`` kept."""
+    return {"image": cols["image"], "target": cols["label"] % 1000}
+
+
+def target_spec():
+    return TransformSpec(label_to_target, edit_fields=[("target", np.int64, (), False)],
+                         removed_fields=["label"])
+
+
+def rowgroup_labels(path):
+    """The written labels of each rowgroup, by global index."""
+    info = open_dataset(path)
+    return [pq.ParquetFile(ref.path).read_row_group(ref.row_group, columns=["label"])
+            .column("label").to_numpy() for ref in info.row_groups]
+
+
+def filtered_reader_kwargs(labels_by_group, **extra):
+    """Phase 15's selection: a selector over the rowgroup index keeping 12 of
+    the 16 rowgroups, a pseudorandom split of the labels, 2 row-drop
+    partitions; device decode."""
+    kept = [int(v) for g, vs in enumerate(labels_by_group) if g not in FILTER_DROPPED_GROUPS
+            for v in vs]
+    return dict(decode_placement={"image": "device"}, shuffle_seed=0,
+                rowgroup_selector=SingleIndexSelector("label_ix", kept),
+                predicate=in_pseudorandom_split(*FILTER_SPLIT, "label"),
+                shuffle_row_drop_partitions=2, **extra)
+
+
+def cpu_reader_run(path, **kwargs):
+    """The same reader with the serial pool on the host: its labels in
+    delivery order, the epoch of each delivered rowgroup, and its digest."""
+    labels, epochs = [], []
+    with make_reader(path, reader_pool_type="serial", **kwargs) as reader:
+        ipe = reader.state_dict()["items_per_epoch"]
+        for batch in reader.iter_batches():
+            labels.append(batch.columns["label"])
+            epochs.append((reader.state_dict()["position"] - 1) // ipe)
+        return labels, epochs, reader.stream_digest
+
+
+def filtered_train_phase(path, kernels, device):
+    """Phase 15: training with device decode over a rowgroup selector, a
+    predicate and row-drop partitions for 2 epochs; then two shards in
+    ``shard_mode='epoch'`` through the loader and inference."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    indexed = path + "_indexed"
+    shutil.copytree(path, indexed)
+    t0 = time.perf_counter()
+    build_rowgroup_index(indexed, [SingleFieldIndexer("label_ix", "label")])
+    index_s = time.perf_counter() - t0
+    by_group = rowgroup_labels(indexed)
+    split = in_pseudorandom_split(*FILTER_SPLIT, "label")
+    survivors = np.concatenate([vs[split.do_include_vectorized({"label": vs})]
+                                for g, vs in enumerate(by_group)
+                                if g not in FILTER_DROPPED_GROUPS])
+    epochs = 2
+    run = train_epoch(indexed, "device", epochs=epochs,
+                      reader_kwargs={k: v for k, v in filtered_reader_kwargs(by_group).items()
+                                     if k not in ("decode_placement", "shuffle_seed")},
+                      rows=epochs * len(survivors), decoded_images=epochs * len(survivors))
+    for name in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    cpu_labels, _, cpu_digest = cpu_reader_run(indexed, num_epochs=epochs,
+                                               **filtered_reader_kwargs(by_group))
+    cpu_labels = np.concatenate(cpu_labels)
+    if not np.array_equal(np.sort(cpu_labels), np.sort(np.tile(survivors, epochs))):
+        raise AssertionError("phase 15: the filtered stream is not the host's filtered set"
+                             f" ({len(cpu_labels)} rows against {epochs} x {len(survivors)})")
+    if not np.array_equal(run["labels"].numpy(), cpu_labels[:run["steps"] * BATCH]):
+        raise AssertionError("phase 15: the card delivered other labels, or in another order,"
+                             " than the CPU run of the same reader")
+    if run["digest"] != cpu_digest:
+        raise AssertionError("phase 15: the stream digest differs from the CPU run's")
+
+    # two shards in epoch mode, in turn: the loader, B2, B1 and the forward
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    shards, launches = [], {"normalize_u8": 0, "jpeg_decode_u8": 0}
+    for shard in range(2):
+        kwargs = filtered_reader_kwargs(by_group, num_epochs=epochs, shard_mode="epoch",
+                                        cur_shard=shard, shard_count=2)
+        reader = make_reader(indexed, workers_count=workers, **kwargs)
+        reset_launch_counts()
+        delivered, batches = [], 0
+        with CudaDataLoader(reader, batch_size=BATCH, device="cuda", drop_last=False) as loader, \
+                torch.inference_mode():
+            for batch in loader:
+                n = int(batch.get(VALID_ROWS, BATCH))
+                logits = model(normalize.normalize_images(batch["image"], MEAN, STD))
+                if not bool(torch.isfinite(logits[:n]).all()):
+                    raise AssertionError(f"phase 15, shard {shard}: non-finite logits")
+                delivered.append(batch["label"][:n].cpu())
+                batches += 1
+        torch.cuda.synchronize()
+        counts = {"normalize_u8": normalize.normalize_kernel.launches,
+                  "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches_tiled}
+        if counts != {"normalize_u8": batches, "jpeg_decode_u8": batches}:
+            raise AssertionError(f"phase 15, shard {shard}: {counts} in {batches} batches")
+        for name, count in counts.items():
+            launches[name] += count
+        labels, item_epochs, digest = cpu_reader_run(indexed, **kwargs)
+        if not np.array_equal(torch.cat(delivered).numpy(), np.concatenate(labels)):
+            raise AssertionError(f"phase 15, shard {shard}: other labels than its CPU run")
+        if reader.stream_digest != digest:
+            raise AssertionError(f"phase 15, shard {shard}: digest differs from its CPU run's")
+        shards.append([set(np.concatenate([b for b, e in zip(labels, item_epochs) if e == k])
+                           .tolist()) for k in range(epochs)])
+    for name, count in launches.items():
+        kernels[name]["launches"] += count
+    want = set(survivors.tolist())
+    for k in range(epochs):
+        if shards[0][k] & shards[1][k]:
+            raise AssertionError(f"phase 15: the shards overlap in epoch {k}")
+        if shards[0][k] | shards[1][k] != want:
+            raise AssertionError(f"phase 15: the shards' union in epoch {k} is not the set")
+    if shards[0][0] == shards[0][1]:
+        raise AssertionError("phase 15: epoch mode dealt shard 0 the same rows twice")
+
+    steps, timed = run["steps"], run["timed"]
+    phase("filtered_train_device_decode", decode="device", epochs=epochs,
+          rowgroups_selected=len(by_group) - len(FILTER_DROPPED_GROUPS),
+          predicate="in_pseudorandom_split([0.75, 0.25], 0, 'label')",
+          shuffle_row_drop_partitions=2, rows_per_epoch=len(survivors), steps=steps,
+          timed_steps=steps - WARMUP_STEPS, batch=BATCH, workers=run["workers"],
+          samples_per_s=run["samples_per_s"], phase6_samples_per_s=device["samples_per_s"],
+          epoch_s=run["epoch_s"], step_ms=1e3 * timed / (steps - WARMUP_STEPS),
+          consumer_wait_share=run["wait"] / timed, peak_device_memory_bytes=run["peak"],
+          launches=run["launches"], general_resized_crop_launches=run["general_launches"],
+          losses=run["losses"].tolist(), decode_stats=run["decode_stats"],
+          index_build_s=index_s, labels_match_cpu_order=True, multiset_matches_host_set=True,
+          digest_matches_cpu=True, coef_images_equal_survivors=True,
+          epoch_shards={"batches_launches": launches, "disjoint_each_epoch": True,
+                        "union_is_filtered_set": True, "deal_differs_between_epochs": True,
+                        "digests_match_cpu": True,
+                        "rows": [[len(e) for e in per] for per in shards]})
+
+
+def transformed_train_phase(path, kernels, host):
+    """Phase 16: training with host decode through a TransformSpec
+    (``target`` = ``label`` mod 1000) for 2 epochs with a memory cache: the
+    first epoch fills the cache with the transform's output, the second
+    decodes and transforms nothing; then one epoch of the torch adapter over
+    the same reader into inference."""
+    verdict = transform_cache_info(target_spec())
+    if not verdict[1]:
+        raise AssertionError(f"phase 16: the transform is not cacheable: {verdict}")
+    epochs, groups = 2, N_ROWS // ROWS_PER_GROUP
+    reader_kwargs = {"cache_type": "memory", "transform_spec": target_spec()}
+    run = train_epoch(path, "host", epochs=epochs, reader_kwargs=reader_kwargs,
+                      label_field="target")
+    for name in ("normalize_u8", "resized_crop_flip_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    stats = run["cache_stats"]
+    want_stats = {"hits": groups, "misses": groups, "transform_hits": groups,
+                  "transform_misses": groups}
+    if {k: stats[k] for k in want_stats} != want_stats:
+        raise AssertionError(f"phase 16: cache {stats}, expected {want_stats}")
+    with make_reader(path, reader_pool_type="serial", shuffle_seed=0, num_epochs=epochs,
+                     decode_placement={"image": "host"}, **reader_kwargs) as reader:
+        cpu_targets = np.concatenate([b.columns["target"] for b in reader.iter_batches()])
+    if not np.array_equal(run["labels"].numpy(), cpu_targets[:run["steps"] * BATCH]):
+        raise AssertionError("phase 16: the card trained on other targets, or in another"
+                             " order, than the CPU run of the same reader")
+    if not np.array_equal(cpu_targets[:N_ROWS], host["labels"].numpy() % 1000):
+        raise AssertionError("phase 16: the targets are not phase 5's labels mod 1000")
+
+    # the torch adapter over the same reader, one epoch, into inference
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+
+    def adapter(device):
+        cores = os.cpu_count() or 2
+        reader = make_reader(path, workers_count=max(1, min(cores - 1, 16)), shuffle_seed=0,
+                             num_epochs=1, decode_placement={"image": "host"},
+                             transform_spec=target_spec())
+        return reader, torch_adapter.BatchedDataLoader(
+            reader, batch_size=BATCH, shuffling_queue_capacity=SHUFFLE_CAPACITY, seed=0,
+            transform_fn=lambda b: {k: v.to(device) for k, v in b.items()})
+
+    reader, loader = adapter("cuda")
+    normalize.normalize_kernel.launches = 0
+    delivered = []
+    with reader, torch.inference_mode():
+        start = time.perf_counter()
+        for batch in loader:
+            logits = model(normalize.normalize_images(batch["image"], MEAN, STD))
+            if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 1000):
+                raise AssertionError(f"phase 16 adapter: bad logits {tuple(logits.shape)}")
+            delivered.append(batch["target"])
+        torch.cuda.synchronize()
+        adapter_s = time.perf_counter() - start
+    adapter_launches = normalize.normalize_kernel.launches
+    if len(delivered) != N_ROWS // BATCH or adapter_launches != len(delivered):
+        raise AssertionError(f"phase 16 adapter: {len(delivered)} batches, {adapter_launches}"
+                             " normalize launches")
+    kernels["normalize_u8"]["launches"] += adapter_launches
+    reader, cpu_loader = adapter("cpu")
+    with reader:
+        cpu_adapter = torch.cat([b["target"] for b in cpu_loader])
+    if not torch.equal(torch.cat(delivered).cpu(), cpu_adapter):
+        raise AssertionError("phase 16 adapter: other targets than its CPU run")
+
+    marks = [run["timed_start"]] + run["epoch_marks"]
+    per_epoch = []
+    for k, ((t0, w0), (t1, w1)) in enumerate(zip(marks, marks[1:])):
+        steps = N_ROWS // BATCH - (WARMUP_STEPS if k == 0 else 0)
+        per_epoch.append({"epoch": k + 1, "steps": steps,
+                          "samples_per_s": steps * BATCH / (t1 - t0),
+                          "consumer_wait_share": (w1 - w0) / (t1 - t0)})
+    steps, timed = run["steps"], run["timed"]
+    phase("transformed_train_host_decode", decode="host", epochs=epochs, steps=steps,
+          timed_steps=steps - WARMUP_STEPS, batch=BATCH, workers=run["workers"],
+          transform_cache_info={"signature": verdict[0], "cacheable": verdict[1],
+                                "reason": verdict[2]},
+          cache_stats=stats, per_epoch=per_epoch, samples_per_s=run["samples_per_s"],
+          phase5_samples_per_s=host["samples_per_s"],
+          step_ms=1e3 * timed / (steps - WARMUP_STEPS), consumer_wait_share=run["wait"] / timed,
+          peak_device_memory_bytes=run["peak"], launches=run["launches"],
+          general_resized_crop_launches=run["general_launches"], losses=run["losses"].tolist(),
+          decode_stats=run["decode_stats"], targets_match_cpu_order=True,
+          adapter={"batches": len(delivered), "seconds": adapter_s,
+                   "samples_per_s": N_ROWS / adapter_s,
+                   "launches": {"normalize_u8": adapter_launches},
+                   "targets_match_cpu_run": True})
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1960,6 +2253,8 @@ def main():
         checkpoint_resume_phase(path, host, scan["loss_bound"])
         shuffled_inference_phase(path, main_samples_per_s)
         warm_cache_train_phase(path)
+        filtered_train_phase(path, kernels, device)
+        transformed_train_phase(path, kernels, host)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

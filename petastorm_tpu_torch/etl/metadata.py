@@ -26,6 +26,11 @@ from petastorm_tpu_torch.schema import SCHEMA_METADATA_KEY, Schema
 
 #: Parquet KV key: JSON ``{"files": {relative_path: [rows_in_rg0, ...]}}``
 ROW_GROUPS_METADATA_KEY = b"petastorm-tpu.row_groups_per_file.v1"
+#: Parquet KV key: JSON rowgroup index (``etl/indexing.py``)
+ROWGROUP_INDEX_METADATA_KEY = b"petastorm-tpu.rowgroup_index.v1"
+#: Parquet KV key of the legacy petastorm rowgroup index (pickled; read by
+#: the JAX package's ``interop.py``, which this package has not ported)
+LEGACY_INDEX_KEY = b"dataset-toolkit.rowgroups_index.v1"
 
 _METADATA_FILENAMES = ("_common_metadata", "_metadata")
 _FOOTER_READ_THREADS = 10

@@ -1,13 +1,16 @@
 """Read plan: a seeded, sharded ordering of rowgroup work items.
 
-Counterpart of ``petastorm_tpu/plan.py:38-157``, trimmed to whole rowgroups and
-static sharding (rowgroup ``i`` belongs to shard ``i % shard_count``).  The
-epoch order is drawn from the same ``seed_stream`` domain as the JAX plan, so
-both packages visit the rowgroups in the same order for the same arguments.
-The resume arithmetic (``:154 total_items``, ``:159 ElasticResumePlan``,
-``:212 resolve_cursor``, ``:243 elastic_resume_plan``) is copied over these
-arguments, with the same error messages.  Row-drop partitions and epoch
-re-dealing (``shard_mode='epoch'``) are not part of this package yet.
+Counterpart of ``petastorm_tpu/plan.py``.  A work item is a rowgroup, or one
+of its ``shuffle_row_drop_partitions`` row-drop partitions (``:39-70``).
+Two shard modes: ``'static'`` (rowgroup ``i`` belongs to shard ``i %
+shard_count`` in every epoch) and ``'epoch'`` (the epoch's permutation dealt
+round-robin to the shards, so the deal changes every epoch, ``:136-137``).
+The epoch order, and the re-permutation of the partitions
+(``plan.drop-shuffle``, ``:147-151``), are drawn from the same
+``seed_stream`` domains as the JAX plan, so both packages give the same
+items in the same order for the same arguments.  The resume arithmetic
+(``:154 total_items``, ``:159 ElasticResumePlan``, ``:212 resolve_cursor``,
+``:243 elastic_resume_plan``) is copied with the same error messages.
 """
 
 from __future__ import annotations
@@ -24,18 +27,31 @@ from petastorm_tpu_torch.seeding import seed_stream
 
 @dataclasses.dataclass(frozen=True)
 class WorkItem:
-    """One unit of executor work: a whole rowgroup."""
+    """One unit of executor work: a rowgroup, or the rows ``[start, stop)``
+    of one of its row-drop partitions (``drop_partition = (index, count)``)."""
 
     row_group: RowGroupRef
+    drop_partition: Optional[Tuple[int, int]] = None
 
     @property
     def num_rows(self) -> int:
-        return self.row_group.num_rows
+        start, stop = self.row_slice()
+        return stop - start
 
     def row_slice(self) -> Tuple[int, int]:
-        """The rows the item keeps: all of them (``plan.py:58`` without drop
-        partitions), which the stream digest folds."""
-        return 0, self.row_group.num_rows
+        """The rows the item reads, which the stream digest folds."""
+        if self.drop_partition is None:
+            return 0, self.row_group.num_rows
+        idx, count = self.drop_partition
+        return _drop_slice(self.row_group.num_rows, idx, count)
+
+
+def _drop_slice(num_rows: int, idx: int, count: int) -> Tuple[int, int]:
+    base = num_rows // count
+    extra = num_rows % count
+    start = idx * base + min(idx, extra)
+    stop = start + base + (1 if idx < extra else 0)
+    return start, stop
 
 
 class ReadPlan:
@@ -45,7 +61,9 @@ class ReadPlan:
                  shard_index: Optional[int] = None,
                  shard_count: Optional[int] = None,
                  shuffle_row_groups: bool = True,
-                 shuffle_seed: Optional[int] = None):
+                 shuffle_seed: Optional[int] = None,
+                 shuffle_row_drop_partitions: int = 1,
+                 shard_mode: str = "static"):
         if (shard_index is None) != (shard_count is None):
             raise PetastormTpuError("shard_index and shard_count must be set together")
         if shard_count is not None:
@@ -55,24 +73,51 @@ class ReadPlan:
             if shard_count > len(row_groups):
                 raise NoDataAvailableError(
                     f"Dataset has {len(row_groups)} rowgroups but {shard_count} shards"
-                    " were requested; some shards would be empty")
+                    " were requested; some shards would be empty. Write the dataset"
+                    " with more/smaller rowgroups or reduce shard_count.")
+        if shard_mode not in ("static", "epoch"):
+            raise PetastormTpuError(f"Unknown shard_mode {shard_mode!r}")
+        if shuffle_row_drop_partitions < 1:
+            raise PetastormTpuError("shuffle_row_drop_partitions must be >= 1")
         self._row_groups = list(row_groups)
         self.row_groups = self._row_groups
         self._shard_index = shard_index
         self._shard_count = shard_count
         self._shuffle = shuffle_row_groups
         self._seed = 0 if shuffle_seed is None else shuffle_seed
+        self._drop_partitions = shuffle_row_drop_partitions
+        self._shard_mode = shard_mode
 
     def epoch_items(self, epoch: int) -> List[WorkItem]:
         """The ordered work items of one epoch of this shard."""
         n = len(self._row_groups)
+        if n == 0:
+            return []
         if self._shuffle:
             order = seed_stream(self._seed, epoch, "plan.permutation").permutation(n)
         else:
             order = np.arange(n)
-        if self._shard_count is not None:
-            order = order[order % self._shard_count == self._shard_index]
-        return [WorkItem(self._row_groups[int(gi)]) for gi in order]
+        if self._shard_count is None:
+            mine = order
+        elif self._shard_mode == "static":
+            # membership fixed by the global index; the permutation orders it
+            mine = order[order % self._shard_count == self._shard_index]
+        else:
+            # epoch mode: the permuted sequence dealt round-robin to the shards
+            mine = order[self._shard_index::self._shard_count]
+        items: List[WorkItem] = []
+        for gi in mine:
+            rg = self._row_groups[int(gi)]
+            if self._drop_partitions == 1:
+                items.append(WorkItem(rg))
+            else:
+                items.extend(WorkItem(rg, (k, self._drop_partitions))
+                             for k in range(self._drop_partitions))
+        if self._shuffle and self._drop_partitions > 1:
+            # a rowgroup's partitions do not stay adjacent
+            sub = seed_stream(self._seed, epoch, "plan.drop-shuffle").permutation(len(items))
+            items = [items[int(i)] for i in sub]
+        return items
 
     def rows_per_epoch(self) -> int:
         return sum(item.num_rows for item in self.epoch_items(0))
@@ -155,11 +200,14 @@ def resolve_cursor(state: dict, shard: Optional[int] = None) -> Tuple[int, int]:
 def elastic_resume_plan(row_groups: Sequence[RowGroupRef], states: Sequence[dict],
                         new_shard_index: int, new_shard_count: int,
                         shuffle_row_groups: bool = True,
-                        shuffle_seed: Optional[int] = None) -> ElasticResumePlan:
+                        shuffle_seed: Optional[int] = None,
+                        shuffle_row_drop_partitions: int = 1,
+                        shard_mode: str = "static") -> ElasticResumePlan:
     """The resume plan of one new shard from every old shard's cursor.
 
     ``states``: each old shard's ``Reader.state_dict()``, ordered by old
-    shard index.  The plan arguments must be the original run's: the orders
+    shard index.  The plan arguments (shuffle, seed, drop partitions, shard
+    mode) must be the original run's: the orders
     are recomputed, not stored.  The epoch in progress is the earliest epoch
     an old shard had not finished; a shard ahead of it contributes nothing
     to the leftover (its next-epoch items are re-read, never lost).
@@ -174,7 +222,9 @@ def elastic_resume_plan(row_groups: Sequence[RowGroupRef], states: Sequence[dict
 
     def shard_plan(idx: int, count: Optional[int]) -> ReadPlan:
         return ReadPlan(row_groups, shard_index=idx if count else None, shard_count=count,
-                        shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
+                        shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed,
+                        shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                        shard_mode=shard_mode)
 
     cursors = []  # (epoch, offset, plan) per old shard
     for s, state in enumerate(states):

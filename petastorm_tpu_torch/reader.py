@@ -10,15 +10,26 @@ plan's order with either pool, as the JAX reader does when it is given a
 (the hybrid JPEG decode: entropy decode in the pool workers, the rest on the
 card in the loader).  Host decode of image columns is the batched native
 decode, fanned out over ``decode_threads`` and cropped by ``decode_roi``
-(``petastorm_tpu/reader.py:740-802``, ``:966-1049``).  A reader resumes
+(``petastorm_tpu/reader.py:740-802``, ``:966-1049``).  Rows are chosen
+and reshaped as the JAX reader chooses them (``:73-108``, ``:374-398``):
+``rowgroup_selector`` keeps the rowgroups a stored index selects before the
+plan is built (``:652-657``), ``shuffle_row_drop_partitions`` splits each
+rowgroup into row-drop partitions and ``shard_mode='epoch'`` re-deals the
+rowgroups to the shards every epoch (``plan.py``), ``predicate`` masks rows
+in the workers before the rest of the row is decoded, and ``transform_spec``
+reshapes each decoded rowgroup (the reader's ``schema`` is
+``transform.transform_schema``'s, ``:639-640``).  A rowgroup the predicate
+empties is folded into the cursor and the stream digest and never delivered
+(``:1686-1700``).  A reader resumes
 from a cursor (``resume_from``, ``:865-890``), also under a new shard layout
 (``elastic_resume``, ``:349``, ``:684-700``), and gives its cursor
 (``Reader.quiesce`` ``:1925``, ``Reader.state_dict`` ``:1938``) and its
 stream certificate (``Reader.stream_digest`` ``:1743``, folded as ``:1662``
 folds it).  ``cache_type`` caches decoded rowgroups in memory or on local
-disk (``cache.py``).  Predicates, selectors, the shared cache tier,
-transforms, ngrams, the ``'device-mixed'`` and ``'auto'`` placements,
-telemetry and the ingest service are not part of this package yet.
+disk (``cache.py``), a cacheable transform's output included.
+Partition-level predicate pushdown (hive partitions), the shared cache
+tier, ngrams, the ``'device-mixed'`` and ``'auto'`` placements, telemetry
+and the ingest service are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.cache import make_cache
 from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError, ReaderClosedError
+from petastorm_tpu_torch.etl.indexing import get_row_group_indexes
 from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
 from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, elastic_resume_plan,
@@ -40,6 +52,8 @@ from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, ela
 from petastorm_tpu_torch.pool import make_executor
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
+from petastorm_tpu_torch.transform import (TransformSpec, transform_cache_info,
+                                           transform_schema)
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker
 
 _DEFAULT_RESULTS_QUEUE_BATCHES = 10
@@ -62,7 +76,12 @@ def make_reader(dataset_url: str,
                 resume_from: Optional[dict] = None,
                 cache_type: str = "null",
                 cache_location: Optional[str] = None,
-                cache_size_limit: Optional[int] = None) -> "Reader":
+                cache_size_limit: Optional[int] = None,
+                shuffle_row_drop_partitions: int = 1,
+                predicate=None,
+                rowgroup_selector=None,
+                shard_mode: str = "static",
+                transform_spec: Optional[TransformSpec] = None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -104,12 +123,31 @@ def make_reader(dataset_url: str,
     ``decode_placement='device'`` field is cached as its coefficient planes:
     a hit skips the entropy decode, and the loader still finishes the decode
     on the device.  ``Reader.cache_stats()`` counts the hits and misses.
-    The host-wide ``'shared'`` tier is not part of this package yet."""
+    The host-wide ``'shared'`` tier is not part of this package yet.
+
+    ``rowgroup_selector``: a ``selectors`` object resolved against the
+    dataset's stored indexes (``etl.indexing.build_rowgroup_index``); only
+    the rowgroups it selects are planned.  ``predicate``: a ``predicates``
+    object; the workers decode its fields first and the rest of each row only
+    where it is true (a rowgroup it empties is never delivered).  It cannot
+    be combined with a cache.  ``shuffle_row_drop_partitions=N``: each
+    rowgroup is read as N work items of about 1/N of its rows each, so a
+    shuffle mixes finer.  ``shard_mode``: ``'static'`` (rowgroup ``i`` on
+    shard ``i % shard_count`` in every epoch) or ``'epoch'`` (each epoch's
+    permutation dealt round-robin to the shards).  ``transform_spec``: a
+    ``transform.TransformSpec`` run in the workers on each decoded rowgroup;
+    ``schema`` shows its edits.  With a cache and a transform that
+    ``transform.transform_cache_info`` finds deterministic, the cache holds
+    the transform's output, and ``cache_stats()`` adds ``transform_hits``
+    and ``transform_misses``.  A ``decode_placement='device'`` field cannot
+    be transformed, nor read by a predicate."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
-                        cache_type, cache_location, cache_size_limit, batched_output=False)
+                        cache_type, cache_location, cache_size_limit,
+                        shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
+                        transform_spec, batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
@@ -129,7 +167,12 @@ def make_batch_reader(dataset_url: str,
                       resume_from: Optional[dict] = None,
                       cache_type: str = "null",
                       cache_location: Optional[str] = None,
-                      cache_size_limit: Optional[int] = None) -> "Reader":
+                      cache_size_limit: Optional[int] = None,
+                      shuffle_row_drop_partitions: int = 1,
+                      predicate=None,
+                      rowgroup_selector=None,
+                      shard_mode: str = "static",
+                      transform_spec: Optional[TransformSpec] = None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
     fields.  The other arguments as for :func:`make_reader`."""
@@ -137,7 +180,9 @@ def make_batch_reader(dataset_url: str,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
-                        cache_type, cache_location, cache_size_limit, batched_output=True)
+                        cache_type, cache_location, cache_size_limit,
+                        shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
+                        transform_spec, batched_output=True)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -156,7 +201,8 @@ def elastic_resume(states: Sequence[dict]) -> dict:
 
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
-                               read_fields: Sequence[str]) -> List[str]:
+                               read_fields: Sequence[str], transform_spec=None,
+                               predicate=None) -> List[str]:
     """The fields to decode on the device; raises on a placement the port
     does not take.  The checks of ``petastorm_tpu/reader.py:1052-1140`` that
     apply to ``'host'`` and ``'device'``."""
@@ -189,6 +235,17 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
             raise PetastormTpuError(
                 f"decode_placement='device' field {name!r} must be (H, W), (H, W, 1) or"
                 f" (H, W, 3); got {field.shape}")
+        if transform_spec is not None:
+            raise PetastormTpuError(
+                f"decode_placement={place!r} cannot be combined with a"
+                " transform_spec: the transform would see raw jpeg bytes, not"
+                " pixels. Decode on host, or transform on device after the"
+                " loader.")
+        if predicate is not None and name in predicate.get_fields():
+            raise PetastormTpuError(
+                f"predicate field {name!r} uses decode_placement={place!r}:"
+                " the predicate would see coefficient planes, not pixels."
+                " Decode it on host, or predicate on other fields.")
         if name not in read_fields:
             raise PetastormTpuError(
                 f"decode_placement='device' field {name!r} is not being read (excluded by"
@@ -301,37 +358,56 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  results_queue_size, shuffle_row_groups, shuffle_seed, num_epochs,
                  cur_shard, shard_count, decode_placement, deterministic, decode_threads,
                  decode_roi, resume_from, cache_type, cache_location, cache_size_limit,
-                 batched_output) -> "Reader":
+                 shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
+                 transform_spec, batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
+    # one analysis walk a reader: the worker's cache signature and
+    # output-caching verdict both come from this triple
+    tf_cache_info = transform_cache_info(transform_spec)
     info = open_dataset(dataset_url, require_stored_schema=not batched_output)
     full_schema = infer_or_load_schema(info)
-    schema = full_schema.view(schema_fields) if schema_fields is not None else full_schema
-    read_fields = [f.name for f in schema]
+    view = full_schema.view(schema_fields) if schema_fields is not None else full_schema
+    read_fields = [f.name for f in view]
     if decode_roi:
         _validate_decode_roi(decode_roi, full_schema, read_fields, decode_placement)
         # the delivered columns are crop-shaped; the worker keeps the full
         # schema (it needs the stored geometry to place the crops)
-        schema = _apply_roi_schema(schema, decode_roi)
-    device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields)
+        view = _apply_roi_schema(view, decode_roi)
+    schema = transform_schema(view, transform_spec) if transform_spec is not None else view
+    device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields,
+                                               transform_spec, predicate)
     if any(native_decodable(full_schema[f]) for f in read_fields if f not in device_fields):
         # the batched decode's library: a missing g++, libjpeg or libpng
         # raises here, not in the first worker
         native_image.load_decoder()
+    row_groups = info.row_groups
+    if rowgroup_selector is not None:
+        selected = rowgroup_selector.select_row_groups(get_row_group_indexes(info))
+        row_groups = [rg for rg in row_groups if rg.global_index in selected]
+        if not row_groups:
+            raise NoDataAvailableError("Rowgroup selector selected no rowgroups")
+    plan_kwargs = dict(shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed,
+                       shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                       shard_mode=shard_mode)
     if resume_from is not None and "elastic" in resume_from:
         # the old shards' cursors determine the leftover of the epoch in
-        # progress; every other plan setting must be the checkpointed run's
+        # progress; every other plan setting (the selector and the
+        # predicate too) must be the checkpointed run's
         plan = elastic_resume_plan(
-            info.row_groups, resume_from["elastic"]["states"],
+            row_groups, resume_from["elastic"]["states"],
             new_shard_index=cur_shard if cur_shard is not None else 0,
-            new_shard_count=shard_count if shard_count is not None else 1,
-            shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
+            new_shard_count=shard_count if shard_count is not None else 1, **plan_kwargs)
     else:
-        plan = ReadPlan(info.row_groups, shard_index=cur_shard, shard_count=shard_count,
-                        shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed)
+        plan = ReadPlan(row_groups, shard_index=cur_shard, shard_count=shard_count,
+                        **plan_kwargs)
         if not plan.epoch_items(0):
             raise NoDataAvailableError(f"No rowgroups to read in {dataset_url!r}")
+    if cache_type not in (None, "null", "none") and predicate is not None:
+        # a cached rowgroup would hold the rows of one predicate (reference
+        # py_dict_reader_worker.py:145-150)
+        raise PetastormTpuError("cache_type cannot be combined with a predicate")
     start_item, digest_state = 0, None
     if resume_from is not None and "elastic" not in resume_from:
         # the digest chain continues across the split (an elastic resume
@@ -357,7 +433,9 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     executor = make_executor(reader_pool_type, workers_count, results_queue_size)
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
                                    decode_threads=decode_threads, decode_roi=decode_roi,
-                                   cache=cache, dataset_url=dataset_url)
+                                   cache=cache, dataset_url=dataset_url, predicate=predicate,
+                                   transform=transform_spec,
+                                   transform_cache_info=tf_cache_info)
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                   deterministic=deterministic, shuffle_seed=shuffle_seed,
                   start_item=start_item, digest_state=digest_state)
@@ -413,8 +491,10 @@ class Reader:
     def cache_stats(self) -> dict:
         """The rowgroup cache's ``hits`` and ``misses`` (and, for
         ``cache_type='memory'``, the ``entries`` and estimated ``bytes``
-        resident); zeros without a cache."""
-        return self._worker.cache.stats()
+        resident); zeros without a cache.  A reader with a
+        ``transform_spec`` adds ``transform_hits`` and ``transform_misses``,
+        the lookups of cached transform output."""
+        return {**self._worker.cache.stats(), **self._worker.transform_cache_stats()}
 
     def _items(self) -> Iterator[WorkItem]:
         """The item stream from ``start_item``: whole epochs skipped, then an
@@ -431,10 +511,14 @@ class Reader:
             raise ReaderClosedError("Reader is stopped")
         if self._batches is None:
             self._batches = self._executor.imap(self._items(), start=self._start_item)
-        batch = next(self._batches)
-        self._digest_deliver(self._start_item + self._consumed_items, batch)
-        self._consumed_items += 1
-        return batch
+        while True:
+            batch = next(self._batches)
+            self._digest_deliver(self._start_item + self._consumed_items, batch)
+            self._consumed_items += 1
+            # a rowgroup the predicate emptied counts in the cursor and the
+            # digest and is never delivered (``petastorm_tpu/reader.py:1686``)
+            if batch.num_rows:
+                return batch
 
     # -- cursor and stream certificate --------------------------------------
 

@@ -854,3 +854,82 @@ def test_scan_graph_replay_equals_eager_loop_on_the_card():
     assert (graph_losses - eager[0][0]).abs().max().item() <= 2 * loss_spread
     assert (graph_leaves - eager[0][1]).abs().max().item() <= 2 * leaf_spread
     assert scan.replays == 2
+
+
+@pytest.mark.cuda
+def test_filtered_device_decode_loader_matches_cpu_run_on_card(tmp_path):
+    """Phase 15's loader path at a small size: a rowgroup selector, a
+    pseudorandom split and row-drop partitions over a device-decode reader,
+    B2 on the card against the same loader on the CPU (B2's plain version):
+    the same labels in the same order, one B2 launch a batch, images within
+    B2's bound of its plain version, and only the surviving rows
+    entropy-decoded.  Then two shards in ``shard_mode='epoch'``: disjoint in
+    each epoch, their union the filtered set, dealt differently each epoch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import shutil
+
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_index
+    from petastorm_tpu_torch.ops import jpeg
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+
+    rng = np.random.default_rng(2)
+    labels = rng.permutation(128)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (40, 48, 3), CompressedImageCodec("jpeg", 90))])
+    write_dataset(str(tmp_path / "ds"), schema,
+                  [{"label": int(v), "image": rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)}
+                   for v in labels], row_group_size_rows=16)
+    path = str(tmp_path / "indexed")
+    shutil.copytree(str(tmp_path / "ds"), path)
+    build_rowgroup_index(path, [SingleFieldIndexer("label_ix", "label")])
+    kept_groups = [0, 1, 3, 4, 6, 7]
+    split = in_pseudorandom_split([0.75, 0.25], 0, "label")
+    want = {int(v) for g in kept_groups for v in labels[g * 16:(g + 1) * 16]
+            if split.do_include({"label": int(v)})}
+
+    def kwargs(**extra):
+        return dict(workers_count=3, shuffle_seed=0, decode_placement={"image": "device"},
+                    rowgroup_selector=SingleIndexSelector(
+                        "label_ix", [int(labels[g * 16]) for g in kept_groups]),
+                    predicate=in_pseudorandom_split([0.75, 0.25], 0, "label"),
+                    shuffle_row_drop_partitions=2, **extra)
+
+    def run(device, **extra):
+        reader = make_reader(path, **kwargs(**extra))
+        with CudaDataLoader(reader, 8, device=device) as loader:
+            batches = [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in b.items()}
+                       for b in loader]
+        return batches, reader
+
+    before = jpeg.jpeg_decode_kernel.launches_tiled
+    card, reader = run("cuda", num_epochs=2)
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == len(card) == 2 * len(want) // 8
+    assert reader.decode_stats()["coef_batch_images"] == 2 * len(want)
+    cpu, _ = run("cpu", num_epochs=2)
+    assert len(cpu) == len(card)
+    for c, p in zip(card, cpu):
+        assert torch.equal(c["label"], p["label"])
+        diff = (c["image"].int() - p["image"].int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+    assert set(torch.cat([c["label"] for c in card]).tolist()) <= want
+
+    deals = []
+    for shard in range(2):
+        reader = make_reader(path, **kwargs(num_epochs=2, shard_mode="epoch", cur_shard=shard,
+                                            shard_count=2))
+        with reader:
+            per_epoch = [set(), set()]
+            for b in reader.iter_batches():
+                # the cursor names the epoch of the item just delivered
+                epoch = (reader.state_dict()["position"] - 1) // reader._items_per_epoch
+                per_epoch[epoch].update(b.columns["label"].tolist())
+        deals.append(per_epoch)
+    for epoch in range(2):
+        assert not deals[0][epoch] & deals[1][epoch]
+        assert deals[0][epoch] | deals[1][epoch] == want
+    assert deals[0][0] != deals[0][1]

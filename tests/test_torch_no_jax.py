@@ -60,5 +60,8 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/native/image.py", "petastorm_tpu_torch/shuffle.py",
                      "petastorm_tpu_torch/pytorch.py", "petastorm_tpu_torch/seeding.py",
                      "petastorm_tpu_torch/checkpoint.py", "petastorm_tpu_torch/plan.py",
-                     "petastorm_tpu_torch/pool.py"):
+                     "petastorm_tpu_torch/pool.py", "petastorm_tpu_torch/predicates.py",
+                     "petastorm_tpu_torch/selectors.py", "petastorm_tpu_torch/transform.py",
+                     "petastorm_tpu_torch/etl/indexing.py",
+                     "petastorm_tpu_torch/etl/metadata.py"):
         assert required in names

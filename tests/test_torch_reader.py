@@ -280,3 +280,319 @@ def test_reader_stop_ends_loader_cleanly(dataset):
     assert all(b["label"].shape == (8,) and b["label"].dtype == torch.int64 for b in batches)
     loader.stop()
     assert not loader._thread.is_alive()
+
+
+# -- selection and transforms: predicate, rowgroup selector, row-drop
+# partitions, shard_mode='epoch', transform_spec ---------------------------
+
+import shutil  # noqa: E402
+
+import petastorm_tpu.predicates as jax_predicates  # noqa: E402
+import petastorm_tpu.selectors as jax_selectors  # noqa: E402
+import petastorm_tpu.transform as jax_transform  # noqa: E402
+from petastorm_tpu.errors import PetastormTpuError as JaxPetastormTpuError  # noqa: E402
+
+import petastorm_tpu_torch.predicates as torch_predicates  # noqa: E402
+import petastorm_tpu_torch.selectors as torch_selectors  # noqa: E402
+import petastorm_tpu_torch.transform as torch_transform  # noqa: E402
+from petastorm_tpu_torch.errors import PetastormTpuError  # noqa: E402
+from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_index  # noqa: E402
+
+JAX_SELECTION = (jax_reader, jax_predicates, jax_selectors, jax_transform)
+PORT_SELECTION = (torch_reader, torch_predicates, torch_selectors, torch_transform)
+#: labels of rowgroups 1, 4 and 8 (rows of 7): the selector's choice
+SELECTED_LABELS = [7, 8, 29, 56]
+
+
+def _not_multiple_of_3(cols):
+    return cols["label"] % 3 != 0
+
+
+def _outside_14_35(cols):
+    # rowgroups 2, 3 and 4 (labels 14-34) lose every row
+    return (cols["label"] < 14) | (cols["label"] >= 35)
+
+
+def _only_rowgroup_6(cols):
+    return (cols["label"] >= 42) & (cols["label"] < 49)
+
+
+def _bright(cols):
+    return cols["jpeg"].reshape(len(cols["jpeg"]), -1).mean(1) > 127.5
+
+
+def _sum_and_drop(cols):
+    out = dict(cols)
+    out["jsum"] = cols["jpeg"].reshape(len(cols["jpeg"]), -1).sum(1).astype(np.int64)
+    out["label"] = cols["label"] * 10
+    return out
+
+
+def _predicate(mods, kind):
+    p = mods[1]
+    if kind == "lambda":
+        return p.in_lambda(["label"], _not_multiple_of_3, vectorized=True)
+    if kind == "empties":
+        return p.in_lambda(["label"], _outside_14_35, vectorized=True)
+    if kind == "split":
+        return p.in_pseudorandom_split([0.6, 0.4], 0, "label")
+    if kind == "bright":
+        return p.in_lambda(["jpeg"], _bright, vectorized=True)
+    if kind == "reduce":
+        return p.in_reduce([p.in_lambda(["label"], _not_multiple_of_3, vectorized=True),
+                            p.in_set(list(range(0, 60, 2)), "label")], np.any)
+    raise AssertionError(kind)
+
+
+def _transform(mods):
+    return mods[3].TransformSpec(_sum_and_drop, edit_fields=[("jsum", np.int64, (), False)],
+                                 removed_fields=["png", "gray"])
+
+
+@pytest.fixture(scope="module")
+def indexed(dataset, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("indexed") / "ds")
+    shutil.copytree(dataset, path)
+    build_rowgroup_index(path, [SingleFieldIndexer("label_ix", "label")])
+    return path
+
+
+def _selection_kwargs(mods, case):
+    kw = dict(reader_pool_type="serial", shuffle_seed=5, num_epochs=2)
+    parts = case.split("+")
+    for part in parts:
+        if part in ("lambda", "empties", "split", "bright", "reduce"):
+            kw["predicate"] = _predicate(mods, part)
+        elif part == "selector":
+            kw["rowgroup_selector"] = mods[2].SingleIndexSelector("label_ix", SELECTED_LABELS)
+        elif part.startswith("drop"):
+            kw["shuffle_row_drop_partitions"] = int(part[4:])
+        elif part == "epoch":
+            kw.update(shard_mode="epoch", cur_shard=1, shard_count=2)
+        elif part == "transform":
+            kw["transform_spec"] = _transform(mods)
+        elif part == "roi":
+            kw["decode_roi"] = {"jpeg": ("random", 8, 12)}
+        elif part == "noshuffle":
+            kw["shuffle_row_groups"] = False
+        else:
+            raise AssertionError(part)
+    return kw
+
+
+def _run_rows(mods, path, **kw):
+    with mods[0].make_reader(path, **kw) as reader:
+        rows = [row._asdict() for row in reader]
+        return rows, reader.stream_digest, reader.state_dict(), list(reader.schema.fields)
+
+
+SELECTION_CASES = ["lambda", "empties", "split", "selector", "drop2", "drop3+noshuffle",
+                   "epoch", "transform", "roi+drop2+lambda", "epoch+drop2",
+                   "selector+lambda+drop2+transform",
+                   "selector+empties+drop3+epoch+transform", "reduce+transform+roi",
+                   "bright+roi+drop2", "bright+transform"]
+
+
+@pytest.mark.parametrize("case", SELECTION_CASES)
+def test_selection_rows_digest_and_cursor_equal_jax(indexed, case):
+    want = _run_rows(JAX_SELECTION, indexed, **_selection_kwargs(JAX_SELECTION, case))
+    got = _run_rows(PORT_SELECTION, indexed, **_selection_kwargs(PORT_SELECTION, case))
+    _assert_rows_equal(got[0], want[0])
+    assert got[1] == want[1]  # stream digest
+    assert got[2] == want[2]  # cursor
+    assert got[3] == want[3]  # the output schema's fields
+    assert len(got[0]) > 0
+
+
+def test_selection_cases_select(indexed):
+    """What each knob does, on the port alone."""
+    def labels(case):
+        rows = _run_rows(PORT_SELECTION, indexed, **_selection_kwargs(PORT_SELECTION, case))[0]
+        return [int(r["label"]) for r in rows]
+    assert sorted(set(labels("lambda"))) == [i for i in range(N_ROWS) if i % 3]
+    assert not set(labels("empties")) & set(range(14, 35))
+    assert sorted(set(labels("selector"))) == [i for i in range(N_ROWS)
+                                               if i // 7 in (1, 4, 8)]
+    assert sorted(labels("drop2")) == sorted(list(range(N_ROWS)) * 2)
+    assert {v // 10 for v in labels("transform")} == set(range(N_ROWS))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["rows", "batches"])
+def test_empty_rowgroups_counted_never_delivered(indexed, batched):
+    """Rowgroups the predicate empties advance the cursor and the digest and
+    deliver nothing, on both iteration paths."""
+    kw = _selection_kwargs(PORT_SELECTION, "empties")
+    kw["num_epochs"] = 1
+    if batched:
+        with torch_reader.make_batch_reader(indexed, **kw) as r:
+            sizes = [len(b.label) for b in r]
+            state, digest = r.state_dict(), r.stream_digest
+        kw_j = _selection_kwargs(JAX_SELECTION, "empties")
+        kw_j["num_epochs"] = 1
+        with jax_reader.make_batch_reader(indexed, **kw_j) as r:
+            assert sizes == [len(b.label) for b in r]
+            assert (state, digest) == (r.state_dict(), r.stream_digest)
+        assert 0 not in sizes and len(sizes) == 6
+    else:
+        rows, digest, state, _ = _run_rows(PORT_SELECTION, indexed, **kw)
+        assert len(rows) == N_ROWS - 21
+    assert state["position"] == 9 and digest["batches"] == 9
+
+
+def test_predicate_decodes_only_surviving_rows(indexed):
+    """The split read: the masked rows reach no image decode, on the host
+    route (batched native decode) and on the hybrid route (entropy decode)."""
+    kw = dict(reader_pool_type="serial", shuffle_seed=5, num_epochs=1)
+    with torch_reader.make_reader(indexed, **kw) as r:
+        list(r)
+        full = r.decode_stats()["batch_images"]
+    kw["predicate"] = _predicate(PORT_SELECTION, "empties")
+    with torch_reader.make_reader(indexed, **kw) as r:
+        survivors = len(list(r))
+        assert r.decode_stats()["batch_images"] * N_ROWS == full * survivors
+    kw["predicate"] = _predicate(PORT_SELECTION, "lambda")
+    with torch_reader.make_batch_reader(indexed, decode_placement={"jpeg": "device"},
+                                        **kw) as r:
+        survivors = sum(b.num_rows for b in r.iter_batches())
+        assert r.decode_stats()["coef_batch_images"] == survivors == N_ROWS - 20
+
+
+def test_roi_crops_follow_the_slice_and_the_mask(indexed):
+    """'random' crops are drawn for the rows after the mask, from the item's
+    slice start: equal to the JAX reader's and to slices of a full decode."""
+    kw = _selection_kwargs(PORT_SELECTION, "roi+drop2+lambda")
+    rows = _run_rows(PORT_SELECTION, indexed, **kw)[0]
+    kw.pop("decode_roi")
+    full = {int(r["label"]): r["jpeg"] for r in _run_rows(PORT_SELECTION, indexed, **kw)[0]}
+    for r in rows:
+        img = full[int(r["label"])]
+        hits = [(y, x) for y in range(16 - 8 + 1) for x in range(24 - 12 + 1)
+                if np.array_equal(img[y:y + 8, x:x + 12], r["jpeg"])]
+        assert hits, int(r["label"])
+    offsets = {tuple(np.asarray(r["jpeg"]).ravel()[:4]) for r in rows}
+    assert len(offsets) > 1
+
+
+@pytest.mark.parametrize("take", [3, 10])
+def test_resume_mid_epoch_under_drop_partitions_equals_jax(indexed, take):
+    kw_p = _selection_kwargs(PORT_SELECTION, "lambda+drop3")
+    kw_j = _selection_kwargs(JAX_SELECTION, "lambda+drop3")
+    states = []
+    for mods, kw in ((PORT_SELECTION, kw_p), (JAX_SELECTION, kw_j)):
+        with mods[0].make_batch_reader(indexed, **kw) as r:
+            it = r.iter_batches()
+            head = [next(it).columns["label"].tolist() for _ in range(take)]
+            states.append((head, r.state_dict()))
+    assert states[0] == states[1]
+    state = states[0][1]
+    runs = []
+    for mods, kw in ((PORT_SELECTION, kw_p), (JAX_SELECTION, kw_j)):
+        with mods[0].make_batch_reader(indexed, resume_from=state, **kw) as r:
+            runs.append(([b.columns["label"].tolist() for b in r.iter_batches()],
+                         r.state_dict(), r.stream_digest))
+    assert runs[0] == runs[1]
+    with torch_reader.make_batch_reader(indexed, **kw_p) as r:
+        whole = [b.columns["label"].tolist() for b in r.iter_batches()]
+        assert states[0][0] + runs[0][0] == whole
+        assert r.stream_digest == runs[0][2]
+
+
+def test_elastic_resume_under_epoch_mode_equals_jax(indexed):
+    def kwargs(mods, shard, count, **extra):
+        kw = _selection_kwargs(mods, "drop2")
+        kw.update(shard_mode="epoch", cur_shard=shard, shard_count=count, num_epochs=2, **extra)
+        return kw
+
+    results = []
+    for mods in (PORT_SELECTION, JAX_SELECTION):
+        states = []
+        for shard, take in ((0, 4), (1, 6)):
+            with mods[0].make_batch_reader(indexed, **kwargs(mods, shard, 2)) as r:
+                it = r.iter_batches()
+                for _ in range(take):
+                    next(it)
+                states.append(r.state_dict())
+        token = mods[0].elastic_resume(states)
+        per_shard = []
+        for shard in range(3):
+            with mods[0].make_batch_reader(indexed, **kwargs(mods, shard, 3,
+                                                             resume_from=token)) as r:
+                per_shard.append(([b.columns["label"].tolist() for b in r.iter_batches()],
+                                  r.state_dict(), r.stream_digest))
+        results.append(per_shard)
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("refusal", ["cache+predicate", "device+transform",
+                                     "device+predicate", "drop0", "shard_mode",
+                                     "selector_none"])
+def test_selection_refusals_equal_jax(indexed, refusal):
+    def kwargs(mods):
+        kw = dict(reader_pool_type="serial", shuffle_seed=1)
+        if refusal == "cache+predicate":
+            kw.update(cache_type="memory", predicate=_predicate(mods, "lambda"))
+        elif refusal == "device+transform":
+            kw.update(decode_placement={"jpeg": "device"}, transform_spec=_transform(mods))
+        elif refusal == "device+predicate":
+            kw.update(decode_placement={"jpeg": "device"},
+                      predicate=mods[1].in_lambda(["jpeg"], _not_multiple_of_3))
+        elif refusal == "drop0":
+            kw.update(shuffle_row_drop_partitions=0)
+        elif refusal == "shard_mode":
+            kw.update(shard_mode="global")
+        else:
+            kw.update(rowgroup_selector=mods[2].SingleIndexSelector("label_ix", [999]))
+        return kw
+    with pytest.raises(JaxPetastormTpuError) as want:
+        jax_reader.make_reader(indexed, **kwargs(JAX_SELECTION))
+    with pytest.raises(PetastormTpuError) as got:
+        torch_reader.make_reader(indexed, **kwargs(PORT_SELECTION))
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("cache_type", ["memory", "local-disk"])
+def test_cached_transform_output_skips_decode_and_transform(indexed, tmp_path, cache_type):
+    """A deterministic transform's output is cached: the later epochs decode
+    and transform nothing, and the rows equal the JAX reader's."""
+    calls = []
+
+    def counting(cols):
+        calls.append(len(cols["label"]))
+        return _sum_and_drop(cols)
+
+    kw = dict(reader_pool_type="serial", shuffle_seed=5, num_epochs=3, cache_type=cache_type,
+              cache_location=str(tmp_path / "cache"))
+    spec = torch_transform.TransformSpec(_sum_and_drop, edit_fields=[("jsum", np.int64, (),
+                                                                       False)],
+                                         removed_fields=["png", "gray"])
+    with torch_reader.make_reader(indexed, transform_spec=spec, **kw) as r:
+        rows = [row._asdict() for row in r]
+        stats, decoded = r.cache_stats(), r.decode_stats()
+    groups = -(-N_ROWS // ROWS_PER_GROUP)
+    assert (stats["transform_misses"], stats["transform_hits"]) == (groups, 2 * groups)
+    assert (stats["misses"], stats["hits"]) == (groups, 2 * groups)
+    with torch_reader.make_reader(indexed, **dict(kw, num_epochs=1, cache_type="null")) as r:
+        list(r)
+        assert decoded == r.decode_stats()  # one epoch's decode
+    want = _run_rows(JAX_SELECTION, indexed, transform_spec=_transform(JAX_SELECTION),
+                     **dict(kw, cache_location=str(tmp_path / "jax_cache")))[0]
+    _assert_rows_equal(rows, want)
+    # the counting transform closes over a list: its output is never cached,
+    # so it runs every epoch on the cached decode
+    spec = torch_transform.TransformSpec(counting, edit_fields=[("jsum", np.int64, (), False)],
+                                         removed_fields=["png", "gray"])
+    assert not torch_transform.transform_cache_info(spec)[1]
+    with torch_reader.make_reader(indexed, transform_spec=spec,
+                                  **dict(kw, cache_location=str(tmp_path / "c2"))) as r:
+        _assert_rows_equal([row._asdict() for row in r], want)
+        stats = r.cache_stats()
+    assert len(calls) == 3 * groups
+    assert (stats["transform_misses"], stats["transform_hits"]) == (0, 0)
+    assert (stats["misses"], stats["hits"]) == (groups, 2 * groups)
+
+
+def test_no_transform_keeps_cache_stats_keys(indexed):
+    with torch_reader.make_reader(indexed, reader_pool_type="serial", cache_type="memory") as r:
+        list(r)
+        assert set(r.cache_stats()) == {"hits", "misses", "entries", "bytes"}

@@ -205,3 +205,195 @@ def test_pinned_slot_reused_only_after_its_copy_completed(dataset, monkeypatch):
     assert len(events) == n_batches
     assert isinstance(delivered[-1], loader_mod._Done)
     assert [copied for _, copied in delivered[:-1]] == events
+
+
+# -- the filtered and transformed feed: selector, predicate, row-drop
+# partitions and a transform, through the loaders and the training step -----
+
+import shutil  # noqa: E402
+
+import petastorm_tpu.predicates as jax_predicates  # noqa: E402
+import petastorm_tpu.selectors as jax_selectors  # noqa: E402
+import petastorm_tpu.transform as jax_transform  # noqa: E402
+from petastorm_tpu import pytorch as jax_pytorch  # noqa: E402
+
+import petastorm_tpu_torch.predicates as torch_predicates  # noqa: E402
+import petastorm_tpu_torch.selectors as torch_selectors  # noqa: E402
+import petastorm_tpu_torch.transform as torch_transform  # noqa: E402
+from petastorm_tpu_torch import pytorch as torch_pytorch  # noqa: E402
+from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_index  # noqa: E402
+from petastorm_tpu_torch.convert import flax_from_resnet_state  # noqa: E402
+from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
+
+from test_torch_augment import _jax_boxes, _jax_flips  # noqa: E402
+from test_torch_train import CLASSES, _jax_step_fn, _leaves  # noqa: E402
+
+FILTERED_ROWS, FILTERED_GROUP = 96, 8
+#: labels of 9 of the 12 rowgroups: the selector's choice
+FILTERED_SELECTED = [g * FILTERED_GROUP + 3 for g in (0, 1, 2, 4, 5, 7, 8, 10, 11)]
+
+
+@pytest.fixture(scope="module")
+def filtered_dataset(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("filtered") / "ds")
+    rng = np.random.default_rng(1)
+    schema = Schema("ImageNetTiny", [
+        Field("label", np.int64),
+        Field("image", np.uint8, (32, 32, 3), CompressedImageCodec("jpeg", quality=90)),
+    ])
+    write_dataset(path, schema, [{"label": int(i),
+                                  "image": rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)}
+                                 for i in range(FILTERED_ROWS)],
+                  row_group_size_rows=FILTERED_GROUP)
+    copy = str(tmp_path_factory.mktemp("filtered_indexed") / "ds")
+    shutil.copytree(path, copy)
+    build_rowgroup_index(copy, [SingleFieldIndexer("label_ix", "label")])
+    return copy
+
+
+def _target(cols):
+    return {"image": cols["image"], "target": cols["label"] % CLASSES}
+
+
+def _filtered_kwargs(predicates, selectors, decode, transform=None, **extra):
+    kw = dict(reader_pool_type="serial", shuffle_seed=0, num_epochs=1,
+              decode_placement={"image": decode},
+              rowgroup_selector=selectors.SingleIndexSelector("label_ix", FILTERED_SELECTED),
+              predicate=predicates.in_pseudorandom_split([0.75, 0.25], 0, "label"),
+              shuffle_row_drop_partitions=2, **extra)
+    if transform is not None:
+        kw["transform_spec"] = transform.TransformSpec(
+            _target, edit_fields=[("target", np.int64, (), False)], removed_fields=["label"])
+    return kw
+
+
+def test_filtered_device_decode_feed_trains_like_jax(filtered_dataset):
+    """Selector + predicate + drop partitions with decode_placement='device':
+    two training steps of the port (CudaDataLoader on the CPU, B2's plain
+    version, TrainStep) against JaxDataLoader + the JAX step, within
+    ``test_torch_train.py``'s ``augment`` bounds."""
+    flax_model = FlaxResNet(stage_sizes=[1, 1], num_filters=8, num_classes=CLASSES,
+                             dtype=jnp.float32)
+    variables = _randomized(flax_model.init(jax.random.PRNGKey(3),
+                                            jnp.zeros((1, 32, 32, 3), jnp.float32)), 11)
+    model = ResNet([1, 1], num_classes=CLASSES, num_filters=8, dtype=torch.float32,
+                   device="cpu")
+    model.load_state_dict(resnet_state_from_flax(variables), strict=True)
+    step = trainer.TrainStep(model, CLASSES, 32)
+    tx, jax_step = _jax_step_fn(flax_model)
+    params, opt_state = variables, tx.init(variables)
+
+    jax_reader = jax_make_reader(filtered_dataset, **_filtered_kwargs(
+        jax_predicates, jax_selectors, "device"))
+    reader = make_reader(filtered_dataset, **_filtered_kwargs(
+        torch_predicates, torch_selectors, "device"))
+    with JaxDataLoader(jax_reader, batch_size=BATCH) as jax_loader, \
+            CudaDataLoader(reader, BATCH, device="cpu") as loader:
+        pairs = list(zip(jax_loader, loader))
+        coef_images = reader.decode_stats()["coef_batch_images"]
+    survivors = [int(v) for v in range(FILTERED_ROWS)
+                 if v in {x for g in FILTERED_SELECTED for x in range(
+                     g - 3, g - 3 + FILTERED_GROUP)}
+                 and torch_predicates.in_pseudorandom_split([0.75, 0.25], 0, "label")
+                 .do_include({"label": v})]
+    assert coef_images == len(survivors)  # the masked rows were never entropy-decoded
+    assert len(pairs) == len(survivors) // BATCH >= 2
+    for i, (want, got) in enumerate(pairs[:2]):
+        np.testing.assert_array_equal(got["label"].numpy(), np.asarray(want["label"]))
+        _assert_decoded_close(got["image"].numpy(), np.asarray(want["image"]))
+        labels = np.asarray(want["label"]) % CLASSES
+        key = jax.random.fold_in(jax.random.PRNGKey(17), i)
+        params, opt_state, want_loss = jax_step(params, opt_state, want["image"],
+                                                jnp.asarray(labels), key)
+        k1, k2 = jax.random.split(key)
+        loss = step(got["image"], torch.from_numpy(labels).long(),
+                    boxes=_jax_boxes(k1, BATCH, 32, 32), flips=_jax_flips(k2, BATCH))
+        assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
+    want_leaves = _leaves(jax.device_get(params))
+    got_leaves = _leaves(flax_from_resnet_state(model.state_dict()))
+    assert got_leaves.keys() == want_leaves.keys()
+    for name, w in want_leaves.items():
+        np.testing.assert_allclose(got_leaves[name], w, rtol=0, atol=5e-3 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def _assert_decoded_close(got, want):
+    """B2's plain version against the JAX package's device decode: within
+    1 LSB (``test_torch_jpeg.py``'s bound)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+
+
+def _jax_batches(path, batch_size=BATCH, **loader_kwargs):
+    reader = jax_make_reader(path, **_filtered_kwargs(jax_predicates, jax_selectors, "host",
+                                                      jax_transform))
+    kwargs = dict(batch_size=batch_size, drop_last=False,
+                  mesh=Mesh(np.asarray(jax.devices()[:1]), ("data",)), shardings=P("data"))
+    kwargs.update(loader_kwargs)
+    with JaxDataLoader(reader, **kwargs) as loader:
+        return [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+
+
+def _port_batches(path, batch_size=BATCH, **loader_kwargs):
+    reader = make_reader(path, **_filtered_kwargs(torch_predicates, torch_selectors, "host",
+                                                  torch_transform))
+    with CudaDataLoader(reader, batch_size, device="cpu", drop_last=False,
+                        **loader_kwargs) as loader:
+        return [{k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                 for k, v in b.items()} for b in loader], reader
+
+
+@pytest.mark.parametrize("stack", [None, 2])
+def test_filtered_transformed_host_feed_equals_jax(filtered_dataset, stack):
+    """Uneven rowgroups (drop partitions cut by the predicate) with a
+    transform that adds, retypes and removes fields assemble into the JAX
+    loader's batches, also stacked."""
+    extra = {"stack_batches": stack} if stack else {}
+    want = _jax_batches(filtered_dataset, **extra)
+    got, reader = _port_batches(filtered_dataset, **extra)
+    assert list(reader.schema.fields) == ["image", "target"]
+    assert len(got) == len(want) >= 2
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    flat = np.concatenate([b["target"].reshape(-1) for b in got])
+    assert flat.max() < CLASSES
+
+
+def test_filtered_feed_through_the_device_shuffle_buffer(filtered_dataset):
+    """The device shuffle buffer over predicate-cut rowgroups: full batches,
+    the unshuffled feed's rows in another order."""
+    plain, _ = _port_batches(filtered_dataset)
+    shuffled, _ = _port_batches(filtered_dataset, device_shuffle_capacity=2,
+                                device_shuffle_seed=0)
+
+    def rows(batches):
+        out = []
+        for b in batches:
+            n = int(b.get(VALID_ROWS, len(b["target"])))
+            out += [(int(t), int(img.sum())) for t, img in zip(b["target"][:n], b["image"][:n])]
+        return out
+
+    assert sorted(rows(shuffled)) == sorted(rows(plain))
+    assert rows(shuffled) != rows(plain)
+    assert all(b["target"].shape == (BATCH,) for b in shuffled)
+
+
+def test_torch_adapter_takes_a_transformed_reader(filtered_dataset):
+    """``pytorch.BatchedDataLoader`` over a reader with a transform_spec: the
+    JAX package's adapter's batches, shuffled by the same seed."""
+    out = []
+    for make, preds, sels, tf, adapter in (
+            (jax_make_reader, jax_predicates, jax_selectors, jax_transform, jax_pytorch),
+            (make_reader, torch_predicates, torch_selectors, torch_transform, torch_pytorch)):
+        reader = make(filtered_dataset, **_filtered_kwargs(preds, sels, "host", tf))
+        with adapter.BatchedDataLoader(reader, batch_size=BATCH, shuffling_queue_capacity=16,
+                                       seed=0) as loader:
+            out.append([{k: v.numpy() for k, v in b.items()} for b in loader])
+    want, got = out
+    assert len(got) == len(want) >= 2
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == ["image", "target"]
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
