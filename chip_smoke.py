@@ -144,7 +144,27 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    16 hits, one epoch's native decode only, ``transform_cache_info``'s
    verdict, B3 and B1 once a step, the targets in a CPU run's order; then
    one epoch of ``pytorch.BatchedDataLoader`` over the same reader into
-   inference, its targets those of a CPU run of the adapter.
+   inference, its targets those of a CPU run of the adapter;
+17. mixed-corpus training, device decode: phase 6's dataset and a second one
+   of 2048 rows (the same schema, 8 rowgroups, another seed) mixed 0.75 /
+   0.25 by ``WeightedSamplingReader`` through phase 6's training path for
+   all 6144 rows (24 steps): samples/s beside phase 6's, the input-wait
+   share, B2, B3 and B1 once a step, the labels batch by batch and the
+   mixture digest (26 draws: 24 rowgroups and 2 exhaustions) equal to a CPU
+   replay of the same readers and mixer;
+18. NGram clip training, host decode: a frame dataset (4096 JPEG frames, 16
+   rowgroups of 4 clips of 64 consecutive timestamps, a gap of 1000 between
+   clips) read with a stacked 4-frame ``NGram`` and 2 row-drop partitions
+   (the lookahead path), 64 windows a batch (``frame`` (64, 4, 224, 224, 3)
+   uint8) viewed as 256 frames into phase 5's step, one epoch (3904
+   windows, 61 steps): frames/s and windows/s, the input-wait share, the
+   staged bytes a batch, B3 and B1 once a step, the window starts those
+   ``NGram.window_starts`` gives on the CPU over the written timestamps (none
+   lost or doubled), ``ts[:, j] == ts[:, 0] + j`` in every window, every
+   decoded frame through the batched native call; the reader alone for 4
+   epochs (windows/s, frames decoded/s) beside phase 7's rows/s; then the
+   same windows unstacked through ``pytorch.BatchedDataLoader`` onto the
+   card for 4 batches: ``{offset: {field: tensor}}``.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -182,6 +202,7 @@ from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_
 from petastorm_tpu_torch.etl.metadata import open_dataset  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
+from petastorm_tpu_torch.ngram import NGram  # noqa: E402
 from petastorm_tpu_torch.native import build as native_build  # noqa: E402
 from petastorm_tpu_torch.native import image as native_image  # noqa: E402
 from petastorm_tpu_torch.ops import augment, jpeg, normalize  # noqa: E402
@@ -189,6 +210,7 @@ from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
 from petastorm_tpu_torch.predicates import in_pseudorandom_split  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
 from petastorm_tpu_torch.transform import TransformSpec, transform_cache_info  # noqa: E402
+from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader  # noqa: E402
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -203,6 +225,9 @@ SCAN_K = 4                     # phase 11: training steps a stacked unit and a g
 CHECKPOINT_AFTER = 6           # phase 12: steps trained before the drain
 DEVICE_SHUFFLE_CAPACITY = 8    # phase 13: batches in the device shuffle buffer (2048 rows)
 CACHE_EPOCHS = 3               # phase 14: epochs trained from one warm cache
+MIX_ROWS, MIX_WEIGHTS, MIX_SEED = 2048, (0.75, 0.25), 17  # phase 17: the second corpus, the mix
+CLIP_LEN, CLIPS_PER_GROUP, FRAME_GROUPS = 64, 4, 16      # phase 18: the frame dataset
+CLIP_GAP, NGRAM_LEN, NGRAM_BATCH = 1000, 4, 64           # phase 18: gaps, window, batch
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -1009,7 +1034,7 @@ def device_time_by_op(step, images, labels, steps=3, top=12):
 
 
 def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
-                label_field="label", rows=None, decoded_images=None):
+                label_field="label", rows=None, decoded_images=None, source=None):
     """``epochs`` epochs (one by default) of the training path over the
     phase-4 dataset, the reader decoding with ``decode_placement={'image':
     decode}`` and taking ``reader_kwargs``, the loader taking
@@ -1017,7 +1042,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     read just after it.  The step trains on ``label_field`` mod 1000.  With a
     ``cache_type`` the native decode runs in the first epoch only.  A reader
     that selects rows delivers ``rows`` rows over all its epochs (full
-    batches of them are trained) and decodes ``decoded_images`` images."""
+    batches of them are trained) and decodes ``decoded_images`` images.
+    ``source=(reader, parts)`` trains on ``reader`` instead (a mix), whose
+    ``parts`` (its sub-readers) count the decoded images."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -1027,8 +1054,12 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
                              generator=torch.Generator(device="cuda").manual_seed(
                                  trainer.AUGMENT_SEED))
     reader_kwargs = reader_kwargs or {}
-    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=epochs,
-                         decode_placement={"image": decode}, **reader_kwargs)
+    if source is None:
+        reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=epochs,
+                             decode_placement={"image": decode}, **reader_kwargs)
+        parts = [reader]
+    else:
+        reader, parts = source
     steps_per_epoch = N_ROWS // BATCH
     want_steps = epochs * steps_per_epoch if rows is None else rows // BATCH
     torch.cuda.synchronize()
@@ -1089,8 +1120,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     cached = reader_kwargs.get("cache_type", "null") != "null"
     if decoded_images is None:
         decoded_images = N_ROWS * (1 if cached else epochs)
-    decoded = check_native_decode(reader.decode_stats(), decoded_images,
-                                  f"training, {decode} decode",
+    stats = [part.decode_stats() for part in parts]
+    decoded = check_native_decode({k: sum(s[k] for s in stats) for k in stats[0]},
+                                  decoded_images, f"training, {decode} decode",
                                   "batch" if decode == "host" else "coef_batch")
     timed = end - timed_start
     return {"step": step, "model": model, "first": first, "flops": flops,
@@ -1098,8 +1130,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
             "workers": workers, "launches": launches, "general_launches": general_launches,
             "peak": torch.cuda.max_memory_allocated(), "epoch_s": end - start, "timed": timed,
             "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait,
-            "diagnostics": diagnostics, "decode_stats": decoded, "digest": reader.stream_digest,
-            "image_sums": torch.stack(image_sums).cpu(), "cache_stats": reader.cache_stats(),
+            "diagnostics": diagnostics, "decode_stats": decoded,
+            "digest": getattr(reader, "stream_digest", None),
+            "image_sums": torch.stack(image_sums).cpu(), "cache_stats": parts[0].cache_stats(),
             "timed_start": (timed_start, wait0), "epoch_marks": epoch_marks}
 
 
@@ -1413,6 +1446,7 @@ def reader_rate_phase(path):
           roi_vs_sliced_full_decode={"rowgroup": roi_item.row_group.global_index,
                                      "rows": roi_item.num_rows, "equal": True,
                                      "offsets_from": "RowGroupDecoderWorker._roi_for"})
+    return rates
 
 
 def drained_inference_phase(path, main_samples_per_s):
@@ -2221,6 +2255,239 @@ def transformed_train_phase(path, kernels, host):
                    "targets_match_cpu_run": True})
 
 
+def write_labelled_jpegs(path, labels, seed):
+    """A dataset of phase 4's schema (``label``, a 224x224 JPEG q90 4:2:0
+    ``image``) with the given labels and images from ``seed``."""
+    rng = np.random.default_rng(seed)
+    schema = Schema("ImageNetJpeg", [
+        Field("label", np.int64),
+        Field("image", np.uint8, (SIDE, SIDE, 3), CompressedImageCodec("jpeg", quality=90))])
+    write_dataset(path, schema, ({"label": int(lab), "image": smooth_image(rng)}
+                                 for lab in labels),
+                  row_group_size_rows=ROWS_PER_GROUP, encode_workers=os.cpu_count() or 2)
+
+
+def mix_readers(paths, workers, **kwargs):
+    """Phase 17's two device-decode readers and their mix."""
+    readers = [make_reader(p, workers_count=workers, shuffle_seed=i, num_epochs=1,
+                           decode_placement={"image": "device"}, **kwargs)
+               for i, p in enumerate(paths)]
+    return WeightedSamplingReader(readers, list(MIX_WEIGHTS), seed=MIX_SEED), readers
+
+
+def mixed_train_phase(tmp, path, kernels, device):
+    """Phase 17: phase 6's training path over a 0.75 / 0.25 mix of phase 6's
+    dataset and a second corpus of MIX_ROWS rows, every row of both once."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    second = os.path.join(tmp, "second_corpus")
+    t0 = time.perf_counter()
+    write_labelled_jpegs(second, 10_000 + np.random.default_rng(MIX_SEED).permutation(MIX_ROWS),
+                         MIX_SEED)
+    write_s = time.perf_counter() - t0
+    rows = N_ROWS + MIX_ROWS
+    mixed, parts = mix_readers([path, second], workers)
+    run = train_epoch(None, "device", rows=rows, decoded_images=rows, source=(mixed, parts))
+    for name in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    digest = mixed.mixture_digest
+
+    # the replay: the same readers and mixer on the host, batched at BATCH
+    replay, _ = mix_readers([path, second], workers)
+    with replay:
+        cpu_labels = np.concatenate([b.columns["label"] for b in replay.iter_batches()])
+    want_digest = replay.mixture_digest
+    groups = (N_ROWS + MIX_ROWS) // ROWS_PER_GROUP
+    written = np.concatenate(rowgroup_labels(path) + rowgroup_labels(second))
+    if not np.array_equal(np.sort(cpu_labels), np.sort(written)):
+        raise AssertionError("phase 17: the replay is not every row of both corpora once")
+    got = run["labels"].numpy().reshape(-1, BATCH)
+    if not np.array_equal(got, cpu_labels.reshape(-1, BATCH)):
+        raise AssertionError("phase 17: the card's batches differ from the CPU replay's")
+    if digest != want_digest or digest["draw_count"] != groups + 2:
+        raise AssertionError(f"phase 17: mixture digest {digest}, replay {want_digest},"
+                             f" expected {groups + 2} draws")
+    from_second = int((got >= 10_000).sum())
+    steps, timed = run["steps"], run["timed"]
+    phase("mixed_train_device_decode", decode="device", weights=list(MIX_WEIGHTS),
+          corpora_rows=[N_ROWS, MIX_ROWS], second_corpus_write_s=write_s, steps=steps,
+          timed_steps=steps - WARMUP_STEPS, batch=BATCH, workers=run["workers"],
+          samples_per_s=run["samples_per_s"], phase6_samples_per_s=device["samples_per_s"],
+          epoch_s=run["epoch_s"], step_ms=1e3 * timed / (steps - WARMUP_STEPS),
+          consumer_wait_share=run["wait"] / timed, peak_device_memory_bytes=run["peak"],
+          launches=run["launches"], general_resized_crop_launches=run["general_launches"],
+          losses=run["losses"].tolist(), decode_stats=run["decode_stats"],
+          mixture_digest=digest, rows_from_second_corpus=from_second,
+          labels_match_cpu_replay=True, digest_matches_cpu_replay=True)
+
+
+def frame_clip_ts(clip, j):
+    """Timestamp of frame ``j`` of clip ``clip``: consecutive inside a clip,
+    CLIP_GAP between the last frame of a clip and the first of the next."""
+    return clip * (CLIP_LEN - 1 + CLIP_GAP) + j
+
+
+def write_frames(path, seed):
+    """Phase 18's frame store: FRAME_GROUPS rowgroups of CLIPS_PER_GROUP
+    clips of CLIP_LEN frames (``ts``, the clip's ``label``, a 224x224 JPEG
+    q90 ``frame``)."""
+    rng = np.random.default_rng(seed)
+    schema = Schema("Frames", [
+        Field("ts", np.int64), Field("label", np.int64),
+        Field("frame", np.uint8, (SIDE, SIDE, 3), CompressedImageCodec("jpeg", quality=90))])
+    clips = FRAME_GROUPS * CLIPS_PER_GROUP
+    write_dataset(path, schema, ({"ts": frame_clip_ts(c, j), "label": c % 1000,
+                                  "frame": smooth_image(rng)}
+                                 for c in range(clips) for j in range(CLIP_LEN)),
+                  row_group_size_rows=CLIPS_PER_GROUP * CLIP_LEN,
+                  encode_workers=os.cpu_count() or 2)
+
+
+def clip_ngram(stacked=True):
+    """4 consecutive frames; the clip's label at the first."""
+    fields = {0: ["frame", "ts", "label"], **{k: ["frame", "ts"] for k in range(1, NGRAM_LEN)}}
+    return NGram(fields, delta_threshold=1, timestamp_field="ts", stack_timesteps=stacked)
+
+
+def frames_decoded(plan, length):
+    """Frames an epoch of ``plan`` decodes: each item's slice and its
+    ``length - 1`` lookahead rows, clipped to the rowgroup."""
+    return sum(min(hi + length - 1, item.row_group.num_rows) - lo
+               for item in plan.epoch_items(0) for lo, hi in [item.row_slice()])
+
+
+def ngram_train_phase(tmp, kernels, host, rates):
+    """Phase 18: clip training on a frame store through a stacked NGram with
+    the lookahead of 2 row-drop partitions; the ngram reader alone; the
+    unstacked windows through the torch adapter."""
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    path = os.path.join(tmp, "frames")
+    t0 = time.perf_counter()
+    write_frames(path, 18)
+    write_s = time.perf_counter() - t0
+    ts_by_group = [pq.ParquetFile(ref.path).read_row_group(ref.row_group, columns=["ts"])
+                   .column("ts").to_numpy() for ref in open_dataset(path).row_groups]
+    ngram = clip_ngram()
+    want_starts = np.sort(np.concatenate([ts[ngram.window_starts(ts)] for ts in ts_by_group]))
+    windows = len(want_starts)
+
+    def reader(epochs, ng=ngram, **kwargs):
+        return make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=epochs,
+                           ngram=ng, shuffle_row_drop_partitions=2, **kwargs)
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    step = trainer.TrainStep(model, 1000, SIDE,
+                             generator=torch.Generator(device="cuda").manual_seed(
+                                 trainer.AUGMENT_SEED))
+    train_reader = reader(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    starts, losses, steps, staged = [], [], 0, None
+    with CudaDataLoader(train_reader, batch_size=NGRAM_BATCH, device="cuda") as loader:
+        start = time.perf_counter()
+        for batch in loader:
+            frames, ts = batch["frame"], batch["ts"]
+            if staged is None:
+                staged = {k: v.numel() * v.element_size() for k, v in batch.items()}
+                if frames.shape != (NGRAM_BATCH, NGRAM_LEN, SIDE, SIDE, 3):
+                    raise AssertionError(f"phase 18: frames {tuple(frames.shape)}")
+            if not bool((ts == ts[:, :1] + torch.arange(NGRAM_LEN, device=ts.device)).all()):
+                raise AssertionError(f"phase 18, step {steps}: a window's ts do not step by 1")
+            starts.append(ts[:, 0])
+            images = frames.view(-1, SIDE, SIDE, 3)
+            labels = batch["0/label"].repeat_interleave(NGRAM_LEN) % 1000
+            losses.append(step(images, labels))
+            steps += 1
+            if steps == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        wait = loader.diagnostics()["consumer_wait_s"] - wait0
+    launches = {"normalize_u8": normalize.normalize_kernel.launches,
+                "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
+                "resized_crop_aa_u8": augment.resized_crop_kernel.launches_aa,
+                "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches_tiled}
+    want = {"normalize_u8": steps, "resized_crop_flip_u8": steps, "resized_crop_aa_u8": 0,
+            "jpeg_decode_u8": 0}
+    if launches != want or augment.resized_crop_kernel.launches_general:
+        raise AssertionError(f"phase 18: launches {launches} in {steps} steps, expected {want}")
+    for name in ("normalize_u8", "resized_crop_flip_u8"):
+        kernels[name]["launches"] += launches[name]
+    if steps != windows // NGRAM_BATCH:
+        raise AssertionError(f"phase 18: {steps} steps, expected {windows // NGRAM_BATCH}")
+    got_starts = np.sort(torch.cat(starts).cpu().numpy())
+    if not np.array_equal(got_starts, want_starts):
+        raise AssertionError(f"phase 18: {len(got_starts)} window starts, not the"
+                             f" {windows} NGram.window_starts gives (lost or doubled)")
+    losses = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"phase 18: non-finite loss {losses.tolist()}")
+    per_epoch = frames_decoded(train_reader.plan, NGRAM_LEN)
+    decoded = check_native_decode(train_reader.decode_stats(), per_epoch, "phase 18")
+
+    # the ngram reader alone for RATE_EPOCHS epochs
+    alone = reader(RATE_EPOCHS)
+    count = 0
+    with alone:
+        t0 = time.perf_counter()
+        for b in alone.iter_batches():
+            count += b.num_rows
+        alone_s = time.perf_counter() - t0
+    if count != RATE_EPOCHS * windows:
+        raise AssertionError(f"phase 18: the reader alone gave {count} windows")
+    check_native_decode(alone.decode_stats(), RATE_EPOCHS * per_epoch, "phase 18, alone")
+
+    # the unstacked windows through the torch adapter onto the card
+    flat = reader(1, clip_ngram(stacked=False))
+    adapter = torch_adapter.BatchedDataLoader(
+        flat, batch_size=NGRAM_BATCH,
+        transform_fn=lambda b: {off: {k: v.to("cuda") for k, v in cols.items()}
+                                for off, cols in b.items()})
+    shapes = []
+    with adapter:
+        for batch in adapter:
+            if set(batch) != set(range(NGRAM_LEN)):
+                raise AssertionError(f"phase 18 adapter: offsets {sorted(batch)}")
+            for off, cols in batch.items():
+                want_fields = {"frame", "ts", "label"} if off == 0 else {"frame", "ts"}
+                if set(cols) != want_fields or cols["frame"].shape != (
+                        NGRAM_BATCH, SIDE, SIDE, 3) or cols["frame"].device.type != "cuda":
+                    raise AssertionError(f"phase 18 adapter: offset {off}: "
+                                         f"{ {k: tuple(v.shape) for k, v in cols.items()} }")
+                if not bool((cols["ts"] == batch[0]["ts"] + off).all()):
+                    raise AssertionError(f"phase 18 adapter: offset {off} ts")
+            shapes.append({off: {k: list(v.shape) for k, v in cols.items()}
+                           for off, cols in batch.items()})
+            if len(shapes) == 4:
+                break
+
+    timed = end - timed_start
+    timed_steps = steps - WARMUP_STEPS
+    phase("ngram_train_host_decode", decode="host", ngram_length=NGRAM_LEN,
+          shuffle_row_drop_partitions=2, frames_written=len(ts_by_group) * CLIPS_PER_GROUP
+          * CLIP_LEN, frame_store_write_s=write_s, windows_per_epoch=windows, steps=steps,
+          timed_steps=timed_steps, windows_per_batch=NGRAM_BATCH,
+          frames_per_step=NGRAM_BATCH * NGRAM_LEN, workers=workers,
+          samples_per_s=timed_steps * NGRAM_BATCH * NGRAM_LEN / timed,
+          windows_per_s=timed_steps * NGRAM_BATCH / timed,
+          phase5_samples_per_s=host["samples_per_s"], epoch_s=end - start,
+          step_ms=1e3 * timed / timed_steps, consumer_wait_share=wait / timed,
+          staged_bytes_per_batch=sum(staged.values()), staged_bytes_by_field=staged,
+          peak_device_memory_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+          losses=losses.tolist(), decode_stats=decoded, frames_decoded_per_epoch=per_epoch,
+          window_starts_match_cpu=True, ts_step_by_one=True,
+          reader_alone={"epochs": RATE_EPOCHS, "windows": count, "seconds": alone_s,
+                        "windows_per_s": count / alone_s,
+                        "frames_decoded_per_s": RATE_EPOCHS * per_epoch / alone_s,
+                        "phase7_native_rows_per_s": rates["native"]["rows_per_s"]},
+          adapter={"batches": len(shapes), "shapes": shapes[0], "nested_keys_match": True})
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2245,7 +2512,7 @@ def main():
         path, main_samples_per_s = main_path_phase(tmp, kernels)
         host = train_path_phase(path, kernels)
         device = train_path_device_decode_phase(path, kernels, host)
-        reader_rate_phase(path)
+        rates = reader_rate_phase(path)
         shuffled_train_path_phase(path, device)
         adapter_phase(path, main_samples_per_s)
         drained_inference_phase(path, main_samples_per_s)
@@ -2255,6 +2522,8 @@ def main():
         warm_cache_train_phase(path)
         filtered_train_phase(path, kernels, device)
         transformed_train_phase(path, kernels, host)
+        mixed_train_phase(tmp, path, kernels, device)
+        ngram_train_phase(tmp, kernels, host, rates)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

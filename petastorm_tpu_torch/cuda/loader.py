@@ -42,6 +42,10 @@ _decode_on_device`` (and ``:1145 _decode_stack``) without the mesh.
 job its data cursor: drain quiesces the reader and yields what is in flight,
 after which the reader's cursor is exact.
 
+The fields delivered are those of the reader's ``output_schema`` (its
+``schema``, or an ngram reader's window columns: ``'<offset>/<field>'``
+keys, and a stacked field's ``(k, ...)`` rows, staged like any column).
+
 With ``device="cpu"`` the same two threads deliver plain CPU tensors, with
 no pinned memory and no streams, and the decode runs B2's plain version.
 The default cross-process collective of a multi-process ``drain()``,
@@ -277,7 +281,9 @@ class CudaDataLoader:
         self._batch_size = batch_size
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
-        schema = reader.schema
+        # the columns iter_batches yields: an ngram reader's window columns
+        # (``jax/loader.py:333-335``)
+        schema = getattr(reader, "output_schema", None) or reader.schema
         self._schema = schema
         self._host_fields = list(host_fields)
         self._fields = list(fields) if fields is not None else [

@@ -9,8 +9,10 @@ buffer and every emitted batch is a dict of CPU torch tensors made with
 where the caller wants (``lambda b: {k: v.to("cuda") for k, v in b.items()}``).
 ``CudaDataLoader`` (``cuda/loader.py``) is the port's pinned, copy-stream
 feed for the card.  Readers with ``decode_placement='device'`` are refused,
-as the reference refuses them; ngram readers raise until the port has an
-ngram reader.
+as the reference refuses them.  A non-stacked ngram reader's
+``'<offset>/<field>'`` columns are collated into ``{offset: {field:
+tensor}}`` (``:152-157``, ``:189-197``); a ``stack_timesteps`` reader keeps
+the flat dict of ``(batch, k, ...)`` tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.dtypes import _TORCH_FEED_PROMOTIONS
 from petastorm_tpu_torch.errors import PetastormTpuError
+from petastorm_tpu_torch.ngram import NGRAM_KEY_SEP
 from petastorm_tpu_torch.seeding import reader_buffer_seed
 from petastorm_tpu_torch.shuffle import NoopShufflingBuffer, RandomShufflingBuffer, iter_batched
 
@@ -118,7 +121,9 @@ class DataLoader(LoaderBase):
     ``min_after_retrieve`` decorrelation floor at half capacity (reference
     shuffling_queue_capacity/min_after_dequeue, pytorch.py:143-189).  Without
     a ``seed``, a reader under ``deterministic='seed'`` seeds the buffer
-    (domain ``"pytorch.shuffle_buffer"``).
+    (domain ``"pytorch.shuffle_buffer"``).  A non-stacked ngram reader yields
+    ``{offset: {field: tensor}}``; a ``stack_timesteps`` one keeps the flat
+    dict, its stacked fields ``(batch, k, ...)`` tensors.
     """
 
     def __init__(self, reader, batch_size: int = 1,
@@ -132,10 +137,6 @@ class DataLoader(LoaderBase):
                 " decode_placement='device' (coefficient planes finished on"
                 " the card by cuda.CudaDataLoader); torch loaders need"
                 " decode_placement='host'")
-        if getattr(reader, "ngram", None) is not None:
-            raise PetastormTpuError(
-                "ngram readers are not part of petastorm_tpu_torch yet: their"
-                " window batches cannot be collated by this loader")
         if batch_size < 1:
             raise PetastormTpuError("batch_size must be >= 1")
         self.reader = reader
@@ -143,6 +144,11 @@ class DataLoader(LoaderBase):
         self.shuffling_queue_capacity = shuffling_queue_capacity
         self._seed = seed
         self._collate_fn = collate_fn
+        ngram = getattr(reader, "ngram", None)
+        #: a non-stacked ngram reader's offsets: its columns are collated
+        #: back into {offset: {field: tensor}}
+        self._ngram_offsets = (ngram.offsets if ngram is not None
+                               and not ngram.stack_timesteps else None)
 
     # -- engine ---------------------------------------------------------------
 
@@ -171,6 +177,12 @@ class DataLoader(LoaderBase):
     def _emit(self, batch: ColumnBatch) -> Dict:
         out = {name: _column_to_torch(name, col)
                for name, col in batch.columns.items()}
+        if self._ngram_offsets is not None:
+            nested: Dict[int, Dict] = {off: {} for off in self._ngram_offsets}
+            for key, value in out.items():
+                off, _, field = key.partition(NGRAM_KEY_SEP)
+                nested[int(off)][field] = value
+            out = nested
         if self._collate_fn is not None:
             out = self._collate_fn(out)
         return self._transform_batch(out)

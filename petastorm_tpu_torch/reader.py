@@ -26,10 +26,14 @@ from a cursor (``resume_from``, ``:865-890``), also under a new shard layout
 (``Reader.quiesce`` ``:1925``, ``Reader.state_dict`` ``:1938``) and its
 stream certificate (``Reader.stream_digest`` ``:1743``, folded as ``:1662``
 folds it).  ``cache_type`` caches decoded rowgroups in memory or on local
-disk (``cache.py``), a cacheable transform's output included.
+disk (``cache.py``), a cacheable transform's output included.  ``ngram``
+reads sliding windows of consecutive timesteps (``ngram.NGram``,
+``:595-649``): the reader's ``schema`` is then the post-transform full
+schema, ``output_schema`` the window columns ``iter_batches`` yields, and a
+row is one window as ``{offset: namedtuple}`` (``:1421-1451``).
 Partition-level predicate pushdown (hive partitions), the shared cache
-tier, ngrams, the ``'device-mixed'`` and ``'auto'`` placements, telemetry
-and the ingest service are not part of this package yet.
+tier, the ``'device-mixed'`` and ``'auto'`` placements, telemetry and the
+ingest service are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ def make_reader(dataset_url: str,
                 predicate=None,
                 rowgroup_selector=None,
                 shard_mode: str = "static",
-                transform_spec: Optional[TransformSpec] = None) -> "Reader":
+                transform_spec: Optional[TransformSpec] = None,
+                ngram=None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -140,14 +145,24 @@ def make_reader(dataset_url: str,
     ``transform.transform_cache_info`` finds deterministic, the cache holds
     the transform's output, and ``cache_stats()`` adds ``transform_hits``
     and ``transform_misses``.  A ``decode_placement='device'`` field cannot
-    be transformed, nor read by a predicate."""
+    be transformed, nor read by a predicate.
+
+    ``ngram``: an ``ngram.NGram``; the reader yields windows of consecutive
+    timesteps formed inside each rowgroup (sorted by its timestamp field)
+    after the transform.  A row is one window, ``{offset: namedtuple}``;
+    ``iter_batches()`` yields ``'<offset>/<field>'`` columns, or with
+    ``stack_timesteps`` one ``(windows, length, ...)`` column a field read at
+    every offset (such a reader is columnar only).  It takes no
+    ``schema_fields`` (the NGram names its fields), no ``decode_roi``, no
+    ``decode_placement='device'``, and no predicate beside
+    ``shuffle_row_drop_partitions > 1``."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
-                        transform_spec, batched_output=False)
+                        transform_spec, ngram, batched_output=False)
 
 
 def make_batch_reader(dataset_url: str,
@@ -172,17 +187,19 @@ def make_batch_reader(dataset_url: str,
                       predicate=None,
                       rowgroup_selector=None,
                       shard_mode: str = "static",
-                      transform_spec: Optional[TransformSpec] = None) -> "Reader":
+                      transform_spec: Optional[TransformSpec] = None,
+                      ngram=None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with inferred scalar
-    fields.  The other arguments as for :func:`make_reader`."""
+    fields.  The other arguments as for :func:`make_reader`; ``ngram`` is
+    refused, as the JAX package refuses it."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
-                        transform_spec, batched_output=True)
+                        transform_spec, ngram, batched_output=True)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -202,7 +219,7 @@ def elastic_resume(states: Sequence[dict]) -> dict:
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
                                read_fields: Sequence[str], transform_spec=None,
-                               predicate=None) -> List[str]:
+                               predicate=None, ngram=None) -> List[str]:
     """The fields to decode on the device; raises on a placement the port
     does not take.  The checks of ``petastorm_tpu/reader.py:1052-1140`` that
     apply to ``'host'`` and ``'device'``."""
@@ -235,6 +252,9 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
             raise PetastormTpuError(
                 f"decode_placement='device' field {name!r} must be (H, W), (H, W, 1) or"
                 f" (H, W, 3); got {field.shape}")
+        if ngram is not None:
+            raise PetastormTpuError(
+                f"decode_placement={place!r} is not supported with ngram readers")
         if transform_spec is not None:
             raise PetastormTpuError(
                 f"decode_placement={place!r} cannot be combined with a"
@@ -287,9 +307,13 @@ def _roi_crop_hw(spec: tuple) -> tuple:
     return (spec[1], spec[2]) if spec[0] in _ROI_MODES else (spec[2], spec[3])
 
 
-def _validate_decode_roi(decode_roi, schema: Schema, read_fields, decode_placement) -> None:
-    """The checks of ``petastorm_tpu/reader.py:988`` that apply to the port
-    (it has no ngram or sequence fields), with the same messages."""
+def _validate_decode_roi(decode_roi, schema: Schema, read_fields, decode_placement,
+                        ngram=None) -> None:
+    """The checks of ``petastorm_tpu/reader.py:988`` that apply to the port,
+    with the same messages."""
+    if ngram is not None:
+        raise PetastormTpuError("decode_roi is not supported with ngram"
+                                " readers")
     for name, spec in decode_roi.items():
         spec = _normalize_roi_spec(name, spec)
         if name not in schema:
@@ -359,9 +383,25 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  cur_shard, shard_count, decode_placement, deterministic, decode_threads,
                  decode_roi, resume_from, cache_type, cache_location, cache_size_limit,
                  shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
-                 transform_spec, batched_output) -> "Reader":
+                 transform_spec, ngram, batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
+    if ngram is not None and batched_output:
+        raise PetastormTpuError(
+            "NGram is not supported by make_batch_reader (reference parity,"
+            " arrow_reader_worker.py:104); use make_reader")
+    if ngram is not None and schema_fields is not None:
+        raise PetastormTpuError(
+            "schema_fields and ngram are mutually exclusive: the NGram spec"
+            " already defines the fields read at each timestep offset")
+    if (ngram is not None and predicate is not None
+            and shuffle_row_drop_partitions > 1):
+        raise PetastormTpuError(
+            "ngram + predicate + shuffle_row_drop_partitions > 1 is not"
+            " supported: the lookahead rows borrowed across a partition"
+            " boundary are computed before the predicate masks rows, so"
+            " windows spanning masked rows would be silently lost. Use"
+            " shuffle_row_drop_partitions=1.")
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
     # one analysis walk a reader: the worker's cache signature and
     # output-caching verdict both come from this triple
@@ -369,15 +409,25 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     info = open_dataset(dataset_url, require_stored_schema=not batched_output)
     full_schema = infer_or_load_schema(info)
     view = full_schema.view(schema_fields) if schema_fields is not None else full_schema
-    read_fields = [f.name for f in view]
     if decode_roi:
-        _validate_decode_roi(decode_roi, full_schema, read_fields, decode_placement)
+        _validate_decode_roi(decode_roi, full_schema, [f.name for f in view], decode_placement,
+                             ngram)
         # the delivered columns are crop-shaped; the worker keeps the full
         # schema (it needs the stored geometry to place the crops)
         view = _apply_roi_schema(view, decode_roi)
     schema = transform_schema(view, transform_spec) if transform_spec is not None else view
+    ngram_schema = None
+    if ngram is not None:
+        # the NGram selects its fields from the post-transform full schema;
+        # only the stored ones are read (``petastorm_tpu/reader.py:641-649``)
+        ngram_schema = (transform_schema(full_schema, transform_spec)
+                        if transform_spec is not None else full_schema)
+        required = ngram.required_fields(ngram_schema)
+        view = full_schema.view([n for n in required if n in full_schema])
+        schema = ngram_schema
+    read_fields = [f.name for f in view]
     device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields,
-                                               transform_spec, predicate)
+                                               transform_spec, predicate, ngram)
     if any(native_decodable(full_schema[f]) for f in read_fields if f not in device_fields):
         # the batched decode's library: a missing g++, libjpeg or libpng
         # raises here, not in the first worker
@@ -435,10 +485,11 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                                    decode_threads=decode_threads, decode_roi=decode_roi,
                                    cache=cache, dataset_url=dataset_url, predicate=predicate,
                                    transform=transform_spec,
-                                   transform_cache_info=tf_cache_info)
+                                   transform_cache_info=tf_cache_info,
+                                   ngram=ngram, ngram_schema=ngram_schema)
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                   deterministic=deterministic, shuffle_seed=shuffle_seed,
-                  start_item=start_item, digest_state=digest_state)
+                  start_item=start_item, digest_state=digest_state, ngram=ngram)
 
 
 class Reader:
@@ -447,16 +498,27 @@ class Reader:
     Iterate rows (or per-rowgroup batches with ``batched_output``), or call
     :meth:`iter_batches` for raw ColumnBatches; do not mix the two on one
     reader.  A context manager: leaving it stops the workers.
+
+    ``ngram`` is the reader's ``ngram.NGram`` (None for other readers);
+    ``output_schema`` is the schema of the batches ``iter_batches`` yields:
+    ``schema``, or the NGram's window columns.  ``last_row_consumed``
+    turns true once the last row (or batch) of a finite stream is out.
     """
 
     def __init__(self, schema: Schema, plan: ReadPlan, executor, worker,
                  num_epochs: Optional[int], batched_output: bool,
                  device_decode_fields: Sequence[str] = (), deterministic: str = "off",
                  shuffle_seed: Optional[int] = None, start_item: int = 0,
-                 digest_state: Optional[dict] = None):
+                 digest_state: Optional[dict] = None, ngram=None):
         if start_item < 0:
             raise PetastormTpuError("start_item must be >= 0")
         self.schema = schema
+        self.ngram = ngram
+        self.output_schema = schema
+        if ngram is not None:
+            self._ngram_views = ngram.resolve_schema(schema)
+            self._ngram_types = ngram.make_namedtuple_types(schema)
+            self.output_schema = ngram.output_schema(schema)
         #: ``'seed'`` or ``'off'`` (``make_reader``'s ``deterministic``, resolved)
         self.deterministic = deterministic
         self.shuffle_seed = shuffle_seed
@@ -467,6 +529,11 @@ class Reader:
         self._executor.start(worker)
         self._batches: Optional[Iterator[ColumnBatch]] = None
         self._rows: Iterator = iter(())
+        self._rows_left = 0
+        #: an ngram reader's current batch of windows and the next one's index
+        self._windows: Optional[ColumnBatch] = None
+        self._window_pos = 0
+        self.last_row_consumed = False
         self._namedtuple_type = schema.make_namedtuple_type()
         self._stopped = False
         #: fields read with decode_placement='device': their batches carry
@@ -480,6 +547,9 @@ class Reader:
         self._items_per_epoch = len(plan.epoch_items(0))
         self._epoch_items_cache: dict = {}
         self._digest = StreamDigest(digest_state)
+        #: items this reader delivers (None: it reads forever)
+        self._expected_items = (None if num_epochs is None else
+                                max(plan.total_items(num_epochs) - start_item, 0))
 
     def decode_stats(self) -> dict:
         """The native decode counters (``batch_calls``, ``batch_images``,
@@ -512,13 +582,25 @@ class Reader:
         if self._batches is None:
             self._batches = self._executor.imap(self._items(), start=self._start_item)
         while True:
-            batch = next(self._batches)
+            try:
+                batch = next(self._batches)
+            except StopIteration:
+                if self._all_items_consumed():
+                    self.last_row_consumed = True
+                raise
             self._digest_deliver(self._start_item + self._consumed_items, batch)
             self._consumed_items += 1
             # a rowgroup the predicate emptied counts in the cursor and the
             # digest and is never delivered (``petastorm_tpu/reader.py:1686``)
             if batch.num_rows:
+                if self.batched_output and self._all_items_consumed():
+                    # the row path flags only once its last row is out
+                    self.last_row_consumed = True
                 return batch
+
+    def _all_items_consumed(self) -> bool:
+        return (self._expected_items is not None
+                and self._consumed_items >= self._expected_items)
 
     # -- cursor and stream certificate --------------------------------------
 
@@ -617,12 +699,34 @@ class Reader:
         if self.batched_output:
             batch = self._next_batch()
             return self._namedtuple_type(**{n: batch.columns[n] for n in self.schema.fields})
+        if self.ngram is not None:
+            return self._next_window()
         for row in self._rows:
+            self._rows_left -= 1
+            if not self._rows_left and self._all_items_consumed():
+                self.last_row_consumed = True
             return row
-        cols = self._next_batch().columns
+        batch = self._next_batch()
+        cols = batch.columns
         self._rows = map(self._namedtuple_type._make,
                          zip(*[cols[n] for n in self.schema.fields]))
+        self._rows_left = batch.num_rows
         return next(self)
+
+    def _next_window(self) -> dict:
+        """One window as ``{offset: namedtuple}`` (``petastorm_tpu/reader.py:1436-1451``)."""
+        if self._windows is None or self._window_pos >= self._windows.num_rows:
+            self._windows = self._next_batch()
+            self._window_pos = 0
+        pos = self._window_pos
+        self._window_pos += 1
+        if self._window_pos >= self._windows.num_rows and self._all_items_consumed():
+            self.last_row_consumed = True
+        if self.ngram.stack_timesteps:
+            raise PetastormTpuError(
+                "stack_timesteps NGram readers are columnar-only: use"
+                " iter_batches() or the jax loader")
+        return self.ngram.row(self._ngram_views, self._ngram_types, self._windows, pos)
 
     def stop(self) -> None:
         self._stopped = True

@@ -75,6 +75,9 @@ class Field:
                    nullable=bool(obj.get("nullable", False)))
 
 
+_SelectorT = Union[str, Field, "re.Pattern"]
+
+
 class Schema:
     """Ordered collection of Fields with views, namedtuple rows and IO forms."""
 
@@ -113,21 +116,38 @@ class Schema:
     def __repr__(self):
         return f"Schema({self._name!r}, {list(self._fields.values())!r})"
 
-    def view(self, selectors: Iterable[Union[str, Field]]) -> "Schema":
-        """Sub-schema by Field, exact name or fullmatch regex, in schema order."""
+    def view(self, selectors: Iterable[_SelectorT]) -> "Schema":
+        """Sub-schema by Field, exact name or fullmatch regex, in schema order
+        (``petastorm_tpu/schema.py:169``)."""
+        selected = self.resolve_fields(selectors)
+        return Schema(self._name, [f for f in self if f.name in selected])
+
+    def resolve_fields(self, selectors: Iterable[_SelectorT]) -> List[str]:
+        """Field names the selectors pick, in selection order
+        (``petastorm_tpu/schema.py:178``).  An exact name wins over a regex;
+        a regex (``str`` or ``re.Pattern``) fullmatches; a ``Field`` must
+        equal the schema's field of its name, or ``SchemaError`` is raised."""
         selected: "OrderedDict[str, None]" = OrderedDict()
         for sel in selectors:
-            name = sel.name if isinstance(sel, Field) else sel
-            if name in self._fields:
-                selected[name] = None
+            if isinstance(sel, Field):
+                if sel.name not in self._fields or self._fields[sel.name] != sel:
+                    raise SchemaError(f"Field {sel.name!r} is not part of schema {self._name!r}")
+                selected[sel.name] = None
                 continue
-            matches = [n for n in self._fields if re.fullmatch(name, n)]
+            if isinstance(sel, str) and sel in self._fields:
+                # exact name wins, so 'a+b' stays selectable and 'a.b' does
+                # not also pick 'axb'
+                selected[sel] = None
+                continue
+            pattern = sel.pattern if isinstance(sel, re.Pattern) else sel
+            matches = [n for n in self._fields if re.fullmatch(pattern, n)]
             if not matches:
                 raise SchemaError(
-                    f"Selector {name!r} matched no field of schema {self._name!r};"
+                    f"Selector {pattern!r} matched no field of schema {self._name!r};"
                     f" fields: {list(self._fields)}")
-            selected.update((n, None) for n in matches)
-        return Schema(self._name, [f for f in self if f.name in selected])
+            for n in matches:
+                selected[n] = None
+        return list(selected)
 
     def make_namedtuple_type(self):
         """Namedtuple type for one row of this schema (cached per instance)."""

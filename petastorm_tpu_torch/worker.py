@@ -1,7 +1,7 @@
 """Rowgroup decode worker: a parquet rowgroup -> a decoded ColumnBatch.
 
 Counterpart of ``petastorm_tpu/worker.py:47 RowGroupDecoderWorker``, without
-the shared cache tier, ngrams and the live decode split.  A work item reads
+the shared cache tier and the live decode split.  A work item reads
 only its row slice (``row_slice()``: the whole rowgroup, or one row-drop
 partition, ``:512-515``).  Image columns decode in one native call each
 (``codecs.CompressedImageCodec.decode_column``), fanned out over
@@ -19,19 +19,31 @@ survive), and an item whose rows are all masked gives a 0-row batch, which
 the reader folds into its cursor and never delivers.  A ``TransformSpec``
 runs after the decode, never on a 0-row batch (``:353-364``).
 
+An ``NGram`` reader forms its windows after the transform, over the
+post-transform schema, never on a 0-row batch (``:283-301``, ``:357-364``).
+With ``timestamp_overlap=True`` a row-drop slice reads ``length - 1``
+lookahead rows past its end (clipped to the rowgroup) and anchors the window
+starts inside the slice, so every window is formed by exactly one slice; with
+``timestamp_overlap=False`` every slice reads the whole rowgroup (the greedy
+non-overlapping pick is a property of the whole rowgroup) and keeps the
+starts inside its own rows.
+
 Every rowgroup is looked up in the reader's cache first (``:342-346``),
 under a key built as ``:384-412`` builds it: the dataset URL's md5, the
-file, the rowgroup, its row span, a tag over the read fields, the
-device-decode fields, ``decode_roi`` and the transform's signature, and the
-file's size and mtime.  A hit skips the Parquet read and the decode: on the
-hybrid route the entry holds the coefficient planes, so only the entropy
-decode is skipped.  When ``transform.transform_cache_info`` finds the
-transform's output cacheable, the entry is the transform's output, under the
-key with a stage tag (``:313-341``): a warm epoch then decodes and
-transforms nothing, and the worker counts those hits and misses.  The pool's
-threads fill a key once: a rowgroup read again while its first read still
-decodes (the next epoch's items are issued before this one's are done)
-waits for that read and hits, so a warm epoch decodes nothing.
+file, the rowgroup, the row span it loads (an ngram's lookahead included,
+so readers of two ngram lengths never serve each other's entries), a tag
+over the read fields, the device-decode fields, ``decode_roi`` and the
+transform's signature, and the file's size and mtime.  A hit skips the
+Parquet read and the decode: on the hybrid route the entry holds the
+coefficient planes, so only the entropy decode is skipped.  When
+``transform.transform_cache_info`` finds the transform's output cacheable
+(and the reader has no ngram, ``:153-155``), the entry is the transform's
+output, under the key with a stage tag (``:313-341``): a warm epoch then
+decodes and transforms nothing, and the worker counts those hits and
+misses.  The pool's threads fill a key once: a rowgroup read again while
+its first read still decodes (the next epoch's items are issued before
+this one's are done) waits for that read and hits, so a warm epoch
+decodes nothing.
 """
 
 from __future__ import annotations
@@ -76,7 +88,7 @@ class RowGroupDecoderWorker:
                  decode_roi: Optional[Mapping[str, tuple]] = None,
                  cache: Optional[CacheBase] = None, dataset_url: str = "",
                  predicate=None, transform: Optional[transform_mod.TransformSpec] = None,
-                 transform_cache_info=None):
+                 transform_cache_info=None, ngram=None, ngram_schema: Optional[Schema] = None):
         self._schema = schema
         self._read_fields = list(read_fields)
         #: fields shipped as coefficient planes (decode_placement='device')
@@ -88,6 +100,10 @@ class RowGroupDecoderWorker:
         self._decode_roi = dict(decode_roi or {})
         self._predicate = predicate
         self._transform = transform
+        #: window spec (``ngram.NGram``) and the post-transform schema its
+        #: windows are formed over
+        self._ngram = ngram
+        self._ngram_schema = ngram_schema or schema
         self._stats_lock = threading.Lock()
         self._stats = dict.fromkeys(native_image.decode_stats(), 0)
         #: the reader's rowgroup cache (``cache.make_cache``)
@@ -101,7 +117,9 @@ class RowGroupDecoderWorker:
         self._transform_signature, cacheable, reason = transform_cache_info
         #: the cache holds the transform's output (``:149-164``)
         self._transform_output_cached = False
-        if transform is not None and not self._cache_is_null:
+        if transform is not None and not self._cache_is_null and ngram is None:
+            # an ngram reader's windows form after the transform with
+            # slice-dependent anchors: its transform output is not cached
             if cacheable:
                 self._transform_output_cached = True
                 logger.info("post-transform output caching armed (%s; signature %s,"
@@ -176,10 +194,12 @@ class RowGroupDecoderWorker:
             self._file_fps[path] = fp
         return fp
 
-    def _cache_key(self, item: WorkItem, stage: str = "decode") -> str:
-        """The cache key of one work item (``petastorm_tpu/worker.py:384``);
+    def _cache_key(self, item: WorkItem, stage: str = "decode",
+                   span: Optional[tuple] = None) -> str:
+        """The cache key of one work item (``petastorm_tpu/worker.py:384``)
+        over the rows ``span`` it loads (default: its row slice);
         ``stage=_TRANSFORM_STAGE`` keys the transform's output."""
-        start, stop = item.row_slice()
+        start, stop = span if span is not None else item.row_slice()
         rg = item.row_group
         tag = self._fields_tag if stage == "decode" else self._transform_fields_tag
         return (f"{self._cache_prefix}:{rg.path}:{rg.row_group}:{start}:{stop}"
@@ -232,15 +252,17 @@ class RowGroupDecoderWorker:
             return pf
 
         def load(item: WorkItem, fields: Sequence[str],
-                 mask: Optional[np.ndarray] = None) -> ColumnBatch:
-            """Read the item's row slice of ``fields``, keep the ``mask``ed
-            rows, then decode them (``petastorm_tpu/worker.py:481``)."""
+                 mask: Optional[np.ndarray] = None,
+                 row_range: Optional[tuple] = None) -> ColumnBatch:
+            """Read the rows ``row_range`` (default: the item's row slice) of
+            ``fields``, keep the ``mask``ed rows, then decode them
+            (``petastorm_tpu/worker.py:481``)."""
             rg = item.row_group
             # the pool provides the parallelism; arrow's own fan-out per read
             # only adds handoff cost
             table = parquet_file(rg.path).read_row_group(
                 rg.row_group, columns=list(fields), use_threads=False)
-            start, stop = item.row_slice()
+            start, stop = row_range if row_range is not None else item.row_slice()
             if (start, stop) != (0, table.num_rows):
                 table = table.slice(start, stop - start)
             if mask is not None:
@@ -259,14 +281,15 @@ class RowGroupDecoderWorker:
                         columns[name] = field.codec.decode_column(field, chunk)
             return ColumnBatch(columns, n)
 
-        def load_with_predicate(item: WorkItem) -> ColumnBatch:
+        def load_with_predicate(item: WorkItem,
+                                row_range: Optional[tuple] = None) -> ColumnBatch:
             """The split read (``petastorm_tpu/worker.py:581-623``)."""
             pred_fields = list(self._predicate.get_fields())
             missing = [f for f in pred_fields if f not in self._schema]
             if missing:
                 raise PetastormTpuError(f"Predicate references unknown fields {missing}")
             # phase 1: the predicate's columns only
-            pred_batch = load(item, pred_fields)
+            pred_batch = load(item, pred_fields, row_range=row_range)
             mask = np.asarray(self._predicate.do_include_vectorized(pred_batch.columns),
                               dtype=bool)
             if not mask.any():
@@ -275,7 +298,7 @@ class RowGroupDecoderWorker:
             remaining = [f for f in self._read_fields if f not in pred_fields]
             columns = {f: pred_batch.columns[f][mask] for f in pred_fields}
             if remaining:
-                columns.update(load(item, remaining, mask=mask).columns)
+                columns.update(load(item, remaining, mask=mask, row_range=row_range).columns)
             # the read fields only, in schema order (a device-decode field
             # travels as its derived '<name>#...' coefficient columns)
             kept: Dict[str, np.ndarray] = {}
@@ -311,9 +334,31 @@ class RowGroupDecoderWorker:
                                      lambda: load(item, self._read_fields))
             return self._apply_transform(batch)
 
+        def decode_windows(item: WorkItem) -> ColumnBatch:
+            """An ngram item: its rows (and lookahead), transformed, then
+            windowed (``petastorm_tpu/worker.py:283-301``, ``:357-364``)."""
+            lo, hi = item.row_slice()
+            whole = WorkItem(item.row_group)
+            if self._ngram.timestamp_overlap:
+                row_range = (lo, min(hi + self._ngram.length - 1, item.row_group.num_rows))
+                anchor = (0, hi - lo)
+            else:
+                row_range, anchor = whole.row_slice(), (lo, hi)
+            if self._predicate is not None:
+                batch = load_with_predicate(whole, row_range)
+            elif self._cache_is_null:
+                batch = load(whole, self._read_fields, row_range=row_range)
+            else:
+                batch = self._cached(self._cache_key(whole, span=row_range),
+                                     lambda: load(whole, self._read_fields, row_range=row_range))
+            if batch.num_rows == 0:
+                return batch
+            return self._ngram.form_windows(self._ngram_schema, self._apply_transform(batch),
+                                            anchor_range=anchor)
+
         def process(item: WorkItem) -> ColumnBatch:
             before = native_image.decode_stats()
-            batch = decode(item)
+            batch = decode(item) if self._ngram is None else decode_windows(item)
             # this thread's counters: a hit decoded nothing and adds nothing
             after = native_image.decode_stats()
             with self._stats_lock:

@@ -933,3 +933,89 @@ def test_filtered_device_decode_loader_matches_cpu_run_on_card(tmp_path):
         assert not deals[0][epoch] & deals[1][epoch]
         assert deals[0][epoch] | deals[1][epoch] == want
     assert deals[0][0] != deals[0][1]
+
+
+@pytest.mark.cuda
+def test_stacked_ngram_batches_on_the_card_equal_the_cpu_delivery(tmp_path):
+    """Phase 18's loader path at a small size: a stacked NGram over a host
+    decode reader with two drop partitions; each (batch, k, H, W, 3) uint8
+    frame tensor staged on the card equals the CPU delivery byte for byte,
+    and its timestamps step by one inside every window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.ngram import NGram
+
+    rng = np.random.default_rng(3)
+    schema = Schema("Frames", [Field("ts", np.int64), Field("label", np.int64),
+                               Field("frame", np.uint8, (32, 40, 3),
+                                     CompressedImageCodec("jpeg", 90))])
+    # rowgroups of 32 frames, two clips of 16 consecutive timestamps each
+    rows = [{"ts": (i // 16) * 1000 + i % 16, "label": i // 16,
+             "frame": rng.integers(0, 256, (32, 40, 3), dtype=np.uint8)} for i in range(128)]
+    path = str(tmp_path / "frames")
+    write_dataset(path, schema, rows, row_group_size_rows=32)
+    ngram = NGram({0: ["frame", "ts", "label"], 1: ["frame", "ts"], 2: ["frame", "ts"]},
+                  delta_threshold=1, timestamp_field="ts", stack_timesteps=True)
+
+    def run(device):
+        reader = make_reader(path, workers_count=3, shuffle_seed=0, ngram=ngram,
+                             shuffle_row_drop_partitions=2)
+        with CudaDataLoader(reader, 8, device=device) as loader:
+            return [{k: v.cpu() for k, v in b.items()} for b in loader]
+
+    card, cpu = run("cuda"), run("cpu")
+    assert len(card) == len(cpu) == 4 * 2 * 14 // 8  # 14 windows a clip
+    for c, p in zip(card, cpu):
+        assert c["frame"].shape == (8, 3, 32, 40, 3) and c["frame"].dtype == torch.uint8
+        for k in ("frame", "ts", "0/label"):
+            assert torch.equal(c[k], p[k]), k
+        assert torch.equal(c["ts"], c["ts"][:, :1] + torch.arange(3))
+
+
+@pytest.mark.cuda
+def test_device_decode_mix_on_the_card_matches_the_plain_path(tmp_path):
+    """Phase 17's feed at a small size: two device-decode readers mixed
+    0.75/0.25 through the loader, B2 on the card against the same mix on
+    the CPU (B2's plain version): the same labels in the same order, one B2
+    launch a batch, images within B2's bound of its plain version, and the
+    same mixture digest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.ops import jpeg
+    from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader
+
+    rng = np.random.default_rng(4)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (40, 48, 3), CompressedImageCodec("jpeg", 90))])
+    paths = []
+    for src, n in enumerate((96, 48)):
+        paths.append(str(tmp_path / f"c{src}"))
+        write_dataset(paths[-1], schema,
+                      [{"label": 1000 * src + i,
+                        "image": rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)}
+                       for i in range(n)], row_group_size_rows=16)
+
+    def run(device):
+        readers = [make_reader(p, workers_count=3, shuffle_seed=i,
+                               decode_placement={"image": "device"})
+                   for i, p in enumerate(paths)]
+        mixed = WeightedSamplingReader(readers, [0.75, 0.25], seed=1)
+        with CudaDataLoader(mixed, 16, device=device) as loader:
+            batches = [{k: v.cpu() for k, v in b.items()} for b in loader]
+        return batches, mixed.mixture_digest
+
+    before = jpeg.jpeg_decode_kernel.launches_tiled
+    card, card_digest = run("cuda")
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == len(card) == 9
+    cpu, cpu_digest = run("cpu")
+    assert card_digest == cpu_digest and card_digest["draw_count"] == 11
+    for c, p in zip(card, cpu):
+        assert torch.equal(c["label"], p["label"])
+        diff = (c["image"].int() - p["image"].int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3

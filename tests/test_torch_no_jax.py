@@ -63,5 +63,7 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/pool.py", "petastorm_tpu_torch/predicates.py",
                      "petastorm_tpu_torch/selectors.py", "petastorm_tpu_torch/transform.py",
                      "petastorm_tpu_torch/etl/indexing.py",
-                     "petastorm_tpu_torch/etl/metadata.py"):
+                     "petastorm_tpu_torch/etl/metadata.py", "petastorm_tpu_torch/ngram.py",
+                     "petastorm_tpu_torch/weighted_sampling.py",
+                     "petastorm_tpu_torch/rebatch.py"):
         assert required in names

@@ -212,12 +212,21 @@ def test_device_decode_readers_are_refused(tmp_path):
 
 
 def test_ngram_readers_and_bad_batch_sizes_are_refused(torch_dataset):
-    """An ngram-shaped reader raises rather than being collated as flat
-    rows: the port has no ngram reader yet."""
-    with make_reader(torch_dataset, num_epochs=1) as r:
-        r.ngram = object()
-        with pytest.raises(PetastormTpuError, match="ngram readers"):
-            DataLoader(r, batch_size=2)
-        del r.ngram
+    """An ngram reader is no longer refused: a flat one is collated into
+    ``{offset: {field: tensor}}``, a stacked one keeps the flat dict.  A bad
+    batch size is still refused."""
+    from petastorm_tpu_torch.ngram import NGram
+
+    flat = NGram({0: ["id", "vec"], 1: ["id"]}, 1, "id")
+    with make_reader(torch_dataset, num_epochs=1, shuffle_row_groups=False,
+                     reader_pool_type="serial", ngram=flat) as r:
+        batch = next(iter(DataLoader(r, batch_size=2)))
+    assert set(batch) == {0, 1} and set(batch[0]) == {"id", "vec"} and set(batch[1]) == {"id"}
+    assert torch.equal(batch[1]["id"], batch[0]["id"] + 1)
+    stacked = NGram({0: ["id"], 1: ["id"]}, 1, "id", stack_timesteps=True)
+    with make_reader(torch_dataset, num_epochs=1, shuffle_row_groups=False,
+                     reader_pool_type="serial", ngram=stacked) as r:
+        batch = next(iter(DataLoader(r, batch_size=2)))
+        assert set(batch) == {"id"} and batch["id"].shape == (2, 2)
         with pytest.raises(PetastormTpuError, match="batch_size must be"):
             BatchedDataLoader(r, batch_size=0)
