@@ -164,13 +164,36 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    decoded frame through the batched native call; the reader alone for 4
    epochs (windows/s, frames decoded/s) beside phase 7's rows/s; then the
    same windows unstacked through ``pytorch.BatchedDataLoader`` onto the
-   card for 4 batches: ``{offset: {field: tensor}}``.
+   card for 4 batches: ``{offset: {field: tensor}}``;
+19. partitioned training, device decode: phase 4's rows written by the
+   port's ``write_dataset`` with ``partition_by=['split']`` (4 splits of
+   1024 rows, files of 256; a 14x14 ``mask`` stored with
+   ``CompressedNdarrayCodec``), splits 0-2 in one call and split 3 appended;
+   ``_common_metadata`` deleted and rebuilt by ``generate_metadata`` (the
+   same rowgroup list and stream digest as before); one epoch of phase 6's
+   path over splits 0-2 with the predicate pushed down to the partitions
+   (12 steps, ``mask`` a host field): exactly 3072 rows, the labels and the
+   digest of the reader alone on the CPU, 3072 images entropy-decoded,
+   every mask as written, B2, B3 and B1 once a step; samples/s beside phase
+   6's and the input-wait share; then split 3's files as a URL list through
+   ``make_batch_reader``: 1024 rows of split 3;
+20. poisoned training: phase 19's corpus copied, one JPEG cell of a split-1
+   file cut inside its header (rewritten through ``materialize_dataset``)
+   and a split-2 file overwritten with garbage; one epoch under
+   ``on_error=ErrorPolicy(max_skipped_rowgroups=2)`` through phase 6's
+   device-decode path and phase 5's host-decode path: 3584 rows each, both
+   rowgroups quarantined as data errors at their paths, the labels and the
+   digest of the reader alone on the CPU, the cursor at the epoch's end;
+   samples/s beside phases 6 and 5 and the input-wait share; then a budget
+   of 1 raises ``ErrorBudgetExceededError`` from the loader's ``next()``
+   with its diagnostics, and both loader threads have ended.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
 without a CUDA GPU it exits non-zero at once.
 """
 
+import itertools
 import json
 import os
 import shutil
@@ -181,6 +204,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pyarrow as pa
 import pyarrow.parquet as pq
 import torch
 
@@ -190,6 +214,7 @@ if __name__ == "__main__" and not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset  # noqa: E402
+from petastorm_tpu_torch import CompressedNdarrayCodec, ErrorPolicy, make_batch_reader  # noqa: E402
 from petastorm_tpu_torch import codecs  # noqa: E402
 from petastorm_tpu_torch import pytorch as torch_adapter  # noqa: E402
 from petastorm_tpu_torch import shuffle  # noqa: E402
@@ -199,7 +224,10 @@ from petastorm_tpu_torch.checkpoint import (make_checkpoint_manager, restore_che
 from petastorm_tpu_torch.cuda import build, device_buffer  # noqa: E402
 from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader  # noqa: E402
 from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_index  # noqa: E402
+from petastorm_tpu_torch.errors import ErrorBudgetExceededError  # noqa: E402
+from petastorm_tpu_torch.etl.generate_metadata import generate_metadata  # noqa: E402
 from petastorm_tpu_torch.etl.metadata import open_dataset  # noqa: E402
+from petastorm_tpu_torch.etl.writer import materialize_dataset  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
 from petastorm_tpu_torch.ngram import NGram  # noqa: E402
@@ -207,7 +235,7 @@ from petastorm_tpu_torch.native import build as native_build  # noqa: E402
 from petastorm_tpu_torch.native import image as native_image  # noqa: E402
 from petastorm_tpu_torch.ops import augment, jpeg, normalize  # noqa: E402
 from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
-from petastorm_tpu_torch.predicates import in_pseudorandom_split  # noqa: E402
+from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
 from petastorm_tpu_torch.transform import TransformSpec, transform_cache_info  # noqa: E402
 from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader  # noqa: E402
@@ -228,6 +256,7 @@ CACHE_EPOCHS = 3               # phase 14: epochs trained from one warm cache
 MIX_ROWS, MIX_WEIGHTS, MIX_SEED = 2048, (0.75, 0.25), 17  # phase 17: the second corpus, the mix
 CLIP_LEN, CLIPS_PER_GROUP, FRAME_GROUPS = 64, 4, 16      # phase 18: the frame dataset
 CLIP_GAP, NGRAM_LEN, NGRAM_BATCH = 1000, 4, 64           # phase 18: gaps, window, batch
+PARTITIONS, POISON_CELL = 4, 5  # phases 19-20: splits of phase 4's rows, the cut JPEG cell
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -1034,7 +1063,8 @@ def device_time_by_op(step, images, labels, steps=3, top=12):
 
 
 def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
-                label_field="label", rows=None, decoded_images=None, source=None):
+                label_field="label", rows=None, decoded_images=None, source=None,
+                on_batch=None):
     """``epochs`` epochs (one by default) of the training path over the
     phase-4 dataset, the reader decoding with ``decode_placement={'image':
     decode}`` and taking ``reader_kwargs``, the loader taking
@@ -1044,7 +1074,8 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     that selects rows delivers ``rows`` rows over all its epochs (full
     batches of them are trained) and decodes ``decoded_images`` images.
     ``source=(reader, parts)`` trains on ``reader`` instead (a mix), whose
-    ``parts`` (its sub-readers) count the decoded images."""
+    ``parts`` (its sub-readers) count the decoded images.  ``on_batch`` is
+    called with every delivered batch."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -1080,6 +1111,8 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
             else:
                 loss = step(batch["image"], labels)
             losses.append(loss)
+            if on_batch is not None:
+                on_batch(batch)
             steps += 1
             if steps == WARMUP_STEPS:
                 torch.cuda.synchronize()
@@ -1132,6 +1165,7 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
             "samples_per_s": (steps - WARMUP_STEPS) * BATCH / timed, "wait": wait,
             "diagnostics": diagnostics, "decode_stats": decoded,
             "digest": getattr(reader, "stream_digest", None),
+            "state": reader.state_dict() if hasattr(reader, "state_dict") else None,
             "image_sums": torch.stack(image_sums).cpu(), "cache_stats": parts[0].cache_stats(),
             "timed_start": (timed_start, wait0), "epoch_marks": epoch_marks}
 
@@ -2488,6 +2522,229 @@ def ngram_train_phase(tmp, kernels, host, rates):
           adapter={"batches": len(shapes), "shapes": shapes[0], "nested_keys_match": True})
 
 
+def partition_schema():
+    """Phase 19's schema: phase 4's ``label`` and JPEG ``image``, the
+    ``split`` the rows are partitioned by, and a 14x14 ``mask`` stored with
+    ``CompressedNdarrayCodec``."""
+    return Schema("ImageNetSplits", [
+        Field("label", np.int64), Field("split", np.int64),
+        Field("image", np.uint8, (SIDE, SIDE, 3), CompressedImageCodec("jpeg", quality=90)),
+        Field("mask", np.uint8, (14, 14), CompressedNdarrayCodec())])
+
+
+def partition_rows():
+    """Phase 4's rows (its labels and images, from the same seed), each with
+    its ``split`` (PARTITIONS equal ranges of the row index) and a mask
+    drawn from the row's label."""
+    rng = np.random.default_rng(0)
+    labels = rng.permutation(N_ROWS).astype(np.int64)
+    for row, label in enumerate(labels):
+        yield {"label": int(label), "split": row // (N_ROWS // PARTITIONS),
+               "image": smooth_image(rng), "mask": label_mask(label)}
+
+
+def label_mask(label):
+    return (np.random.default_rng(int(label)).random((14, 14)) > 0.5).astype(np.uint8)
+
+
+def listing(path):
+    """The dataset's rowgroups as (path under the root, rowgroup, rows,
+    global index, partition values)."""
+    return [(os.path.relpath(r.path, path), r.row_group, r.num_rows, r.global_index,
+             r.partition_values) for r in open_dataset(path).row_groups]
+
+
+def labels_only_digest(path, **kwargs):
+    """The stream digest of one epoch of ``path`` read alone on the serial
+    pool (the labels only: the digest follows the plan, not the fields)."""
+    with make_reader(path, reader_pool_type="serial", shuffle_seed=0,
+                     schema_fields=["label", "split"], **kwargs) as reader:
+        for _ in reader.iter_batches():
+            pass
+        return reader.stream_digest
+
+
+def partitioned_train_phase(tmp, kernels, device):
+    """Phase 19: phase 4's rows written as a hive-partitioned corpus (three
+    splits in one call, the fourth appended), its metadata rebuilt by
+    ``generate_metadata``, then one epoch of phase 6's training path over
+    splits 0-2 with the predicate pushed down to the partitions; then a URL
+    list of split 3's files through ``make_batch_reader``."""
+    path = os.path.join(tmp, "imagenet_splits")
+    per_split = N_ROWS // PARTITIONS
+    kept_rows = (PARTITIONS - 1) * per_split
+    cores = os.cpu_count() or 2
+    t0 = time.perf_counter()
+    schema, rows = partition_schema(), partition_rows()
+    write_dataset(path, schema, itertools.islice(rows, kept_rows), partition_by=["split"],
+                  row_group_size_rows=ROWS_PER_GROUP, rows_per_file=ROWS_PER_GROUP,
+                  encode_workers=cores)
+    write_dataset(path, schema, rows, partition_by=["split"],
+                  row_group_size_rows=ROWS_PER_GROUP, rows_per_file=ROWS_PER_GROUP,
+                  encode_workers=cores, mode="append")
+    write_s = time.perf_counter() - t0
+    before, digest_before = listing(path), labels_only_digest(path)
+    if [dict(p)["split"] for *_, p in before] != [str(i // (per_split // ROWS_PER_GROUP))
+                                                  for i in range(N_ROWS // ROWS_PER_GROUP)]:
+        raise AssertionError(f"phase 19: partitions {before}")
+    os.remove(os.path.join(path, "_common_metadata"))
+    t0 = time.perf_counter()
+    generate_metadata(path)
+    regenerate_s = time.perf_counter() - t0
+    if listing(path) != before or labels_only_digest(path) != digest_before:
+        raise AssertionError("phase 19: the regenerated metadata reads another rowgroup list"
+                             " or stream than the written one")
+
+    pushdown = {"predicate": in_set(set(range(PARTITIONS - 1)), "split")}
+    masks = []
+    run = train_epoch(path, "device", reader_kwargs=pushdown, rows=kept_rows,
+                      decoded_images=kept_rows, loader_kwargs={"host_fields": ["mask"]},
+                      on_batch=lambda b: masks.append(b["mask"]))
+    for name in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    cpu_labels, _, cpu_digest = cpu_reader_run(path, num_epochs=1, shuffle_seed=0,
+                                               decode_placement={"image": "device"},
+                                               **pushdown)
+    cpu_labels = np.concatenate(cpu_labels)
+    if len(cpu_labels) != kept_rows or run["steps"] * BATCH != kept_rows:
+        raise AssertionError(f"phase 19: {len(cpu_labels)} rows on the CPU, {run['steps']}"
+                             f" steps on the card, expected {kept_rows} rows")
+    if not np.array_equal(run["labels"].numpy(), cpu_labels):
+        raise AssertionError("phase 19: the card delivered other labels, or in another order,"
+                             " than the reader alone on the CPU")
+    if run["digest"] != cpu_digest:
+        raise AssertionError("phase 19: the stream digest differs from the CPU run's")
+    # the masks are host fields: read after the run, so the timed steps
+    # never wait for the card
+    for labels, mask in zip(run["labels"].numpy().reshape(-1, BATCH), masks):
+        if mask.shape != (BATCH, 14, 14) or not all(
+                np.array_equal(m, label_mask(lab)) for lab, m in zip(labels, mask)):
+            raise AssertionError("phase 19: a delivered mask differs from the written one")
+
+    # split 3 alone, from the list of its files
+    files = sorted(os.path.join(d, f) for d, _, names in os.walk(path) for f in names
+                   if f.endswith(".parquet") and f"split={PARTITIONS - 1}" in d)
+    with make_batch_reader(["file://" + f for f in files], schema_fields=["label", "split"],
+                           reader_pool_type="serial", shuffle_seed=0) as reader:
+        cols = [b.columns for b in reader.iter_batches()]
+    split = np.concatenate([c["split"] for c in cols])
+    if len(split) != per_split or not (split == PARTITIONS - 1).all():
+        raise AssertionError(f"phase 19: the URL list read {len(split)} rows of splits"
+                             f" {sorted(set(split.tolist()))}")
+    steps, timed = run["steps"], run["timed"]
+    phase("partitioned_train_device_decode", decode="device", partitions=PARTITIONS,
+          rows_written=N_ROWS, rows_kept=kept_rows, files=len(before), write_s=write_s,
+          regenerate_metadata_s=regenerate_s, steps=steps, timed_steps=steps - WARMUP_STEPS,
+          batch=BATCH, workers=run["workers"], samples_per_s=run["samples_per_s"],
+          phase6_samples_per_s=device["samples_per_s"], epoch_s=run["epoch_s"],
+          step_ms=1e3 * timed / (steps - WARMUP_STEPS),
+          consumer_wait_share=run["wait"] / timed, peak_device_memory_bytes=run["peak"],
+          launches=run["launches"], losses=run["losses"].tolist(),
+          decode_stats=run["decode_stats"], labels_match_cpu_reader=True,
+          digest_matches_cpu_reader=True, masks_match_written=True,
+          regenerated_metadata_matches=True, url_list_rows=int(len(split)))
+    return path
+
+
+def poison(path):
+    """Two rowgroups of different splits made unreadable: split 1's first
+    file rewritten (through ``materialize_dataset`` and pyarrow) with image
+    cell POISON_CELL cut inside its JPEG header, and split 2's first file
+    overwritten with garbage bytes.  Returns their paths."""
+    files = sorted(os.path.join(d, f) for d, _, names in os.walk(path) for f in names
+                   if f.endswith(".parquet"))
+    cut = next(f for f in files if "split=1" in f)
+    garbage = next(f for f in files if "split=2" in f)
+    with materialize_dataset(path, partition_schema()):
+        table = pq.ParquetFile(cut).read()
+        cells = table.column("image").to_pylist()
+        cells[POISON_CELL] = cells[POISON_CELL][:40]
+        table = table.set_column(table.schema.get_field_index("image"), "image",
+                                 pa.array(cells, type=pa.binary()))
+        pq.write_table(table, cut, row_group_size=ROWS_PER_GROUP)
+    size = os.path.getsize(garbage)
+    with open(garbage, "wb") as f:
+        f.write(b"\x13" * size)
+    return cut, garbage
+
+
+def poisoned_train_phase(tmp, part_path, kernels, host, device):
+    """Phase 20: phase 19's corpus with two poisoned rowgroups, one epoch
+    over all splits under ``on_error=ErrorPolicy(max_skipped_rowgroups=2)``
+    through phase 6's device-decode path, then phase 5's host-decode path;
+    then the budget of 1 refused from the loader's ``next()``."""
+    path = os.path.join(tmp, "imagenet_splits_poisoned")
+    shutil.copytree(part_path, path)
+    cut, garbage = poison(path)
+    rows = N_ROWS - 2 * ROWS_PER_GROUP
+    policy = {"on_error": ErrorPolicy(max_skipped_rowgroups=2)}
+    cpu_labels, _, cpu_digest = cpu_reader_run(path, num_epochs=1, shuffle_seed=0,
+                                               decode_placement={"image": "device"}, **policy)
+    cpu_labels = np.concatenate(cpu_labels)
+    if len(cpu_labels) != rows:
+        raise AssertionError(f"phase 20: the CPU reader delivered {len(cpu_labels)} rows,"
+                             f" expected {rows}")
+    results = {}
+    for decode, names in (("device", ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8")),
+                          ("host", ("normalize_u8", "resized_crop_flip_u8"))):
+        run = train_epoch(path, decode, reader_kwargs=policy, rows=rows, decoded_images=rows,
+                          loader_kwargs={"host_fields": ["mask"]})
+        for name in names:
+            kernels[name]["launches"] += run["launches"][name]
+        diag = run["diagnostics"]
+        quarantined = sorted((e["path"], e["kind"]) for e in diag.get("quarantined_rowgroups", []))
+        if diag.get("skipped_rowgroups") != 2 or quarantined != sorted(
+                [(cut, "data"), (garbage, "data")]):
+            raise AssertionError(f"phase 20, {decode} decode: quarantine {diag}")
+        if run["steps"] * BATCH != rows or not np.array_equal(run["labels"].numpy(), cpu_labels):
+            raise AssertionError(f"phase 20, {decode} decode: other labels than the CPU reader")
+        if run["digest"] != cpu_digest:
+            raise AssertionError(f"phase 20, {decode} decode: digest differs from the CPU run's")
+        if run["state"]["position"] != N_ROWS // ROWS_PER_GROUP:
+            raise AssertionError(f"phase 20, {decode} decode: cursor {run['state']}")
+        results[decode] = {
+            "samples_per_s": run["samples_per_s"], "consumer_wait_share": run["wait"] / run["timed"],
+            "steps": run["steps"], "epoch_s": run["epoch_s"], "launches": run["launches"],
+            "losses": run["losses"].tolist(), "decode_stats": run["decode_stats"],
+            "quarantined": [{k: e[k] for k in ("ordinal", "row_group", "kind", "exc_type")}
+                            for e in diag["quarantined_rowgroups"]]}
+
+    # a budget of 1: the second skip raises from the loader's next()
+    workers = max(1, min((os.cpu_count() or 2) - 1, 16))
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
+                         decode_placement={"image": "device"},
+                         on_error=ErrorPolicy(max_skipped_rowgroups=1))
+    loader = CudaDataLoader(reader, batch_size=BATCH, device="cuda", host_fields=["mask"])
+    delivered, error = 0, None
+    t0 = time.perf_counter()
+    try:
+        for _ in loader:
+            delivered += 1
+    except ErrorBudgetExceededError as exc:
+        error = exc
+    refuse_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for thread in (loader._thread, loader._transfer_thread):
+        thread.join(timeout=10)
+    alive = [t.name for t in (loader._thread, loader._transfer_thread) if t.is_alive()]
+    loader.stop()
+    if error is None or error.diagnostics.get("skipped_rowgroups") != 2 or alive:
+        raise AssertionError(f"phase 20: the budget of 1 gave {error!r} after {delivered}"
+                             f" batches; loader threads alive: {alive}")
+    if refuse_s > 60:
+        raise AssertionError(f"phase 20: the budget refusal took {refuse_s:.1f} s")
+    phase("poisoned_train", rows_written=N_ROWS, rows_delivered=rows,
+          poisoned={"cut_jpeg_cell": os.path.relpath(cut, path),
+                    "garbage_file": os.path.relpath(garbage, path)},
+          device_decode=results["device"], host_decode=results["host"],
+          phase6_samples_per_s=device["samples_per_s"],
+          phase5_samples_per_s=host["samples_per_s"],
+          labels_match_cpu_reader=True, digest_matches_cpu_reader=True,
+          budget_of_1={"raised": type(error).__name__, "batches_before": delivered,
+                       "seconds": refuse_s, "skipped_rowgroups": 2,
+                       "loader_threads_ended": True})
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2524,6 +2781,8 @@ def main():
         transformed_train_phase(path, kernels, host)
         mixed_train_phase(tmp, path, kernels, device)
         ngram_train_phase(tmp, kernels, host, rates)
+        part_path = partitioned_train_phase(tmp, kernels, device)
+        poisoned_train_phase(tmp, part_path, kernels, host, device)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

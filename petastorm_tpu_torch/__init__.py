@@ -9,10 +9,13 @@ keeps its own copies of the host-side modules it needs, under the same
 module names.
 """
 
-from petastorm_tpu_torch.codecs import CompressedImageCodec, NdarrayCodec, ScalarCodec
-from petastorm_tpu_torch.etl.writer import write_dataset
+from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,
+                                        NdarrayCodec, ScalarCodec, ScalarListCodec)
+from petastorm_tpu_torch.errors import ErrorPolicy
+from petastorm_tpu_torch.etl.writer import materialize_dataset, write_dataset
 from petastorm_tpu_torch.reader import Reader, make_batch_reader, make_reader
 from petastorm_tpu_torch.schema import Field, Schema
 
-__all__ = ["CompressedImageCodec", "Field", "NdarrayCodec", "Reader", "ScalarCodec",
-           "Schema", "make_batch_reader", "make_reader", "write_dataset"]
+__all__ = ["CompressedImageCodec", "CompressedNdarrayCodec", "ErrorPolicy", "Field",
+           "NdarrayCodec", "Reader", "ScalarCodec", "ScalarListCodec", "Schema",
+           "make_batch_reader", "make_reader", "materialize_dataset", "write_dataset"]

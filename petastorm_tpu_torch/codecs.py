@@ -1,11 +1,12 @@
 """Column codecs: how a logical tensor field is stored in Parquet.
 
-Counterpart of ``petastorm_tpu/codecs.py:150-620``, trimmed to the three codecs
-the ImageNet feed uses: ``ScalarCodec``, ``NdarrayCodec`` and
-``CompressedImageCodec``.  Codecs serialize to the same JSON
-(``{"codec": name, **params}``) and store the same bytes (``np.save`` payloads,
-standard RGB PNG/JPEG streams), so a dataset written by either package decodes
-in the other.
+Counterpart of ``petastorm_tpu/codecs.py:150-620``, with its five codecs:
+``ScalarCodec``, ``NdarrayCodec``, ``CompressedNdarrayCodec``,
+``ScalarListCodec`` and ``CompressedImageCodec``.  Codecs serialize to the
+same JSON (``{"codec": name, **params}``) and store the same bytes
+(``np.save`` and ``np.savez_compressed`` payloads, arrow lists, standard RGB
+PNG/JPEG streams), so a dataset written by either package decodes in the
+other.
 
 A fixed-shape uint8 image column decodes in one native call
 (``native.image.decode_column_native``: libjpeg/libpng with the GIL
@@ -30,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple, Type
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 
 from petastorm_tpu_torch import dtypes
 from petastorm_tpu_torch.errors import CodecError
@@ -308,6 +310,78 @@ class NdarrayCodec(Codec):
         if not (cells[:, :hdr_len] == cells[0, :hdr_len]).all():
             return super().decode_column(field, column)
         return cells[:, hdr_len:].view(field.dtype).reshape((n,) + field.shape).copy()
+
+
+@register_codec
+class CompressedNdarrayCodec(Codec):
+    """ndarray <-> ``np.savez_compressed`` bytes, petastorm-compatible
+    (``petastorm_tpu/codecs.py:420``)."""
+
+    codec_name = "compressed_ndarray"
+    precompressed = True
+
+    def storage_type(self, field) -> pa.DataType:
+        return pa.binary()
+
+    def encode(self, field, value) -> bytes:
+        value = np.asarray(value)
+        check_shape_compliance(field, value)
+        if value.dtype != field.dtype:
+            raise CodecError(
+                f"field {field.name!r}: dtype mismatch {value.dtype} vs schema {field.dtype}"
+            )
+        buf = io.BytesIO()
+        np.savez_compressed(buf, arr=value)
+        return buf.getvalue()
+
+    def decode(self, field, value: bytes) -> np.ndarray:
+        with np.load(io.BytesIO(value), allow_pickle=False) as npz:
+            return npz["arr"]
+
+
+@register_codec
+class ScalarListCodec(Codec):
+    """1-D variable-length list of scalars stored as an arrow list column
+    (``petastorm_tpu/codecs.py:449``): what schema inference gives a
+    list-of-scalar column of a plain Parquet store."""
+
+    codec_name = "scalar_list"
+
+    def storage_type(self, field) -> pa.DataType:
+        return pa.list_(dtypes.numpy_to_arrow(field.dtype))
+
+    def encode(self, field, value):
+        arr = np.asarray(value)
+        if arr.ndim != 1:
+            raise CodecError(f"Field {field.name!r}: ScalarListCodec stores 1-D values")
+        return arr.astype(field.dtype).tolist()
+
+    def decode(self, field, value):
+        return np.asarray(value, dtype=field.dtype)
+
+    def decode_column(self, field, column: pa.Array) -> np.ndarray:
+        """Lists of one length without nulls reshape from the arrow values
+        buffer in one copy; ragged or nullable columns decode per cell into
+        an object array (a column of one length and no nulls stacks)."""
+        n = len(column)
+        if n and column.null_count == 0 and field.dtype.kind not in ("U", "S", "O"):
+            try:
+                lengths = np.unique(pc.list_value_length(column).to_numpy())
+                if len(lengths) == 1:
+                    arr = (column.combine_chunks()
+                           if isinstance(column, pa.ChunkedArray) else column)
+                    flat = arr.flatten().to_numpy(zero_copy_only=False)
+                    return flat.reshape(n, int(lengths[0])).astype(field.dtype, copy=True)
+            except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+                pass
+        pylist = column.to_pylist()
+        lens = {len(v) for v in pylist if v is not None}
+        if len(lens) == 1 and None not in pylist:
+            return np.asarray(pylist, dtype=field.dtype)
+        out = np.empty(len(pylist), dtype=object)
+        for i, v in enumerate(pylist):
+            out[i] = None if v is None else np.asarray(v, dtype=field.dtype)
+        return out
 
 
 @register_codec

@@ -330,7 +330,10 @@ class CudaDataLoader:
             if field.dtype.kind in ("U", "S", "O", "M", "m"):
                 raise PetastormTpuError(
                     f"Field {name!r} (dtype {field.dtype}) cannot be fed to a device."
-                    " Exclude it with fields=, or keep it host-side via host_fields=.")
+                    " Exclude it with fields=, or keep it host-side via host_fields=."
+                    " (A hive partition key of a dataset without a stored schema is"
+                    " such a field when its values are not numbers: the path's"
+                    " strings.)")
             if not field.is_fixed_shape and name not in self._pad_shapes:
                 raise PetastormTpuError(
                     f"Field {name!r} has variable shape {field.shape}; a batch tensor"
@@ -835,6 +838,12 @@ class CudaDataLoader:
                "transfer_s": self._transfer_s}
         if self._stack > 1:
             out["stack_batches"] = self._stack
+        reader_diag = getattr(self._reader, "diagnostics", None)
+        if isinstance(reader_diag, dict) and reader_diag.get("skipped_rowgroups"):
+            # a feed degraded under an on_error skip policy shows it here
+            # (``petastorm_tpu/jax/loader.py:1540-1549``)
+            out["skipped_rowgroups"] = reader_diag["skipped_rowgroups"]
+            out["quarantined_rowgroups"] = reader_diag.get("quarantined_rowgroups", [])
         return out
 
     # -- checkpoint and resume ----------------------------------------------

@@ -74,6 +74,12 @@ def arrow_to_numpy(atype: pa.DataType) -> np.dtype:
     raise SchemaError(f"No numpy mapping for arrow type {atype!r}")
 
 
+def is_list_of_scalars(atype: pa.DataType) -> bool:
+    """An arrow list (or large list) of a non-nested type."""
+    return (pa.types.is_list(atype) or pa.types.is_large_list(atype)) and not (
+        pa.types.is_nested(atype.value_type))
+
+
 def torch_feed_dtype(dtype, keep_wide: bool = True) -> np.dtype:
     """Dtype a column is cast to before it becomes a torch tensor: 64-bit
     types kept (``keep_wide=True``) or narrowed to 32 bits as the JAX

@@ -6,10 +6,10 @@ Counterpart of ``petastorm_tpu/etl/indexing.py``: ``RowGroupIndexer``,
 with this package's codecs) that stores JSON under
 ``ROWGROUP_INDEX_METADATA_KEY``; ``get_row_group_indexes``.  A stored index
 is the same JSON whichever package built it, and each package reads the
-other's.  Partition columns (hive datasets) and the legacy petastorm index
-(``dataset-toolkit.rowgroups_index.v1``, read through the JAX package's
-``interop.py``) are not part of this package yet: a dataset that carries
-only the legacy index raises.
+other's.  A hive partition column is indexed from each rowgroup's path
+value.  The legacy petastorm index (``dataset-toolkit.rowgroups_index.v1``,
+read through the JAX package's ``interop.py``) is not part of this package
+yet: a dataset that carries only the legacy index raises.
 """
 
 from __future__ import annotations
@@ -183,15 +183,27 @@ def build_rowgroup_index(url: str, indexers: Sequence[RowGroupIndexer]) -> None:
     for path, refs in by_file.items():
         with info.filesystem.open_input_file(path) as f:
             pf = pq.ParquetFile(f)
-            absent = [c for c in needed if c not in pf.schema_arrow.names]
-            if absent:
-                raise MetadataError(
-                    f"Indexed fields {absent} are not stored in {path!r} (partition"
-                    " keys are not part of this package yet)")
+            in_file = [c for c in needed if c in pf.schema_arrow.names]
             for ref in refs:
-                table = pf.read_row_group(ref.row_group, columns=needed)
-                columns = {name: schema[name].codec.decode_column(
-                    schema[name], table.column(name).combine_chunks()) for name in needed}
+                table = pf.read_row_group(ref.row_group, columns=in_file)
+                columns = {}
+                for name in needed:
+                    field = schema[name]
+                    if name in in_file:
+                        columns[name] = field.codec.decode_column(
+                            field, table.column(name).combine_chunks())
+                        continue
+                    # a partition column: constant over the rowgroup, from
+                    # its path (``petastorm_tpu/etl/indexing.py:196-215``)
+                    pvals = dict(ref.partition_values)
+                    if name not in pvals:
+                        raise MetadataError(
+                            f"Indexed field {name!r} is neither stored in"
+                            f" {path!r} nor a partition key")
+                    value = pvals[name]
+                    if field.dtype.kind not in ("U", "S", "O"):
+                        value = field.dtype.type(value)
+                    columns[name] = np.full(ref.num_rows, value, dtype=object)
                 for ix in indexers:
                     ix.process_row_group(ref.global_index, columns)
 

@@ -1,13 +1,13 @@
 """URL -> filesystem resolution for local datasets.
 
 Counterpart of ``petastorm_tpu/fs.py:69-186``, trimmed to plain paths and
-``file://`` URLs.  Remote stores (GCS, S3, HDFS, fsspec) are not part of this
+``file://`` URLs, one or a list of them.  Remote stores (GCS, S3, HDFS, fsspec) are not part of this
 package yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 from urllib.parse import urlparse
 
 import pyarrow.fs as pafs
@@ -30,3 +30,19 @@ def get_filesystem_and_path(url: str) -> Tuple[pafs.FileSystem, str]:
         raise PetastormTpuError(
             f"Only local paths and file:// URLs are supported, got {url!r}")
     return pafs.LocalFileSystem(), (parsed.path or url)
+
+
+def get_filesystem_and_path_or_paths(
+        url_or_urls: Union[str, Sequence[str]]) -> Tuple[pafs.FileSystem, Union[str, list]]:
+    """Resolve one URL, or a list of URLs of one scheme and authority
+    (``petastorm_tpu/fs.py:146``), to (LocalFileSystem, path or paths)."""
+    if isinstance(url_or_urls, str):
+        return get_filesystem_and_path(url_or_urls)
+    urls = list(url_or_urls)
+    if not urls:
+        raise PetastormTpuError("Empty URL list")
+    schemes = {(urlparse(u).scheme, urlparse(u).netloc) for u in urls}
+    if len(schemes) > 1:
+        raise PetastormTpuError(f"URLs must share scheme and authority, got {schemes}")
+    fs, _ = get_filesystem_and_path(urls[0])
+    return fs, [get_filesystem_and_path(u)[1] for u in urls]

@@ -31,14 +31,22 @@ reads sliding windows of consecutive timesteps (``ngram.NGram``,
 ``:595-649``): the reader's ``schema`` is then the post-transform full
 schema, ``output_schema`` the window columns ``iter_batches`` yields, and a
 row is one window as ``{offset: namedtuple}`` (``:1421-1451``).
-Partition-level predicate pushdown (hive partitions), the shared cache
-tier, the ``'device-mixed'`` and ``'auto'`` placements, telemetry and the
-ingest service are not part of this package yet.
+``on_error`` is the failure policy (``:583``, ``:1801-1880``): under a skip
+policy a work item that fails with a data error is quarantined
+(``quarantined_rowgroups``, ``diagnostics``), folded into the cursor and
+the digest at its plan position, and held to the policy's budgets.  A
+dataset is a directory (hive partitions included) or, for
+``make_batch_reader``, a list of URLs; a predicate over partition keys alone
+is pushed down to the partitions (``:659-681``).  The shared cache tier,
+the ``'device-mixed'`` and ``'auto'`` placements, telemetry, chaos
+injection, liveness and the ingest service are not part of this package yet
+(ROADMAP.md queue A items 8 and 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Iterator, List, Mapping, Optional, Sequence, Union
 
@@ -47,20 +55,28 @@ import numpy as np
 from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.cache import make_cache
 from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
-from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError, ReaderClosedError
+from petastorm_tpu_torch.errors import (ErrorBudgetExceededError, ErrorPolicy,
+                                        NoDataAvailableError, PetastormTpuError,
+                                        ReaderClosedError, resolve_error_policy)
 from petastorm_tpu_torch.etl.indexing import get_row_group_indexes
-from petastorm_tpu_torch.etl.metadata import infer_or_load_schema, open_dataset
+from petastorm_tpu_torch.etl.metadata import (declared_geometries, infer_or_load_schema,
+                                              open_dataset)
 from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, elastic_resume_plan,
                                       resolve_cursor)
-from petastorm_tpu_torch.pool import make_executor
+from petastorm_tpu_torch.pool import WorkerError, make_executor
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
 from petastorm_tpu_torch.transform import (TransformSpec, transform_cache_info,
                                            transform_schema)
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker
 
+logger = logging.getLogger(__name__)
+
 _DEFAULT_RESULTS_QUEUE_BATCHES = 10
+#: entries of the quarantine ledger ``Reader.diagnostics`` carries (the
+#: ``quarantined_rowgroups`` property has them all)
+_DIAGNOSTICS_QUARANTINE_TAIL = 20
 
 
 def make_reader(dataset_url: str,
@@ -86,7 +102,9 @@ def make_reader(dataset_url: str,
                 rowgroup_selector=None,
                 shard_mode: str = "static",
                 transform_spec: Optional[TransformSpec] = None,
-                ngram=None) -> "Reader":
+                ngram=None,
+                on_error="raise",
+                verify_checksums: bool = False) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -155,17 +173,38 @@ def make_reader(dataset_url: str,
     every offset (such a reader is columnar only).  It takes no
     ``schema_fields`` (the NGram names its fields), no ``decode_roi``, no
     ``decode_placement='device'``, and no predicate beside
-    ``shuffle_row_drop_partitions > 1``."""
+    ``shuffle_row_drop_partitions > 1``.
+
+    ``on_error``: the worker-failure policy (``petastorm_tpu/reader.py:210``).
+    ``'raise'`` (default) fails the read on the first worker failure (a
+    ``pool.WorkerError`` from the thread pool, the worker's own exception
+    from the serial pool).  ``'skip'`` quarantines work items that fail with
+    *data* errors (a corrupt file or image, a codec or transform exception)
+    and keeps reading; an ``errors.ErrorPolicy`` adds budgets
+    (``max_skipped_rowgroups``, ``max_skipped_fraction``; exceeded ->
+    ``errors.ErrorBudgetExceededError``).  A skipped item counts in the
+    cursor and the stream digest at its position; its rows are missing,
+    never duplicated.  An in-worker ``MemoryError`` is retried up to
+    ``max_requeue_attempts`` times first.  ``Reader.diagnostics`` and
+    ``quarantined_rowgroups`` list what was skipped.
+
+    ``verify_checksums``: verify the Parquet page checksums the writer
+    stamps; a corrupt page then fails as a data error.
+
+    A predicate whose fields are all hive partition keys filters rowgroups
+    by their directory values before the plan is made, and the workers get
+    no predicate (``petastorm_tpu/reader.py:659-681``)."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
-                        transform_spec, ngram, batched_output=False)
+                        transform_spec, ngram, on_error, verify_checksums,
+                        batched_output=False)
 
 
-def make_batch_reader(dataset_url: str,
+def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                       schema_fields: Optional[Sequence] = None,
                       reader_pool_type: str = "thread",
                       workers_count: Union[int, str] = 4,
@@ -188,18 +227,26 @@ def make_batch_reader(dataset_url: str,
                       rowgroup_selector=None,
                       shard_mode: str = "static",
                       transform_spec: Optional[TransformSpec] = None,
-                      ngram=None) -> "Reader":
+                      ngram=None,
+                      on_error="raise",
+                      verify_checksums: bool = False) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
-    Plain parquet stores (no stored schema) are read with inferred scalar
-    fields.  The other arguments as for :func:`make_reader`; ``ngram`` is
+    Plain parquet stores (no stored schema) are read with an inferred schema:
+    scalar columns, list-of-scalar columns as ``(None,)`` ``ScalarListCodec``
+    fields, and hive partition keys as fields of their discovered type.
+    ``dataset_url_or_urls`` is a dataset directory or a list of parquet file
+    (or directory) URLs; a list's root is the common directory above any
+    ``key=value`` segments, so its partition values and ``_common_metadata``
+    are found.  The other arguments as for :func:`make_reader`; ``ngram`` is
     refused, as the JAX package refuses it."""
-    return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
+    return _make_reader(dataset_url_or_urls, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
                         deterministic, decode_threads, decode_roi, resume_from,
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
-                        transform_spec, ngram, batched_output=True)
+                        transform_spec, ngram, on_error, verify_checksums,
+                        batched_output=True)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -383,7 +430,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  cur_shard, shard_count, decode_placement, deterministic, decode_threads,
                  decode_roi, resume_from, cache_type, cache_location, cache_size_limit,
                  shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
-                 transform_spec, ngram, batched_output) -> "Reader":
+                 transform_spec, ngram, on_error, verify_checksums,
+                 batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     if ngram is not None and batched_output:
@@ -402,12 +450,17 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             " boundary are computed before the predicate masks rows, so"
             " windows spanning masked rows would be silently lost. Use"
             " shuffle_row_drop_partitions=1.")
+    error_policy = resolve_error_policy(on_error)
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
     # one analysis walk a reader: the worker's cache signature and
     # output-caching verdict both come from this triple
     tf_cache_info = transform_cache_info(transform_spec)
     info = open_dataset(dataset_url, require_stored_schema=not batched_output)
     full_schema = infer_or_load_schema(info)
+    # a predicate over partition keys alone filters rowgroups by their path
+    # values before the plan is made; the workers then get none
+    worker_predicate = (None if predicate is not None and _partition_predicate(predicate, info)
+                        else predicate)
     view = full_schema.view(schema_fields) if schema_fields is not None else full_schema
     if decode_roi:
         _validate_decode_roi(decode_roi, full_schema, [f.name for f in view], decode_placement,
@@ -427,7 +480,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         schema = ngram_schema
     read_fields = [f.name for f in view]
     device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields,
-                                               transform_spec, predicate, ngram)
+                                               transform_spec, worker_predicate, ngram)
     if any(native_decodable(full_schema[f]) for f in read_fields if f not in device_fields):
         # the batched decode's library: a missing g++, libjpeg or libpng
         # raises here, not in the first worker
@@ -438,6 +491,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         row_groups = [rg for rg in row_groups if rg.global_index in selected]
         if not row_groups:
             raise NoDataAvailableError("Rowgroup selector selected no rowgroups")
+    if worker_predicate is None and predicate is not None:
+        row_groups = _push_down(predicate, row_groups, full_schema)
     plan_kwargs = dict(shuffle_row_groups=shuffle_row_groups, shuffle_seed=shuffle_seed,
                        shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                        shard_mode=shard_mode)
@@ -454,7 +509,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         **plan_kwargs)
         if not plan.epoch_items(0):
             raise NoDataAvailableError(f"No rowgroups to read in {dataset_url!r}")
-    if cache_type not in (None, "null", "none") and predicate is not None:
+    if cache_type not in (None, "null", "none") and worker_predicate is not None:
         # a cached rowgroup would hold the rows of one predicate (reference
         # py_dict_reader_worker.py:145-150)
         raise PetastormTpuError("cache_type cannot be combined with a predicate")
@@ -480,16 +535,57 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
     workers_count, decode_threads = _size_pool(workers_count, decode_threads)
     cache = make_cache(cache_type, cache_location, cache_size_limit)
-    executor = make_executor(reader_pool_type, workers_count, results_queue_size)
+    # raise mode takes the default pool; a skip policy's keeps running past
+    # a failure, so the reader can quarantine the item (``:832-852``)
+    executor = make_executor(reader_pool_type, workers_count, results_queue_size,
+                             **({} if error_policy is None else dict(
+                                 stop_on_failure=False,
+                                 max_requeue_attempts=error_policy.max_requeue_attempts)))
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
                                    decode_threads=decode_threads, decode_roi=decode_roi,
-                                   cache=cache, dataset_url=dataset_url, predicate=predicate,
-                                   transform=transform_spec,
+                                   cache=cache, dataset_url=_url_key(dataset_url),
+                                   predicate=worker_predicate, transform=transform_spec,
                                    transform_cache_info=tf_cache_info,
-                                   ngram=ngram, ngram_schema=ngram_schema)
+                                   ngram=ngram, ngram_schema=ngram_schema,
+                                   verify_checksums=verify_checksums)
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                   deterministic=deterministic, shuffle_seed=shuffle_seed,
-                  start_item=start_item, digest_state=digest_state, ngram=ngram)
+                  start_item=start_item, digest_state=digest_state, ngram=ngram,
+                  error_policy=error_policy, declared_geometries=declared_geometries(info))
+
+
+def _url_key(url_or_urls) -> str:
+    """The dataset's identity in cache keys: its URL, or its URL list."""
+    return url_or_urls if isinstance(url_or_urls, str) else "\n".join(url_or_urls)
+
+
+def _partition_predicate(predicate, info) -> bool:
+    """True when every field of ``predicate`` is a hive partition key."""
+    fields = set(predicate.get_fields())
+    return bool(fields) and fields <= set(info.partition_keys)
+
+
+def _push_down(predicate, row_groups, schema: Schema) -> list:
+    """The rowgroups whose partition values ``predicate`` keeps
+    (``petastorm_tpu/reader.py:659-681``).  Path values are strings; a
+    field of a numeric type gets its dtype back, so the predicate sees the
+    values the worker would deliver."""
+    fields = set(predicate.get_fields())
+    kept = []
+    for rg in row_groups:
+        pvals = dict(rg.partition_values)
+        cols = {}
+        for name in fields:
+            value = pvals[name]
+            field = schema[name] if name in schema else None
+            if field is not None and field.dtype.kind not in ("U", "S", "O"):
+                value = field.dtype.type(value)
+            cols[name] = np.asarray([value], dtype=object)
+        if bool(predicate.do_include_vectorized(cols)[0]):
+            kept.append(rg)
+    if not kept:
+        raise NoDataAvailableError("Predicate filtered out all partitions")
+    return kept
 
 
 class Reader:
@@ -509,7 +605,9 @@ class Reader:
                  num_epochs: Optional[int], batched_output: bool,
                  device_decode_fields: Sequence[str] = (), deterministic: str = "off",
                  shuffle_seed: Optional[int] = None, start_item: int = 0,
-                 digest_state: Optional[dict] = None, ngram=None):
+                 digest_state: Optional[dict] = None, ngram=None,
+                 error_policy: Optional[ErrorPolicy] = None,
+                 declared_geometries: Optional[dict] = None):
         if start_item < 0:
             raise PetastormTpuError("start_item must be >= 0")
         self.schema = schema
@@ -550,6 +648,11 @@ class Reader:
         #: items this reader delivers (None: it reads forever)
         self._expected_items = (None if num_epochs is None else
                                 max(plan.total_items(num_epochs) - start_item, 0))
+        #: resolved ``on_error`` policy (None: raise mode)
+        self._error_policy = error_policy
+        #: quarantine ledger: one entry per skipped work item
+        self._quarantine: List[dict] = []
+        self._declared_geometries = dict(declared_geometries or {})
 
     def decode_stats(self) -> dict:
         """The native decode counters (``batch_calls``, ``batch_images``,
@@ -588,7 +691,12 @@ class Reader:
                 if self._all_items_consumed():
                     self.last_row_consumed = True
                 raise
-            self._digest_deliver(self._start_item + self._consumed_items, batch)
+            ordinal = self._start_item + self._consumed_items
+            if isinstance(batch, WorkerError):
+                # a skip policy's pool yields the failure at its position
+                self._skip_or_raise(batch, ordinal)
+                continue
+            self._digest_deliver(ordinal, batch)
             self._consumed_items += 1
             # a rowgroup the predicate emptied counts in the cursor and the
             # digest and is never delivered (``petastorm_tpu/reader.py:1686``)
@@ -620,22 +728,112 @@ class Reader:
             return 0, ordinal
         return ordinal // ipe, ordinal % ipe
 
-    def _digest_deliver(self, ordinal: int, batch: ColumnBatch) -> None:
-        """Fold one delivered batch into the stream certificate, with its
-        work item recomputed from the plan (two epochs of items cached)."""
+    def _work_item_for(self, ordinal: int):
+        """(epoch, WorkItem or None) behind an absolute ordinal, recomputed
+        from the plan (two epochs of items cached)."""
         epoch, idx = self._locate_ordinal(ordinal)
         items = self._epoch_items_cache.get(epoch)
         if items is None:
             while len(self._epoch_items_cache) >= 2:
                 self._epoch_items_cache.pop(min(self._epoch_items_cache))
             items = self._epoch_items_cache[epoch] = self.plan.epoch_items(epoch)
-        item = items[idx] if 0 <= idx < len(items) else None
+        return epoch, (items[idx] if 0 <= idx < len(items) else None)
+
+    def _digest_deliver(self, ordinal: int, batch: ColumnBatch) -> None:
+        """Fold one delivered batch into the stream certificate."""
+        epoch, item = self._work_item_for(ordinal)
         if item is not None:
             start, stop = item.row_slice()
             self._digest.record_batch(epoch, ordinal, item.row_group.global_index,
                                       item.row_group.row_group, start, stop, batch.num_rows)
         else:
             self._digest.record_batch(epoch, ordinal, -1, -1, 0, 0, batch.num_rows)
+
+    def _skip(self, ordinal: int) -> None:
+        """Fold one policy-skipped work item into the stream certificate and
+        the cursor (``petastorm_tpu/reader.py:1681``)."""
+        epoch, item = self._work_item_for(ordinal)
+        self._digest.record_skip(epoch, ordinal,
+                                 item.row_group.global_index if item is not None else -1,
+                                 item.row_group.row_group if item is not None else -1)
+        self._consumed_items += 1
+
+    def _skip_or_raise(self, exc: WorkerError, ordinal: int) -> None:
+        """Quarantine a worker failure a skip policy's pool yielded
+        (``petastorm_tpu/reader.py:1801-1880``); an unattributable one
+        propagates, after ``stop()``.  A skipped item counts in the cursor and the digest
+        at its plan position, so the epoch ends at the same count with the
+        quarantined rows missing - never duplicated."""
+        if exc.item is None:  # the item source failed: nothing to skip
+            self.stop()
+            raise exc
+        policy = self._error_policy
+        rg = exc.item.row_group
+        entry = {"ordinal": exc.ordinal, "path": rg.path, "row_group": rg.row_group,
+                 "kind": exc.kind, "exc_type": exc.exc_type,
+                 # last traceback line: the remote exception's message
+                 "error": str(exc).splitlines()[-1]}
+        self._quarantine.append(entry)
+        logger.warning("Skipping work item %s (rowgroup %s#%s) after %s error: %s",
+                       exc.ordinal, entry["path"], entry["row_group"], exc.kind,
+                       entry["error"])
+        # the JAX reader folds a skip at once without a seed, and at its plan
+        # position (after the budget check) under deterministic='seed'
+        if self.deterministic != "seed":
+            self._skip(ordinal)
+        skipped = len(self._quarantine)
+        over = None
+        if (policy.max_skipped_rowgroups is not None
+                and skipped > policy.max_skipped_rowgroups):
+            over = (f"{skipped} skipped work items exceed"
+                    f" max_skipped_rowgroups={policy.max_skipped_rowgroups}")
+        if over is None and policy.max_skipped_fraction is not None:
+            # a reader with no total (num_epochs=None) divides by the items
+            # consumed so far, floored at one epoch: a steady per-epoch
+            # corruption rate reads as a steady fraction
+            denom = self._expected_items
+            if denom is None:
+                denom = max(self._items_per_epoch, self._consumed_items)
+            if denom and skipped / denom > policy.max_skipped_fraction:
+                over = (f"{skipped}/{denom} skipped work items exceed"
+                        f" max_skipped_fraction={policy.max_skipped_fraction}")
+        if over is not None:
+            diag = self.diagnostics  # the snapshot before stop()
+            self.stop()
+            raise ErrorBudgetExceededError(
+                f"Error budget exceeded: {over}. Quarantined rowgroups: "
+                + ", ".join(f"{e['path']}#{e['row_group']}" for e in self._quarantine),
+                diagnostics=diag) from exc
+        if self.deterministic == "seed":
+            self._skip(ordinal)
+
+    @property
+    def diagnostics(self) -> dict:
+        """Items per epoch, consumed and expected, the stream digest, the
+        infra retries of the pool and the fault ledger: the skip count and
+        the last 20 quarantine entries (``petastorm_tpu/reader.py:2113-2132``;
+        :attr:`quarantined_rowgroups` has them all)."""
+        return {"items_per_epoch": self._items_per_epoch,
+                "consumed_items": self._consumed_items,
+                "expected_items": self._expected_items,
+                "deterministic": self.deterministic,
+                "stream_digest": self._digest.summary(),
+                "requeued_items": self._executor.requeued_items,
+                "skipped_rowgroups": len(self._quarantine),
+                "quarantined_rowgroups": list(
+                    self._quarantine[-_DIAGNOSTICS_QUARANTINE_TAIL:])}
+
+    @property
+    def quarantined_rowgroups(self) -> list:
+        """Skipped-work-item ledger under an ``on_error`` skip policy: one
+        dict per skip (ordinal, path, row_group, kind, exc_type, error)."""
+        return list(self._quarantine)
+
+    @property
+    def declared_geometries(self) -> dict:
+        """{field: [shape tuples]} stamped at write time, or {}: the
+        dataset-level geometry contract (``etl.metadata.declared_geometries``)."""
+        return dict(self._declared_geometries)
 
     @property
     def stream_digest(self) -> dict:

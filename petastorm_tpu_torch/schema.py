@@ -18,7 +18,8 @@ import numpy as np
 import pyarrow as pa
 
 from petastorm_tpu_torch import dtypes
-from petastorm_tpu_torch.codecs import Codec, NdarrayCodec, ScalarCodec, codec_from_json
+from petastorm_tpu_torch.codecs import (Codec, NdarrayCodec, ScalarCodec, ScalarListCodec,
+                                        codec_from_json)
 from petastorm_tpu_torch.errors import SchemaError
 
 #: Parquet key-value metadata key holding the JSON-serialized Schema.
@@ -172,16 +173,31 @@ class Schema:
                           for f in self])
 
     @classmethod
-    def from_arrow_schema(cls, arrow_schema: pa.Schema, name: str = "inferred") -> "Schema":
-        """Infer scalar fields from plain Parquet storage; nested columns are refused."""
+    def from_arrow_schema(cls, arrow_schema: pa.Schema, name: str = "inferred",
+                          partition_columns: Sequence[str] = ()) -> "Schema":
+        """Infer a Schema from plain Parquet storage
+        (``petastorm_tpu/schema.py:248-276``): scalar columns become
+        ``ScalarCodec`` fields, list-of-scalar columns ``(None,)``
+        ``ScalarListCodec`` fields, and partition columns the arrow schema
+        lacks object-dtype fields; other nested columns are refused."""
         fields: List[Field] = []
         for af in arrow_schema:
-            if pa.types.is_nested(af.type):
+            atype = af.type
+            if dtypes.is_list_of_scalars(atype):
+                fields.append(Field(af.name, dtypes.arrow_to_numpy(atype.value_type),
+                                    shape=(None,), codec=ScalarListCodec(),
+                                    nullable=af.nullable))
+            elif pa.types.is_nested(atype):
                 raise SchemaError(
-                    f"Column {af.name!r}: nested arrow type {af.type} is not supported;"
+                    f"Column {af.name!r}: nested arrow type {atype} is not supported;"
                     " select it out with schema_fields")
-            fields.append(Field(af.name, dtypes.arrow_to_numpy(af.type), (),
-                                ScalarCodec(), nullable=af.nullable))
+            else:
+                fields.append(Field(af.name, dtypes.arrow_to_numpy(atype), (),
+                                    ScalarCodec(), nullable=af.nullable))
+        for pcol in partition_columns:
+            if pcol not in {f.name for f in fields}:
+                fields.append(Field(pcol, np.dtype("object"), (), ScalarCodec(),
+                                    nullable=False))
         return cls(name, fields)
 
     def encode_row(self, row: Dict[str, Any]) -> Dict[str, Any]:

@@ -28,6 +28,11 @@ starts inside the slice, so every window is formed by exactly one slice; with
 non-overlapping pick is a property of the whole rowgroup) and keeps the
 starts inside its own rows.
 
+A field the file does not store is a hive partition key: its column is
+the rowgroup's path value in the field's dtype (``:552-560``); any other
+missing field is refused.  ``verify_checksums`` verifies the Parquet page
+checksums on read (``:218``), so a corrupt page fails as a data error.
+
 Every rowgroup is looked up in the reader's cache first (``:342-346``),
 under a key built as ``:384-412`` builds it: the dataset URL's md5, the
 file, the rowgroup, the row span it loads (an ngram's lookahead included,
@@ -78,6 +83,16 @@ _CACHE_KEY_TAG = "petastorm_tpu_torch:1"
 _TRANSFORM_STAGE = "xform1"
 
 
+def _partition_column(field, value: str, n: int) -> np.ndarray:
+    """``n`` copies of a partition value, in the field's dtype (a string
+    field keeps the path's string, as an object column)."""
+    if field.dtype.kind not in ("U", "S", "O"):
+        return np.full(n, field.dtype.type(value), dtype=field.dtype)
+    col = np.empty(n, dtype=object)
+    col[:] = value
+    return col
+
+
 class RowGroupDecoderWorker:
     """Worker factory: ``worker()`` returns a ``process(WorkItem) -> ColumnBatch``
     closure that keeps its own memory-mapped file handles, so each pool
@@ -88,8 +103,11 @@ class RowGroupDecoderWorker:
                  decode_roi: Optional[Mapping[str, tuple]] = None,
                  cache: Optional[CacheBase] = None, dataset_url: str = "",
                  predicate=None, transform: Optional[transform_mod.TransformSpec] = None,
-                 transform_cache_info=None, ngram=None, ngram_schema: Optional[Schema] = None):
+                 transform_cache_info=None, ngram=None, ngram_schema: Optional[Schema] = None,
+                 verify_checksums: bool = False):
         self._schema = schema
+        #: verify the Parquet page checksums on read (``petastorm_tpu/worker.py:218``)
+        self._verify_checksums = bool(verify_checksums)
         self._read_fields = list(read_fields)
         #: fields shipped as coefficient planes (decode_placement='device')
         self._device_decode_fields = frozenset(device_decode_fields)
@@ -241,15 +259,18 @@ class RowGroupDecoderWorker:
         return ColumnBatch(cols, 0)
 
     def __call__(self) -> Callable[[WorkItem], ColumnBatch]:
-        open_files: Dict[str, pq.ParquetFile] = {}
+        open_files: Dict[str, tuple] = {}
 
-        def parquet_file(path: str) -> pq.ParquetFile:
-            pf = open_files.get(path)
-            if pf is None:
+        def parquet_file(path: str) -> tuple:
+            """(ParquetFile, the names of the columns it stores)."""
+            entry = open_files.get(path)
+            if entry is None:
                 if len(open_files) >= _MAX_OPEN_FILES:
-                    open_files.pop(next(iter(open_files))).close()
-                pf = open_files[path] = pq.ParquetFile(pa.memory_map(path))
-            return pf
+                    open_files.pop(next(iter(open_files)))[0].close()
+                pf = pq.ParquetFile(pa.memory_map(path),
+                                    page_checksum_verification=self._verify_checksums)
+                entry = open_files[path] = (pf, frozenset(pf.schema_arrow.names))
+            return entry
 
         def load(item: WorkItem, fields: Sequence[str],
                  mask: Optional[np.ndarray] = None,
@@ -258,10 +279,11 @@ class RowGroupDecoderWorker:
             ``fields``, keep the ``mask``ed rows, then decode them
             (``petastorm_tpu/worker.py:481``)."""
             rg = item.row_group
+            pf, file_cols = parquet_file(rg.path)
+            stored = [f for f in fields if f in file_cols]
             # the pool provides the parallelism; arrow's own fan-out per read
             # only adds handoff cost
-            table = parquet_file(rg.path).read_row_group(
-                rg.row_group, columns=list(fields), use_threads=False)
+            table = pf.read_row_group(rg.row_group, columns=stored, use_threads=False)
             start, stop = row_range if row_range is not None else item.row_slice()
             if (start, stop) != (0, table.num_rows):
                 table = table.slice(start, stop - start)
@@ -269,7 +291,7 @@ class RowGroupDecoderWorker:
                 table = table.filter(pa.array(mask))
             n = table.num_rows
             columns = {}
-            for name in fields:
+            for name in stored:
                 field = self._schema[name]
                 chunk = table.column(name).combine_chunks()
                 if name in self._device_decode_fields:
@@ -279,6 +301,17 @@ class RowGroupDecoderWorker:
                     with decode_options(nthreads=self._decode_threads,
                                         roi=self._roi_for(name, item, n)):
                         columns[name] = field.codec.decode_column(field, chunk)
+            # fields the file does not store: hive partition keys, constant
+            # over the rowgroup, from its path (``:552-560``)
+            pvals = dict(rg.partition_values)
+            for name in fields:
+                if name in file_cols:
+                    continue
+                if name not in pvals:
+                    raise PetastormTpuError(
+                        f"Field {name!r} is neither stored in {rg.path!r}"
+                        " nor a partition key")
+                columns[name] = _partition_column(self._schema[name], pvals[name], n)
             return ColumnBatch(columns, n)
 
         def load_with_predicate(item: WorkItem,

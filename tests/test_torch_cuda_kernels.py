@@ -1019,3 +1019,102 @@ def test_device_decode_mix_on_the_card_matches_the_plain_path(tmp_path):
         assert torch.equal(c["label"], p["label"])
         diff = (c["image"].int() - p["image"].int()).abs()
         assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_skipped_rowgroups_on_the_device_decode_route_on_the_card(tmp_path):
+    """Phase 20's route at a small size: one JPEG cell cut inside its header
+    and one garbage file under ``on_error='skip'``; the card's loader (B2)
+    delivers the CPU loader's labels in its order, one B2 launch a batch,
+    images within B2's bound of its plain version, and both quarantine the
+    same two rowgroups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(5)
+    schema = Schema("S", [Field("label", np.int64),
+                          Field("image", np.uint8, (40, 48, 3), CompressedImageCodec("jpeg", 90))])
+    path = str(tmp_path / "ds")
+    write_dataset(path, schema, [{"label": i, "image": rng.integers(0, 256, (40, 48, 3),
+                                                                   dtype=np.uint8)}
+                                 for i in range(128)], row_group_size_rows=16, rows_per_file=16)
+    files = sorted(os.path.join(path, f) for f in os.listdir(path) if f.endswith(".parquet"))
+    table = pq.ParquetFile(files[2]).read()
+    cells = table.column("image").to_pylist()
+    cells[3] = cells[3][:40]
+    pq.write_table(table.set_column(1, "image", pa.array(cells, pa.binary())), files[2])
+    with open(files[5], "wb") as f:
+        f.write(b"\x13" * 1000)
+
+    def run(device):
+        reader = make_reader(path, workers_count=3, shuffle_seed=0, on_error="skip",
+                             decode_placement={"image": "device"})
+        with CudaDataLoader(reader, 16, device=device) as loader:
+            batches = [{k: v.cpu() for k, v in b.items()} for b in loader]
+            diag = loader.diagnostics()
+        return batches, diag, reader
+
+    before = jpeg.jpeg_decode_kernel.launches_tiled
+    card, card_diag, reader = run("cuda")
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == len(card) == 6
+    assert reader.state_dict()["position"] == 8
+    cpu, cpu_diag, _ = run("cpu")
+    assert card_diag["quarantined_rowgroups"] == cpu_diag["quarantined_rowgroups"]
+    assert sorted(e["path"] for e in card_diag["quarantined_rowgroups"]) == [files[2], files[5]]
+    for c, p in zip(card, cpu):
+        assert torch.equal(c["label"], p["label"])
+        diff = (c["image"].int() - p["image"].int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_partitioned_read_with_pushdown_on_the_card(tmp_path):
+    """Phase 19's feed at a small size: a ``partition_by`` dataset with a
+    ``CompressedNdarrayCodec`` host field, a predicate pushed down to the
+    partitions, B2 on the card against the CPU loader: the kept splits'
+    labels in the same order, their masks as written, images within B2's
+    bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import CompressedImageCodec, CompressedNdarrayCodec, Field, \
+        Schema, make_reader, write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.ops import jpeg
+    from petastorm_tpu_torch.predicates import in_set
+
+    rng = np.random.default_rng(6)
+    schema = Schema("S", [Field("label", np.int64), Field("split", np.int64),
+                          Field("image", np.uint8, (40, 48, 3), CompressedImageCodec("jpeg", 90)),
+                          Field("mask", np.uint8, (6, 6), CompressedNdarrayCodec())])
+    rows = [{"label": i, "split": i % 4, "image": rng.integers(0, 256, (40, 48, 3), np.uint8),
+             "mask": np.full((6, 6), i % 251, np.uint8)} for i in range(128)]
+    path = str(tmp_path / "parts")
+    write_dataset(path, schema, rows, partition_by=["split"], row_group_size_rows=16)
+
+    def run(device):
+        reader = make_reader(path, workers_count=3, shuffle_seed=0,
+                             decode_placement={"image": "device"},
+                             predicate=in_set({1, 3}, "split"))
+        with CudaDataLoader(reader, 16, device=device, host_fields=["mask"]) as loader:
+            return [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in b.items()}
+                    for b in loader]
+
+    before = jpeg.jpeg_decode_kernel.launches_tiled
+    card = run("cuda")
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == len(card) == 4
+    cpu = run("cpu")
+    for c, p in zip(card, cpu):
+        assert torch.equal(c["label"], p["label"]) and torch.equal(c["split"], p["split"])
+        assert set(c["split"].tolist()) <= {1, 3}
+        np.testing.assert_array_equal(c["mask"][:, 0, 0], c["label"].numpy() % 251)
+        diff = (c["image"].int() - p["image"].int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3

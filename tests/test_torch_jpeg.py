@@ -47,6 +47,7 @@ from petastorm_tpu_torch.etl.writer import stamp_dataset_metadata
 from petastorm_tpu_torch.native import build as native_build
 from petastorm_tpu_torch.native import image as native
 from petastorm_tpu_torch.ops import jpeg
+from petastorm_tpu_torch.pool import WorkerError
 
 UINT8_MAX_SHARE = 1e-3
 FLOAT_ATOL = 2e-3
@@ -601,8 +602,12 @@ def test_mixed_geometry_within_rowgroup_diagnosed(tmp_path):
     bufs = _bufs("420", 6)
     bufs[3] = _bufs("444", 4)[3]
     path = _write_raw(tmp_path, bufs, rows_per_group=6)
-    with pytest.raises(CodecError, match=r"cell 3 has geometry.*decode_placement='host'"):
+    # a worker's failure reaches the consumer of the thread pool as the JAX
+    # pool delivers it: a WorkerError naming the worker's exception type
+    with pytest.raises(WorkerError, match=r"cell 3 has geometry.*decode_placement='host'") as info:
         _drain(path, 6)
+    assert info.value.exc_type == "CodecError"
+    assert isinstance(info.value.__cause__, CodecError)
 
 
 def test_mixed_geometry_across_rowgroups_guided(tmp_path):
@@ -615,11 +620,16 @@ def test_corrupt_jpeg_cell_diagnosed(tmp_path):
     bufs = _bufs("420", 4)
     bufs[2] = bufs[2][:40]  # cut inside the header
     path = _write_raw(tmp_path, bufs, rows_per_group=4)
-    with pytest.raises(CodecError, match="cell 2 is not a decodable jpeg.*corrupt or truncated"):
+    with pytest.raises(WorkerError,
+                       match="cell 2 is not a decodable jpeg.*corrupt or truncated") as info:
         _drain(path, 4)
+    assert info.value.exc_type == "CodecError"
+    assert isinstance(info.value.__cause__, CodecError)
 
 
 def test_wrong_size_jpeg_raises_clear_error(tmp_path):
     path = _write_raw(tmp_path, _bufs("420", 4), rows_per_group=4, shape=(32, 96, 3))
-    with pytest.raises(CodecError, match="schema says"):
+    with pytest.raises(WorkerError, match="schema says") as info:
         _drain(path, 4)
+    assert info.value.exc_type == "CodecError"
+    assert isinstance(info.value.__cause__, CodecError)

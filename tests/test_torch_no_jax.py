@@ -65,5 +65,7 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/etl/indexing.py",
                      "petastorm_tpu_torch/etl/metadata.py", "petastorm_tpu_torch/ngram.py",
                      "petastorm_tpu_torch/weighted_sampling.py",
-                     "petastorm_tpu_torch/rebatch.py"):
+                     "petastorm_tpu_torch/rebatch.py", "petastorm_tpu_torch/errors.py",
+                     "petastorm_tpu_torch/etl/writer.py",
+                     "petastorm_tpu_torch/etl/generate_metadata.py"):
         assert required in names
