@@ -186,7 +186,30 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    digest of the reader alone on the CPU, the cursor at the epoch's end;
    samples/s beside phases 6 and 5 and the input-wait share; then a budget
    of 1 raises ``ErrorBudgetExceededError`` from the loader's ``next()``
-   with its diagnostics, and both loader threads have ended.
+   with its diagnostics, and both loader threads have ended;
+21. mixed-geometry training: 2048 cv2-encoded JPEGs in 8 rowgroups of 256,
+   their geometries drawn from a seed with ImageNet's common sizes (0.4
+   375x500, 0.2 500x375, 0.2 333x500 4:2:0, 0.1 500x500 4:4:4, 0.1 375x500
+   grayscale), a ``(None, None, 3)`` field with its geometry contract
+   stamped, read with ``decode_placement={'image': 'device-mixed'}`` into
+   ``CudaDataLoader(pad_shapes={'image': (500, 500, 3)})`` (the pinned
+   arena, B2 once a geometry bucket, the fit) and phase 6's training step
+   for 2 epochs (16 steps): samples/s beside phase 6's, the input-wait
+   share, B2's launches equal to the batches' geometry buckets, the labels
+   and digest of the reader alone on the CPU; on the first batch each
+   bucket's B2 decode equal to the general kernel and within its bound of
+   the plain version, every delivered row equal to it (cropped, grayscale
+   repeated), against cv2 under the same rule as phase 6, the pad region
+   zero; the loader's pack, copy and decode-and-fit of that batch timed,
+   and its buckets' B2 launches from a CUDA graph beside their bound;
+22. the converter feed: phase 4's rows as a pyarrow table through
+   ``make_converter`` (rowgroups of 256) and ``make_cuda_loader`` into
+   phase 5's host-decode training path for one epoch (16 steps), the JPEG
+   bytes (binary in the converter's inferred schema) decoded by a
+   ``TransformSpec`` in one native call a rowgroup: samples/s beside phase
+   5's, the write's seconds, a second conversion of the table returning the
+   same handle with no write, the labels and digest of the reader alone on
+   the CPU, the first batch equal to cv2's decode; then ``delete()``.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -215,7 +238,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset  # noqa: E402
 from petastorm_tpu_torch import CompressedNdarrayCodec, ErrorPolicy, make_batch_reader  # noqa: E402
-from petastorm_tpu_torch import codecs  # noqa: E402
+from petastorm_tpu_torch import codecs, make_converter  # noqa: E402
 from petastorm_tpu_torch import pytorch as torch_adapter  # noqa: E402
 from petastorm_tpu_torch import shuffle  # noqa: E402
 from petastorm_tpu_torch.batch import ColumnBatch  # noqa: E402
@@ -227,7 +250,7 @@ from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_
 from petastorm_tpu_torch.errors import ErrorBudgetExceededError  # noqa: E402
 from petastorm_tpu_torch.etl.generate_metadata import generate_metadata  # noqa: E402
 from petastorm_tpu_torch.etl.metadata import open_dataset  # noqa: E402
-from petastorm_tpu_torch.etl.writer import materialize_dataset  # noqa: E402
+from petastorm_tpu_torch.etl.writer import materialize_dataset, stamp_dataset_metadata  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
 from petastorm_tpu_torch.ngram import NGram  # noqa: E402
@@ -1064,7 +1087,7 @@ def device_time_by_op(step, images, labels, steps=3, top=12):
 
 def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
                 label_field="label", rows=None, decoded_images=None, source=None,
-                on_batch=None):
+                on_batch=None, loader=None):
     """``epochs`` epochs (one by default) of the training path over the
     phase-4 dataset, the reader decoding with ``decode_placement={'image':
     decode}`` and taking ``reader_kwargs``, the loader taking
@@ -1074,8 +1097,11 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     that selects rows delivers ``rows`` rows over all its epochs (full
     batches of them are trained) and decodes ``decoded_images`` images.
     ``source=(reader, parts)`` trains on ``reader`` instead (a mix), whose
-    ``parts`` (its sub-readers) count the decoded images.  ``on_batch`` is
-    called with every delivered batch."""
+    ``parts`` (its sub-readers) count the decoded images; ``loader`` (made
+    over that reader) is iterated instead of a new ``CudaDataLoader``.
+    ``on_batch`` is called with every delivered batch.  With
+    ``decode='device-mixed'`` B2 launches once a geometry bucket, which the
+    caller counts."""
     cores = os.cpu_count() or 2
     workers = max(1, min(cores - 1, 16))
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
@@ -1098,8 +1124,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     reset_launch_counts()
     losses, labels_seen, image_sums, steps, first = [], [], [], 0, None
     epoch_marks = []  # (seconds, consumer wait) at the end of each epoch
-    with CudaDataLoader(reader, batch_size=BATCH, device="cuda",
-                        **(loader_kwargs or {})) as loader:
+    if loader is None:
+        loader = CudaDataLoader(reader, batch_size=BATCH, device="cuda", **(loader_kwargs or {}))
+    with loader:
         start = time.perf_counter()
         for batch in loader:
             labels = batch[label_field] % 1000
@@ -1139,7 +1166,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     # kernel once a step when the decode finishes on the card, never
     # otherwise, and B2's general kernel never
     want = {"normalize_u8": steps, "resized_crop_flip_u8": steps, "resized_crop_aa_u8": 0,
-            "jpeg_decode_u8": steps if decode == "device" else 0}
+            # a geometry bucket each: the caller holds them to its buckets
+            "jpeg_decode_u8": {"device": steps,
+                               "device-mixed": launches["jpeg_decode_u8"]}.get(decode, 0)}
     if general_launches or general_b2:
         raise AssertionError(f"the general resized-crop and JPEG decode kernels launched"
                              f" {general_launches} and {general_b2} times in {steps} steps,"
@@ -2745,6 +2774,284 @@ def poisoned_train_phase(tmp, part_path, kernels, host, device):
                        "loader_threads_ended": True})
 
 
+MIXED_ROWS, MIXED_EPOCHS, MIXED_SEED = 2048, 2, 21   # phase 21: the corpus, epochs trained
+MIXED_TARGET = (500, 500, 3)                          # phase 21: the pad_shapes target
+#: phase 21's geometries: (weight, (h, w), cv2 sampling factor or None for
+#: 4:2:0, grayscale), ImageNet's common sizes
+MIXED_KINDS = ((0.4, (375, 500), None, False), (0.2, (500, 375), None, False),
+               (0.2, (333, 500), None, False),
+               (0.1, (500, 500), "IMWRITE_JPEG_SAMPLING_FACTOR_444", False),
+               (0.1, (375, 500), None, True))
+
+
+def mixed_schema():
+    return Schema("ImageNetMixed", [
+        Field("label", np.int64),
+        Field("image", np.uint8, (None, None, 3), CompressedImageCodec("jpeg", quality=90))])
+
+
+def write_mixed_corpus(path):
+    """Phase 21's corpus: MIXED_ROWS cv2-encoded JPEGs (q90) of the
+    MIXED_KINDS geometries drawn with their weights from MIXED_SEED, label i
+    on row i, in rowgroups of ROWS_PER_GROUP, with the geometry contract
+    stamped.  Returns (the streams, each row's kind)."""
+    import cv2
+
+    rng = np.random.default_rng(MIXED_SEED)
+    kinds = rng.choice(len(MIXED_KINDS), MIXED_ROWS, p=[k[0] for k in MIXED_KINDS])
+    lows = rng.integers(0, 256, (MIXED_ROWS, 7, 7, 3)).astype(np.float32)
+    # photograph-like entropy from a few shared noise fields (drawing one a
+    # row would cost more than the encode)
+    noise = rng.normal(0.0, 8.0, (4, 500, 500, 3)).astype(np.float32)
+
+    def encode(i):
+        _, (h, w), sampling, gray = MIXED_KINDS[kinds[i]]
+        img = cv2.resize(lows[i], (w, h), interpolation=cv2.INTER_CUBIC) + noise[i % 4, :h, :w]
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        params = [int(cv2.IMWRITE_JPEG_QUALITY), 90]
+        if sampling is not None:
+            params += [int(cv2.IMWRITE_JPEG_SAMPLING_FACTOR), int(getattr(cv2, sampling))]
+        return cv2.imencode(".jpeg", img[..., 0] if gray else img, params)[1].tobytes()
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as pool:
+        bufs = list(pool.map(encode, range(MIXED_ROWS)))
+    os.makedirs(path)
+    schema = mixed_schema()
+    pq.write_table(pa.Table.from_pylist([{"label": i, "image": b} for i, b in enumerate(bufs)],
+                                        schema=schema.as_arrow_schema()),
+                   os.path.join(path, "part-00000.parquet"), row_group_size=ROWS_PER_GROUP)
+    stamp_dataset_metadata(path, schema, geometries={"image": sorted(
+        {(h, w, 1 if gray else 3) for _, (h, w), _, gray in MIXED_KINDS})})
+    return bufs, kinds
+
+
+def mixed_first_batch_checks(path, images, labels, bufs, kinds):
+    """Phase 21's first delivered batch (``images`` (BATCH, *MIXED_TARGET) on
+    the card, ``labels`` its rows): each geometry bucket's B2 decode (the
+    tiled kernel, as the loader ran it on the same planes in the same order)
+    equal to the general kernel and within B2's bound of the plain version
+    (``check_jpeg``); each delivered row equal to that decode, cropped and
+    (grayscale) repeated, and against cv2's decode under ``within_cv2``'s
+    rule; the pad region zero.  Then the loader's own decode of the first
+    rowgroup (its pack, copy and bucket decodes, timed by CUDA events), a
+    pinned arena's allocation, and B2's launches of those buckets from a
+    CUDA graph, each bucket and all five, beside their bounds.  Returns the
+    checks and times."""
+    checks, bucket_calls = {}, []
+    read = written = flops = 0
+    for kind in sorted(set(kinds[labels].tolist())):
+        rows = np.flatnonzero(kinds[labels] == kind)
+        _, (h, w), _, gray = MIXED_KINDS[kind]
+        group = [bufs[label] for label in labels[rows]]
+        planes, qtabs, layout = native_image.read_jpeg_coefficients_column(group)
+        dp = [torch.from_numpy(p).cuda() for p in planes]
+        dq = torch.from_numpy(qtabs.astype(np.int32)).cuda()
+        name = f"{h}x{w} {'gray' if gray else layout.sampling}"
+        err, share = check_jpeg(dp, dq, layout, torch.uint8, f"phase 21, {name}")
+        b2 = jpeg.decode_from_layout(dp, dq, layout)
+        plain = jpeg._decode_reference(dp, dq, (h, w), layout.sampling)
+        got = images[torch.from_numpy(rows).cuda()]
+        crop = got[:, :h, :w]
+        want = b2[..., None].expand(-1, -1, -1, 3) if gray else b2
+        if not torch.equal(crop, want):
+            raise AssertionError(f"phase 21, {name}: the delivered rows differ from B2's"
+                                 " decode of their planes")
+        if got[:, h:].any() or got[:, :, w:].any():
+            raise AssertionError(f"phase 21, {name}: the pad region is not zero")
+        if gray and not (torch.equal(crop[..., 0], crop[..., 1])
+                         and torch.equal(crop[..., 0], crop[..., 2])):
+            raise AssertionError(f"phase 21, {name}: a grayscale row's channels differ")
+        vs_cv2 = within_cv2(crop[..., 0].cpu().numpy() if gray else crop.cpu().numpy(),
+                            cv2_decode(group), plain.cpu().numpy(), f"phase 21, {name}")
+        r, wr, f = jpeg_bound(layout, len(rows))
+        read, written, flops = read + r, written + wr, flops + f
+        bucket_calls.append(lambda dp=dp, dq=dq, layout=layout: jpeg.jpeg_decode_kernel(
+            dp, dq, (layout.height, layout.width), layout.sampling))
+        bound = max(1e3 * (r + wr) / HBM_BYTES_PER_S, 1e3 * f / F32_FLOPS_PER_S)
+        ms = time_graph_ms(bucket_calls[-1])
+        checks[name] = {"rows": int(len(rows)), "vs_plain_max_abs_err": err,
+                        "vs_plain_share_differing": share, "vs_cv2": vs_cv2,
+                        "instance": jpeg.decode_launch_plan(
+                            len(rows), (h, w), tuple(layout.sampling),
+                            tuple(tuple(p.shape[1:3]) for p in dp), True,
+                            jpeg._sm_count(torch.cuda.current_device())).kind,
+                        "b2_ms_from_graph": ms, "bound_ms": bound, "share_of_bound": bound / ms}
+    b2_ms = time_graph_ms(lambda: [call() for call in bucket_calls])
+    bytes_ms, ops_ms = 1e3 * (read + written) / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+
+    # the loader's own code on the first rowgroup: pack into a pinned arena,
+    # one copy, B2 a bucket and the fit, back to back between CUDA events
+    reader = make_reader(path, workers_count=1, shuffle_seed=0, num_epochs=1,
+                         decode_placement={"image": "device-mixed"})
+    loader = CudaDataLoader(reader, batch_size=BATCH, device="cuda",
+                            pad_shapes={"image": MIXED_TARGET})
+    with reader:
+        item = loader._prep_cols(loader._prepare(next(reader.iter_batches())))
+    loader.stop()
+    slot = loader._slot(loader._layout(item))
+    arena, buckets = loader._pack_mixed("image", [item], slot.arena)
+    dev = arena.cuda()
+    if not np.array_equal(item.cols["label"], labels) or not torch.equal(
+            loader._decode_mixed("image", dev, buckets), images):
+        raise AssertionError("phase 21: the loader's decode of the first rowgroup is not the"
+                             " first delivered batch")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loader._pack_mixed("image", [item], slot.arena)
+    pack_ms = 1e3 * (time.perf_counter() - t0) / 5
+    t0 = time.perf_counter()
+    torch.empty(arena.numel(), dtype=torch.uint8, pin_memory=True)
+    pin_ms = 1e3 * (time.perf_counter() - t0)
+    return checks, {
+        "buckets": len(buckets), "b2_ms_from_graph": b2_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+        else "operations", "share_of_bound": max(bytes_ms, ops_ms) / b2_ms,
+        "bytes_read": read, "bytes_written": written, "flops": flops,
+        "staged_bytes": int(arena.numel()),
+        "pack_host_ms": pack_ms, "pinned_arena_alloc_ms": pin_ms,
+        "copy_ms": time_ms(lambda: arena.to("cuda", non_blocking=True), samples=11, launches=3),
+        "decode_and_fit_ms": time_ms(lambda: loader._decode_mixed("image", dev, buckets),
+                                     samples=11, launches=3)}
+
+
+def mixed_geometry_train_phase(tmp, kernels, device):
+    """Phase 21: a corpus of ImageNet's mixed JPEG geometries read with
+    ``decode_placement={'image': 'device-mixed'}`` into phase 6's training
+    path, the loader fitting every image to (500, 500, 3), for MIXED_EPOCHS
+    epochs; B2 once a geometry bucket a batch."""
+    path = os.path.join(tmp, "imagenet_mixed_geometry")
+    t0 = time.perf_counter()
+    bufs, kinds = write_mixed_corpus(path)
+    write_s = time.perf_counter() - t0
+    rows = MIXED_EPOCHS * MIXED_ROWS
+    run = train_epoch(path, "device-mixed", epochs=MIXED_EPOCHS, rows=rows, decoded_images=rows,
+                      loader_kwargs={"pad_shapes": {"image": MIXED_TARGET}})
+    for name in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    labels = run["labels"].numpy()
+    steps, timed, diag = run["steps"], run["timed"], run["diagnostics"]
+    buckets = [len(set(kinds[labels[k * BATCH:(k + 1) * BATCH]].tolist())) for k in range(steps)]
+    if run["launches"]["jpeg_decode_u8"] != sum(buckets) or diag["mixed_buckets"] != sum(buckets):
+        raise AssertionError(f"phase 21: B2 launched {run['launches']['jpeg_decode_u8']} times,"
+                             f" the loader decoded {diag['mixed_buckets']} buckets, the batches"
+                             f" hold {sum(buckets)} geometry buckets")
+    if diag["mixed_decode_geometries"] != {"image": len(MIXED_KINDS)}:
+        raise AssertionError(f"phase 21: geometries {diag['mixed_decode_geometries']}")
+    for epoch in range(MIXED_EPOCHS):
+        if not np.array_equal(np.sort(labels[epoch * MIXED_ROWS:(epoch + 1) * MIXED_ROWS]),
+                              np.arange(MIXED_ROWS)):
+            raise AssertionError(f"phase 21: epoch {epoch} is not every row once")
+    cpu_labels, _, cpu_digest = cpu_reader_run(path, num_epochs=MIXED_EPOCHS, shuffle_seed=0,
+                                               decode_placement={"image": "device-mixed"})
+    if not np.array_equal(labels, np.concatenate(cpu_labels)) or run["digest"] != cpu_digest:
+        raise AssertionError("phase 21: other labels, order or digest than the reader alone"
+                             " on the CPU")
+    first_images = run.pop("first")[0]
+    del run["model"], run["step"]
+    checks, decode = mixed_first_batch_checks(path, first_images, labels[:BATCH], bufs, kinds)
+    units = diag["units_staged"]
+    phase("mixed_geometry_train_device_decode", decode="device-mixed", rows=MIXED_ROWS,
+          epochs=MIXED_EPOCHS, corpus_write_s=write_s, target=list(MIXED_TARGET),
+          kinds={f"{h}x{w} {'gray' if g else ('4:4:4' if s else '4:2:0')}":
+                 int((kinds == i).sum())
+                 for i, (_, (h, w), s, g) in enumerate(MIXED_KINDS)},
+          steps=steps, timed_steps=steps - WARMUP_STEPS, batch=BATCH, workers=run["workers"],
+          samples_per_s=run["samples_per_s"], phase6_samples_per_s=device["samples_per_s"],
+          relative_to_phase6=run["samples_per_s"] / device["samples_per_s"] - 1,
+          epoch_s=run["epoch_s"], step_ms=1e3 * timed / (steps - WARMUP_STEPS),
+          consumer_wait_share=run["wait"] / timed, peak_device_memory_bytes=run["peak"],
+          launches=run["launches"], b2_launches_per_step=sum(buckets) / steps,
+          buckets_per_batch=buckets, mixed_decode_geometries=diag["mixed_decode_geometries"],
+          declared_geometries=diag.get("declared_geometries"),
+          loader_mixed_host_ms_per_batch=1e3 * diag["mixed_decode_s"] / units,
+          transfer_ms_per_batch=1e3 * diag["transfer_s"] / units,
+          assemble_ms_per_batch=1e3 * diag["assemble_s"] / units,
+          first_batch_decode=decode, first_batch_checks=checks, losses=run["losses"].tolist(),
+          decode_stats=run["decode_stats"], labels_match_cpu_reader=True,
+          digest_matches_cpu_reader=True)
+
+
+def converter_table(path):
+    """Phase 4's rows (its labels and stored JPEG bytes) as one arrow table."""
+    import pyarrow.dataset as pads
+
+    return pads.dataset(path, format="parquet").to_table(columns=["label", "image"])
+
+
+def decode_converted(cols):
+    """The converter's JPEG bytes column (binary in its inferred schema, as
+    the reference's converter leaves it) decoded in one native call."""
+    images = np.empty((len(cols["image"]), SIDE, SIDE, 3), np.uint8)
+    native_image.decode_column_native(pa.array(list(cols["image"]), pa.binary()), images)
+    return {"label": cols["label"], "image": images}
+
+
+def converter_train_phase(tmp, path, kernels, host):
+    """Phase 22: phase 4's rows as an arrow table through ``make_converter``
+    (rowgroups of BATCH rows) and ``make_cuda_loader`` into phase 5's
+    host-decode training path, the JPEG bytes decoded by a ``TransformSpec``
+    in one native call a rowgroup, for one epoch; a second conversion of the
+    same table returns the cached dataset without writing; then
+    ``delete()``."""
+    table = converter_table(path)
+    cache = os.path.join(tmp, "converter_cache")
+    # rowgroups of BATCH rows, as phase 4's
+    rg_mb = (BATCH + 0.5) * table.nbytes / table.num_rows / 2 ** 20
+    t0 = time.perf_counter()
+    conv = make_converter(table, cache_dir_url=cache, row_group_size_mb=rg_mb)
+    write_s = time.perf_counter() - t0
+    mtimes = {f: os.stat(f).st_mtime_ns for f in conv.file_urls}
+    t0 = time.perf_counter()
+    again = make_converter(table, cache_dir_url=cache, row_group_size_mb=rg_mb)
+    again_s = time.perf_counter() - t0
+    if again is not conv or {f: os.stat(f).st_mtime_ns for f in conv.file_urls} != mtimes:
+        raise AssertionError("phase 22: a second conversion of the table wrote again")
+    groups = pq.ParquetFile(conv.file_urls[0]).metadata.num_row_groups
+    if len(conv) != N_ROWS or groups != N_ROWS // ROWS_PER_GROUP:
+        raise AssertionError(f"phase 22: {len(conv)} rows in {groups} rowgroups")
+    workers = max(1, min((os.cpu_count() or 2) - 1, 16))
+    spec = TransformSpec(decode_converted, edit_fields=[("image", np.uint8, (SIDE, SIDE, 3),
+                                                         False)])
+    loader = conv.make_cuda_loader(BATCH, device="cuda", reader_kwargs={
+        "workers_count": workers, "shuffle_seed": 0, "num_epochs": 1, "transform_spec": spec})
+    reader = loader._reader
+    run = train_epoch(None, "host", rows=N_ROWS, decoded_images=N_ROWS,
+                      source=(reader, [reader]), loader=loader)
+    for name in ("normalize_u8", "resized_crop_flip_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    cpu_labels, _, cpu_digest = cpu_reader_run(conv.cache_url, shuffle_seed=0, num_epochs=1,
+                                               schema_fields=["label"])
+    if not np.array_equal(run["labels"].numpy(), np.concatenate(cpu_labels)) or (
+            run["digest"] != cpu_digest):
+        raise AssertionError("phase 22: other labels, order or digest than the reader alone"
+                             " on the CPU")
+    if not np.array_equal(np.sort(run["labels"].numpy()), np.sort(host["labels"].numpy())):
+        raise AssertionError("phase 22: the converted rows are not phase 5's")
+    first_images, first_labels = run["first"][0].cpu().numpy(), run["labels"][:BATCH].numpy()
+    index = {int(label): i for i, label in enumerate(table.column("label").to_pylist())}
+    want = cv2_decode([table.column("image")[index[int(label)]].as_py()
+                       for label in first_labels])
+    if not np.array_equal(first_images, want):
+        raise AssertionError("phase 22: the first batch differs from cv2's decode of its rows")
+    del run["model"], run["step"], run["first"]
+    url = conv.cache_url
+    conv.delete()
+    if os.path.exists(url):
+        raise AssertionError("phase 22: delete() left the cached dataset")
+    steps, timed = run["steps"], run["timed"]
+    phase("converter_train_host_decode", decode="host (TransformSpec, native batched call)",
+          rows=N_ROWS, rowgroups=groups, convert_write_s=write_s,
+          second_convert_s=again_s, second_convert_wrote=False, steps=steps,
+          timed_steps=steps - WARMUP_STEPS, batch=BATCH, workers=run["workers"],
+          samples_per_s=run["samples_per_s"], phase5_samples_per_s=host["samples_per_s"],
+          relative_to_phase5=run["samples_per_s"] / host["samples_per_s"] - 1,
+          epoch_s=run["epoch_s"], step_ms=1e3 * timed / (steps - WARMUP_STEPS),
+          consumer_wait_share=run["wait"] / timed, peak_device_memory_bytes=run["peak"],
+          launches=run["launches"], losses=run["losses"].tolist(),
+          decode_stats=run["decode_stats"], labels_match_cpu_reader=True,
+          digest_matches_cpu_reader=True, first_batch_equals_cv2=True, deleted=True)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2783,6 +3090,8 @@ def main():
         ngram_train_phase(tmp, kernels, host, rates)
         part_path = partitioned_train_phase(tmp, kernels, device)
         poisoned_train_phase(tmp, part_path, kernels, host, device)
+        mixed_geometry_train_phase(tmp, kernels, device)
+        converter_train_phase(tmp, path, kernels, host)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -98,16 +98,17 @@ class InMemoryCache(CacheBase):
         self._total = 0
         self._lock = threading.Lock()
 
-    @staticmethod
-    def _array_size(col: Any) -> int:
+    @classmethod
+    def _array_size(cls, col: Any) -> int:
         if isinstance(col, np.ndarray):
             if col.dtype == object:
                 # nbytes counts 8 bytes a pointer for object arrays; sum the
-                # payloads (ragged cells) or the cap is a no-op
-                return int(col.nbytes) + sum(
-                    int(c.nbytes) if isinstance(c, np.ndarray) else sys.getsizeof(c)
-                    for c in col.ravel())
+                # payloads (ragged cells, a mixed-geometry field's tuples of
+                # planes) or the cap is a no-op
+                return int(col.nbytes) + sum(cls._array_size(c) for c in col.ravel())
             return int(col.nbytes)
+        if isinstance(col, tuple):
+            return sys.getsizeof(col) + sum(cls._array_size(c) for c in col)
         return sys.getsizeof(col)
 
     @classmethod
@@ -120,12 +121,19 @@ class InMemoryCache(CacheBase):
     @staticmethod
     def _copy_value(value: Any) -> Any:
         """A private copy; an object column's cells are copied too."""
+        def copy_cell(cell):
+            if isinstance(cell, np.ndarray):
+                return cell.copy()
+            if isinstance(cell, tuple):  # a mixed-geometry cell: (planes, qtab, meta)
+                return tuple(copy_cell(c) for c in cell)
+            return cell
+
         def copy_col(c):
             if isinstance(c, np.ndarray):
                 if c.dtype == object:
                     out = np.empty(len(c), dtype=object)
                     for i, cell in enumerate(c):
-                        out[i] = cell.copy() if isinstance(cell, np.ndarray) else cell
+                        out[i] = copy_cell(cell)
                     return out
                 return c.copy()
             return copy.deepcopy(c)

@@ -38,6 +38,17 @@ kernel B2 (``ops.jpeg``) on the copy stream, before the copy's event is
 recorded: the counterpart of ``petastorm_tpu/jax/loader.py:1411
 _decode_on_device`` (and ``:1145 _decode_stack``) without the mesh.
 
+A field read with ``decode_placement='device-mixed'`` arrives as one object
+cell a row (``native.image.pack_coef_columns_mixed``), any JPEG geometry.
+The transfer stage groups a unit's cells by geometry, packs each bucket's
+planes, quant tables and row indices back to back into one grow-only pinned
+byte arena of the staging slot, copies the arena in one ``non_blocking``
+copy, and on the copy stream runs B2 once a bucket on views of it, writing
+each bucket's images into their rows of a zeroed ``(rows, *target)``
+tensor: cropped or zero-padded to the target, grayscale repeated to its
+channels (``jax/loader.py:1199-1361``, without the power-of-two bucket
+padding that bounds XLA's compiles: each bucket decodes at its exact size).
+
 ``drain()`` and ``state_dict()`` (``:1617``, ``:1816``) give the training
 job its data cursor: drain quiesces the reader and yields what is in flight,
 after which the reader's cursor is exact.
@@ -71,8 +82,9 @@ from petastorm_tpu_torch.cuda.device_buffer import DeviceShufflingBuffer
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.dtypes import torch_feed_dtype
 from petastorm_tpu_torch.errors import CodecError, PetastormTpuError
-from petastorm_tpu_torch.native.image import (COEF_COLUMN_SEP, JpegCoefLayout,
-                                              _MIXED_GEOMETRY_GUIDANCE, coef_layout)
+from petastorm_tpu_torch.native.image import (COEF_COLUMN_SEP, MIXED_CELL_SUFFIX, JpegCoefLayout,
+                                              _MIXED_GEOMETRY_GUIDANCE, _layout_from_meta,
+                                              coef_layout)
 from petastorm_tpu_torch.ops.jpeg import decode_from_layout
 from petastorm_tpu_torch.seeding import reader_buffer_seed
 from petastorm_tpu_torch.shuffle import (NoopShufflingBuffer, RandomShufflingBuffer,
@@ -164,6 +176,7 @@ class _HostBatch:
     layouts: Dict[str, JpegCoefLayout]
     host: Dict[str, np.ndarray]      # host_fields, delivered as numpy
     rows: int
+    mixed: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)  # object cells
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -171,14 +184,51 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 
 
 class _Slot:
-    """One set of host staging buffers (pinned for CUDA) and the event of the
-    last device copy that read them."""
+    """One set of host staging buffers (pinned for CUDA), the byte arenas of
+    the mixed-geometry fields, and the event of the last device copy that
+    read them."""
 
     def __init__(self, layout: Dict[str, Tuple[tuple, np.dtype]], lead: tuple, pin: bool):
         self.host = {name: torch.empty(lead + shape, dtype=_torch_dtype(dtype),
                                        pin_memory=pin)
                      for name, (shape, dtype) in layout.items()}
+        self.pin = pin
+        self.arenas: Dict[str, torch.Tensor] = {}
         self.copied: Optional[torch.cuda.Event] = None
+
+    def arena(self, name: str, nbytes: int) -> torch.Tensor:
+        """The first ``nbytes`` of the field's arena, grown (an eighth over)
+        when it is too small: a unit's bucket sizes change from unit to unit,
+        so one arena a slot serves them all without a new pinned buffer
+        each unit."""
+        buf = self.arenas.get(name)
+        if buf is None or buf.numel() < nbytes:
+            buf = self.arenas[name] = torch.empty(nbytes + nbytes // 8, dtype=torch.uint8,
+                                                  pin_memory=self.pin)
+        return buf[:nbytes]
+
+
+_ARENA_ALIGN = 16  # B2 copies planes and quant tables in 16-byte units
+
+
+@dataclasses.dataclass
+class _Bucket:
+    """One geometry bucket of a unit's mixed-geometry cells: its layout and
+    the byte offsets in the staging arena of its planes (int16 (k, bh, bw,
+    64) each), quant tables (int32 (k, ncomp, 64)) and rows (int64 (k,),
+    the flat row of each cell in the unit)."""
+
+    layout: JpegCoefLayout
+    cells: List[int]
+    planes: List[Tuple[int, tuple]]
+    qtabs: Tuple[int, tuple]
+    rows: Tuple[int, tuple]
+
+
+def _arena_view(arena: torch.Tensor, spec: Tuple[int, tuple], dtype: torch.dtype) -> torch.Tensor:
+    offset, shape = spec
+    nbytes = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+    return arena[offset:offset + nbytes].view(dtype).view(shape)
 
 
 class CudaDataLoader:
@@ -193,7 +243,17 @@ class CudaDataLoader:
       Strings and objects are refused; a variable-shape field needs a
       ``pad_shapes`` entry.  A field the reader decodes on the device
       (``reader.device_decode_fields``) is delivered as uint8 (N, H, W, 3),
-      or with the rank its schema declares for grayscale.
+      or with the rank its schema declares for grayscale.  A
+      ``'device-mixed'`` field (``reader.device_decode_mixed``) is delivered
+      as uint8 ``(N, *target)``: the schema's fixed shape, else its one
+      ``pad_shapes`` target (refused otherwise, with ``"ONE pad_shapes
+      target"``); each image is cropped or zero-padded to it, a grayscale one
+      repeated to its channels, and padding rows are zero.
+      ``diagnostics()`` adds ``mixed_decode_geometries`` (distinct geometries
+      decoded a field), ``mixed_buckets`` (B2 launches so far) and
+      ``mixed_decode_s`` (host seconds grouping, packing and launching); a
+      geometry missing from ``reader.declared_geometries`` is warned about
+      once.
     * ``host_fields``: delivered as the batch's numpy column (strings and
       objects too), not padded.  Device-decode fields cannot be host fields.
     * ``shuffling_queue_capacity`` > 0 shuffles rows in a host buffer of that
@@ -305,10 +365,22 @@ class CudaDataLoader:
                 " fields were excluded or routed to host_fields)")
         #: fields finished on the device from their coefficient planes
         self._decode_fields = [name for name in self._fields if name in device_decode]
+        #: the subset in the mixed-geometry object format, decoded a geometry
+        #: bucket at a time and fitted to a static target each
+        self._mixed_fields = frozenset(getattr(reader, "device_decode_mixed", ()) or ()
+                                       ).intersection(self._decode_fields)
+        #: geometries decoded a mixed field (layout-meta bytes), the (field, h,
+        #: w, channels) already warned about, and the dataset's stamped contract
+        self._mixed_geometries: Dict[str, set] = {}
+        self._geom_warned: set = set()
+        self._declared_geometries = dict(getattr(reader, "declared_geometries", None) or {})
+        self._mixed_buckets = 0
+        self._mixed_decode_s = 0.0
         self._geometry: Dict[str, np.ndarray] = {}  # name -> the first rowgroup's layout meta
         self._pad_shapes = {name: _normalize_buckets(name, spec)
                             for name, spec in (pad_shapes or {}).items()}
         self._pad_values = pad_values
+        self._mixed_targets = {name: self._mixed_target(name) for name in self._mixed_fields}
         if self._stack > 1:
             bucketed = [n for n, b in self._pad_shapes.items() if len(b) > 1]
             if bucketed:
@@ -429,6 +501,27 @@ class CudaDataLoader:
         self._fetch_prepare_s = 0.0
         self._transfer_s = 0.0
 
+    def _mixed_target(self, name: str) -> Tuple[int, ...]:
+        """The static (H, W[, C]) every image of a 'device-mixed' field is
+        cropped or padded to (``jax/loader.py:556``): the schema's shape when
+        fixed, else its one ``pad_shapes`` target."""
+        field = self._schema[name]
+        if field.is_fixed_shape:
+            return tuple(field.shape)
+        buckets = self._pad_shapes.get(name)
+        if not buckets or len(buckets) != 1:
+            raise PetastormTpuError(
+                f"decode_placement='device-mixed' field {name!r} has variable"
+                f" shape {field.shape}: give it ONE pad_shapes target (H, W"
+                "[, C]) so every geometry bucket decodes+pads to a static"
+                " shape" + (f"; got {len(buckets)} buckets" if buckets else ""))
+        target = tuple(buckets[0])
+        if len(target) != len(field.shape):
+            raise PetastormTpuError(
+                f"pad_shapes[{name!r}] target {target} rank differs from the"
+                f" field shape {field.shape}")
+        return target
+
     # -- assembly stage ---------------------------------------------------
 
     def _check_geometry(self, name: str, meta: np.ndarray) -> None:
@@ -448,7 +541,8 @@ class CudaDataLoader:
         cols: Dict[str, np.ndarray] = {}
         for name in self._fields + self._host_fields:
             if name in self._decode_fields:
-                self._check_geometry(name, batch.columns[f"{name}{COEF_COLUMN_SEP}m"])
+                if name not in self._mixed_fields:
+                    self._check_geometry(name, batch.columns[f"{name}{COEF_COLUMN_SEP}m"])
                 for key, col in batch.columns.items():
                     if key.startswith(name + COEF_COLUMN_SEP):
                         cols[key] = col
@@ -486,15 +580,18 @@ class CudaDataLoader:
                     " collides with valid_mask_field; rename one")
         if self._valid_mask is not None:
             cols[self._valid_mask] = np.ones(batch.num_rows, np.float32)
-        coef, layouts = {}, {}
+        coef, layouts, mixed = {}, {}, {}
         for name in self._decode_fields:
+            if name in self._mixed_fields:
+                mixed[name] = batch.columns[f"{name}{COEF_COLUMN_SEP}{MIXED_CELL_SUFFIX}"]
+                continue
             meta_name = f"{name}{COEF_COLUMN_SEP}m"
             layouts[name] = coef_layout(name, batch.columns[meta_name])
             for key, col in batch.columns.items():
                 if key.startswith(name + COEF_COLUMN_SEP) and key != meta_name:
                     coef[key] = col
         host = {n: batch.columns[n] for n in self._host_fields}
-        return _HostBatch(cols, coef, layouts, host, batch.num_rows)
+        return _HostBatch(cols, coef, layouts, host, batch.num_rows, mixed)
 
     def _assemble(self) -> None:
         """Stage 1: reader rowgroups -> assembled host batches."""
@@ -580,12 +677,15 @@ class CudaDataLoader:
                 steps[k, item.rows:] = pad
             steps[len(group):] = pad
 
-    def _finish(self, staged: Dict[str, torch.Tensor],
-                item: _HostBatch) -> Dict[str, torch.Tensor]:
+    def _finish(self, staged: Dict[str, torch.Tensor], item: _HostBatch,
+                mixed: Dict[str, Tuple[torch.Tensor, List[_Bucket]]]) -> Dict[str, torch.Tensor]:
         """The delivered unit: staged columns as they are, device-decode
         fields decoded from their planes (kernel B2 on a CUDA device), all
-        steps of a stack in one launch."""
+        steps of a stack in one launch; a mixed-geometry field one launch a
+        bucket (``mixed``: its staged arena and buckets)."""
         out = {name: staged[name] for name in item.cols}
+        for name, (arena, buckets) in mixed.items():
+            out[name] = self._decode_mixed(name, arena, buckets)
         lead = self._lead
         for name, layout in item.layouts.items():
             planes = [staged[f"{name}{COEF_COLUMN_SEP}p{c}"]
@@ -600,6 +700,111 @@ class CudaDataLoader:
                 image = image[..., None]  # a declared (H, W, 1) grayscale shape
             out[name] = image
         return out
+
+    def _pack_mixed(self, name: str, group: List[_HostBatch],
+                    arena_for: Callable[[str, int], torch.Tensor]
+                    ) -> Tuple[torch.Tensor, List[_Bucket]]:
+        """Group a unit's mixed-geometry cells by geometry (``jax/loader.py:1257
+        _decode_mixed_flat``) and pack each bucket's planes, quant tables
+        (widened to int32) and flat rows back to back, 16-byte aligned, into
+        the byte arena ``arena_for(name, nbytes)`` gives.  Returns the arena
+        and the buckets in order of first appearance."""
+        t0 = time.perf_counter()
+        cells: List[tuple] = []
+        rows: List[int] = []
+        for k, item in enumerate(group):
+            cells.extend(item.mixed[name])
+            rows.extend(range(k * self._batch_size, k * self._batch_size + item.rows))
+        groups: Dict[bytes, List[int]] = {}
+        for i, cell in enumerate(cells):
+            groups.setdefault(cell[2].tobytes(), []).append(i)
+        self._mixed_geometries.setdefault(name, set()).update(groups)
+        total = 0
+
+        def place(shape, itemsize):
+            nonlocal total
+            spec = (total, shape)
+            total += -(-int(np.prod(shape)) * itemsize // _ARENA_ALIGN) * _ARENA_ALIGN
+            return spec
+
+        buckets = []
+        for key, idxs in groups.items():
+            layout = _layout_from_meta(np.frombuffer(key, dtype=np.int32))
+            self._check_declared_geometry(name, layout)
+            k, ncomp = len(idxs), len(layout.components)
+            buckets.append(_Bucket(layout, idxs,
+                                   [place((k, bh, bw, 64), 2) for (_, _, bw, bh) in layout.components],
+                                   place((k, ncomp, 64), 4), place((k,), 8)))
+        arena = arena_for(name, total)
+        host = arena.numpy()
+
+        def view(spec, dtype):
+            offset, shape = spec
+            return host[offset:offset + int(np.prod(shape)) * np.dtype(dtype).itemsize
+                        ].view(dtype).reshape(shape)
+
+        for b in buckets:
+            for c, spec in enumerate(b.planes):
+                np.stack([cells[i][0][c] for i in b.cells], out=view(spec, np.int16))
+            view(b.qtabs, np.int32)[...] = np.stack([cells[i][1] for i in b.cells])
+            view(b.rows, np.int64)[...] = [rows[i] for i in b.cells]
+        self._mixed_decode_s += time.perf_counter() - t0
+        return arena, buckets
+
+    def _decode_mixed(self, name: str, arena: torch.Tensor,
+                      buckets: List[_Bucket]) -> torch.Tensor:
+        """A unit's mixed-geometry images from its staged arena: B2 once a
+        bucket (the plain version on the CPU), each bucket's images written
+        into their rows of a zeroed ``(*lead, *target)`` tensor, cropped to
+        the target and grayscale repeated to its channels, so padding and
+        missing rows stay zero (``jax/loader.py:1297-1338``)."""
+        t0 = time.perf_counter()
+        target = self._mixed_targets[name]
+        out = torch.zeros((int(np.prod(self._lead)),) + target, dtype=torch.uint8,
+                          device=arena.device)
+        for b in buckets:
+            layout = b.layout
+            planes = [_arena_view(arena, spec, torch.int16) for spec in b.planes]
+            image = decode_from_layout(planes, _arena_view(arena, b.qtabs, torch.int32), layout)
+            self._mixed_buckets += 1
+            channels = 3 if image.dim() == 4 else 1
+            if len(target) == 3:
+                if image.dim() == 3:
+                    image = image[..., None]
+                if channels != target[2] and channels != 1:
+                    raise PetastormTpuError(
+                        f"field {name!r}: a stored jpeg decodes to {channels}-channel images"
+                        f" but the target {target} wants {target[2]} channel(s); declare a"
+                        " (H, W, 3) shape/target or store grayscale jpegs")
+            elif channels != 1:
+                raise PetastormTpuError(
+                    f"field {name!r}: stored jpeg decodes to {channels}-channel images but"
+                    f" the target {target} is 2-D; declare a (H, W, C) shape/target")
+            h, w = min(layout.height, target[0]), min(layout.width, target[1])
+            # the crop, the channel repeat (a broadcast) and the scatter back
+            # to row order in one indexed write
+            out[_arena_view(arena, b.rows, torch.int64), :h, :w] = image[:, :h, :w]
+        self._mixed_decode_s += time.perf_counter() - t0
+        return out.view(self._lead + target)
+
+    def _check_declared_geometry(self, name: str, layout: JpegCoefLayout) -> None:
+        """Warn once a geometry when a batch holds an image geometry missing
+        from the dataset's stamped contract (``jax/loader.py:1340``), keyed
+        ``(h, w, channels)``: the set of geometries, and so of B2 launches a
+        unit, is then no longer bounded by the declared set."""
+        shapes = self._declared_geometries.get(name)
+        if not shapes:
+            return  # no contract stamped (a dataset written by another tool)
+        hwc = {(s[0], s[1], s[2] if len(s) > 2 else 1) for s in shapes}
+        seen = (layout.height, layout.width, len(layout.components))
+        key = (name,) + seen
+        if seen not in hwc and key not in self._geom_warned:
+            self._geom_warned.add(key)
+            logger.warning(
+                "field %r: jpeg geometry %s (h, w, channels) is not in the dataset's"
+                " declared geometry contract %s - the launches a unit are no longer bounded"
+                " by the declared set; re-stamp it (generate_metadata --scan-geometries)"
+                " after changing the dataset", name, seen, sorted(hwc))
 
     def _slot(self, layout: Dict[str, Tuple[tuple, np.dtype]]) -> _Slot:
         """The next staging slot of this layout's ring (made at its first
@@ -672,12 +877,15 @@ class CudaDataLoader:
         if self._cuda:
             slot = self._slot(layout)
             self._fill(slot.host, group)
+            packed = {name: self._pack_mixed(name, group, slot.arena) for name in item.mixed}
             with torch.cuda.device(self._device), torch.cuda.stream(self._copy_stream):
                 staged = {name: host.to(self._device, non_blocking=True)
                           for name, host in slot.host.items()}
+                mixed = {name: (arena.to(self._device, non_blocking=True), buckets)
+                         for name, (arena, buckets) in packed.items()}
                 # the decode and the device shuffle run on the copy stream,
                 # after the copy and before the event the consumer waits on
-                batch = self._shuffle_on_device(self._finish(staged, item), item)
+                batch = self._shuffle_on_device(self._finish(staged, item, mixed), item)
                 slot.copied = torch.cuda.Event()
                 slot.copied.record(self._copy_stream)
             copied = slot.copied
@@ -685,7 +893,10 @@ class CudaDataLoader:
             staged = {name: torch.empty(self._lead + shape, dtype=_torch_dtype(dt))
                       for name, (shape, dt) in layout.items()}
             self._fill(staged, group)
-            batch = self._shuffle_on_device(self._finish(staged, item), item)
+            mixed = {name: self._pack_mixed(name, group,
+                                            lambda _, n: torch.empty(n, dtype=torch.uint8))
+                     for name in item.mixed}
+            batch = self._shuffle_on_device(self._finish(staged, item, mixed), item)
             copied = None
         if batch is None:
             return None  # the device buffer took the batch and emitted none
@@ -838,6 +1049,14 @@ class CudaDataLoader:
                "transfer_s": self._transfer_s}
         if self._stack > 1:
             out["stack_batches"] = self._stack
+        if self._mixed_geometries:
+            out["mixed_decode_geometries"] = {
+                name: len(keys) for name, keys in self._mixed_geometries.items()}
+            out["mixed_buckets"] = self._mixed_buckets
+            out["mixed_decode_s"] = self._mixed_decode_s
+            if self._declared_geometries:
+                out["declared_geometries"] = {
+                    name: len(shapes) for name, shapes in self._declared_geometries.items()}
         reader_diag = getattr(self._reader, "diagnostics", None)
         if isinstance(reader_diag, dict) and reader_diag.get("skipped_rowgroups"):
             # a feed degraded under an on_error skip policy shows it here
@@ -930,7 +1149,8 @@ class CudaDataLoader:
             elif name == self._valid_mask:
                 trailing, dtype = (), torch.float32
             elif name in self._decode_fields:
-                trailing, dtype = tuple(self._schema[name].shape), torch.uint8
+                trailing = self._mixed_targets.get(name, tuple(self._schema[name].shape))
+                dtype = torch.uint8
             else:
                 if self._transform_fn is not None:
                     raise PetastormTpuError(

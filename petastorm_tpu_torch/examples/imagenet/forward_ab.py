@@ -41,10 +41,14 @@ def _cast_per_call(conv: _Conv, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight.to(dtype)
 
 
+def _bn_explicit(bn: BatchNorm, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    return bn.explicit(x)
+
+
 VARIANTS = {
     "cast_per_call": (_cast_per_call, BatchNorm.forward),
     "cast_cached": (_Conv._kernel, BatchNorm.forward),
-    "bn_explicit": (_cast_per_call, BatchNorm.explicit),
+    "bn_explicit": (_cast_per_call, _bn_explicit),
 }
 
 

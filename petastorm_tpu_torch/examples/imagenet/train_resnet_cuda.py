@@ -1,7 +1,12 @@
 """ImageNet-style ResNet-50 training fed by the port, on one CUDA GPU.
 
-Port of ``examples/imagenet/train_resnet_tpu.py`` (``generate_dataset`` and
-``train``) for its ``input_pipeline='petastorm'`` configuration, with
+Port of ``examples/imagenet/train_resnet_tpu.py`` (``generate_dataset``,
+``build_tfrecord``, ``TfdataDeviceFeed`` and ``train``).  The
+``input_pipeline='tfdata'`` comparator (``--input tfdata``) re-packs the
+dataset's stored JPEGs as a TFRecord and feeds the same step from
+``tf.data`` (``decode_jpeg`` on the host, a background copy to the card);
+it needs tensorflow, imported only then, and raises ``ImportError``
+without it.  The ``input_pipeline='petastorm'`` configuration runs with
 ``cache='null'``, ``'memory'`` or ``'local-disk'`` (the reader's
 ``cache_type``: epochs after the first skip the Parquet read and the host
 half of the decode), with ``decode='device'`` (the default, as there) or
@@ -35,7 +40,10 @@ petastorm_tpu_torch.examples.imagenet.train_resnet_cuda --help``.
 from __future__ import annotations
 
 import argparse
+import os
+import queue
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -72,6 +80,119 @@ def generate_dataset(url: str, rows: int, side: int, seed: int = 0) -> None:
 
     write_dataset(url, imagenet_schema(side), (row(i) for i in range(rows)),
                   row_group_size_rows=max(rows // 8, 1), mode="overwrite")
+
+
+def _tensorflow():
+    """tensorflow, imported at the comparator's first use; a clear
+    ``ImportError`` where it is not installed (no switch to petastorm)."""
+    try:
+        import tensorflow as tf
+    except ImportError as exc:
+        raise ImportError("input_pipeline='tfdata' (--input tfdata) needs tensorflow, which is"
+                          " not installed here; use input_pipeline='petastorm'") from exc
+    return tf
+
+
+def build_tfrecord(dataset_url: str, tfr_path: str) -> None:
+    """The dataset's stored JPEG bytes and labels as one TFRecord of
+    ``tf.train.Example`` records, in the order pyarrow lists the Parquet
+    files and rows (``train_resnet_tpu.py:58-80``): tf.data's native format,
+    the same bytes and the same decode work.  Written to a temporary name
+    and renamed, so an interrupted build leaves no truncated file behind."""
+    import pyarrow.dataset as pads
+
+    tf = _tensorflow()
+    table = pads.dataset(dataset_url, format="parquet").to_table(columns=["label", "image"])
+    tmp_path = tfr_path + ".tmp"
+    with tf.io.TFRecordWriter(tmp_path) as writer:
+        for image, label in zip(table.column("image").to_pylist(),
+                                table.column("label").to_pylist()):
+            example = tf.train.Example(features=tf.train.Features(feature={
+                "image": tf.train.Feature(bytes_list=tf.train.BytesList(value=[image])),
+                "label": tf.train.Feature(int64_list=tf.train.Int64List(value=[int(label)]))}))
+            writer.write(example.SerializeToString())
+    os.replace(tmp_path, tfr_path)
+
+
+class TfdataDeviceFeed:
+    """The tf.data comparator (``train_resnet_tpu.py:83-160``): TFRecord ->
+    ``decode_jpeg`` -> batch -> ``prefetch(AUTOTUNE)``, and a producer thread
+    that copies each batch to ``device`` and waits for the copy, ``prefetch``
+    batches ahead, so both pipelines overlap the copies with the step.
+
+    ``next()`` gives ``{'image': uint8 (B, H, W, 3), 'label': int64 (B,)}``
+    tensors on ``device``; ``consumer_wait_s`` sums the seconds the consumer
+    waited for one.  The producer's failure is raised from ``next()``.
+    """
+
+    def __init__(self, tfr_path: str, global_batch: int, prefetch: int, device):
+        tf = _tensorflow()
+        feature = {"image": tf.io.FixedLenFeature([], tf.string),
+                   "label": tf.io.FixedLenFeature([], tf.int64)}
+
+        def parse(raw):
+            example = tf.io.parse_single_example(raw, feature)
+            return tf.io.decode_jpeg(example["image"], channels=3), example["label"]
+
+        dataset = (tf.data.TFRecordDataset(tfr_path).repeat()
+                   .map(parse, num_parallel_calls=tf.data.AUTOTUNE, deterministic=False)
+                   .batch(global_batch, drop_remainder=True)
+                   .prefetch(tf.data.AUTOTUNE))
+        self._it = dataset.as_numpy_iterator()
+        self._device = resolve_device(device)
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        self._stop = threading.Event()
+        self.consumer_wait_s = 0.0
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="tfdata-device-feed")
+        self._thread.start()
+
+    def _put(self, value) -> None:
+        while not self._stop.is_set():
+            try:
+                self._q.put(value, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _produce(self) -> None:
+        cuda = self._device.type == "cuda"
+        stream = torch.cuda.Stream(self._device) if cuda else None
+        try:
+            while not self._stop.is_set():
+                image, label = next(self._it)
+                # tf.data hands out read-only arrays: a writable copy where needed
+                batch = {"image": torch.from_numpy(np.require(image, requirements="W")),
+                         "label": torch.from_numpy(np.require(label, requirements="W"))}
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        batch = {k: v.pin_memory().to(self._device, non_blocking=True)
+                                 for k, v in batch.items()}
+                    stream.synchronize()  # the copy completes on this thread
+                self._put(batch)
+        except BaseException as exc:  # noqa: BLE001 - raised again in __next__
+            self._put(("__error__", exc))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        t0 = time.perf_counter()
+        batch = self._q.get()
+        self.consumer_wait_s += time.perf_counter() - t0
+        if isinstance(batch, tuple):
+            raise RuntimeError("tf.data feed producer failed") from batch[1]
+        if self._device.type == "cuda":
+            for tensor in batch.values():  # made on the producer's stream
+                tensor.record_stream(torch.cuda.current_stream(self._device))
+        return batch
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -307,12 +428,13 @@ def _sync(device: torch.device) -> None:
 
 
 DECODES = ("host", "device")
+INPUTS = ("petastorm", "tfdata")
 
 
 def train(dataset_url: str, steps: int, global_batch: int, side: int,
           num_classes: int = 1000, decode: str = "device", workers: int = 4,
           prefetch: int = 2, device="cuda", scan_steps: int = 1,
-          cache: str = "null") -> Dict:
+          cache: str = "null", input_pipeline: str = "petastorm") -> Dict:
     """Run one warm-up unit and ``steps`` timed ResNet-50 training steps fed
     by the loader; returns samples/s, the input-wait share of the timed
     window (``device_idle_pct``), the stall against a rerun of as many units
@@ -324,9 +446,16 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
     ``scan_steps=K``: a unit is a stack of K batches run by :class:`ScanStep`
     (a CUDA graph of K steps on the card); ``steps`` rounds up to whole units
     and ``flops_per_sample`` comes from a single eager step of the warm-up
-    (``train_resnet_tpu.py:386-391``)."""
+    (``train_resnet_tpu.py:386-391``).
+    ``input_pipeline='tfdata'``: the same stored JPEGs through
+    :class:`TfdataDeviceFeed` into the same step (``decode`` and ``cache``
+    do not apply; the result says ``decode='tfdata-host'``); under
+    ``scan_steps=K`` each unit stacks K tf.data batches on the card
+    (``train_resnet_tpu.py:270-280``)."""
     if decode not in DECODES:
         raise ValueError(f"decode must be one of {DECODES}, got {decode!r}")
+    if input_pipeline not in INPUTS:
+        raise ValueError(f"input_pipeline must be one of {INPUTS}, got {input_pipeline!r}")
     if scan_steps < 1:
         raise ValueError("scan_steps must be >= 1")
     device = resolve_device(device)
@@ -336,17 +465,39 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         model = model.to(memory_format=torch.channels_last)
     step = TrainStep(model, num_classes, side,
                      generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED))
-    reader = make_reader(dataset_url, num_epochs=None, workers_count=workers,
-                         decode_placement={"image": decode}, cache_type=cache)
+    reader = None
+    if input_pipeline == "tfdata":
+        tfr = dataset_url.rstrip("/") + ".tfrecord"
+        if not os.path.exists(tfr):
+            build_tfrecord(dataset_url, tfr)
+        feed = TfdataDeviceFeed(tfr, global_batch, prefetch, device)
+        decode = "tfdata-host"
+    else:
+        reader = make_reader(dataset_url, num_epochs=None, workers_count=workers,
+                             decode_placement={"image": decode}, cache_type=cache)
+        feed = CudaDataLoader(reader, batch_size=global_batch, device=device,
+                              prefetch=prefetch, stack_batches=scan_steps)
     if scan_steps > 1:
         scan = ScanStep(step, scan_steps)
         run_unit = lambda unit: scan(unit["image"], unit["label"])[-1]  # noqa: E731
     else:
         run_unit = lambda unit: step(unit["image"], unit["label"])  # noqa: E731
-    with CudaDataLoader(reader, batch_size=global_batch, device=device,
-                        prefetch=prefetch, stack_batches=scan_steps) as feed:
+
+    def consumer_wait() -> float:
+        return (feed.consumer_wait_s if reader is None
+                else feed.diagnostics()["consumer_wait_s"])
+
+    with feed:
         it = iter(feed)
-        first = next(it)
+
+        def pull_unit():
+            if scan_steps <= 1 or reader is not None:
+                return next(it)  # the loader stacks K batches itself (stack_batches=K)
+            # tf.data has no stacked delivery: K batches and a stack on the card
+            batches = [next(it) for _ in range(scan_steps)]
+            return {name: torch.stack([b[name] for b in batches]) for name in ("image", "label")}
+
+        first = pull_unit()
         # warm-up (cuDNN set-up, kernel builds, the graph's capture), and the
         # FLOP count of one eager step
         if scan_steps > 1:
@@ -355,24 +506,24 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         else:
             flops_per_step, loss = count_flops(step, first["image"], first["label"])
         _sync(device)
-        wait0 = feed.diagnostics()["consumer_wait_s"]
+        wait0 = consumer_wait()
         done, units = 0, 0
         t0 = time.perf_counter()
         while done < steps:
-            loss = run_unit(next(it))
+            loss = run_unit(pull_unit())
             done += scan_steps
             units += 1
         _sync(device)
         dt = time.perf_counter() - t0
-        input_wait_s = feed.diagnostics()["consumer_wait_s"] - wait0
+        input_wait_s = consumer_wait() - wait0
         # compute floor: as many units on one resident unit, no input inside the loop
-        resident = next(it)
+        resident = pull_unit()
         t1 = time.perf_counter()
         for _ in range(units):
             run_unit(resident)
         _sync(device)
         compute_dt = time.perf_counter() - t1
-        diagnostics = feed.diagnostics()
+        diagnostics = feed.diagnostics() if reader is not None else {}
     return {
         "samples_per_sec": done * global_batch / dt,
         "device_idle_pct": 100.0 * input_wait_s / dt,
@@ -386,8 +537,9 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         "scan_steps": scan_steps,
         "global_batch": global_batch,
         "decode": decode,
+        "input": input_pipeline,
         "cache": cache,
-        "cache_stats": reader.cache_stats(),
+        "cache_stats": reader.cache_stats() if reader is not None else None,
         "wall_s": dt,
         "final_loss": float(loss),
         "diagnostics": diagnostics,
@@ -409,6 +561,9 @@ if __name__ == "__main__":
     parser.add_argument("--cache", choices=("null", "memory", "local-disk"), default="null",
                         help="the reader's cache_type: warm epochs skip the Parquet read and"
                              " the host decode")
+    parser.add_argument("--input", choices=INPUTS, default="petastorm",
+                        help="tfdata = the comparator: the same JPEGs as a TFRecord through"
+                             " tf.data into the same step (needs tensorflow)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--scan-steps", type=int, default=1,
                         help="training steps per unit: a CUDA graph of K steps replayed per"
@@ -421,8 +576,9 @@ if __name__ == "__main__":
         generate_dataset(url, args.rows, args.side)
     m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
               decode=args.decode, workers=args.workers, prefetch=args.prefetch,
-              device=args.device, scan_steps=args.scan_steps, cache=args.cache)
+              device=args.device, scan_steps=args.scan_steps, cache=args.cache,
+              input_pipeline=args.input)
     print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
-          f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']} (decode"
+          f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']} ({m['input']}, decode"
           f" {m['decode']}, cache {m['cache']}, {m['scan_steps']} steps a unit), input wait"
           f" {m['device_idle_pct']:.1f}% of the window, final loss {m['final_loss']:.4f}")

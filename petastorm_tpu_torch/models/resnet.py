@@ -3,7 +3,9 @@
 Counterpart of ``petastorm_tpu/models/resnet.py:18-73``: bottleneck ResNet
 v1.5 (the stride sits in the 3x3 conv), the head ``Linear`` in float32, and
 BatchNorm with the running statistics (flax's ``use_running_average=True``,
-the mode of the JAX training step, which does not pass ``train=True``).  The
+the mode of the JAX training step, which does not pass ``train=True``), or,
+with ``forward(images, train=True)``, with the batch's statistics and the
+running ones updated (flax's ``use_running_average=False, momentum=0.9``).  The
 public call takes NHWC input, as the flax model does; inside, an NHWC tensor
 permuted to NCHW is already in ``channels_last`` memory order, which cuDNN
 prefers.
@@ -38,6 +40,7 @@ from torch import nn
 from petastorm_tpu_torch.device import resolve_device
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9
 
 
 def _same_pad(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
@@ -92,6 +95,13 @@ class BatchNorm(nn.Module):
     statistics).  Without it, one ``F.batch_norm`` kernel computes the same
     float32 formula in one pass (its rounding differs in the last float32
     bit), which keeps the inference feed as fast as a stock BatchNorm.
+
+    ``forward(x, train=True)`` is flax's ``use_running_average=False``: the
+    formula on the batch's float32 mean and biased variance over N, H and W
+    (flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, not
+    ``nn.BatchNorm2d``'s), and the running statistics updated in place to
+    ``momentum * running + (1 - momentum) * batch`` (flax's mutable
+    ``batch_stats``), outside autograd.
     """
 
     def __init__(self, channels: int, eps: float = _BN_EPS):
@@ -108,7 +118,9 @@ class BatchNorm(nn.Module):
                                 (self.var, 1.0)):
                 leaf.fill_(value)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            return self.batch_statistics_forward(x)
         if not torch.is_grad_enabled():
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0,
                                 self.eps)
@@ -116,11 +128,27 @@ class BatchNorm(nn.Module):
 
     def explicit(self, x: torch.Tensor) -> torch.Tensor:
         """flax's formula as float32 torch ops, differentiable in all four leaves."""
+        return self._normalize(x, self.mean, self.var)
+
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
         per_channel = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = torch.addcmul(self.bias.view(per_channel), x - self.mean.view(per_channel),
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = torch.addcmul(self.bias.view(per_channel), x - mean.view(per_channel),
                           mul.view(per_channel))
         return y.to(x.dtype)
+
+    def batch_statistics_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The formula on the batch's statistics (``flax.linen.normalization.
+        _compute_stats``: float32, the fast variance clipped at 0), then the
+        running statistics' update in place."""
+        dims = (0,) + tuple(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.mean.copy_(_BN_MOMENTUM * self.mean + (1 - _BN_MOMENTUM) * mean)
+            self.var.copy_(_BN_MOMENTUM * self.var + (1 - _BN_MOMENTUM) * var)
+        return self._normalize(x, mean, var)
 
 
 class BottleneckBlock(nn.Module):
@@ -138,11 +166,11 @@ class BottleneckBlock(nn.Module):
         else:
             self.conv_proj = self.norm_proj = None
 
-    def forward(self, x):
-        y = F.relu(self.bn0(self.conv0(x)))
-        y = F.relu(self.bn1(self.conv1(y)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.conv_proj is None else self.norm_proj(self.conv_proj(x))
+    def forward(self, x, train: bool = False):
+        y = F.relu(self.bn0(self.conv0(x), train))
+        y = F.relu(self.bn1(self.conv1(y), train))
+        y = self.bn2(self.conv2(y), train)
+        residual = x if self.conv_proj is None else self.norm_proj(self.conv_proj(x), train)
         return F.relu(residual + y)
 
 
@@ -198,11 +226,15 @@ class ResNet(nn.Module):
         for block in self.blocks:
             block.bn2.scale.zero_()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Logits of NHWC ``images``; ``train=True`` normalizes with each
+        batch's statistics and updates every BatchNorm's running ones (flax's
+        ``apply(..., train=True, mutable=['batch_stats'])``)."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW, channels_last
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = F.relu(self.bn_init(self.conv_init(x), train))
         x = F.max_pool2d(_same_pad(x, 3, 2, float("-inf")), 3, 2)
-        x = self.blocks(x)
+        for block in self.blocks:
+            x = block(x, train)
         x = x.mean(dim=(2, 3))
         return self.dense(x.float())
 

@@ -9,7 +9,8 @@ The port's own copy of ``petastorm_tpu/native/image.py``:
 - the entropy half of the hybrid JPEG decode (``_column_pointers`` ``:145``,
   ``JpegCoefLayout`` ``:247``, ``jpeg_coef_layout`` ``:268``,
   ``read_jpeg_coefficients`` ``:291``, ``pack_coef_columns`` ``:338``,
-  ``_diagnose_coef_failure`` ``:379``, ``unpack_coef_columns`` ``:461``,
+  ``_diagnose_coef_failure`` ``:379``, ``pack_coef_columns_mixed`` ``:414``,
+  ``unpack_coef_columns`` ``:461``,
   ``read_jpeg_coefficients_column`` ``:482``) over ``jpeg_coef.cpp``:
   only libjpeg's entropy decoder runs here, and kernel B2
   (``ops/jpeg.py``) finishes the decode on the card;
@@ -364,7 +365,8 @@ def pack_coef_columns(name: str, column, field=None, nthreads: int = 1) -> dict:
 _MIXED_GEOMETRY_GUIDANCE = (
     "decode_placement='device' requires every stored jpeg to share one geometry and"
     " subsampling (the card decodes a batch of one geometry in one launch)."
-    " Re-encode the images uniformly, or use decode_placement='host'")
+    " Use decode_placement='device-mixed' (one launch a geometry bucket), re-encode"
+    " the images uniformly, or use decode_placement='host'")
 
 
 def _diagnose_coef_failure(column, exc) -> str:
@@ -383,6 +385,53 @@ def _diagnose_coef_failure(column, exc) -> str:
             return f"cell {i} has geometry {lay} but cell 0 has {first}: {_MIXED_GEOMETRY_GUIDANCE}"
     # headers parse and agree: corruption inside the entropy-coded data
     return f"{exc}. If the dataset mixes jpeg geometries: {_MIXED_GEOMETRY_GUIDANCE}."
+
+
+#: suffix of the mixed-geometry wire column (``decode_placement='device-mixed'``):
+#: one object cell a row, ``(per-component plane tuple, qtab (ncomp, 64),
+#: layout-meta int32 vector)``.  Object columns ride batching and the shuffle
+#: buffer like any other.
+MIXED_CELL_SUFFIX = "x"
+
+
+def pack_coef_columns_mixed(name: str, column, field=None, nthreads: int = 1) -> dict:
+    """Entropy-decode a jpeg column of mixed geometries into one object column
+    (``petastorm_tpu/native/image.py:414``).
+
+    Worker side of ``decode_placement='device-mixed'``: the cells are grouped
+    by coefficient-plane geometry (a header parse each), every group is
+    entropy-decoded in one GIL-released C call, and every row becomes one
+    object cell ``(planes, qtab, meta)``.  The loader groups the assembled
+    batch by geometry again and runs kernel B2 once a geometry bucket.  A
+    fixed-shape schema field must match every stored geometry; declare
+    wildcard dims (``(None, None, 3)``) for a mixed dataset.
+    """
+    cells = list(column) if isinstance(column, (list, tuple)) else column.to_pylist()
+    if not cells:
+        raise CodecError(f"field {name!r}: empty jpeg column")
+    groups: dict = {}
+    for i, buf in enumerate(cells):
+        try:
+            layout = jpeg_coef_layout(bytes(buf))
+        except CodecError as exc:
+            raise CodecError(
+                f"decode_placement='device-mixed' field {name!r}: cell {i} is not a"
+                f" decodable jpeg (corrupt or truncated stream): {exc}") from exc
+        if field is not None and field.is_fixed_shape and (
+                layout.height, layout.width) != tuple(field.shape[:2]):
+            raise CodecError(
+                f"field {name!r}: stored jpeg is {layout.height}x{layout.width}, schema says"
+                f" {tuple(field.shape[:2])}; declare wildcard dims (None, None, ...) for"
+                " mixed-geometry datasets")
+        groups.setdefault(_layout_meta(layout).tobytes(), []).append(i)
+    out = np.empty(len(cells), dtype=object)
+    for key, idxs in groups.items():
+        planes, qtabs, _ = read_jpeg_coefficients_column([cells[i] for i in idxs],
+                                                         nthreads=nthreads)
+        meta = np.frombuffer(key, dtype=np.int32)
+        for j, i in enumerate(idxs):
+            out[i] = (tuple(p[j] for p in planes), qtabs[j], meta)
+    return {f"{name}{COEF_COLUMN_SEP}{MIXED_CELL_SUFFIX}": out}
 
 
 def coef_layout(name: str, meta_col: np.ndarray) -> JpegCoefLayout:

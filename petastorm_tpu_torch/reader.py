@@ -6,9 +6,10 @@ ImageNet feed uses: field selection, the thread or serial pool, rowgroup
 shuffling by seed, epochs and static sharding.  Delivery follows the read
 plan's order with either pool, as the JAX reader does when it is given a
 ``shuffle_seed``; ``deterministic`` takes the JAX reader's three values and
-``'off'`` keeps the plan order too (one of the orders ``'off'`` allows).  ``decode_placement`` takes ``'host'`` and ``'device'``
-(the hybrid JPEG decode: entropy decode in the pool workers, the rest on the
-card in the loader).  Host decode of image columns is the batched native
+``'off'`` keeps the plan order too (one of the orders ``'off'`` allows).  ``decode_placement`` takes ``'host'``, ``'device'``
+and ``'device-mixed'`` (the hybrid JPEG decode: entropy decode in the pool
+workers, the rest on the card in the loader; one geometry, or a bucket a
+geometry).  Host decode of image columns is the batched native
 decode, fanned out over ``decode_threads`` and cropped by ``decode_roi``
 (``petastorm_tpu/reader.py:740-802``, ``:966-1049``).  Rows are chosen
 and reshaped as the JAX reader chooses them (``:73-108``, ``:374-398``):
@@ -38,9 +39,9 @@ the digest at its plan position, and held to the policy's budgets.  A
 dataset is a directory (hive partitions included) or, for
 ``make_batch_reader``, a list of URLs; a predicate over partition keys alone
 is pushed down to the partitions (``:659-681``).  The shared cache tier,
-the ``'device-mixed'`` and ``'auto'`` placements, telemetry, chaos
-injection, liveness and the ingest service are not part of this package yet
-(ROADMAP.md queue A items 8 and 11).
+the ``'auto'`` placement, telemetry, chaos injection, liveness and the
+ingest service are not part of this package yet (ROADMAP.md queue A item
+11).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Iterator, List, Mapping, Optional, Sequence, Union
+from typing import FrozenSet, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -109,10 +110,15 @@ def make_reader(dataset_url: str,
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
 
-    ``decode_placement``: field -> ``'host'`` or ``'device'``.  A ``'device'``
-    field (a fixed-shape JPEG image) is entropy-decoded in the workers and
-    finished on the card by ``cuda.CudaDataLoader``; such a reader is
-    consumed through that loader only.
+    ``decode_placement``: field -> ``'host'``, ``'device'`` or
+    ``'device-mixed'``.  A ``'device'`` field (a fixed-shape JPEG image of
+    one geometry) is entropy-decoded in the workers and finished on the card
+    by ``cuda.CudaDataLoader``; such a reader is consumed through that loader
+    only.  A ``'device-mixed'`` field may mix JPEG sizes and subsamplings and
+    may declare wildcard dims (``(None, None, 3)``): its rows travel as
+    object cells (``native.image.pack_coef_columns_mixed``) and the loader
+    decodes each geometry bucket of a batch in one B2 launch and fits it to
+    one target shape (the schema's, else one ``pad_shapes`` entry).
 
     ``deterministic``: ``'seed'``, ``'off'`` or ``'auto'`` (``'seed'`` when a
     ``shuffle_seed`` is given).  Under ``'seed'`` an unseeded loader shuffle
@@ -266,16 +272,23 @@ def elastic_resume(states: Sequence[dict]) -> dict:
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
                                read_fields: Sequence[str], transform_spec=None,
-                               predicate=None, ngram=None) -> List[str]:
-    """The fields to decode on the device; raises on a placement the port
-    does not take.  The checks of ``petastorm_tpu/reader.py:1052-1140`` that
-    apply to ``'host'`` and ``'device'``."""
+                               predicate=None, ngram=None) -> Tuple[List[str], FrozenSet[str]]:
+    """The fields to decode on the device and the subset of them in the
+    mixed-geometry format (``'device-mixed'``); raises on a placement the
+    port does not take.  The checks of ``petastorm_tpu/reader.py:1052-1145``
+    for ``'host'``, ``'device'`` and ``'device-mixed'``; ``'auto'`` (the live
+    host/device split) is not part of this package yet."""
     device_fields: List[str] = []
+    mixed_fields = set()
     for name, place in (decode_placement or {}).items():
-        if place not in ("host", "device"):
+        if place == "auto":
             raise PetastormTpuError(
-                f"decode_placement[{name!r}] must be 'host' or 'device', got {place!r}"
-                " ('device-mixed' and 'auto' are not part of this package yet)")
+                f"decode_placement[{name!r}]='auto' (the live host/device split) is not part"
+                " of this package yet: use 'host', 'device' or 'device-mixed'")
+        if place not in ("host", "device", "device-mixed"):
+            raise PetastormTpuError(
+                f"decode_placement[{name!r}] must be 'host', 'device' or 'device-mixed',"
+                f" got {place!r}")
         if name not in schema:
             raise PetastormTpuError(f"decode_placement field {name!r} not in"
                                     f" schema {list(schema.fields)}")
@@ -285,19 +298,20 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
         codec = field.codec
         if not (isinstance(codec, CompressedImageCodec) and codec.image_codec == "jpeg"):
             raise PetastormTpuError(
-                f"decode_placement='device' requires a jpeg CompressedImageCodec field;"
+                f"decode_placement={place!r} requires a jpeg CompressedImageCodec field;"
                 f" {name!r} has {type(codec).__name__}"
                 + (f"({codec.image_codec})" if isinstance(codec, CompressedImageCodec) else "")
                 + ". PNG's deflate stream cannot be entropy-split for decode on the"
                 " device - store images as jpeg for device decode.")
-        if not field.is_fixed_shape:
+        if place == "device" and not field.is_fixed_shape:
             raise PetastormTpuError(
                 f"decode_placement='device' field {name!r} needs a fixed shape (got"
-                f" {field.shape}): a batch is decoded in one launch of one geometry")
+                f" {field.shape}): a batch is decoded in one launch of one geometry. For"
+                " mixed-geometry datasets use decode_placement='device-mixed'")
         if len(field.shape) not in (2, 3) or (len(field.shape) == 3
                                               and field.shape[2] not in (1, 3)):
             raise PetastormTpuError(
-                f"decode_placement='device' field {name!r} must be (H, W), (H, W, 1) or"
+                f"decode_placement={place!r} field {name!r} must be (H, W), (H, W, 1) or"
                 f" (H, W, 3); got {field.shape}")
         if ngram is not None:
             raise PetastormTpuError(
@@ -315,14 +329,16 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
                 " Decode it on host, or predicate on other fields.")
         if name not in read_fields:
             raise PetastormTpuError(
-                f"decode_placement='device' field {name!r} is not being read (excluded by"
+                f"decode_placement={place!r} field {name!r} is not being read (excluded by"
                 " schema_fields); drop it from decode_placement or add it to schema_fields")
         device_fields.append(name)
+        if place == "device-mixed":
+            mixed_fields.add(name)
     if device_fields:
         # the entropy half's library: a missing g++ or libjpeg raises here,
         # not in the first worker
         native_image.load()
-    return device_fields
+    return device_fields, frozenset(mixed_fields)
 
 
 _ROI_MODES = ("center", "random")
@@ -479,8 +495,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         view = full_schema.view([n for n in required if n in full_schema])
         schema = ngram_schema
     read_fields = [f.name for f in view]
-    device_fields = _validate_decode_placement(decode_placement, full_schema, read_fields,
-                                               transform_spec, worker_predicate, ngram)
+    device_fields, mixed_fields = _validate_decode_placement(
+        decode_placement, full_schema, read_fields, transform_spec, worker_predicate, ngram)
     if any(native_decodable(full_schema[f]) for f in read_fields if f not in device_fields):
         # the batched decode's library: a missing g++, libjpeg or libpng
         # raises here, not in the first worker
@@ -542,7 +558,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                                  stop_on_failure=False,
                                  max_requeue_attempts=error_policy.max_requeue_attempts)))
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
-                                   decode_threads=decode_threads, decode_roi=decode_roi,
+                                   mixed_fields=mixed_fields, decode_threads=decode_threads, decode_roi=decode_roi,
                                    cache=cache, dataset_url=_url_key(dataset_url),
                                    predicate=worker_predicate, transform=transform_spec,
                                    transform_cache_info=tf_cache_info,
@@ -551,7 +567,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                   deterministic=deterministic, shuffle_seed=shuffle_seed,
                   start_item=start_item, digest_state=digest_state, ngram=ngram,
-                  error_policy=error_policy, declared_geometries=declared_geometries(info))
+                  error_policy=error_policy, declared_geometries=declared_geometries(info),
+                  device_decode_mixed=mixed_fields)
 
 
 def _url_key(url_or_urls) -> str:
@@ -607,7 +624,8 @@ class Reader:
                  shuffle_seed: Optional[int] = None, start_item: int = 0,
                  digest_state: Optional[dict] = None, ngram=None,
                  error_policy: Optional[ErrorPolicy] = None,
-                 declared_geometries: Optional[dict] = None):
+                 declared_geometries: Optional[dict] = None,
+                 device_decode_mixed: FrozenSet[str] = frozenset()):
         if start_item < 0:
             raise PetastormTpuError("start_item must be >= 0")
         self.schema = schema
@@ -637,6 +655,9 @@ class Reader:
         #: fields read with decode_placement='device': their batches carry
         #: coefficient planes, which only cuda.CudaDataLoader finishes
         self.device_decode_fields: List[str] = list(device_decode_fields)
+        #: the subset in the mixed-geometry object format ('device-mixed'),
+        #: decoded a geometry bucket at a time (``reader.py:900-901``)
+        self.device_decode_mixed: FrozenSet[str] = frozenset(device_decode_mixed)
         self._worker = worker
         #: cursor: the pool delivers in plan order, so the items consumed
         #: are exactly the prefix [0, start_item + consumed) of the stream
@@ -890,7 +911,7 @@ class Reader:
             # the workers shipped coefficient planes for these fields; yielding
             # here would hand out planes where the schema promises pixels
             raise PetastormTpuError(
-                f"fields {self.device_decode_fields} use decode_placement='device': their"
+                f"fields {self.device_decode_fields} use decode placement on the device: their"
                 " batches carry JPEG coefficient planes, not pixels. Consume this reader"
                 " through petastorm_tpu_torch.cuda.CudaDataLoader (which finishes the"
                 " decode on the device), or use decode_placement='host' for row access.")

@@ -99,7 +99,8 @@ class RowGroupDecoderWorker:
     thread calls the factory once."""
 
     def __init__(self, schema: Schema, read_fields: Sequence[str],
-                 device_decode_fields: Sequence[str] = (), decode_threads: int = 1,
+                 device_decode_fields: Sequence[str] = (), mixed_fields: Sequence[str] = (),
+                 decode_threads: int = 1,
                  decode_roi: Optional[Mapping[str, tuple]] = None,
                  cache: Optional[CacheBase] = None, dataset_url: str = "",
                  predicate=None, transform: Optional[transform_mod.TransformSpec] = None,
@@ -111,6 +112,9 @@ class RowGroupDecoderWorker:
         self._read_fields = list(read_fields)
         #: fields shipped as coefficient planes (decode_placement='device')
         self._device_decode_fields = frozenset(device_decode_fields)
+        #: the subset shipped as one object cell a row, any geometry
+        #: (decode_placement='device-mixed')
+        self._mixed_fields = frozenset(mixed_fields)
         #: fan-out of the native decode inside this worker (its share of the
         #: host's cores; the pool gives the parallelism between workers)
         self._decode_threads = max(1, int(decode_threads))
@@ -150,6 +154,8 @@ class RowGroupDecoderWorker:
         tag = (",".join(self._read_fields)
                # the stored form of a device-decode field is its coefficient planes
                + "|rawcoef1:" + ",".join(sorted(self._device_decode_fields))
+               # a mixed read stores object cells, a 'device' read plane columns
+               + "|mixedcoef1:" + ",".join(sorted(self._mixed_fields))
                + "|roi:" + repr(sorted((k, tuple(v)) for k, v in self._decode_roi.items()))
                # the key carries the transform's signature at either stage
                + "|tf:" + self._transform_signature
@@ -295,8 +301,9 @@ class RowGroupDecoderWorker:
                 field = self._schema[name]
                 chunk = table.column(name).combine_chunks()
                 if name in self._device_decode_fields:
-                    columns.update(native_image.pack_coef_columns(
-                        name, chunk, field, nthreads=self._decode_threads))
+                    pack = (native_image.pack_coef_columns_mixed if name in self._mixed_fields
+                            else native_image.pack_coef_columns)
+                    columns.update(pack(name, chunk, field, nthreads=self._decode_threads))
                 else:
                     with decode_options(nthreads=self._decode_threads,
                                         roi=self._roi_for(name, item, n)):

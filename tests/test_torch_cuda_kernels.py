@@ -1118,3 +1118,77 @@ def test_partitioned_read_with_pushdown_on_the_card(tmp_path):
         np.testing.assert_array_equal(c["mask"][:, 0, 0], c["label"].numpy() % 251)
         diff = (c["image"].int() - p["image"].int()).abs()
         assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_mixed_geometry_arena_decode_on_the_card_matches_the_plain_path(tmp_path):
+    """``decode_placement='device-mixed'`` at a small size: four geometries
+    (two 4:2:0 sizes, a 4:4:4 one and grayscale) in one (None, None, 3)
+    field, staged through the pinned arena and decoded by B2 a bucket on the
+    card, against the same loader on the CPU (B2's plain version on views of
+    an unpinned arena): the same rows in the same order, one B2 launch a
+    bucket, images within B2's bound, the pad region zero, grayscale rows
+    with three equal channels; then a stacked run (``stack_batches=2``)
+    equal to the flat one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import os
+
+    import cv2
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_batch_reader
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.etl.writer import stamp_dataset_metadata
+    from petastorm_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(7)
+    kinds = [((40, 56), None, False), ((56, 40), None, False),
+             ((48, 48), cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, False), ((40, 56), None, True)]
+    bufs, geometry = [], []
+    for i in range(96):
+        (h, w), sampling, gray = kinds[rng.integers(0, len(kinds))]
+        img = cv2.resize(rng.integers(0, 256, (5, 5, 3)).astype(np.float32), (w, h))
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+        params = [int(cv2.IMWRITE_JPEG_QUALITY), 90]
+        if sampling is not None:
+            params += [int(cv2.IMWRITE_JPEG_SAMPLING_FACTOR), int(sampling)]
+        bufs.append(cv2.imencode(".jpeg", img[..., 0] if gray else img, params)[1].tobytes())
+        geometry.append((h, w, gray))
+    schema = Schema("S", [Field("idx", np.int64),
+                          Field("image", np.uint8, (None, None, 3), CompressedImageCodec("jpeg"))])
+    path = str(tmp_path / "ds")
+    os.makedirs(path)
+    pq.write_table(pa.Table.from_pylist([{"idx": i, "image": b} for i, b in enumerate(bufs)],
+                                        schema=schema.as_arrow_schema()),
+                   os.path.join(path, "part-00000.parquet"), row_group_size=16)
+    stamp_dataset_metadata(path, schema)
+
+    def run(device, stack=1):
+        reader = make_batch_reader(path, workers_count=3, shuffle_seed=0,
+                                   decode_placement={"image": "device-mixed"})
+        with CudaDataLoader(reader, 16, device=device, pad_shapes={"image": (56, 56, 3)},
+                            stack_batches=stack) as loader:
+            units = [{k: v.cpu() for k, v in b.items()} for b in loader]
+            return units, loader.diagnostics()
+
+    before = jpeg.jpeg_decode_kernel.launches_tiled
+    card, diag = run("cuda")
+    assert jpeg.jpeg_decode_kernel.launches_tiled - before == diag["mixed_buckets"]
+    assert diag["mixed_decode_geometries"] == {"image": 4}
+    cpu, _ = run("cpu")
+    assert len(card) == len(cpu) == 6
+    for c, p in zip(card, cpu):
+        assert torch.equal(c["idx"], p["idx"])
+        diff = (c["image"].int() - p["image"].int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).double().mean().item() <= 1e-3
+        for i, img in zip(c["idx"].tolist(), c["image"]):
+            h, w, gray = geometry[i]
+            assert not img[h:].any() and not img[:, w:].any()
+            if gray:
+                assert torch.equal(img[..., 0], img[..., 1])
+                assert torch.equal(img[..., 0], img[..., 2])
+    stacked, _ = run("cuda", stack=2)
+    assert torch.equal(torch.cat([u["image"].flatten(0, 1) for u in stacked]),
+                       torch.cat([c["image"] for c in card]))

@@ -605,8 +605,10 @@ def test_loader_diagnostics_carry_the_ledger_like_jax(tmp_path):
         jdiag = jloader.diagnostics
     assert got == want and sorted(got) == _rows_without({3, 7})
     assert diag["skipped_rowgroups"] == jdiag["skipped_rowgroups"] == 2
+    # the JAX thread pool appends to its ledger as failures arrive; the
+    # port's is in plan order (ROADMAP.md section C)
     assert _same_names(diag["quarantined_rowgroups"]) == _same_names(
-        jdiag["quarantined_rowgroups"])
+        sorted(jdiag["quarantined_rowgroups"], key=lambda e: e["ordinal"]))
     clean = reader.make_batch_reader(url, **kwargs)
     with CudaDataLoader(clean, 4, device="cpu") as loader:
         list(loader)

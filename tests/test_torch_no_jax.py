@@ -67,5 +67,7 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/weighted_sampling.py",
                      "petastorm_tpu_torch/rebatch.py", "petastorm_tpu_torch/errors.py",
                      "petastorm_tpu_torch/etl/writer.py",
-                     "petastorm_tpu_torch/etl/generate_metadata.py"):
+                     "petastorm_tpu_torch/etl/generate_metadata.py",
+                     "petastorm_tpu_torch/converter.py", "petastorm_tpu_torch/cache.py",
+                     "petastorm_tpu_torch/examples/imagenet/forward_ab.py"):
         assert required in names

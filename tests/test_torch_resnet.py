@@ -180,3 +180,101 @@ def test_forward_ab_variants_agree_and_restore_the_model():
     # the explicit formula rounds its last float32 bit elsewhere: the module's bf16 bound
     tol = 0.02 * base.abs().max().item() + 0.01
     assert (got["bn_explicit"] - base).abs().max().item() <= tol
+
+
+#: ``train=True`` bounds, relative to the largest value compared.  The
+#: float32 convolutions sum in other orders in XLA and torch (2.6e-7 and
+#: 3.9e-7 of the largest logit in inference on these seeds); a BatchNorm on
+#: the batch's statistics divides each channel by the batch's own spread, and
+#: the backward through it subtracts the channel's mean gradient, so those
+#: differences grow: measured at most 1.8e-6 (logits), 2.2e-6 (running
+#: statistics) and 1.4e-5 (gradients) over two seeds.  Computing the
+#: statistics in float64 moved none of them, so they are not the sums of the
+#: statistics themselves.
+TRAIN_MODE_TOL, GRAD_TOL = 1e-5, 1e-4
+
+
+def _train_mode_pair(seed):
+    flax_model = FlaxResNet(stage_sizes=[1, 1], num_filters=8, num_classes=10,
+                            dtype=jnp.float32)
+    x = np.random.default_rng(seed).integers(0, 256, (6, 32, 32, 3)).astype(np.float32) / 64.0
+    variables = _randomized(flax_model.init(jax.random.PRNGKey(seed), jnp.asarray(x)), seed + 1)
+    model = ResNet([1, 1], num_classes=10, num_filters=8, dtype=torch.float32, device="cpu")
+    model.load_state_dict(resnet_state_from_flax(variables), strict=True)
+    return flax_model, variables, model, x
+
+
+def _flat(tree):
+    return {jax.tree_util.keystr(path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(jax.device_get(tree))}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_train_mode_batch_statistics_match_flax(seed):
+    """``forward(train=True)`` against flax's ``apply(..., train=True,
+    mutable=['batch_stats'])`` on the same converted float32 weights: the
+    logits and the updated running statistics within TRAIN_MODE_TOL of their
+    largest value, the gradient of every parameter within GRAD_TOL of its
+    largest (the statistics' own gradients are zero in flax and None in
+    torch: a train-mode forward does not read them); then ``train=False``
+    reads the updated statistics as flax does and updates nothing."""
+    from petastorm_tpu_torch.convert import flax_from_resnet_state
+
+    flax_model, variables, model, x = _train_mode_pair(seed)
+    cot = np.random.default_rng(seed + 5).standard_normal((6, 10)).astype(np.float32)
+
+    def loss(v):
+        logits, updated = flax_model.apply(v, jnp.asarray(x), train=True,
+                                           mutable=["batch_stats"])
+        return (logits * cot).sum(), (logits, updated)
+
+    (_, (want_logits, updated)), want_grads = jax.value_and_grad(loss, has_aux=True)(variables)
+    for stat in model.batch_stats():
+        stat.requires_grad_(True)
+    logits = model(torch.from_numpy(x), train=True)
+    (logits * torch.from_numpy(cot)).sum().backward()
+
+    def close(got, want, name, tol=TRAIN_MODE_TOL):
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max(),
+                                   err_msg=name)
+
+    close(logits.detach().numpy(), np.asarray(want_logits), "logits")
+    got_stats = _flat({"batch_stats": flax_from_resnet_state(model.state_dict())["batch_stats"]})
+    want_stats = _flat({"batch_stats": updated["batch_stats"]})
+    assert got_stats.keys() == want_stats.keys() and got_stats
+    for name, want in want_stats.items():
+        close(got_stats[name], want, name)
+    grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+             for k, v in {**dict(model.named_parameters()),
+                          **dict(model.named_buffers())}.items()
+             if v.dtype == torch.float32}
+    got_grads = _flat(flax_from_resnet_state(grads))
+    want_grads = _flat(want_grads)
+    assert got_grads.keys() == want_grads.keys()
+    for name, want in want_grads.items():
+        if "batch_stats" in name:
+            assert not want.any() and not got_grads[name].any(), name
+        else:
+            close(got_grads[name], want, name, GRAD_TOL)
+
+    new_variables = {"params": variables["params"], "batch_stats": updated["batch_stats"]}
+    with torch.no_grad():
+        before = [t.clone() for t in model.batch_stats()]
+        eval_logits = model(torch.from_numpy(x))
+        assert all(torch.equal(a, b) for a, b in zip(before, model.batch_stats()))
+    want_eval = np.asarray(flax_model.apply(new_variables, jnp.asarray(x)))
+    np.testing.assert_allclose(eval_logits.numpy(), want_eval, rtol=1e-4, atol=1e-4)
+
+
+def test_train_mode_is_not_torch_batchnorm2d():
+    """The running variance moves by the batch's biased variance (flax), not
+    the unbiased one ``nn.BatchNorm2d`` keeps."""
+    from petastorm_tpu_torch.models.resnet import BatchNorm
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 4, 3, 3)).astype(np.float32))
+    bn = BatchNorm(4)
+    bn(x, train=True)
+    biased = x.permute(1, 0, 2, 3).reshape(4, -1).var(dim=1, unbiased=False)
+    np.testing.assert_allclose(bn.var.numpy(), (0.9 + 0.1 * biased).numpy(), rtol=1e-6)
+    np.testing.assert_allclose(bn.mean.numpy(), (0.1 * x.mean(dim=(0, 2, 3))).numpy(),
+                               rtol=1e-6, atol=1e-7)
