@@ -209,13 +209,38 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    ``TransformSpec`` in one native call a rowgroup: samples/s beside phase
    5's, the write's seconds, a second conversion of the table returning the
    same handle with no write, the labels and digest of the reader alone on
-   the CPU, the first batch equal to cv2's decode; then ``delete()``.
+   the CPU, the first batch equal to cv2's decode; then ``delete()``;
+23. the token feed: two token corpora (24,576 and 6,144 documents, int32
+   ``token_field`` in rowgroups of 512, lognormal lengths of median 512
+   tokens cut at 16,384, ids in GPT-2's [0, 50257); about 20 M tokens)
+   written in bulk, mixed 0.8 / 0.2 with ``seed=7`` and packed into
+   ``(8, 2048)`` blocks (``long_docs='split'``) by
+   ``sequence.make_packed_sequence_loader(..., device='cuda')`` with the
+   reader's default workers, run to exhaustion: tokens/s and rows/s
+   delivered to the card, the packer's fill rate, documents and splits, the
+   input-wait share, the write's seconds; every column on the card with its
+   dtype, and the ``packed_stream_digest`` of the delivered valid rows (copied
+   back) equal to a CPU run of ``iter_packed_blocks`` over the same mixture,
+   its packer's counts equal too; the CPU packing's and the mixed reader's
+   own tokens/s (documents decoded, nothing packed);
+24. the MNIST trainer: B1 at ``(32, 28, 28, 1)`` (one channel, 25 KB) against
+   its plain version within phase 3's bound, timed beside its bound; then
+   ``examples.mnist.train_mnist_cuda.train`` over 60,000 synthetic rows
+   (MNIST's training size), batch 32, one epoch: samples/s, the input-wait
+   share, B1 once a step and its plain version never, the epoch's accuracy
+   above 0.9; the step alone on a resident batch (ms a step, and its device
+   time by op from ``torch.profiler``); then the hello-world example (rows, batches, and a
+   ``CudaDataLoader`` feed on the card) and the preemption example on the
+   card (drain, ``checkpoint.save_checkpoint``, restore into fresh objects):
+   every row trained exactly once across the two incarnations.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
 without a CUDA GPU it exits non-zero at once.
 """
 
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -251,7 +276,11 @@ from petastorm_tpu_torch.errors import ErrorBudgetExceededError  # noqa: E402
 from petastorm_tpu_torch.etl.generate_metadata import generate_metadata  # noqa: E402
 from petastorm_tpu_torch.etl.metadata import open_dataset  # noqa: E402
 from petastorm_tpu_torch.etl.writer import materialize_dataset, stamp_dataset_metadata  # noqa: E402
+from petastorm_tpu_torch.examples.hello_world import generate_dataset as hello_generate  # noqa: E402
+from petastorm_tpu_torch.examples.hello_world import read_dataset as hello_read  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
+from petastorm_tpu_torch.examples.mnist import train_mnist_cuda as mnist  # noqa: E402
+from petastorm_tpu_torch.examples.preemption import train_with_preemption_cuda as preemption  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
 from petastorm_tpu_torch.ngram import NGram  # noqa: E402
 from petastorm_tpu_torch.native import build as native_build  # noqa: E402
@@ -260,6 +289,10 @@ from petastorm_tpu_torch.ops import augment, jpeg, normalize  # noqa: E402
 from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
+from petastorm_tpu_torch.sequence import (SequencePacker, iter_documents,  # noqa: E402
+                                          iter_packed_blocks, make_mixed_sequence_reader,
+                                          make_packed_sequence_loader, packed_stream_digest,
+                                          token_field)
 from petastorm_tpu_torch.transform import TransformSpec, transform_cache_info  # noqa: E402
 from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader  # noqa: E402
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker  # noqa: E402
@@ -280,6 +313,14 @@ MIX_ROWS, MIX_WEIGHTS, MIX_SEED = 2048, (0.75, 0.25), 17  # phase 17: the second
 CLIP_LEN, CLIPS_PER_GROUP, FRAME_GROUPS = 64, 4, 16      # phase 18: the frame dataset
 CLIP_GAP, NGRAM_LEN, NGRAM_BATCH = 1000, 4, 64           # phase 18: gaps, window, batch
 PARTITIONS, POISON_CELL = 4, 5  # phases 19-20: splits of phase 4's rows, the cut JPEG cell
+TOKEN_DOCS, TOKEN_GROUP = (24576, 6144), 512   # phase 23: documents a corpus, rowgroup rows
+TOKEN_WEIGHTS, TOKEN_SEED = (0.8, 0.2), 7         # phase 23: the mix and its one seed
+TOKEN_SEQ_LEN, TOKEN_BATCH = 2048, 8              # phase 23: packed rows and their batch
+TOKEN_MEDIAN, TOKEN_SIGMA, TOKEN_MAX = 512, 0.7, 16384  # phase 23: document lengths
+TOKEN_VOCAB = 50257                               # phase 23: GPT-2's vocabulary
+MNIST_ROWS, MNIST_BATCH = 60000, 32               # phase 24: MNIST's training size, batch
+MNIST_RESIDENT_STEPS = 500                        # phase 24: steps timed on a resident batch
+PREEMPT_ROWS = 512                                # phase 24: the preemption example's rows
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -3052,6 +3093,224 @@ def converter_train_phase(tmp, path, kernels, host):
           digest_matches_cpu_reader=True, first_batch_equals_cv2=True, deleted=True)
 
 
+def write_token_corpus(path, n_docs, seed):
+    """A token corpus written in bulk as one Parquet file: ``doc_id``,
+    ``n_tokens`` and an int32 ``token_field`` in rowgroups of TOKEN_GROUP,
+    lognormal lengths (median TOKEN_MEDIAN, cut at TOKEN_MAX), ids uniform in
+    [0, TOKEN_VOCAB).  Returns (tokens, documents longer than TOKEN_SEQ_LEN)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(TOKEN_MEDIAN), TOKEN_SIGMA, n_docs)),
+                      1, TOKEN_MAX).astype(np.int64)
+    offsets = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    tokens = rng.integers(0, TOKEN_VOCAB, int(offsets[-1]), dtype=np.int32)
+    schema = Schema("TokenCorpus", [Field("doc_id", np.int64), Field("n_tokens", np.int32),
+                                    token_field()])
+    table = pa.Table.from_arrays(
+        [pa.array(np.arange(n_docs, dtype=np.int64)), pa.array(lengths.astype(np.int32)),
+         pa.ListArray.from_arrays(pa.array(offsets.astype(np.int32)), pa.array(tokens))],
+        schema=schema.as_arrow_schema())
+    os.makedirs(path)
+    pq.write_table(table, os.path.join(path, "part-00000.parquet"), row_group_size=TOKEN_GROUP)
+    stamp_dataset_metadata(path, schema)
+    return int(offsets[-1]), int((lengths > TOKEN_SEQ_LEN).sum())
+
+
+def token_feed_phase(tmp):
+    """Phase 23: two token corpora mixed, packed and delivered to the card by
+    ``make_packed_sequence_loader`` to exhaustion; the delivered stream's
+    digest against a CPU packing of the same mixture."""
+    t0 = time.perf_counter()
+    urls, written = [], []
+    for i, n_docs in enumerate(TOKEN_DOCS):
+        urls.append(os.path.join(tmp, f"tokens_{i}"))
+        written.append(write_token_corpus(urls[-1], n_docs, 230 + i))
+    write_s = time.perf_counter() - t0
+    total_tokens, long_docs = map(sum, zip(*written))
+    kwargs = dict(weights=list(TOKEN_WEIGHTS), seed=TOKEN_SEED)
+    batches = []
+    start = time.perf_counter()
+    with make_packed_sequence_loader(urls, batch_size=TOKEN_BATCH, seq_len=TOKEN_SEQ_LEN,
+                                     long_docs="split", device="cuda",
+                                     loader_kwargs={"drop_last": False}, **kwargs) as loader:
+        for batch in loader:
+            if not batches:
+                first, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+            batches.append(batch)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        diagnostics = loader.diagnostics()
+    packed = diagnostics["reader"]
+    dtypes = {"tokens": torch.int32, "segment_ids": torch.int32, "positions": torch.int32,
+              "loss_mask": torch.float32}
+    delivered = []
+    for batch in batches:
+        for name, dtype in dtypes.items():
+            col = batch[name]
+            if col.device.type != "cuda" or col.dtype != dtype or (
+                    tuple(col.shape) != (TOKEN_BATCH, TOKEN_SEQ_LEN)):
+                raise AssertionError(f"phase 23: {name} delivered as {col.dtype}"
+                                     f" {tuple(col.shape)} on {col.device}")
+        rows = int(batch.get(VALID_ROWS, TOKEN_BATCH))
+        delivered.append({name: batch[name][:rows].cpu().numpy() for name in dtypes})
+    del batches
+    rows = sum(len(b["tokens"]) for b in delivered)
+    digest = packed_stream_digest(delivered)
+    real_tokens = sum(int(np.count_nonzero(b["loss_mask"])) for b in delivered)
+    t0 = time.perf_counter()
+    packer = SequencePacker(TOKEN_SEQ_LEN, long_docs="split")
+    with make_mixed_sequence_reader(urls, **kwargs) as mixer:
+        cpu_digest = packed_stream_digest(iter_packed_blocks(
+            iter_documents(mixer), TOKEN_SEQ_LEN, TOKEN_BATCH, packer=packer))
+    cpu_pack_s = time.perf_counter() - t0
+    # the mixed reader alone, decoding the documents and packing nothing
+    t0 = time.perf_counter()
+    with make_mixed_sequence_reader(urls, **kwargs) as mixer:
+        read_tokens = sum(len(doc) for doc in iter_documents(mixer))
+    read_s = time.perf_counter() - t0
+    if read_tokens != total_tokens:
+        raise AssertionError(f"phase 23: the reader alone read {read_tokens} tokens")
+    stats = packed["packing"]
+    if digest != cpu_digest or stats != packer.stats():
+        raise AssertionError(f"phase 23: the card's packed stream (digest {digest:08x}, {stats})"
+                             f" differs from the CPU packing ({cpu_digest:08x}, {packer.stats()})")
+    if (stats["docs"] != sum(TOKEN_DOCS) or stats["docs_split"] != long_docs
+            or stats["tokens"] != total_tokens or stats["rows"] != rows
+            or real_tokens != total_tokens or not long_docs):
+        raise AssertionError(f"phase 23: packed {stats}, {rows} rows and {real_tokens} tokens"
+                             f" delivered, {total_tokens} tokens and {long_docs} long"
+                             f" documents written")
+    timed = end - first
+    wait = diagnostics["consumer_wait_s"] - wait0
+    phase("token_feed", corpora_docs=list(TOKEN_DOCS), weights=list(TOKEN_WEIGHTS),
+          seed=TOKEN_SEED, seq_len=TOKEN_SEQ_LEN, batch=TOKEN_BATCH, rowgroup_rows=TOKEN_GROUP,
+          tokens_written=total_tokens, long_docs=long_docs, write_s=write_s,
+          batches=len(delivered), rows=rows, wall_s=end - start, timed_s=timed,
+          tokens_per_s=real_tokens / timed, slots_per_s=rows * TOKEN_SEQ_LEN / timed,
+          rows_per_s=rows / timed, consumer_wait_share=wait / timed,
+          consumer_wait_share_wall=diagnostics["consumer_wait_s"] / (end - start),
+          assemble_s=diagnostics["assemble_s"], transfer_s=diagnostics["transfer_s"],
+          fill_rate=stats["fill_rate"], docs=stats["docs"], docs_split=stats["docs_split"],
+          mixture_draws=packed["source"]["mixture_digest"]["draw_count"],
+          digest=f"{digest:08x}", digest_matches_cpu_packing=True, cpu_pack_s=cpu_pack_s,
+          cpu_pack_tokens_per_s=total_tokens / cpu_pack_s, reader_alone_s=read_s,
+          reader_alone_tokens_per_s=total_tokens / read_s)
+
+
+def mnist_phase(tmp, kernels):
+    """Phase 24: B1 at the MNIST step's shape against its plain version, then
+    one epoch of ``train_mnist_cuda.train`` over MNIST_ROWS rows, then the
+    hello-world and preemption examples on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randint(0, 256, (MNIST_BATCH, 28, 28, 1), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    err = check_normalize(x, 0.5, 0.5, torch.bfloat16)
+    scale, bias = normalize.channel_constants(0.5, 0.5, 1)
+    n = x.numel()
+    b1 = {"shape": list(x.shape), "out": "bfloat16", "max_abs_err": err,
+          "ms": time_ms(lambda: normalize.normalize_kernel(x, scale, bias, torch.bfloat16)),
+          "graph_ms": time_graph_ms(lambda: normalize.normalize_kernel(x, scale, bias,
+                                                                       torch.bfloat16)),
+          "plain_ms": time_ms(lambda: normalize._normalize_reference(x, scale, bias,
+                                                                     torch.bfloat16)),
+          "bytes_read": n, "bytes_written": 2 * n,
+          "bound_ms": 1e3 * max(3 * n / HBM_BYTES_PER_S, 2 * n / F32_FLOPS_PER_S),
+          "bound_by": "bytes"}
+
+    url = os.path.join(tmp, "mnist")
+    t0 = time.perf_counter()
+    mnist.generate_dataset(url, MNIST_ROWS)
+    write_s = time.perf_counter() - t0
+    plain_calls = []
+    real_plain = normalize._normalize_reference
+
+    def counting_plain(*args):
+        plain_calls.append(1)
+        return real_plain(*args)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    normalize._normalize_reference = counting_plain
+    try:
+        result = mnist.train(url, epochs=1, batch_size=MNIST_BATCH, device="cuda",
+                             verbose=False)
+    finally:
+        normalize._normalize_reference = real_plain
+    epoch = result["epochs"][0]
+    launches = normalize.normalize_kernel.launches
+    others = (augment.resized_crop_kernel.launches, jpeg.jpeg_decode_kernel.launches)
+    if epoch["steps"] != MNIST_ROWS // MNIST_BATCH or launches != epoch["steps"] or (
+            plain_calls or any(others)):
+        raise AssertionError(f"phase 24: {epoch['steps']} steps, B1 launched {launches} times,"
+                             f" its plain version {len(plain_calls)}, B3/B2 {others}")
+    if not (np.isfinite(epoch["loss"]) and result["accuracy"] > 0.9):
+        raise AssertionError(f"phase 24: loss {epoch['loss']}, accuracy {result['accuracy']}")
+    kernels["normalize_u8"]["launches"] += launches
+    # the step alone on one resident batch, and its device time: what the
+    # epoch's step costs without the feed
+    step = mnist.make_step("cuda")
+    image = torch.randint(0, 256, (MNIST_BATCH, 28, 28), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    digit = torch.randint(0, 10, (MNIST_BATCH,), device="cuda", generator=gen)
+    for _ in range(20):
+        step(image, digit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MNIST_RESIDENT_STEPS):
+        step(image, digit)
+    torch.cuda.synchronize()
+    resident_ms = 1e3 * (time.perf_counter() - t0) / MNIST_RESIDENT_STEPS
+    device_ms, by_op = device_time_by_op(step, image, digit, steps=20, top=8)
+
+    hello = os.path.join(tmp, "hello_world")
+    with contextlib.redirect_stdout(io.StringIO()):
+        hello_generate.generate_hello_world_dataset(hello, rows_count=10)
+        rows = hello_read.python_hello_world(hello)
+        columns = hello_read.columnar_hello_world(hello)
+        fed = hello_read.cuda_hello_world(hello, device="cuda")
+    with make_reader(hello, reader_pool_type="serial", schema_fields=["id", "image1"]) as reader:
+        images = {int(r.id): r.image1 for r in reader}
+    fed_ids = []
+    for batch in fed:
+        valid = int(batch.get(VALID_ROWS, 4))
+        if batch["image1"].device.type != "cuda" or batch["image1"].dtype != torch.uint8:
+            raise AssertionError(f"phase 24: hello-world image1 on {batch['image1'].device}")
+        for i, img in zip(batch["id"][:valid].tolist(), batch["image1"][:valid].cpu().numpy()):
+            if not np.array_equal(img, images[i]):
+                raise AssertionError(f"phase 24: hello-world row {i} differs on the card")
+            fed_ids.append(i)
+    if not (sorted(r[0] for r in rows) == sorted(sum(columns, [])) == sorted(fed_ids)
+            == list(range(10))):
+        raise AssertionError(f"phase 24: hello-world ids {rows}, {columns}, {fed_ids}")
+
+    pre_url = os.path.join(tmp, "preemption")
+    preemption.generate_dataset(pre_url, rows=PREEMPT_ROWS)
+    seen = []
+    t0 = time.perf_counter()
+    seen_a, seen_b, loss = preemption.train(pre_url, device="cuda", verbose=False,
+                                            ckpt_dir=os.path.join(tmp, "preemption_ckpt"),
+                                            on_rows=seen.append)
+    preempt_s = time.perf_counter() - t0
+    with make_reader(pre_url, reader_pool_type="serial", schema_fields=["x"]) as reader:
+        written = sorted(r.x.tobytes() for r in reader)
+    if (seen_a + seen_b != PREEMPT_ROWS or not seen_a or not seen_b or not np.isfinite(loss)
+            or sorted(row.tobytes() for rows_ in seen for row in rows_) != written):
+        raise AssertionError(f"phase 24: the preemption example trained {seen_a} + {seen_b}"
+                             f" rows, not each of {PREEMPT_ROWS} once")
+    phase("mnist_train", normalize_c1=b1, rows=MNIST_ROWS, batch=MNIST_BATCH,
+          write_s=write_s, steps=epoch["steps"], epoch_s=epoch["seconds"],
+          samples_per_s=epoch["samples_per_s"],
+          step_ms=1e3 * epoch["seconds"] / (epoch["steps"] - 1),
+          consumer_wait_share=epoch["consumer_wait_share"], loss=epoch["loss"],
+          resident_step_ms=resident_ms, resident_device_ms_per_step=device_ms,
+          resident_device_busy_share=device_ms / resident_ms,
+          resident_device_ms_by_op=by_op,
+          accuracy=result["accuracy"], normalize_launches=launches, normalize_plain_calls=0,
+          hello_world_rows=len(rows), hello_world_batches=len(fed),
+          preemption_rows=[seen_a, seen_b], preemption_loss=loss, preemption_s=preempt_s,
+          every_row_once=True)
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3092,6 +3351,8 @@ def main():
         poisoned_train_phase(tmp, part_path, kernels, host, device)
         mixed_geometry_train_phase(tmp, kernels, device)
         converter_train_phase(tmp, path, kernels, host)
+        token_feed_phase(tmp)
+        mnist_phase(tmp, kernels)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,12 +12,15 @@ module names.
 from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,
                                         NdarrayCodec, ScalarCodec, ScalarListCodec)
 from petastorm_tpu_torch.converter import make_converter
-from petastorm_tpu_torch.errors import ErrorPolicy
+from petastorm_tpu_torch.errors import ErrorPolicy, NoDataAvailableError, PetastormTpuError
 from petastorm_tpu_torch.etl.writer import materialize_dataset, write_dataset
 from petastorm_tpu_torch.reader import Reader, make_batch_reader, make_reader
 from petastorm_tpu_torch.schema import Field, Schema
+from petastorm_tpu_torch.transform import TransformSpec
+
+__version__ = "0.1.0"
 
 __all__ = ["CompressedImageCodec", "CompressedNdarrayCodec", "ErrorPolicy", "Field",
-           "NdarrayCodec", "Reader", "ScalarCodec", "ScalarListCodec", "Schema",
-           "make_batch_reader", "make_converter", "make_reader", "materialize_dataset",
-           "write_dataset"]
+           "NdarrayCodec", "NoDataAvailableError", "PetastormTpuError", "Reader",
+           "ScalarCodec", "ScalarListCodec", "Schema", "TransformSpec", "make_batch_reader",
+           "make_converter", "make_reader", "materialize_dataset", "write_dataset"]

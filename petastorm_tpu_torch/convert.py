@@ -1,4 +1,4 @@
-"""Weights of the flax ResNet <-> a state_dict of the torch ResNet.
+"""Weights of the flax ResNet and MLP <-> state_dicts of the torch modules.
 
 Maps every leaf of ``{"params": ..., "batch_stats": ...}`` (nested dicts of
 numpy arrays, as ``flax.linen`` ``init``/``apply`` use them) onto
@@ -11,7 +11,10 @@ numpy arrays, as ``flax.linen`` ``init``/``apply`` use them) onto
 Every leaf is consumed exactly once: a leaf with no torch counterpart, or two
 leaves landing on one key, raises.  Loading the result with
 ``load_state_dict(strict=True)`` then catches leaves the flax tree lacks.
-:func:`flax_from_resnet_state` is the inverse.
+:func:`flax_from_resnet_state` is the inverse.  :func:`mlp_state_from_flax`
+and :func:`flax_from_mlp_state` do the same for
+:class:`petastorm_tpu_torch.models.MLP`: flax's ``Dense_i`` is ``dense.i``,
+its ``(in, out)`` kernel the transpose of the ``(out, in)`` weight.
 """
 
 from __future__ import annotations
@@ -123,3 +126,36 @@ def flax_from_resnet_state(state: Dict[str, torch.Tensor]) -> Dict:
             node = node.setdefault(part, {})
         node[leaf_name] = np.ascontiguousarray(arr)
     return variables
+
+
+def mlp_state_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """Convert flax MLP params (``{"params": {"Dense_i": {"kernel", "bias"}}}``
+    or the inner dict; numpy leaves) to a torch MLP state_dict."""
+    params = params.get("params", params)
+    state: Dict[str, torch.Tensor] = {}
+    for name, leaves in params.items():
+        m = re.fullmatch(r"Dense_(\d+)", name)
+        if m is None or set(leaves) != {"kernel", "bias"}:
+            raise KeyError(f"flax MLP leaf {name!r} has no torch counterpart")
+        kernel = np.asarray(leaves["kernel"], dtype=np.float32)
+        if kernel.ndim != 2:
+            raise ValueError(f"{name}/kernel: unexpected shape {kernel.shape}")
+        state[f"dense.{m.group(1)}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        state[f"dense.{m.group(1)}.bias"] = torch.from_numpy(
+            np.array(leaves["bias"], dtype=np.float32, copy=True))
+    return state
+
+
+def flax_from_mlp_state(state: Dict[str, torch.Tensor]) -> Dict:
+    """Convert a torch MLP state_dict to flax variables ``{"params":
+    {"Dense_i": {"kernel", "bias"}}}`` of float32 numpy arrays."""
+    params: Dict = {}
+    for key, tensor in state.items():
+        m = re.fullmatch(r"dense\.(\d+)\.(weight|bias)", key)
+        if m is None:
+            raise KeyError(f"torch MLP leaf {key!r} has no flax counterpart")
+        arr = tensor.detach().cpu().float().numpy()
+        leaf = "kernel" if m.group(2) == "weight" else "bias"
+        params.setdefault(f"Dense_{m.group(1)}", {})[leaf] = np.ascontiguousarray(
+            arr.T if leaf == "kernel" else arr)
+    return {"params": params}

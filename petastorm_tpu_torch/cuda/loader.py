@@ -95,6 +95,8 @@ logger = logging.getLogger(__name__)
 _POLL_S = 0.05
 #: straggler_release_s='auto' with a decorrelation floor
 _DEFAULT_STRAGGLER_RELEASE_S = 2.0
+#: seconds ``join()`` waits for each producer thread before abandoning it
+_JOIN_TIMEOUT_S = 10.0
 
 #: key of the true row count on a zero-padded last batch (``drop_last=False``)
 VALID_ROWS = "_valid_rows"
@@ -492,6 +494,8 @@ class CudaDataLoader:
         self._delivered = 0  # units: batches, or stacks of K
         self._units_staged = 0
         self._straggler_releases = 0
+        #: producer threads that outlived join()'s bounded wait
+        self._unquiesced: List[dict] = []
         #: delivered tensor field -> (row shape, dtype) of the last unit: the
         #: shapes of drain()'s alignment pads when no unit is left to copy
         self._emitted_layout: Dict[str, Tuple[tuple, torch.dtype]] = {}
@@ -1046,7 +1050,8 @@ class CudaDataLoader:
                "host_queue_depth": self._host_q.qsize(),
                "straggler_releases": self._straggler_releases,
                "assemble_s": self._assemble_s + self._fetch_prepare_s,
-               "transfer_s": self._transfer_s}
+               "transfer_s": self._transfer_s,
+               "unquiesced_threads": list(self._unquiesced)}
         if self._stack > 1:
             out["stack_batches"] = self._stack
         if self._mixed_geometries:
@@ -1058,11 +1063,14 @@ class CudaDataLoader:
                 out["declared_geometries"] = {
                     name: len(shapes) for name, shapes in self._declared_geometries.items()}
         reader_diag = getattr(self._reader, "diagnostics", None)
-        if isinstance(reader_diag, dict) and reader_diag.get("skipped_rowgroups"):
-            # a feed degraded under an on_error skip policy shows it here
-            # (``petastorm_tpu/jax/loader.py:1540-1549``)
-            out["skipped_rowgroups"] = reader_diag["skipped_rowgroups"]
-            out["quarantined_rowgroups"] = reader_diag.get("quarantined_rowgroups", [])
+        if isinstance(reader_diag, dict):
+            # the reader's own (a packed token feed's ``packing`` stats among
+            # them), and a feed degraded under an on_error skip policy shows
+            # it at this level too (``petastorm_tpu/jax/loader.py:1540-1549``)
+            out["reader"] = reader_diag
+            if reader_diag.get("skipped_rowgroups"):
+                out["skipped_rowgroups"] = reader_diag["skipped_rowgroups"]
+                out["quarantined_rowgroups"] = reader_diag.get("quarantined_rowgroups", [])
         return out
 
     # -- checkpoint and resume ----------------------------------------------
@@ -1200,14 +1208,34 @@ class CudaDataLoader:
                 "stack_batches": self._stack}
 
     def stop(self) -> None:
-        """Stop both producer threads and the reader, and wait for them."""
+        """Stop both producer threads and the reader, then :meth:`join` them:
+        code that calls ``stop()`` alone leaves no running thread behind."""
         self._stop.set()
         self._reader.stop()
+        self.join()
+
+    def join(self) -> None:
+        """Wait for the producer threads and the reader to exit, after
+        ``stop()`` (``jax/loader.py:1856``).  Each thread gets a bounded
+        join; one that fails to quiesce (wedged in a ``transform_fn``, a copy
+        that never completes) is abandoned with a warning naming it and its
+        stage, and recorded in ``diagnostics()['unquiesced_threads']``; a
+        later ``join()`` does not wait for it again.  The threads are daemons,
+        so an abandoned one cannot block the exit."""
         if self._started:
-            for thread in (self._thread, self._transfer_thread):
-                thread.join(timeout=10.0)
+            for thread, stage in ((self._thread, "host-assemble"),
+                                  (self._transfer_thread, "device-transfer")):
+                entry = {"thread": thread.name, "stage": stage}
+                if entry in self._unquiesced:
+                    continue
+                thread.join(timeout=_JOIN_TIMEOUT_S)
                 if thread.is_alive():
-                    logger.warning("loader thread %s did not stop within 10 s", thread.name)
+                    self._unquiesced.append(entry)
+                    logger.warning(
+                        "Loader producer thread %s (stage %s) failed to quiesce within %s s"
+                        " of stop(); abandoning the daemon thread. queue depths: host=%d"
+                        " out=%d", thread.name, stage, _JOIN_TIMEOUT_S, self._host_q.qsize(),
+                        self._out.qsize())
         self._reader.join()
 
     def __enter__(self):
@@ -1215,6 +1243,7 @@ class CudaDataLoader:
 
     def __exit__(self, *exc):
         self.stop()
+        self.join()
 
 
 def _host_filler(tmpl: np.ndarray) -> np.ndarray:

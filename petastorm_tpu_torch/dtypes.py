@@ -11,6 +11,8 @@ well).  Strings, objects and datetimes never go to a device.
 
 from __future__ import annotations
 
+import decimal
+
 import numpy as np
 import pyarrow as pa
 
@@ -37,6 +39,8 @@ _ARROW_TO_NUMPY = {
     pa.large_string(): np.dtype("object"),
     pa.binary(): np.dtype("object"),
     pa.large_binary(): np.dtype("object"),
+    pa.date32(): np.dtype("datetime64[D]"),
+    pa.date64(): np.dtype("datetime64[ms]"),
 }
 
 #: numpy dtypes torch cannot represent -> the dtype they widen to (also the
@@ -62,6 +66,8 @@ def numpy_to_arrow(dtype) -> pa.DataType:
         return _NUMPY_TO_ARROW[dtype]
     if dtype.kind in ("U", "S", "O"):
         return pa.string()
+    if dtype.kind == "M":
+        return pa.timestamp("ns")
     raise SchemaError(f"No arrow mapping for numpy dtype {dtype!r}")
 
 
@@ -69,6 +75,10 @@ def arrow_to_numpy(atype: pa.DataType) -> np.dtype:
     """Numpy dtype for a flat arrow type; raises SchemaError otherwise."""
     if atype in _ARROW_TO_NUMPY:
         return _ARROW_TO_NUMPY[atype]
+    if pa.types.is_timestamp(atype):
+        return np.dtype(f"datetime64[{atype.unit}]")
+    if pa.types.is_decimal(atype):
+        return np.dtype("object")  # decimal.Decimal cells
     if pa.types.is_dictionary(atype):
         return arrow_to_numpy(atype.value_type)
     raise SchemaError(f"No numpy mapping for arrow type {atype!r}")
@@ -94,7 +104,10 @@ def torch_feed_dtype(dtype, keep_wide: bool = True) -> np.dtype:
 
 
 def sanitize_value(value, dtype):
-    """Coerce one python value to ``dtype`` for encoding, refusing lossy ints."""
+    """Coerce one python value to ``dtype`` for encoding, refusing lossy ints;
+    a ``Decimal`` passes through as it is."""
+    if isinstance(value, decimal.Decimal):
+        return value
     dtype = np.dtype(dtype)
     if dtype.kind in ("U", "S"):
         return str(value)

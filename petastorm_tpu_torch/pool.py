@@ -267,6 +267,8 @@ class ThreadedExecutor:
         if self._factory is None:
             raise PetastormTpuError("Executor not started")
         self._start = start
+        with self._done:  # a reader's reset() maps a second stream
+            self._total = None
         with self._ventilator_lock:
             if self._pause.is_set():  # a quiesce() came first: issue nothing
                 return
@@ -312,7 +314,9 @@ class ThreadedExecutor:
             self._done.notify_all()
 
     def join(self, timeout: float = 5.0) -> None:
-        for t in self._threads:
+        with self._ventilator_lock:
+            ventilator = self._ventilator
+        for t in self._threads + ([ventilator] if ventilator is not None else []):
             t.join(timeout)
 
 
@@ -323,7 +327,8 @@ def make_executor(kind: str, workers_count: int, results_queue_size: int,
         return ThreadedExecutor(workers_count, results_queue_size,
                                 stop_on_failure=stop_on_failure,
                                 max_requeue_attempts=max_requeue_attempts)
-    if kind == "serial":
+    if kind in ("serial", "dummy"):  # 'dummy': upstream petastorm's name for it
         return SerialExecutor(stop_on_failure=stop_on_failure,
                               max_requeue_attempts=max_requeue_attempts)
-    raise PetastormTpuError(f"reader_pool_type must be 'thread' or 'serial', got {kind!r}")
+    raise PetastormTpuError(
+        f"reader_pool_type must be 'thread', 'serial' or 'dummy', got {kind!r}")

@@ -56,8 +56,8 @@ import numpy as np
 from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.cache import make_cache
 from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
-from petastorm_tpu_torch.errors import (ErrorBudgetExceededError, ErrorPolicy,
-                                        NoDataAvailableError, PetastormTpuError,
+from petastorm_tpu_torch.errors import (EpochNotFinishedError, ErrorBudgetExceededError,
+                                        ErrorPolicy, NoDataAvailableError, PetastormTpuError,
                                         ReaderClosedError, resolve_error_policy)
 from petastorm_tpu_torch.etl.indexing import get_row_group_indexes
 from petastorm_tpu_torch.etl.metadata import (declared_geometries, infer_or_load_schema,
@@ -68,6 +68,7 @@ from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, ela
 from petastorm_tpu_torch.pool import WorkerError, make_executor
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
+from petastorm_tpu_torch.sequence.dataset import is_sequence_field
 from petastorm_tpu_torch.transform import (TransformSpec, transform_cache_info,
                                            transform_schema)
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker
@@ -295,6 +296,14 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
         if place == "host":
             continue
         field = schema[name]
+        if is_sequence_field(field):
+            raise PetastormTpuError(
+                f"decode_placement field {name!r} is a variable-length"
+                f" sequence field (shape {field.shape}, codec {field.codec!r}):"
+                " device decode placement is for jpeg image columns (the worker"
+                " ships coefficient planes). Token columns decode host-side;"
+                " deliver them through petastorm_tpu_torch.sequence (packing +"
+                " CudaDataLoader).")
         codec = field.codec
         if not (isinstance(codec, CompressedImageCodec) and codec.image_codec == "jpeg"):
             raise PetastormTpuError(
@@ -392,6 +401,14 @@ def _validate_decode_roi(decode_roi, schema: Schema, read_fields, decode_placeme
                 f"{decode_placement[name]!r}: coefficient planes carry the"
                 " full image (crop on-device instead, ops/augment.py)")
         field = schema[name]
+        if is_sequence_field(field):
+            raise PetastormTpuError(
+                f"decode_roi field {name!r} is a variable-length sequence"
+                f" field (shape {field.shape}, codec {field.codec!r}):"
+                " decode_roi is a partial IMAGE decode and does not apply to"
+                " token columns. Filter documents with a predicate (pushed"
+                " down before decode) or slice tokens in the packer"
+                " (petastorm_tpu_torch.sequence).")
         if not (field.is_fixed_shape and field.dtype == np.dtype("uint8")
                 and isinstance(field.codec, CompressedImageCodec)
                 and len(field.shape) in (2, 3)):
@@ -568,7 +585,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                   deterministic=deterministic, shuffle_seed=shuffle_seed,
                   start_item=start_item, digest_state=digest_state, ngram=ngram,
                   error_policy=error_policy, declared_geometries=declared_geometries(info),
-                  device_decode_mixed=mixed_fields)
+                  device_decode_mixed=mixed_fields, dataset_info=info)
 
 
 def _url_key(url_or_urls) -> str:
@@ -625,9 +642,13 @@ class Reader:
                  digest_state: Optional[dict] = None, ngram=None,
                  error_policy: Optional[ErrorPolicy] = None,
                  declared_geometries: Optional[dict] = None,
-                 device_decode_mixed: FrozenSet[str] = frozenset()):
+                 device_decode_mixed: FrozenSet[str] = frozenset(),
+                 dataset_info=None):
         if start_item < 0:
             raise PetastormTpuError("start_item must be >= 0")
+        #: the opened dataset (``etl.metadata.DatasetInfo``): files, rowgroups,
+        #: the stored schema (``petastorm_tpu/reader.py:1192``)
+        self.dataset_info = dataset_info
         self.schema = schema
         self.ngram = ngram
         self.output_schema = schema
@@ -894,6 +915,32 @@ class Reader:
                 "base_items_per_epoch": self.plan.base_items_per_epoch,
             }
         return state
+
+    # -- epoch control ------------------------------------------------------
+
+    def reset(self) -> None:
+        """Read the stream again from its first item, with a fresh cursor and
+        stream digest (``petastorm_tpu/reader.py:1885``): a reset run equals
+        a fresh reader's.  Only legal once the stream is consumed; mid-stream
+        it raises ``EpochNotFinishedError``, as in-flight items would leak
+        into the next pass."""
+        if self._stopped:
+            raise ReaderClosedError("Reader is stopped")
+        if not self._all_items_consumed():
+            raise EpochNotFinishedError(
+                "reset() called mid-epoch: in-flight work items would leak into"
+                " the next epoch. Consume the iterator fully first.")
+        self._start_item = 0
+        self._consumed_items = 0
+        self._expected_items = self.plan.total_items(self.num_epochs)
+        self._epoch_items_cache.clear()
+        self._digest = StreamDigest()
+        self._batches = None
+        self._rows = iter(())
+        self._rows_left = 0
+        self._windows = None
+        self._window_pos = 0
+        self.last_row_consumed = False
 
     def iter_batches(self) -> Iterator[ColumnBatch]:
         """Yield decoded rowgroups as ColumnBatches; ends cleanly on stop."""

@@ -215,3 +215,15 @@ class Schema:
             else:
                 out[f.name] = f.codec.encode(f, value)
         return out
+
+
+def insert_explicit_nulls(schema: Schema, row: Dict[str, Any]) -> Dict[str, Any]:
+    """Add an explicit None for each missing nullable field
+    (``petastorm_tpu/schema.py:302``); a missing non-nullable field raises."""
+    out = dict(row)
+    for f in schema:
+        if f.name not in out:
+            if not f.nullable:
+                raise SchemaError(f"Field {f.name!r} missing and not nullable")
+            out[f.name] = None
+    return out

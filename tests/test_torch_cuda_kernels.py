@@ -1192,3 +1192,111 @@ def test_mixed_geometry_arena_decode_on_the_card_matches_the_plain_path(tmp_path
     stacked, _ = run("cuda", stack=2)
     assert torch.equal(torch.cat([u["image"].flatten(0, 1) for u in stacked]),
                        torch.cat([c["image"] for c in card]))
+
+
+def _token_corpus(path, n_docs, seed, rows_per_group=32):
+    """A token corpus written by the port: lognormal lengths (median 24, cut
+    at 200), int32 ids in [0, 50257)."""
+    from petastorm_tpu_torch import Field, Schema, write_dataset
+    from petastorm_tpu_torch.sequence import token_field
+
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.lognormal(np.log(24), 0.9, n_docs), 1, 200).astype(np.int64)
+    rows = [{"doc_id": i, "tokens": rng.integers(0, 50257, int(n), dtype=np.int32)}
+            for i, n in enumerate(lengths)]
+    write_dataset(path, Schema("Tokens", [Field("doc_id", np.int64), token_field()]), rows,
+                  row_group_size_rows=rows_per_group)
+
+
+@pytest.mark.cuda
+def test_packed_token_feed_on_the_card_equals_the_cpu_packing(tmp_path):
+    """``make_packed_sequence_loader(device="cuda")`` over a 0.8 / 0.2
+    mixture: every column on the card with its dtype, the batches equal to
+    the same loader's on the CPU, and the valid rows' digest equal to
+    ``iter_packed_blocks`` over the mixed document stream on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch.sequence import (iter_documents, iter_packed_blocks,
+                                              make_mixed_sequence_reader,
+                                              make_packed_sequence_loader,
+                                              packed_stream_digest)
+
+    urls = [str(tmp_path / "a"), str(tmp_path / "b")]
+    _token_corpus(urls[0], 400, 1)
+    _token_corpus(urls[1], 100, 2)
+    kwargs = dict(batch_size=8, seq_len=128, weights=[0.8, 0.2], seed=7, long_docs="split",
+                  loader_kwargs=dict(drop_last=False))
+
+    def run(device):
+        with make_packed_sequence_loader(urls, device=device, **kwargs) as loader:
+            out = []
+            for batch in loader:
+                for name in ("tokens", "segment_ids", "positions", "loss_mask"):
+                    assert batch[name].device.type == torch.device(device).type
+                    assert batch[name].shape == (8, 128)
+                out.append({k: (v if k == "_valid_rows" else v.cpu()) for k, v in batch.items()})
+            return out
+
+    card, cpu = run("cuda"), run("cpu")
+    assert len(card) == len(cpu) > 10
+    for c, p in zip(card, cpu):
+        assert c.keys() == p.keys()
+        for k in c:
+            assert (c[k] == p[k]) if k == "_valid_rows" else torch.equal(c[k], p[k])
+    assert {k: v.dtype for k, v in card[0].items()} == {
+        "tokens": torch.int32, "segment_ids": torch.int32, "positions": torch.int32,
+        "loss_mask": torch.float32}
+    valid = [{k: v[:b.get("_valid_rows", 8)].numpy() for k, v in b.items()
+              if k != "_valid_rows"} for b in card]
+    with make_mixed_sequence_reader(urls, weights=[0.8, 0.2], seed=7,
+                                    reader_pool_type="serial") as mixer:
+        want = packed_stream_digest(iter_packed_blocks(iter_documents(mixer), 128, 8,
+                                                       long_docs="split"))
+    assert packed_stream_digest(valid) == want
+
+
+@pytest.mark.cuda
+def test_mnist_step_on_the_card_matches_the_plain_step(tmp_path):
+    """Two MNIST steps on the card (B1 once a step, no plain normalize) from
+    the weights of two on the CPU (the plain normalize), on the same
+    batches of uniform random digits: the losses within 1e-5 relative, the
+    accuracies equal, every leaf within 1e-6 + 2e-2 * lr.  B1 fuses its
+    multiply-add and the plain version does not, so at ``mean=std=0.5`` the
+    two differ by one bf16 ulp on uint8 level 127 (0.8 % of its value); Adam
+    moves a weight by about ``lr * g / |g|``, so where a first-layer
+    gradient lies near zero that input difference moves the update by a
+    share of ``lr``.  Measured on an H100: 9.76e-6 (0.98 % of lr) on
+    ``dense.0.weight``; the other leaves within the float32 summation
+    bound of ``tests/test_torch_mlp.py``, 1e-6 + 1e-3 * lr."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch.examples.mnist import train_mnist_cuda as mnist
+
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (2, 32, 28, 28)).astype(np.uint8)
+    digits = rng.integers(0, 10, (2, 32)).astype(np.int64)
+    card, cpu = mnist.make_step("cuda"), mnist.make_step("cpu")
+    card.model.load_state_dict(cpu.model.state_dict())
+    calls = []
+    real_plain = torch_normalize._normalize_reference
+
+    def counting_plain(x, *args):
+        calls.append(x.device.type)
+        return real_plain(x, *args)
+
+    torch_normalize._normalize_reference = counting_plain
+    try:
+        before = torch_normalize.normalize_kernel.launches
+        for i in range(2):
+            loss, acc = card(torch.from_numpy(images[i]).cuda(), torch.from_numpy(digits[i]).cuda())
+            want_loss, want_acc = cpu(torch.from_numpy(images[i]), torch.from_numpy(digits[i]))
+            assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+            assert acc.item() == want_acc.item()
+        assert torch_normalize.normalize_kernel.launches - before == 2
+    finally:
+        torch_normalize._normalize_reference = real_plain
+    assert calls == ["cpu", "cpu"]
+    want = cpu.model.state_dict()
+    for key, value in card.model.state_dict().items():
+        err = (value.cpu() - want[key]).abs().max().item()
+        assert err <= 1e-6 + (2e-2 if key == "dense.0.weight" else 1e-3) * 1e-3, (key, err)

@@ -69,5 +69,15 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/etl/writer.py",
                      "petastorm_tpu_torch/etl/generate_metadata.py",
                      "petastorm_tpu_torch/converter.py", "petastorm_tpu_torch/cache.py",
-                     "petastorm_tpu_torch/examples/imagenet/forward_ab.py"):
+                     "petastorm_tpu_torch/examples/imagenet/forward_ab.py",
+                     "petastorm_tpu_torch/sequence/__init__.py",
+                     "petastorm_tpu_torch/sequence/dataset.py",
+                     "petastorm_tpu_torch/sequence/packing.py",
+                     "petastorm_tpu_torch/sequence/mixing.py",
+                     "petastorm_tpu_torch/sequence/loader.py",
+                     "petastorm_tpu_torch/models/mlp.py", "petastorm_tpu_torch/convert.py",
+                     "petastorm_tpu_torch/examples/mnist/train_mnist_cuda.py",
+                     "petastorm_tpu_torch/examples/hello_world/generate_dataset.py",
+                     "petastorm_tpu_torch/examples/hello_world/read_dataset.py",
+                     "petastorm_tpu_torch/examples/preemption/train_with_preemption_cuda.py"):
         assert required in names
