@@ -26,7 +26,14 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    every byte (uint8) and bit (float32) to the general kernel of the first
    port and both against the plain version, against cv2 at the main shape,
    and timed in turns against the general kernel, hot and with the L2
-   flushed before each launch;
+   flushed before each launch; block attention (B4, forward and backward)
+   at the long-context trainer's ring block ``(2, 32, 2048, 128)`` float32:
+   a diagonal causal block, an off-diagonal block and a block whose first
+   1024 rows see none of its keys, each against its plain version, timed
+   (CUDA events) beside its bound, the plain version and
+   ``F.scaled_dot_product_attention`` in float32 on the same block; the
+   backward's row-delta kernel (``rowsum(dout * out)``, an entry of its own)
+   against its plain version and ``torch.linalg.vecdot``;
 4. main path (inference): an ImageNet-shaped JPEG dataset (4096 rows of
    224x224x3, 16 rowgroups) through ``make_reader`` ->
    ``CudaDataLoader(batch_size=256)`` -> ``normalize_images`` -> ``ResNet50``
@@ -232,7 +239,27 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    time by op from ``torch.profiler``); then the hello-world example (rows, batches, and a
    ``CudaDataLoader`` feed on the card) and the preemption example on the
    card (drain, ``checkpoint.save_checkpoint``, restore into fresh objects):
-   every row trained exactly once across the two incarnations.
+   every row trained exactly once across the two incarnations;
+25. the port's multi-process selfcheck on the card, two ranks on ``cuda:0``
+   over gloo (``parallel.selfcheck``): ``run_selfcheck`` (sharded reading,
+   global batches rebuilt from both ranks' blocks, a masked global mean a
+   step, the unequal drain through the default collective, an elastic
+   resume under 3 processes), ``run_distributed_write_check`` and
+   ``run_context_parallel_check`` (ring and Ulysses over sequence-sharded
+   delivery against float64 full attention), with the transport printed;
+26. the long-context trainer (``examples/long_context/
+   train_ring_attention_cuda``) at Llama-2-7B's attention widths (32 heads
+   of 128, vocabulary 32,000, rows of 4,096 tokens), two ranks on the
+   ``seq`` dimension sharing ``cuda:0`` over gloo (host-staged transfers),
+   ring then Ulysses, global batch 2, 1 warm-up and 3 timed steps each: the
+   first step's loss, attention output and gradients against the same step
+   with B4's plain versions in the same processes (the loss sits at
+   ln(32000) at this init whatever the attention gives, so the attention
+   output, within 1e-5 of its max, and the gradients, within 1e-4, are the
+   check), tokens/s, step ms, the input-idle share,
+   peak memory a rank, B4's launches (no plain attention call on the card);
+   every child process has a timeout, and a failed or late rank fails the
+   run.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -279,6 +306,7 @@ from petastorm_tpu_torch.etl.writer import materialize_dataset, stamp_dataset_me
 from petastorm_tpu_torch.examples.hello_world import generate_dataset as hello_generate  # noqa: E402
 from petastorm_tpu_torch.examples.hello_world import read_dataset as hello_read  # noqa: E402
 from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer  # noqa: E402
+from petastorm_tpu_torch.examples.long_context import train_ring_attention_cuda as longctx  # noqa: E402,E501
 from petastorm_tpu_torch.examples.mnist import train_mnist_cuda as mnist  # noqa: E402
 from petastorm_tpu_torch.examples.preemption import train_with_preemption_cuda as preemption  # noqa: E402
 from petastorm_tpu_torch.models import ResNet50  # noqa: E402
@@ -286,6 +314,8 @@ from petastorm_tpu_torch.ngram import NGram  # noqa: E402
 from petastorm_tpu_torch.native import build as native_build  # noqa: E402
 from petastorm_tpu_torch.native import image as native_image  # noqa: E402
 from petastorm_tpu_torch.ops import augment, jpeg, normalize  # noqa: E402
+from petastorm_tpu_torch.ops import ring_attention as ring_ops  # noqa: E402
+from petastorm_tpu_torch.parallel import launch, selfcheck  # noqa: E402
 from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
@@ -321,6 +351,11 @@ TOKEN_VOCAB = 50257                               # phase 23: GPT-2's vocabulary
 MNIST_ROWS, MNIST_BATCH = 60000, 32               # phase 24: MNIST's training size, batch
 MNIST_RESIDENT_STEPS = 500                        # phase 24: steps timed on a resident batch
 PREEMPT_ROWS = 512                                # phase 24: the preemption example's rows
+B4_SHAPE = (2, 32, 2048, 128)   # phase 3: a ring block of the phase-26 trainer (B, H, S/2, D)
+LC_HEADS, LC_HEAD_DIM, LC_VOCAB = 32, 128, 32000  # phase 26: Llama-2-7B's attention widths
+LC_SEQ, LC_BATCH, LC_ROWS = 4096, 2, 16           # phase 26: its context, global batch, rows
+LC_WARMUP, LC_TIMED, CP_RANKS = 1, 3, 2           # phase 26: steps, ranks on the seq dimension
+CHILD_TIMEOUT_S = 300                             # phases 25-26: a child's time limit
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -1242,6 +1277,7 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
 
 def reset_launch_counts():
     """Every kernel wrapper's launch count to 0."""
+    ring_ops.reset_launch_counts()
     normalize.normalize_kernel.launches = 0
     for counts, names in ((augment.resized_crop_kernel, ("", "_tiled", "_aa", "_general")),
                           (jpeg.jpeg_decode_kernel, ("", "_tiled", "_general"))):
@@ -3310,6 +3346,232 @@ def mnist_phase(tmp, kernels):
           preemption_rows=[seen_a, seen_b], preemption_loss=loss, preemption_s=preempt_s,
           every_row_once=True)
 
+def attention_pairs(sq, sk, causal, q_offset, k_offset):
+    """The (query, key) pairs a block attends: all of them, or under
+    ``causal`` those with ``k_offset + j <= q_offset + i``."""
+    if not causal:
+        return sq * sk
+    return int(np.clip(q_offset + np.arange(sq) - k_offset + 1, 0, sk).sum())
+
+
+def b4_bound(b, h, sq, sk, d, pairs, backward):
+    """(bound ms, bound_by) of one B4 launch: the larger of its bytes (each
+    input read once, each output written once, float32) over 3.35 TB/s and
+    the flops of the pairs it attends over 67 TFLOP/s float32 (two products
+    forward, five backward)."""
+    bh = b * h
+    if backward:  # q, dout, k, v, lse, delta and dq, dk, dv read; dq, dk, dv written
+        nbytes = 4 * bh * (2 * sq * d + 2 * sk * d + 2 * sq + 2 * (sq * d + 2 * sk * d))
+        flops = 10 * bh * d * pairs
+    else:  # q, k, v and the running o, l, m read; o, l, m written
+        nbytes = 4 * bh * (sq * d + 2 * sk * d + 2 * (sq * d + 2 * sq))
+        flops = 4 * bh * d * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def b4_max_err(got, want, rel, what):
+    """Max |got - want| over the finite values, checked against ``rel`` of the
+    largest |want|; the infinities in the same places."""
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError(f"{what}: -inf rows differ from the plain version")
+    finite = torch.isfinite(want)
+    err = (got[finite] - want[finite]).abs().max().item()
+    scale = want[finite].abs().max().item()
+    if not err <= rel * scale:
+        raise AssertionError(f"{what}: max err {err} above {rel} x {scale}")
+    return err
+
+
+def block_attention_entry():
+    """Phase 3, B4: forward and backward against their plain versions on
+    three blocks of the trainer's ring, timed beside their bounds, the plain
+    versions and SDPA (float32)."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, s, d = B4_SHAPE
+    scale = 1.0 / d ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, dout = (torch.randn(B4_SHAPE, device="cuda", generator=gen) for _ in range(4))
+    cases = {"diagonal": (True, s, s), "off_diagonal": (False, s, 0),
+             "masked_rows": (True, 0, s // 2)}  # rows 0..S/2-1 see none of its keys
+    results = {}
+    delta_errs = []
+    for name, (causal, q_off, k_off) in cases.items():
+        pairs = attention_pairs(s, s, causal, q_off, k_off)
+        state = [torch.zeros_like(q), torch.zeros(b, h, s, device="cuda"),
+                 torch.full((b, h, s), -torch.inf, device="cuda")]
+        plain = [t.clone() for t in state]
+        ring_ops.block_attention_fwd(q, k, v, *state, scale, causal, q_off, k_off)
+        ring_ops.block_attention_fwd_reference(q, k, v, *plain, scale, causal, q_off, k_off)
+        torch.cuda.synchronize()
+        for got, want, what in zip(state, plain, ("o", "l", "m")):
+            b4_max_err(got, want, 1e-5, f"B4 fwd {name} {what}")
+        out, lse = ring_ops._finish(*state)
+        want_out, _ = ring_ops._finish(*plain)
+        fwd_err = b4_max_err(out, want_out, 1e-5, f"B4 fwd {name} out")
+        delta = ring_ops.attention_row_delta(out, dout)
+        delta_errs.append(b4_max_err(delta, ring_ops.attention_row_delta_reference(out, dout),
+                                     1e-5, f"B4 delta {name}"))
+        grads = [torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)]
+        plain_grads = [torch.zeros_like(t) for t in grads]
+        ring_ops.block_attention_bwd(q, k, v, dout, lse, delta, *grads, scale, causal, q_off,
+                                     k_off)
+        ring_ops.block_attention_bwd_reference(q, k, v, dout, lse, delta, *plain_grads, scale,
+                                               causal, q_off, k_off)
+        torch.cuda.synchronize()
+        bwd_err = max(b4_max_err(g, w, 1e-4, f"B4 bwd {name} d{n}")
+                      for g, w, n in zip(grads, plain_grads, "qkv"))
+        o, l, m = (torch.zeros_like(q), torch.zeros(b, h, s, device="cuda"),
+                   torch.full((b, h, s), -torch.inf, device="cuda"))
+        timing = dict(samples=5, launches=3, warmup=1)
+        fwd_ms = time_ms(lambda: ring_ops.block_attention_fwd(q, k, v, o, l, m, scale, causal,
+                                                               q_off, k_off), **timing)
+        fwd_plain_ms = time_ms(lambda: ring_ops.block_attention_fwd_reference(
+            q, k, v, o, l, m, scale, causal, q_off, k_off), **timing)
+        bwd_ms = time_ms(lambda: ring_ops.block_attention_bwd(
+            q, k, v, dout, lse, delta, *grads, scale, causal, q_off, k_off), **timing)
+        bwd_plain_ms = time_ms(lambda: ring_ops.block_attention_bwd_reference(
+            q, k, v, dout, lse, delta, *grads, scale, causal, q_off, k_off), **timing)
+        delta_ms = time_ms(lambda: ring_ops.attention_row_delta(out, dout), **timing)
+        delta_plain_ms = time_ms(lambda: ring_ops.attention_row_delta_reference(out, dout),
+                                 **timing)
+        delta_library_ms = time_ms(lambda: torch.linalg.vecdot(out, dout), **timing)
+        sdpa_fwd_ms = sdpa_bwd_ms = None
+        if name != "masked_rows":  # SDPA has no offset mask, and NaNs an empty row
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                *leaves, is_causal=causal), **timing)
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout,
+                                                              retain_graph=True), **timing)
+            del sdpa_out, leaves
+        fwd_bound, fwd_by = b4_bound(b, h, s, s, d, pairs, False)
+        bwd_bound, bwd_by = b4_bound(b, h, s, s, d, pairs, True)
+        results[name] = {
+            "causal": causal, "q_offset": q_off, "k_offset": k_off, "pairs": pairs,
+            "fwd": {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                    "bound_ms": fwd_bound, "bound_by": fwd_by, "sdpa_ms": sdpa_fwd_ms,
+                    "tflops": 4 * b * h * d * pairs / fwd_ms / 1e9},
+            "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                    "bound_ms": bwd_bound, "bound_by": bwd_by, "sdpa_ms": sdpa_bwd_ms,
+                    "tflops": 10 * b * h * d * pairs / bwd_ms / 1e9},
+            "delta": {"ms": delta_ms, "plain_ms": delta_plain_ms,
+                      "library_ms": delta_library_ms}}
+        del state, plain, grads, plain_grads
+        torch.cuda.empty_cache()
+    facts = {k: v for k, v in build.ptxas_report("block_attention").items()}
+    phase("kernels", block_attention={"shape": list(B4_SHAPE), "dtype": "float32",
+                                      "cases": results, "ptxas": facts})
+    diag = results["diagonal"]
+    source = "petastorm_tpu_torch/csrc/block_attention.cu"
+    entries = {}
+    for key, function in (("fwd", "block_attention_fwd_kernel"),
+                          ("bwd", "block_attention_dkdv_kernel + block_attention_dq_kernel")):
+        r = diag[key]
+        entries[f"block_attention_{key}"] = {
+            "name": f"block_attention_{key}", "route": "cuda", "source": source,
+            "function": function, "replaces": "petastorm_tpu/ops/ring_attention.py:40",
+            "max_abs_err": max(results[c][key]["max_abs_err"] for c in results),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["sdpa_ms"], "launches": 0}
+    # the backward's row delta, rowsum(dout * out): out and dout read, delta
+    # written, 2 flops an element, so bytes bound it
+    r = diag["delta"]
+    t_bytes = 4 * b * h * s * (2 * d + 1) / HBM_BYTES_PER_S
+    t_ops = 2 * b * h * s * d / F32_FLOPS_PER_S
+    entries["attention_row_delta"] = {
+        "name": "attention_row_delta", "route": "cuda", "source": source,
+        "function": "attention_row_delta_kernel",
+        "replaces": "petastorm_tpu/ops/ring_attention.py:40",
+        "max_abs_err": max(delta_errs), "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": r["library_ms"], "launches": 0}
+    return entries
+
+
+def selfcheck_phase(tmp):
+    """Phase 25: the port's three multi-process checks, two ranks on cuda:0."""
+    out = {}
+    for name, fn in (("pipeline", selfcheck.run_selfcheck),
+                     ("write", selfcheck.run_distributed_write_check),
+                     ("context_parallel", selfcheck.run_context_parallel_check)):
+        t0 = time.perf_counter()
+        report = fn(num_processes=CP_RANKS, device="cuda", timeout=CHILD_TIMEOUT_S,
+                    workdir=os.path.join(tmp, f"selfcheck_{name}"))
+        if not report["ok"]:
+            raise AssertionError(f"selfcheck {name} failed: {report['failures']}")
+        out[name] = {k: v for k, v in report.items()
+                     if k not in ("logs", "workdir", "failures", "ok")}
+        out[name]["seconds"] = time.perf_counter() - t0
+    if out["pipeline"]["devices"] != ["cuda:0"] or out["context_parallel"]["devices"] != ["cuda:0"]:
+        raise AssertionError(f"selfcheck delivered off the card: {out}")
+    phase("selfcheck", ranks=CP_RANKS, backend=out["context_parallel"]["backend"],
+          transport=out["context_parallel"]["transport"], **out)
+
+
+def long_context_phase(tmp, kernels):
+    """Phase 26: the long-context trainer, ring then Ulysses, two ranks on the
+    seq dimension of cuda:0; B4's launches summed over the ranks."""
+    url = os.path.join(tmp, "longctx")
+    t0 = time.perf_counter()
+    longctx.generate_dataset(url, LC_ROWS, LC_SEQ, LC_VOCAB)
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    runs = {}
+    for strategy in ("ring", "ulysses"):
+        prefix = os.path.join(tmp, f"longctx_{strategy}")
+        cmd = [sys.executable, "-m",
+               "petastorm_tpu_torch.examples.long_context.train_ring_attention_cuda",
+               "--dataset", url, "--seq-len", str(LC_SEQ), "--vocab", str(LC_VOCAB),
+               "--heads", str(LC_HEADS), "--head-dim", str(LC_HEAD_DIM),
+               "--global-batch", str(LC_BATCH), "--steps", str(LC_WARMUP + LC_TIMED),
+               "--warmup", str(LC_WARMUP), "--data-par", "1", "--strategy", strategy,
+               "--device", "cuda", "--check-plain", "--report", prefix]
+        t0 = time.perf_counter()
+        error = launch.run_ranks(cmd, CP_RANKS, CHILD_TIMEOUT_S, prefix)
+        if error:
+            raise AssertionError(error)
+        wall = time.perf_counter() - t0
+        reports = []
+        for rank in range(CP_RANKS):
+            with open(f"{prefix}.{rank}.json") as f:
+                reports.append(json.load(f))
+        for rank, r in enumerate(reports):
+            first = r["first_step"]
+            if not all(np.isfinite(r["losses"])):
+                raise AssertionError(f"{strategy} rank {rank}: losses {r['losses']}")
+            # the loss sits at ln(vocab) at this init whatever the attention
+            # gives: the attention output and the gradients decide
+            if (first["loss_rel_err"] > 1e-5 or first["attention_rel_err"] > 1e-5
+                    or max(first["grad_rel_err"].values()) > 1e-4):
+                raise AssertionError(f"{strategy} rank {rank}: the first step is off its"
+                                     f" plain version: {first}")
+            if min(r["launches"].values()) < 1 or r["plain_cuda_calls"]:
+                raise AssertionError(f"{strategy} rank {rank}: B4 launches {r['launches']},"
+                                     f" plain calls {r['plain_cuda_calls']}")
+            if r["losses"] != reports[0]["losses"]:
+                raise AssertionError(f"{strategy}: ranks report different losses")
+        for name in ("block_attention_fwd", "block_attention_bwd", "attention_row_delta"):
+            kernels[name]["launches"] += sum(r["launches"][name] for r in reports)
+        runs[strategy] = {
+            "backend": reports[0]["backend"], "transport": reports[0]["transport"],
+            "mesh": reports[0]["mesh"], "losses": reports[0]["losses"],
+            "tokens_per_s": reports[0]["tokens_per_s"],
+            "step_ms": max(r["step_ms"] for r in reports),
+            "allreduce_ms": [r["allreduce_ms"] for r in reports],
+            "consumer_wait_share": max(r["consumer_wait_share"] for r in reports),
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in reports],
+            "launches": [r["launches"] for r in reports], "plain_attention_calls": 0,
+            "first_step": reports[0]["first_step"],
+            "plain_cuda_calls_in_check": [r["plain_cuda_calls_in_check"] for r in reports],
+            "wall_s": wall}
+    phase("long_context_train", heads=LC_HEADS, head_dim=LC_HEAD_DIM, vocab=LC_VOCAB,
+          seq_len=LC_SEQ, global_batch=LC_BATCH, ranks=CP_RANKS, warmup_steps=LC_WARMUP,
+          timed_steps=LC_TIMED, write_s=write_s, **runs)
+
 
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3331,6 +3593,7 @@ def main():
           jpeg_decode_kernels=b2_compiler_facts())
 
     kernels = kernels_phase()
+    kernels.update(block_attention_entry())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path, main_samples_per_s = main_path_phase(tmp, kernels)
         host = train_path_phase(path, kernels)
@@ -3353,6 +3616,9 @@ def main():
         converter_train_phase(tmp, path, kernels, host)
         token_feed_phase(tmp)
         mnist_phase(tmp, kernels)
+        torch.cuda.empty_cache()
+        selfcheck_phase(tmp)
+        long_context_phase(tmp, kernels)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

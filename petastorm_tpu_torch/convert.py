@@ -15,6 +15,9 @@ leaves landing on one key, raises.  Loading the result with
 and :func:`flax_from_mlp_state` do the same for
 :class:`petastorm_tpu_torch.models.MLP`: flax's ``Dense_i`` is ``dense.i``,
 its ``(in, out)`` kernel the transpose of the ``(out, in)`` weight.
+:func:`long_context_params_from_jax` and :func:`jax_from_long_context_params`
+carry the long-context example's ``{"embed": (vocab, d_model), "out":
+(d_model, vocab)}`` between the two packages, in the same layout.
 """
 
 from __future__ import annotations
@@ -159,3 +162,24 @@ def flax_from_mlp_state(state: Dict[str, torch.Tensor]) -> Dict:
         params.setdefault(f"Dense_{m.group(1)}", {})[leaf] = np.ascontiguousarray(
             arr.T if leaf == "kernel" else arr)
     return {"params": params}
+
+
+_LONG_CONTEXT_LEAVES = ("embed", "out")
+
+
+def long_context_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX long-context example's params (``examples/long_context/
+    train_ring_attention.py:49-52``) as float32 torch tensors of
+    ``examples.long_context.train_ring_attention_cuda``, in the same layout."""
+    if set(params) != set(_LONG_CONTEXT_LEAVES):
+        raise ValueError(f"expected leaves {_LONG_CONTEXT_LEAVES}, got {sorted(params)}")
+    return {name: torch.from_numpy(np.array(params[name], dtype=np.float32))
+            for name in _LONG_CONTEXT_LEAVES}
+
+
+def jax_from_long_context_params(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`long_context_params_from_jax`: numpy float32 leaves."""
+    if set(params) != set(_LONG_CONTEXT_LEAVES):
+        raise ValueError(f"expected leaves {_LONG_CONTEXT_LEAVES}, got {sorted(params)}")
+    return {name: params[name].detach().cpu().numpy().astype(np.float32)
+            for name in _LONG_CONTEXT_LEAVES}

@@ -293,15 +293,20 @@ class DatasetConverter:
             reader.join()
             raise
 
-    def make_cuda_loader(self, batch_size: int, device="cuda",
+    def make_cuda_loader(self, batch_size: int, device="cuda", mesh=None, shardings=None,
                          reader_kwargs: Optional[Dict] = None, **loader_kwargs):
         """``cuda.CudaDataLoader`` over the cached dataset, delivering batches
         on ``device`` (the card by default); a context manager.  The
-        counterpart of ``make_jax_loader`` (``petastorm_tpu/converter.py:493``)."""
+        counterpart of ``make_jax_loader`` (``petastorm_tpu/converter.py:493``):
+        with a ``mesh``, ``batch_size`` is global and each rank gets its
+        block (``shardings``: placements, as ``CudaDataLoader`` takes them);
+        the reader shard (``cur_shard``/``shard_count``) is the caller's, as
+        in the JAX converter."""
         from petastorm_tpu_torch.cuda.loader import CudaDataLoader
 
         return self._wrap(self._checked_reader(reader_kwargs),
                           lambda reader: CudaDataLoader(reader, batch_size, device=device,
+                                                        mesh=mesh, shardings=shardings,
                                                         **loader_kwargs))
 
     def make_torch_dataloader(self, batch_size: int = 32, shuffling_queue_capacity: int = 0,

@@ -59,9 +59,13 @@ keys, and a stacked field's ``(k, ...)`` rows, staged like any column).
 
 With ``device="cpu"`` the same two threads deliver plain CPU tensors, with
 no pinned memory and no streams, and the decode runs B2's plain version.
-The default cross-process collective of a multi-process ``drain()``,
-``transfer_commit``, ``trace_dir``, telemetry and ``set_prefetch`` are not
-part of this package yet.
+
+With a ``mesh`` (one process per card, ``jax/loader.py:196-197``) the
+loader delivers this rank's block of each global batch as an ordinary
+tensor on its card: the rows of its batch-axis block and, for a field
+sharded on a second axis, its range of that axis (``_placement_for``,
+``:1461-1486``).  ``transfer_commit``, ``trace_dir``, telemetry and
+``set_prefetch`` are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ from typing import Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tu
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
 from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.cuda.device_buffer import DeviceShufflingBuffer
@@ -86,6 +92,9 @@ from petastorm_tpu_torch.native.image import (COEF_COLUMN_SEP, MIXED_CELL_SUFFIX
                                               _MIXED_GEOMETRY_GUIDANCE, _layout_from_meta,
                                               coef_layout)
 from petastorm_tpu_torch.ops.jpeg import decode_from_layout
+from petastorm_tpu_torch.parallel.mesh import (Placements, group_device, mesh_coordinate,
+                                               mesh_dim_names, mesh_group, shard_slices,
+                                               sharding_for_batch)
 from petastorm_tpu_torch.seeding import reader_buffer_seed
 from petastorm_tpu_torch.shuffle import (NoopShufflingBuffer, RandomShufflingBuffer,
                                          iter_batched, iter_batched_multi)
@@ -306,6 +315,23 @@ class CudaDataLoader:
       ``host_fields`` and multi-bucket ``pad_shapes``, as the JAX loader
       refuses them.
 
+    * ``mesh`` and ``shardings`` (``jax/loader.py:143-144``, ``:196-197``): a
+      ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions,
+      and for each field one ``torch.distributed.tensor`` placement per mesh
+      dimension (a dict of field -> placements, or one tuple for every
+      field; a field without an entry gets ``Shard(0)`` on the mesh's first
+      dimension, JAX's ``P(mesh.axis_names[0])``).  ``batch_size`` is then
+      the GLOBAL batch: this rank stages and delivers only its block of it
+      (``parallel.mesh.local_data_slice``), as an ordinary tensor.  The
+      reader must deliver this rank's rows (shard it by the rank's block of
+      the batch axis: ``make_cuda_loader`` does).  JAX's ``P("data",
+      "seq")`` on a ``(B, S)`` field is ``(Shard(0), Shard(1))`` on a
+      ``("data", "seq")`` mesh: each rank keeps its rows' range of the
+      sequence.  Every field must shard the batch axis alike; a device-decode
+      field may shard only the batch axis.  ``stack_batches=K`` prepends an
+      unsharded axis (``:1467``); the valid mask and ``'_valid_rows'``
+      count this rank's rows.
+
     ``diagnostics()['consumer_wait_s']`` is the time ``__next__`` spent
     waiting for the producer: the input-bound share of a training loop;
     ``assemble_s`` and ``transfer_s`` are the seconds each producer thread
@@ -328,19 +354,23 @@ class CudaDataLoader:
                  straggler_release_s: Union[None, float, str] = "auto",
                  stack_batches: int = 1,
                  device_shuffle_capacity: int = 0,
-                 device_shuffle_seed: Optional[int] = None):
+                 device_shuffle_seed: Optional[int] = None,
+                 mesh=None,
+                 shardings: Union[None, Placements, Dict[str, Placements]] = None):
         if batch_size < 1:
             raise PetastormTpuError("batch_size must be >= 1")
         if stack_batches < 1:
             raise PetastormTpuError("stack_batches must be >= 1")
         self._stack = int(stack_batches)
-        #: leading dims of every staged column: (K, batch) stacked, else (batch,)
-        self._lead = ((self._stack,) if self._stack > 1 else ()) + (batch_size,)
         prefetch = 2 if prefetch is None else prefetch
         if prefetch < 1:
             raise PetastormTpuError("prefetch must be >= 1")
         self._reader = reader
-        self._batch_size = batch_size
+        self._global_batch = batch_size
+        self._mesh = mesh
+        self._specs = shardings
+        #: (field, trailing shape) -> the slice of the trailing dims this rank keeps
+        self._placement_cache: Dict[tuple, Tuple[slice, ...]] = {}
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         # the columns iter_batches yields: an ngram reader's window columns
@@ -423,6 +453,12 @@ class CudaDataLoader:
                 raise PetastormTpuError(
                     f"valid_mask_field cannot be {VALID_ROWS!r}: that key is reserved for"
                     " the valid-row count")
+        #: this rank's coordinate in the mesh, and the rows of the global
+        #: batch it materializes
+        self._coord = mesh_coordinate(mesh) if mesh is not None else None
+        self._batch_size = self._local_rows() if mesh is not None else batch_size
+        #: leading dims of every staged column: (K, batch) stacked, else (batch,)
+        self._lead = ((self._stack,) if self._stack > 1 else ()) + (self._batch_size,)
         self._drop_last = drop_last
         self._keep_wide = keep_wide_dtypes
         self._transform_fn = transform_fn
@@ -526,6 +562,67 @@ class CudaDataLoader:
                 f" field shape {field.shape}")
         return target
 
+    # -- mesh placement -----------------------------------------------------
+
+    def _placements(self, name: str) -> Placements:
+        """The placements of field ``name`` (``jax/loader.py:610 _spec_for``):
+        its ``shardings`` entry, else ``Shard(0)`` on the mesh's first
+        dimension; the valid mask without an entry shards its one axis as the
+        first field shards its batch axis."""
+        specs = self._specs
+        if name == self._valid_mask and (not isinstance(specs, dict) or name not in specs):
+            return _batch_axis_only(self._placements(self._fields[0]))
+        spec = specs.get(name) if isinstance(specs, dict) else specs
+        if spec is None:
+            return sharding_for_batch(self._mesh, mesh_dim_names(self._mesh)[:1])
+        return tuple(spec)
+
+    def _local_rows(self) -> int:
+        """Rows of the global batch this rank materializes (``jax/loader.py:676
+        _local_layout``); every field must shard the batch axis alike."""
+        local_rows = None
+        names = self._fields + ([self._valid_mask] if self._valid_mask else [])
+        for name in names:
+            placements = self._placements(name)
+            if name in self._decode_fields and any(
+                    isinstance(p, Shard) and p.dim != 0 for p in placements):
+                raise PetastormTpuError(
+                    f"field {name!r} is decoded on the device and may shard only its batch"
+                    f" axis; got placements {placements}")
+            sl = shard_slices(tuple(self._mesh.shape), self._coord,
+                              _batch_axis_only(placements), (self._global_batch,))
+            rows = sl[0].stop - sl[0].start
+            if local_rows is None:
+                local_rows = rows
+            elif local_rows != rows:
+                raise PetastormTpuError(
+                    "All delivered fields must shard the batch axis identically"
+                    f" (field {name!r} wants {rows} local rows, others {local_rows})")
+        return int(local_rows)
+
+    def _trailing_slice(self, name: str, trailing: Tuple[int, ...]) -> Tuple[slice, ...]:
+        """This rank's slice of a field's per-row dims (``jax/loader.py:1476
+        _placement_for``): the block of ``(global batch,) + trailing`` past
+        its batch axis."""
+        key = (name, trailing)
+        hit = self._placement_cache.get(key)
+        if hit is None:
+            hit = self._placement_cache[key] = shard_slices(
+                tuple(self._mesh.shape), self._coord, self._placements(name),
+                (self._global_batch,) + tuple(trailing))[1:]
+        return hit
+
+    def _local_cols(self, cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Each column cut to this rank's range of its sharded per-row dims."""
+        if self._mesh is None:
+            return cols
+        out = {}
+        for name, col in cols.items():
+            sl = self._trailing_slice(name, tuple(col.shape[1:]))
+            whole = all(s.start == 0 and s.stop == d for s, d in zip(sl, col.shape[1:]))
+            out[name] = col if whole else col[(slice(None),) + sl]
+        return out
+
     # -- assembly stage ---------------------------------------------------
 
     def _check_geometry(self, name: str, meta: np.ndarray) -> None:
@@ -582,6 +679,7 @@ class CudaDataLoader:
                 raise PetastormTpuError(
                     f"transform_fn produced a field named {self._valid_mask!r}, which"
                     " collides with valid_mask_field; rename one")
+        cols = self._local_cols(cols)
         if self._valid_mask is not None:
             cols[self._valid_mask] = np.ones(batch.num_rows, np.float32)
         coef, layouts, mixed = {}, {}, {}
@@ -1116,6 +1214,8 @@ class CudaDataLoader:
                 except StopIteration:
                     return
 
+        if all_gather_counts is None and self._mesh is not None and self._mesh.mesh.numel() > 1:
+            all_gather_counts = self._all_gather_counts
         if all_gather_counts is None:
             return _rest()
         local = list(_rest())
@@ -1141,6 +1241,15 @@ class CudaDataLoader:
                                    if self._stack > 1 else 0)
                 yield pad
         return _aligned()
+
+    def _all_gather_counts(self, count: int) -> List[int]:
+        """Every process's drained count: one int64 gathered over the mesh's group."""
+        group = mesh_group(self._mesh)
+        device = group_device(group)
+        mine = torch.tensor([count], dtype=torch.int64, device=device)
+        counts = torch.empty(dist.get_world_size(group), dtype=torch.int64, device=device)
+        dist.all_gather_into_tensor(counts, mine, group=group)
+        return counts.tolist()
 
     def _pad_batch_layout(self) -> Dict[str, Tuple[tuple, object]]:
         """field -> (shape, dtype) of a drain pad when this process delivered
@@ -1178,6 +1287,9 @@ class CudaDataLoader:
                         " instead")
                 field = self._schema[name]
                 trailing = tuple(buckets[0]) if buckets else tuple(field.shape)
+                if self._mesh is not None:
+                    trailing = tuple(s.stop - s.start
+                                     for s in self._trailing_slice(name, trailing))
                 dtype = _torch_dtype(torch_feed_dtype(field.dtype, self._keep_wide))
             layout[name] = (self._lead + trailing, dtype)
         for name in self._host_fields:
@@ -1204,7 +1316,7 @@ class CudaDataLoader:
                 " state_dict(); checkpoint/resume needs a petastorm_tpu_torch Reader")
         return {"reader": self._reader.state_dict(),
                 "delivered_batches": self._delivered,
-                "global_batch": self._batch_size,
+                "global_batch": self._global_batch,
                 "stack_batches": self._stack}
 
     def stop(self) -> None:
@@ -1244,6 +1356,72 @@ class CudaDataLoader:
     def __exit__(self, *exc):
         self.stop()
         self.join()
+
+
+def make_cuda_loader(dataset_url: str,
+                     batch_size: int,
+                     mesh=None,
+                     shardings=None,
+                     reader_factory=None,
+                     shard_by_process: bool = True,
+                     **kwargs) -> CudaDataLoader:
+    """One-call path: dataset URL -> sharded reader -> ``CudaDataLoader``
+    (``petastorm_tpu/jax/loader.py:1889 make_jax_loader``).
+
+    Reader kwargs (``predicate``, ``num_epochs``, ``shuffle_seed``, ...) and
+    loader kwargs (``device``, ``shuffling_queue_capacity``, ``pad_shapes``,
+    ...) are split by the loader's signature; ``schema_fields`` defaults to
+    the delivered fields (``fields`` and ``host_fields``), so no column is
+    read only to be dropped.  The reader (``reader_factory``, default
+    ``make_batch_reader``) is sharded unless ``cur_shard`` is given: on a
+    mesh by this rank's block of the batch axis (``parallel.mesh.batch_block``),
+    so ranks that differ only on a ``seq`` dimension read the same rows;
+    without a mesh by ``(rank, world_size)``.  The JAX function shards by
+    ``jax.process_index()`` whatever the mesh (``:1923-1926``), which gives two
+    processes of one ``seq`` ring different rows (ROADMAP.md §C).  A loader
+    that fails to build stops the reader.
+    """
+    import inspect
+
+    from petastorm_tpu_torch.parallel.mesh import batch_block, shard_options_from_torch
+    from petastorm_tpu_torch.reader import make_batch_reader
+
+    loader_params = set(inspect.signature(CudaDataLoader.__init__).parameters) - {
+        "self", "reader", "batch_size", "mesh", "shardings"}
+    loader_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in loader_params}
+    if "schema_fields" not in kwargs:
+        wanted = list(loader_kwargs.get("fields") or [])
+        wanted += list(loader_kwargs.get("host_fields") or [])
+        if wanted:
+            kwargs["schema_fields"] = wanted
+    if shard_by_process and "cur_shard" not in kwargs:
+        if mesh is not None:
+            spec = (next(iter(shardings.values()), None) if isinstance(shardings, dict)
+                    else shardings)
+            if spec is None:
+                spec = sharding_for_batch(mesh, mesh_dim_names(mesh)[:1])
+            cur, count = batch_block(mesh, tuple(spec))
+        else:
+            cur, count = shard_options_from_torch()
+        if count > 1:
+            kwargs["cur_shard"], kwargs["shard_count"] = cur, count
+    factory = reader_factory or make_batch_reader
+    reader = factory(dataset_url, **kwargs)
+    try:
+        return CudaDataLoader(reader, batch_size, mesh=mesh, shardings=shardings,
+                              **loader_kwargs)
+    except BaseException:
+        # the loader never came to own the reader: shut it down, or its
+        # pool threads would poll forever
+        reader.stop()
+        reader.join()
+        raise
+
+
+def _batch_axis_only(placements: Placements) -> Placements:
+    """``placements`` with every mesh dimension that does not shard dim 0
+    replicated: how the batch axis alone is laid out."""
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in placements)
 
 
 def _host_filler(tmpl: np.ndarray) -> np.ndarray:

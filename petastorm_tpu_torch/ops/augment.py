@@ -72,7 +72,7 @@ def _check_method(method: str) -> None:
     if method not in _LINEAR:
         raise NotImplementedError(
             f"resize method {method!r}: only 'bilinear'/'linear' is ported (the other"
-            " jax.image kernels are ROADMAP.md queue B item 4)")
+            " jax.image kernels are ROADMAP.md queue B item 3)")
 
 
 def _restore_dtype(out: torch.Tensor, src_dtype: torch.dtype) -> torch.Tensor:

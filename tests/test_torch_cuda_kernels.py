@@ -1300,3 +1300,140 @@ def test_mnist_step_on_the_card_matches_the_plain_step(tmp_path):
     for key, value in card.model.state_dict().items():
         err = (value.cpu() - want[key]).abs().max().item()
         assert err <= 1e-6 + (2e-2 if key == "dense.0.weight" else 1e-3) * 1e-3, (key, err)
+
+
+# -- B4: block attention forward and backward ------------------------------------------
+#
+# Tolerance: the kernel and the plain version compute the same float32
+# function, the kernel by an online softmax over 64-key tiles (its own
+# summation order and exp shifts), the plain version by cuBLAS products of
+# the whole block (TF32 off).  Each output within 1e-5 of its largest |value|
+# (the forward's o, l and m), the gradients within 1e-4 of theirs; the
+# infinities (m = -inf of fully masked rows) in the same places.
+
+_B4_CASES = [  # (B, H, Sq, Sk, D, causal, q_offset, k_offset)
+    (2, 4, 128, 128, 64, False, 0, 0),
+    (2, 4, 128, 128, 64, True, 0, 0),
+    (1, 3, 100, 77, 40, True, 77, 0),      # ragged tiles, an off-diagonal causal block
+    (1, 2, 96, 160, 128, True, 0, 32),     # rows 0-31 see none of these keys
+    (2, 32, 256, 256, 128, True, 256, 256),
+]
+
+
+def _b4_inputs(case, seed=0):
+    b, h, sq, sk, d = case[:5]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, sq, d, device="cuda", generator=gen)
+    k = torch.randn(b, h, sk, d, device="cuda", generator=gen)
+    v = torch.randn(b, h, sk, d, device="cuda", generator=gen)
+    return q, k, v
+
+
+def _assert_b4_close(got, want, rel):
+    got, want = got.double().cpu(), want.double().cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    finite = torch.isfinite(want)
+    scale = want[finite].abs().max().item() if finite.any() else 1.0
+    err = (got[finite] - want[finite]).abs().max().item() if finite.any() else 0.0
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _B4_CASES, ids=str)
+@pytest.mark.parametrize("running", [False, True], ids=["fresh", "merged"])
+def test_block_attention_fwd_matches_plain_on_card(case, running):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _b4_inputs(case)
+    causal, qo, ko = case[5:]
+    b, h, sq, d = q.shape
+    state = [torch.zeros_like(q), torch.zeros(b, h, sq, device="cuda"),
+             torch.full((b, h, sq), -torch.inf, device="cuda")]
+    if running:  # a block merged before this one
+        k0, v0 = _b4_inputs((b, h, sq, 64, d), seed=1)[1:]
+        ra.block_attention_fwd_reference(q, k0, v0, *state, 0.125)
+    plain = [t.clone() for t in state]
+    before = ra.block_attention_fwd.launches
+    ra.block_attention_fwd(q, k, v, *state, 0.125, causal, qo, ko)
+    ra.block_attention_fwd_reference(q, k, v, *plain, 0.125, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert ra.block_attention_fwd.launches == before + 1
+    for got, want in zip(state, plain):
+        _assert_b4_close(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _B4_CASES, ids=str)
+def test_block_attention_bwd_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _b4_inputs(case)
+    causal, qo, ko = case[5:]
+    b, h, sq, d = q.shape
+    o = torch.zeros_like(q)
+    l = torch.zeros(b, h, sq, device="cuda")
+    m = torch.full_like(l, -torch.inf)
+    ra.block_attention_fwd_reference(q, k, v, o, l, m, 0.125, causal, qo, ko)
+    out, lse = ra._finish(o, l, m)
+    dout = torch.randn_like(q)
+    delta = ra.attention_row_delta(out, dout)
+    _assert_b4_close(delta, ra.attention_row_delta_reference(out, dout), 1e-5)
+    got = [torch.randn_like(q), torch.randn_like(k), torch.randn_like(v)]  # accumulators
+    want = [t.clone() for t in got]
+    ra.block_attention_bwd(q, k, v, dout, lse, delta, *got, 0.125, causal, qo, ko)
+    ra.block_attention_bwd_reference(q, k, v, dout, lse, delta, *want, 0.125, causal, qo, ko)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_b4_close(g, w, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_and_its_gradient_match_plain_on_card(causal):
+    """The autograd path (forward, delta, backward) at a ragged length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _b4_inputs((2, 4, 300, 300, 64))
+    w = torch.randn_like(q)
+    results = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ra.attention(*leaves, causal=causal, plain=plain)
+        (out * w).sum().backward()
+        results.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    _assert_b4_close(results[0][0], results[1][0], 1e-5)
+    for g, want in zip(results[0][1:], results[1][1:]):
+        _assert_b4_close(g, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_block_attention_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch.ops import ring_attention as ra
+
+    q, k, v = _b4_inputs((1, 2, 64, 64, 64))
+    o, l = torch.zeros_like(q), torch.zeros(1, 2, 64, device="cuda")
+    m = torch.full_like(l, -torch.inf)
+    with pytest.raises(TypeError, match="float32"):
+        ra.block_attention_fwd(q.double(), k.double(), v.double(), o, l, m, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ra.block_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, o, l, m,
+                               0.1)
+    with pytest.raises(ValueError, match="head width"):
+        wide = torch.zeros(1, 2, 64, 256, device="cuda")
+        ra.block_attention_fwd(wide, wide, wide, torch.zeros_like(wide), l, m, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ra.block_attention_fwd(q, k.cpu(), v, o, l, m, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        ra.block_attention_fwd(q, k, v, o, l[:, :1], m, 0.1)

@@ -79,5 +79,14 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/examples/mnist/train_mnist_cuda.py",
                      "petastorm_tpu_torch/examples/hello_world/generate_dataset.py",
                      "petastorm_tpu_torch/examples/hello_world/read_dataset.py",
-                     "petastorm_tpu_torch/examples/preemption/train_with_preemption_cuda.py"):
+                     "petastorm_tpu_torch/examples/preemption/train_with_preemption_cuda.py",
+                     "petastorm_tpu_torch/parallel/__init__.py",
+                     "petastorm_tpu_torch/parallel/mesh.py",
+                     "petastorm_tpu_torch/parallel/write.py",
+                     "petastorm_tpu_torch/parallel/selfcheck.py",
+                     "petastorm_tpu_torch/parallel/launch.py",
+                     "petastorm_tpu_torch/ops/ring_attention.py",
+                     "petastorm_tpu_torch/ops/ulysses.py",
+                     "petastorm_tpu_torch/examples/long_context/__init__.py",
+                     "petastorm_tpu_torch/examples/long_context/train_ring_attention_cuda.py"):
         assert required in names
