@@ -29,9 +29,12 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    flushed before each launch; block attention (B4, forward and backward)
    at the long-context trainer's ring block ``(2, 32, 2048, 128)`` float32:
    a diagonal causal block, an off-diagonal block and a block whose first
-   1024 rows see none of its keys, each against its plain version, timed
-   (CUDA events) beside its bound, the plain version and
-   ``F.scaled_dot_product_attention`` in float32 on the same block; the
+   1024 rows see none of its keys, the tensor-core kernels and the SIMT
+   kernels they replaced each against the plain version, timed (CUDA
+   events) in turns against the SIMT kernels, beside the bounds at 67
+   TFLOP/s float32 and 165 TFLOP/s 3xTF32, the plain version and
+   ``F.scaled_dot_product_attention`` in float32 on the same block, with
+   ptxas's facts and each kernel's SASS HMMA count; the
    backward's row-delta kernel (``rowsum(dout * out)``, an entry of its own)
    against its plain version and ``torch.linalg.vecdot``;
 4. main path (inference): an ImageNet-shaped JPEG dataset (4096 rows of
@@ -329,6 +332,7 @@ from petastorm_tpu_torch.worker import RowGroupDecoderWorker  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+F32_3XTF32_FLOPS_PER_S = 495e12 / 3  # float32-accurate products as 3 TF32 tensor-core ones
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 N_ROWS, ROWS_PER_GROUP, BATCH, WARMUP_STEPS = 4096, 256, 256, 2
 RATE_EPOCHS = 4               # phases 7 and 10: epochs read, 64 rowgroups
@@ -3355,10 +3359,13 @@ def attention_pairs(sq, sk, causal, q_offset, k_offset):
 
 
 def b4_bound(b, h, sq, sk, d, pairs, backward):
-    """(bound ms, bound_by) of one B4 launch: the larger of its bytes (each
-    input read once, each output written once, float32) over 3.35 TB/s and
-    the flops of the pairs it attends over 67 TFLOP/s float32 (two products
-    forward, five backward)."""
+    """The bounds of one B4 launch: its bytes (each input read once, each
+    output written once, float32) over 3.35 TB/s, and the flops of the pairs
+    it attends (two products forward, five backward) over 67 TFLOP/s float32
+    SIMT and over 165 TFLOP/s, 495 TFLOP/s of TF32 tensor cores at three
+    TF32 products a float32 one (3xTF32).  Returns the ms of each and the
+    table's (bound ms, bound_by): the larger of bytes and 3xTF32, the least
+    time the card can take for float32-accurate products."""
     bh = b * h
     if backward:  # q, dout, k, v, lse, delta and dq, dk, dv read; dq, dk, dv written
         nbytes = 4 * bh * (2 * sq * d + 2 * sk * d + 2 * sq + 2 * (sq * d + 2 * sk * d))
@@ -3366,8 +3373,11 @@ def b4_bound(b, h, sq, sk, d, pairs, backward):
     else:  # q, k, v and the running o, l, m read; o, l, m written
         nbytes = 4 * bh * (sq * d + 2 * sk * d + 2 * (sq * d + 2 * sq))
         flops = 4 * bh * d * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_simt, t_tf32 = 1e3 * flops / F32_FLOPS_PER_S, 1e3 * flops / F32_3XTF32_FLOPS_PER_S
+    return {"bytes_ms": t_bytes, "simt_ops_ms": t_simt, "tf32x3_ops_ms": t_tf32,
+            "bound_ms": max(t_bytes, t_tf32),
+            "bound_by": "bytes" if t_bytes > t_tf32 else "operations"}
 
 
 def b4_max_err(got, want, rel, what):
@@ -3383,10 +3393,31 @@ def b4_max_err(got, want, rel, what):
     return err
 
 
+def b4_compiler_facts():
+    """ptxas's registers, stack and spills and the SASS HMMA (tensor-core
+    product) count of each kernel in ``csrc/block_attention.cu``, by its
+    unmangled name (the D <= 64 and D <= 128 instances as ``<8>``, ``<16>``)."""
+    import re
+
+    hmma = build.sass_instruction_counts("block_attention", "HMMA")
+    facts = {}
+    for mangled, report in build.ptxas_report("block_attention").items():
+        m = re.search(r"\d+(block_attention_\w+?_kernel|attention_row_delta_kernel)"
+                      r"(?:ILi(\d+)EE)?", mangled)
+        name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        facts[name] = {**report, "hmma": hmma.get(mangled)}
+    for name in ("block_attention_fwd_kernel", "block_attention_dkdv_kernel",
+                 "block_attention_dq_kernel"):
+        for inst in ("<8>", "<16>"):
+            if hmma and not facts[name + inst]["hmma"]:
+                raise AssertionError(f"B4's {name}{inst} has no HMMA in its SASS")
+    return facts
+
+
 def block_attention_entry():
     """Phase 3, B4: forward and backward against their plain versions on
-    three blocks of the trainer's ring, timed beside their bounds, the plain
-    versions and SDPA (float32)."""
+    three blocks of the trainer's ring, timed beside their bounds, the SIMT
+    kernels in turns, the plain versions and SDPA (float32)."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3403,10 +3434,12 @@ def block_attention_entry():
         state = [torch.zeros_like(q), torch.zeros(b, h, s, device="cuda"),
                  torch.full((b, h, s), -torch.inf, device="cuda")]
         plain = [t.clone() for t in state]
+        simt = [t.clone() for t in state]
         ring_ops.block_attention_fwd(q, k, v, *state, scale, causal, q_off, k_off)
         ring_ops.block_attention_fwd_reference(q, k, v, *plain, scale, causal, q_off, k_off)
+        ring_ops.block_attention_fwd_simt(q, k, v, *simt, scale, causal, q_off, k_off)
         torch.cuda.synchronize()
-        for got, want, what in zip(state, plain, ("o", "l", "m")):
+        for got, want, what in zip(state + simt, plain + plain, ("o", "l", "m") * 2):
             b4_max_err(got, want, 1e-5, f"B4 fwd {name} {what}")
         out, lse = ring_ops._finish(*state)
         want_out, _ = ring_ops._finish(*plain)
@@ -3416,22 +3449,39 @@ def block_attention_entry():
                                      1e-5, f"B4 delta {name}"))
         grads = [torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)]
         plain_grads = [torch.zeros_like(t) for t in grads]
+        simt_grads = [torch.zeros_like(t) for t in grads]
         ring_ops.block_attention_bwd(q, k, v, dout, lse, delta, *grads, scale, causal, q_off,
                                      k_off)
         ring_ops.block_attention_bwd_reference(q, k, v, dout, lse, delta, *plain_grads, scale,
                                                causal, q_off, k_off)
+        ring_ops.block_attention_bwd_simt(q, k, v, dout, lse, delta, *simt_grads, scale,
+                                          causal, q_off, k_off)
         torch.cuda.synchronize()
         bwd_err = max(b4_max_err(g, w, 1e-4, f"B4 bwd {name} d{n}")
                       for g, w, n in zip(grads, plain_grads, "qkv"))
+        for g, w, n in zip(simt_grads, plain_grads, "qkv"):
+            b4_max_err(g, w, 1e-4, f"B4 SIMT bwd {name} d{n}")
         o, l, m = (torch.zeros_like(q), torch.zeros(b, h, s, device="cuda"),
                    torch.full((b, h, s), -torch.inf, device="cuda"))
         timing = dict(samples=5, launches=3, warmup=1)
-        fwd_ms = time_ms(lambda: ring_ops.block_attention_fwd(q, k, v, o, l, m, scale, causal,
-                                                               q_off, k_off), **timing)
+
+        def in_turns(kernel, yardstick):
+            """Median times of ``kernel`` and ``yardstick`` timed kernel,
+            yardstick, yardstick, kernel: each the mean of its two turns."""
+            t = [time_ms(fn, **timing) for fn in (kernel, yardstick, yardstick, kernel)]
+            return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+        fwd_ms, fwd_simt_ms, fwd_turns = in_turns(
+            lambda: ring_ops.block_attention_fwd(q, k, v, o, l, m, scale, causal, q_off, k_off),
+            lambda: ring_ops.block_attention_fwd_simt(q, k, v, o, l, m, scale, causal, q_off,
+                                                      k_off))
         fwd_plain_ms = time_ms(lambda: ring_ops.block_attention_fwd_reference(
             q, k, v, o, l, m, scale, causal, q_off, k_off), **timing)
-        bwd_ms = time_ms(lambda: ring_ops.block_attention_bwd(
-            q, k, v, dout, lse, delta, *grads, scale, causal, q_off, k_off), **timing)
+        bwd_ms, bwd_simt_ms, bwd_turns = in_turns(
+            lambda: ring_ops.block_attention_bwd(q, k, v, dout, lse, delta, *grads, scale,
+                                                 causal, q_off, k_off),
+            lambda: ring_ops.block_attention_bwd_simt(q, k, v, dout, lse, delta, *grads, scale,
+                                                      causal, q_off, k_off))
         bwd_plain_ms = time_ms(lambda: ring_ops.block_attention_bwd_reference(
             q, k, v, dout, lse, delta, *grads, scale, causal, q_off, k_off), **timing)
         delta_ms = time_ms(lambda: ring_ops.attention_row_delta(out, dout), **timing)
@@ -3447,35 +3497,36 @@ def block_attention_entry():
             sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout,
                                                               retain_graph=True), **timing)
             del sdpa_out, leaves
-        fwd_bound, fwd_by = b4_bound(b, h, s, s, d, pairs, False)
-        bwd_bound, bwd_by = b4_bound(b, h, s, s, d, pairs, True)
+        fwd_bound = b4_bound(b, h, s, s, d, pairs, False)
+        bwd_bound = b4_bound(b, h, s, s, d, pairs, True)
         results[name] = {
             "causal": causal, "q_offset": q_off, "k_offset": k_off, "pairs": pairs,
-            "fwd": {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-                    "bound_ms": fwd_bound, "bound_by": fwd_by, "sdpa_ms": sdpa_fwd_ms,
-                    "tflops": 4 * b * h * d * pairs / fwd_ms / 1e9},
-            "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-                    "bound_ms": bwd_bound, "bound_by": bwd_by, "sdpa_ms": sdpa_bwd_ms,
-                    "tflops": 10 * b * h * d * pairs / bwd_ms / 1e9},
+            "fwd": {"max_abs_err": fwd_err, "ms": fwd_ms, "simt_ms": fwd_simt_ms,
+                    "turns_ms": fwd_turns, "plain_ms": fwd_plain_ms, "sdpa_ms": sdpa_fwd_ms,
+                    **fwd_bound, "tflops": 4 * b * h * d * pairs / fwd_ms / 1e9},
+            "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms, "simt_ms": bwd_simt_ms,
+                    "turns_ms": bwd_turns, "plain_ms": bwd_plain_ms, "sdpa_ms": sdpa_bwd_ms,
+                    **bwd_bound, "tflops": 10 * b * h * d * pairs / bwd_ms / 1e9},
             "delta": {"ms": delta_ms, "plain_ms": delta_plain_ms,
                       "library_ms": delta_library_ms}}
-        del state, plain, grads, plain_grads
+        del state, plain, simt, grads, plain_grads, simt_grads
         torch.cuda.empty_cache()
-    facts = {k: v for k, v in build.ptxas_report("block_attention").items()}
     phase("kernels", block_attention={"shape": list(B4_SHAPE), "dtype": "float32",
-                                      "cases": results, "ptxas": facts})
+                                      "cases": results, "compiler": b4_compiler_facts()})
     diag = results["diagonal"]
     source = "petastorm_tpu_torch/csrc/block_attention.cu"
     entries = {}
-    for key, function in (("fwd", "block_attention_fwd_kernel"),
-                          ("bwd", "block_attention_dkdv_kernel + block_attention_dq_kernel")):
+    for key, function in (("fwd", "block_attention_fwd_kernel<16>"),
+                          ("bwd", "block_attention_dkdv_kernel<16> + "
+                                  "block_attention_dq_kernel<16>")):
         r = diag[key]
         entries[f"block_attention_{key}"] = {
             "name": f"block_attention_{key}", "route": "cuda", "source": source,
             "function": function, "replaces": "petastorm_tpu/ops/ring_attention.py:40",
             "max_abs_err": max(results[c][key]["max_abs_err"] for c in results),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["sdpa_ms"], "launches": 0}
+            "bound_by": r["bound_by"], "library_ms": r["sdpa_ms"], "simt_ms": r["simt_ms"],
+            "launches": 0}
     # the backward's row delta, rowsum(dout * out): out and dout read, delta
     # written, 2 flops an element, so bytes bound it
     r = diag["delta"]

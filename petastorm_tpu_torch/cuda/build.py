@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -110,10 +110,11 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def sass_instruction_counts(name: str) -> Dict[str, int]:
+def sass_instruction_counts(name: str, opcode: Optional[str] = None) -> Dict[str, int]:
     """SASS instructions of each kernel (mangled name) in ``csrc/<name>.cu``'s
-    library, from ``cuobjdump -sass``; empty where the toolkit has no
-    ``cuobjdump``."""
+    library, from ``cuobjdump -sass``, or only those whose opcode starts with
+    ``opcode`` (``"HMMA"``: tensor-core products); empty where the toolkit
+    has no ``cuobjdump``."""
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
@@ -126,7 +127,9 @@ def sass_instruction_counts(name: str) -> Dict[str, int]:
         if m:
             kernel = m.group(1)
             counts[kernel] = 0
-        elif kernel is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z]\S*)", line)
+        if kernel is not None and m and (opcode is None or m.group(1).startswith(opcode)):
             counts[kernel] += 1
     return counts
 

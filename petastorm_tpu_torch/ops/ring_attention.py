@@ -20,8 +20,11 @@ only a CPU tensor takes the plain PyTorch versions (``_block_attention``,
 ``block_attention_bwd_reference``), which the tests hold against the JAX
 package and ``chip_smoke.py`` holds the kernel against.  B4 is bound by
 float32 operations, not bytes: ``4 * Sq * Sk * D`` flops a forward block a
-(batch, head), five products where the forward does two backward
-(``csrc/block_attention.cu`` says what its design does about it).
+(batch, head), five products where the forward does two backward.  Its
+products run on the tensor cores in error-compensated TF32, three TF32
+products a float32 one (``csrc/block_attention.cu`` says how and why).  Its
+first kernels, SIMT float32, stay reachable as ``block_attention_fwd_simt``
+and ``block_attention_bwd_simt``, a yardstick that no path calls.
 
 The gradient is a ``torch.autograd.Function`` over the whole ring: JAX gets
 it by differentiating ``ppermute``, and ``torch.distributed`` differentiates
@@ -61,6 +64,10 @@ def _configure(lib: ctypes.CDLL) -> None:
                                             ll, p]
     lib.pst_attention_row_delta.restype = ctypes.c_int
     lib.pst_attention_row_delta.argtypes = [p, p, p, ll, i, p]
+    for kind in ("fwd", "bwd"):
+        main, simt = getattr(lib, f"pst_block_attention_{kind}"), getattr(
+            lib, f"pst_block_attention_{kind}_simt")
+        simt.restype, simt.argtypes = main.restype, main.argtypes
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -192,6 +199,40 @@ def _dims(name: str, q: torch.Tensor, k: torch.Tensor):
     return b, h, sq, k.shape[2], d
 
 
+def _launch_fwd(entry: str, q, k, v, o, l, m, scale, causal, q_offset, k_offset) -> None:
+    b, h, sq, sk, d = _dims("block_attention_fwd", q, k)
+    device = _check("block_attention_fwd", dict(q=q, k=k, v=v, o=o, l=l, m=m),
+                    dict(q=(b, h, sq, d), k=(b, h, sk, d), v=(b, h, sk, d), o=(b, h, sq, d),
+                         l=(b, h, sq), m=(b, h, sq)))
+    lib = build.load("block_attention", _configure)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
+            b * h, sq, sk, d, float(scale), int(bool(causal)), int(q_offset), int(k_offset),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block attention forward launch failed (error {err})")
+
+
+def _launch_bwd(entry: str, q, k, v, dout, lse, delta, dq, dk, dv, scale, causal, q_offset,
+                k_offset) -> None:
+    b, h, sq, sk, d = _dims("block_attention_bwd", q, k)
+    device = _check("block_attention_bwd",
+                    dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv),
+                    dict(q=(b, h, sq, d), k=(b, h, sk, d), v=(b, h, sk, d),
+                         dout=(b, h, sq, d), lse=(b, h, sq), delta=(b, h, sq),
+                         dq=(b, h, sq, d), dk=(b, h, sk, d), dv=(b, h, sk, d)))
+    lib = build.load("block_attention", _configure)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d,
+            float(scale), int(bool(causal)), int(q_offset), int(k_offset),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block attention backward launch failed (error {err})")
+
+
 def block_attention_fwd(q, k, v, o, l, m, scale: float, causal: bool = False,
                         q_offset: int = 0, k_offset: int = 0) -> None:
     """One block of attention merged into the running ``(o, l, m)`` in place:
@@ -200,18 +241,7 @@ def block_attention_fwd(q, k, v, o, l, m, scale: float, causal: bool = False,
     if q.device.type == "cpu":
         block_attention_fwd_reference(q, k, v, o, l, m, scale, causal, q_offset, k_offset)
         return
-    b, h, sq, sk, d = _dims("block_attention_fwd", q, k)
-    device = _check("block_attention_fwd", dict(q=q, k=k, v=v, o=o, l=l, m=m),
-                    dict(q=(b, h, sq, d), k=(b, h, sk, d), v=(b, h, sk, d), o=(b, h, sq, d),
-                         l=(b, h, sq), m=(b, h, sq)))
-    lib = build.load("block_attention", _configure)
-    with torch.cuda.device(device):
-        err = lib.pst_block_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-            b * h, sq, sk, d, float(scale), int(bool(causal)), int(q_offset), int(k_offset),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"block attention forward launch failed (error {err})")
+    _launch_fwd("pst_block_attention_fwd", q, k, v, o, l, m, scale, causal, q_offset, k_offset)
     block_attention_fwd.launches += 1
 
 
@@ -225,22 +255,26 @@ def block_attention_bwd(q, k, v, dout, lse, delta, dq, dk, dv, scale: float,
         block_attention_bwd_reference(q, k, v, dout, lse, delta, dq, dk, dv, scale, causal,
                                       q_offset, k_offset)
         return
-    b, h, sq, sk, d = _dims("block_attention_bwd", q, k)
-    device = _check("block_attention_bwd",
-                    dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv),
-                    dict(q=(b, h, sq, d), k=(b, h, sk, d), v=(b, h, sk, d),
-                         dout=(b, h, sq, d), lse=(b, h, sq), delta=(b, h, sq),
-                         dq=(b, h, sq, d), dk=(b, h, sk, d), dv=(b, h, sk, d)))
-    lib = build.load("block_attention", _configure)
-    with torch.cuda.device(device):
-        err = lib.pst_block_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d,
-            float(scale), int(bool(causal)), int(q_offset), int(k_offset),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"block attention backward launch failed (error {err})")
+    _launch_bwd("pst_block_attention_bwd", q, k, v, dout, lse, delta, dq, dk, dv, scale, causal,
+                q_offset, k_offset)
     block_attention_bwd.launches += 1
+
+
+def block_attention_fwd_simt(q, k, v, o, l, m, scale: float, causal: bool = False,
+                             q_offset: int = 0, k_offset: int = 0) -> None:
+    """:func:`block_attention_fwd` by B4's SIMT float32 kernel, CUDA tensors
+    only: the yardstick the tensor-core kernel is timed against in turns and
+    a second oracle.  No path of the package calls it; it counts nothing."""
+    _launch_fwd("pst_block_attention_fwd_simt", q, k, v, o, l, m, scale, causal, q_offset,
+                k_offset)
+
+
+def block_attention_bwd_simt(q, k, v, dout, lse, delta, dq, dk, dv, scale: float,
+                             causal: bool = False, q_offset: int = 0, k_offset: int = 0) -> None:
+    """:func:`block_attention_bwd` by B4's SIMT float32 kernels, as
+    :func:`block_attention_fwd_simt`."""
+    _launch_bwd("pst_block_attention_bwd_simt", q, k, v, dout, lse, delta, dq, dk, dv, scale,
+                causal, q_offset, k_offset)
 
 
 def attention_row_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -1306,10 +1306,18 @@ def test_mnist_step_on_the_card_matches_the_plain_step(tmp_path):
 #
 # Tolerance: the kernel and the plain version compute the same float32
 # function, the kernel by an online softmax over 64-key tiles (its own
-# summation order and exp shifts), the plain version by cuBLAS products of
-# the whole block (TF32 off).  Each output within 1e-5 of its largest |value|
-# (the forward's o, l and m), the gradients within 1e-4 of theirs; the
-# infinities (m = -inf of fully masked rows) in the same places.
+# summation order and exp shifts) with its products on the tensor cores in
+# 3xTF32 (each float32 operand split into a TF32 big half, rounded to
+# nearest, and the TF32 truncation of the rest; big.big + big.small +
+# small.big summed in float32: at most about 2.5 * 2^-21 = 1.2e-6 relative
+# error a product, against float32's 6e-8; one TF32 pass would leave
+# 2^-11 = 5e-4), the plain version by cuBLAS float32 products of the whole
+# block (TF32 off).
+# Each output within 1e-5 of its largest |value| (the forward's o, l and m),
+# the gradients within 1e-4 of theirs; the infinities (m = -inf of fully
+# masked rows) in the same places.  tests/test_torch_b4_tf32_split.py holds
+# the 3xTF32 arithmetic to these bounds on the CPU, and shows one TF32 pass
+# outside them.  The SIMT kernels (float32 FMAs) are held to the same bounds.
 
 _B4_CASES = [  # (B, H, Sq, Sk, D, causal, q_offset, k_offset)
     (2, 4, 128, 128, 64, False, 0, 0),
@@ -1317,6 +1325,9 @@ _B4_CASES = [  # (B, H, Sq, Sk, D, causal, q_offset, k_offset)
     (1, 3, 100, 77, 40, True, 77, 0),      # ragged tiles, an off-diagonal causal block
     (1, 2, 96, 160, 128, True, 0, 32),     # rows 0-31 see none of these keys
     (2, 32, 256, 256, 128, True, 256, 256),
+    (1, 3, 130, 70, 36, False, 0, 0),      # D % 8 != 0: zero tail of each row
+    (1, 2, 75, 90, 33, True, 20, 0),       # D % 4 != 0: 4-byte copies, ragged causal
+    (1, 2, 200, 333, 96, True, 300, 150),  # ragged Sq / Sk, causal across tiles
 ]
 
 
@@ -1414,6 +1425,78 @@ def test_attention_and_its_gradient_match_plain_on_card(causal):
     _assert_b4_close(results[0][0], results[1][0], 1e-5)
     for g, want in zip(results[0][1:], results[1][1:]):
         _assert_b4_close(g, want, 1e-4)
+
+
+def _b4_grads(ra, case, bwd, seed=0):
+    """One block's forward by the plain version, then ``bwd``'s gradients
+    added to random accumulators; returns (the accumulators, their inputs)."""
+    q, k, v = _b4_inputs(case, seed)
+    causal, qo, ko = case[5:]
+    b, h, sq, d = q.shape
+    o = torch.zeros_like(q)
+    l = torch.zeros(b, h, sq, device="cuda")
+    m = torch.full_like(l, -torch.inf)
+    ra.block_attention_fwd_reference(q, k, v, o, l, m, 0.125, causal, qo, ko)
+    out, lse = ra._finish(o, l, m)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    dout = torch.randn(q.shape, device="cuda", generator=gen)
+    delta = ra.attention_row_delta_reference(out, dout)
+    start = [torch.randn(t.shape, device="cuda", generator=gen) for t in (q, k, v)]
+    got = [t.clone() for t in start]
+    bwd(q, k, v, dout, lse, delta, *got, 0.125, causal, qo, ko)
+    return got, (q, k, v, dout, lse, delta, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _B4_CASES, ids=str)
+def test_block_attention_reruns_are_bit_identical_on_card(case):
+    """No atomics and one writer an element: two runs of the forward, and of
+    the backward, on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import ring_attention as ra
+
+    q, k, v = _b4_inputs(case)
+    causal, qo, ko = case[5:]
+    b, h, sq, d = q.shape
+    runs = []
+    for _ in range(2):
+        state = [torch.zeros_like(q), torch.zeros(b, h, sq, device="cuda"),
+                 torch.full((b, h, sq), -torch.inf, device="cuda")]
+        ra.block_attention_fwd(q, k, v, *state, 0.125, causal, qo, ko)
+        runs.append(state + _b4_grads(ra, case, ra.block_attention_bwd)[0])
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _B4_CASES, ids=str)
+def test_block_attention_simt_kernels_match_plain_on_card(case):
+    """The SIMT kernels, kept as the yardstick, still compute B4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from petastorm_tpu_torch.ops import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _b4_inputs(case)
+    causal, qo, ko = case[5:]
+    b, h, sq, d = q.shape
+    state = [torch.zeros_like(q), torch.zeros(b, h, sq, device="cuda"),
+             torch.full((b, h, sq), -torch.inf, device="cuda")]
+    plain = [t.clone() for t in state]
+    ra.reset_launch_counts()
+    ra.block_attention_fwd_simt(q, k, v, *state, 0.125, causal, qo, ko)
+    ra.block_attention_fwd_reference(q, k, v, *plain, 0.125, causal, qo, ko)
+    got, (*inputs, start) = _b4_grads(ra, case, ra.block_attention_bwd_simt)
+    want = [t.clone() for t in start]
+    ra.block_attention_bwd_reference(*inputs, *want, 0.125, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert ra.block_attention_fwd.launches == ra.block_attention_bwd.launches == 0
+    for g, w in zip(state, plain):
+        _assert_b4_close(g, w, 1e-5)
+    for g, w in zip(got, want):
+        _assert_b4_close(g, w, 1e-4)
 
 
 @pytest.mark.cuda
