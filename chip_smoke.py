@@ -243,13 +243,23 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    ``CudaDataLoader`` feed on the card) and the preemption example on the
    card (drain, ``checkpoint.save_checkpoint``, restore into fresh objects):
    every row trained exactly once across the two incarnations;
-25. the port's multi-process selfcheck on the card, two ranks on ``cuda:0``
+25. the port's multi-process selfcheck on the card, its ranks on ``cuda:0``
    over gloo (``parallel.selfcheck``): ``run_selfcheck`` (sharded reading,
    global batches rebuilt from both ranks' blocks, a masked global mean a
    step, the unequal drain through the default collective, an elastic
-   resume under 3 processes), ``run_distributed_write_check`` and
+   resume under 3 processes), ``run_distributed_write_check``,
    ``run_context_parallel_check`` (ring and Ulysses over sequence-sharded
-   delivery against float64 full attention), with the transport printed;
+   delivery against float64 full attention), ``run_shuffled_check`` (4
+   ranks: seeded shuffled stacked delivery and drain, one global order on
+   every rank, the exact multiset, the seeded interleave, |rho| <= 0.5),
+   ``run_mixed_check`` (``'device-mixed'`` decode, B2 in each rank, the
+   gathered pixels equal on both ranks and within max 6 / mean 1 of a host
+   decode) and ``run_mesh2d_check`` (4 ranks on a 2 x 2 ``("data",
+   "model")`` mesh), with the transport printed; and the packed token
+   loader over a 2-rank mesh to exhaustion (phase 23's second corpus,
+   ``(8, 2048)`` global batches), each rank's rows' digest equal to the CPU
+   packing of its shard; the last three checks and the packed loader run at
+   once;
 26. the long-context trainer (``examples/long_context/
    train_ring_attention_cuda``) at Llama-2-7B's attention widths (32 heads
    of 128, vocabulary 32,000, rows of 4,096 tokens), two ranks on the
@@ -262,7 +272,23 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    check), tokens/s, step ms, the input-idle share,
    peak memory a rank, B4's launches (no plain attention call on the card);
    every child process has a timeout, and a failed or late rank fails the
-   run.
+   run;
+27. the data-parallel flagship trainer (``train_resnet_cuda`` under two
+   ranks sharing ``cuda:0`` over gloo): phase 6's dataset with device
+   decode, global batch 256 (128 a rank), ResNet-50 at its published
+   widths, 2 warm-up and 4 timed steps: the ranks' leaves equal bit for bit
+   (a digest a rank), B1, B3 and B2 in every rank, samples/s/GPU, the
+   all-reduce's ms a step and the transport; the first step recomputed here
+   from the seed-0 weights and the gathered global batch and draws, over
+   the ranks' two blocks (within 1e-6 of max|leaf|) and in one pass (the
+   update within 0.03 relative);
+28. remote read: phase 6's training through ``test_util.latency_fs`` (20 ms
+   a request, the first 2 opens and 2 reads failing) with
+   ``io_retries='auto'``: the labels and the first batch's pixels equal
+   phase 6's, 3 retries counted (the ``_common_metadata`` probe takes one
+   failure without a retry, as in the JAX package), one ranged read a
+   rowgroup, samples/s beside phase 6's; then a store failing every request
+   raises ``CircuitOpenError`` within 10 s.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -302,7 +328,7 @@ from petastorm_tpu_torch.checkpoint import (make_checkpoint_manager, restore_che
 from petastorm_tpu_torch.cuda import build, device_buffer  # noqa: E402
 from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader  # noqa: E402
 from petastorm_tpu_torch.etl.indexing import SingleFieldIndexer, build_rowgroup_index  # noqa: E402
-from petastorm_tpu_torch.errors import ErrorBudgetExceededError  # noqa: E402
+from petastorm_tpu_torch.errors import CircuitOpenError, ErrorBudgetExceededError  # noqa: E402
 from petastorm_tpu_torch.etl.generate_metadata import generate_metadata  # noqa: E402
 from petastorm_tpu_torch.etl.metadata import open_dataset  # noqa: E402
 from petastorm_tpu_torch.etl.writer import materialize_dataset, stamp_dataset_metadata  # noqa: E402
@@ -322,6 +348,8 @@ from petastorm_tpu_torch.parallel import launch, selfcheck  # noqa: E402
 from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
+from petastorm_tpu_torch.test_util.latency_fs import latent_filesystem  # noqa: E402
+from petastorm_tpu_torch.sequence import PackedSequenceReader, make_sequence_reader  # noqa: E402
 from petastorm_tpu_torch.sequence import (SequencePacker, iter_documents,  # noqa: E402
                                           iter_packed_blocks, make_mixed_sequence_reader,
                                           make_packed_sequence_loader, packed_stream_digest,
@@ -359,7 +387,13 @@ B4_SHAPE = (2, 32, 2048, 128)   # phase 3: a ring block of the phase-26 trainer 
 LC_HEADS, LC_HEAD_DIM, LC_VOCAB = 32, 128, 32000  # phase 26: Llama-2-7B's attention widths
 LC_SEQ, LC_BATCH, LC_ROWS = 4096, 2, 16           # phase 26: its context, global batch, rows
 LC_WARMUP, LC_TIMED, CP_RANKS = 1, 3, 2           # phase 26: steps, ranks on the seq dimension
-CHILD_TIMEOUT_S = 300                             # phases 25-26: a child's time limit
+CHILD_TIMEOUT_S = 300                             # phases 25-27: a child's time limit
+SHUFFLE_RANKS, MESH2D_SHAPE = 4, (2, 2)           # phase 25: the JAX checks' device counts
+PACKED_SEQ, PACKED_BATCH, PACKED_SEED = 2048, 8, 11  # phase 25: the packed loader on a mesh
+DP_RANKS, DP_BATCH, DP_WARMUP, DP_TIMED = 2, 256, 2, 4  # phase 27: the data-parallel trainer
+REMOTE_LATENCY_S = 0.02                           # phase 28: a request's injected latency
+REMOTE_FAIL_READS, REMOTE_FAIL_OPENS = 2, 2       # phase 28: the first reads, opens failing
+CIRCUIT_BOUND_S = 10.0                            # phase 28: a dead store's CircuitOpenError
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -1358,7 +1392,8 @@ def train_path_device_decode_phase(path, kernels, host):
           launches=run["launches"], general_resized_crop_launches=run["general_launches"],
           losses=run["losses"].tolist(), labels_match_host_order=True,
           decode_stats=run["decode_stats"], first_batch_vs_host_decode=vs_cv2)
-    return {"labels": run["labels"], "samples_per_s": run["samples_per_s"]}
+    return {"labels": run["labels"], "samples_per_s": run["samples_per_s"],
+            "first_images": images}
 
 
 def shuffled_train_path_phase(path, device):
@@ -3543,22 +3578,125 @@ def block_attention_entry():
     return entries
 
 
-def selfcheck_phase(tmp):
-    """Phase 25: the port's three multi-process checks, two ranks on cuda:0."""
+def packed_block_digest(columns):
+    """``packed_stream_digest`` of the rows of ``columns`` as one block, so
+    that two deliveries of the same rows in other batchings agree."""
+    return packed_stream_digest([{name: np.asarray(col) for name, col in columns.items()}])
+
+
+def packed_mesh_rank(args):
+    """One rank of phase 25's packed loader on a mesh (``python3
+    chip_smoke.py --packed-mesh-rank JSON``, started by ``launch.run_ranks``):
+    its blocks of every batch on the card, to exhaustion, and their digest."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        rank = dist.get_rank()
+        mesh = init_device_mesh("cpu", (dist.get_world_size(),), mesh_dim_names=("data",))
+        fields = ("tokens", "segment_ids", "positions", "loss_mask")
+        rows = {name: [] for name in fields}
+        devices = set()
+        with make_packed_sequence_loader(args["url"], PACKED_BATCH, PACKED_SEQ,
+                                         seed=PACKED_SEED, long_docs="split", device="cuda",
+                                         loader_kwargs={"mesh": mesh, "drop_last": False,
+                                                        "shardings": {f: (Shard(0),)
+                                                                      for f in fields}}
+                                         ) as loader:
+            for batch in loader:
+                valid = int(batch.get(VALID_ROWS, PACKED_BATCH // dist.get_world_size()))
+                for name in fields:
+                    devices.add(str(batch[name].device))
+                    rows[name].append(batch[name][:valid].cpu().numpy())
+        columns = {name: np.concatenate(v) for name, v in rows.items()}
+        with open(f"{args['out']}.{rank}.json", "w") as f:
+            json.dump({"rank": rank, "rows": int(len(columns["tokens"])),
+                       "real_tokens": int(np.count_nonzero(columns["loss_mask"])),
+                       "digest": f"{packed_block_digest(columns):08x}",
+                       "devices": sorted(devices)}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def packed_mesh_check(tmp):
+    """Phase 25's packed token loader over a 2-rank mesh on ``cuda:0``: each
+    rank's delivered rows against the CPU packing of its shard."""
+    url = os.path.join(tmp, "tokens_1")  # phase 23's second corpus
+    prefix = os.path.join(tmp, "packed_mesh")
+    cmd = [sys.executable, os.path.abspath(__file__), "--packed-mesh-rank",
+           json.dumps({"url": url, "out": prefix})]
+    t0 = time.perf_counter()
+    error = launch.run_ranks(cmd, CP_RANKS, CHILD_TIMEOUT_S, prefix)
+    if error:
+        raise AssertionError(f"phase 25, the packed loader on a mesh: {error}")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(CP_RANKS):
+        with open(f"{prefix}.{rank}.json") as f:
+            got = json.load(f)
+        columns = {}
+        with PackedSequenceReader(make_sequence_reader(url, shuffle_seed=PACKED_SEED,
+                                                       cur_shard=rank, shard_count=CP_RANKS),
+                                  PACKED_SEQ, rows_per_batch=PACKED_BATCH,
+                                  long_docs="split") as packed:
+            for block in packed.iter_batches():
+                for name, col in block.columns.items():
+                    columns.setdefault(name, []).append(col)
+        want = packed_block_digest({k: np.concatenate(v) for k, v in columns.items()})
+        if got["digest"] != f"{want:08x}" or got["devices"] != ["cuda:0"] or not got["rows"]:
+            raise AssertionError(f"phase 25: rank {rank} delivered {got}, the CPU packing of"
+                                 f" its shard has digest {want:08x}")
+        ranks.append(got)
+    return {"ranks": ranks, "seq_len": PACKED_SEQ, "global_batch": PACKED_BATCH,
+            "digests_match_cpu_packing": True, "wall_s": wall}
+
+
+def selfcheck_phase(tmp, kernels):
+    """Phase 25: the port's six multi-process checks, their ranks on cuda:0
+    over gloo, and the packed token loader over a 2-rank mesh.  The first
+    three run one after the other (the pipeline check's unequal drain rests
+    on timing); the other three and the packed loader run at once."""
     out = {}
-    for name, fn in (("pipeline", selfcheck.run_selfcheck),
-                     ("write", selfcheck.run_distributed_write_check),
-                     ("context_parallel", selfcheck.run_context_parallel_check)):
+
+    def run(name, fn, kwargs):
         t0 = time.perf_counter()
-        report = fn(num_processes=CP_RANKS, device="cuda", timeout=CHILD_TIMEOUT_S,
-                    workdir=os.path.join(tmp, f"selfcheck_{name}"))
+        report = fn(device="cuda", timeout=CHILD_TIMEOUT_S,
+                    workdir=os.path.join(tmp, f"selfcheck_{name}"),
+                    **dict({"num_processes": CP_RANKS}, **kwargs))
         if not report["ok"]:
             raise AssertionError(f"selfcheck {name} failed: {report['failures']}")
         out[name] = {k: v for k, v in report.items()
                      if k not in ("logs", "workdir", "failures", "ok")}
         out[name]["seconds"] = time.perf_counter() - t0
-    if out["pipeline"]["devices"] != ["cuda:0"] or out["context_parallel"]["devices"] != ["cuda:0"]:
-        raise AssertionError(f"selfcheck delivered off the card: {out}")
+
+    for name, fn in (("pipeline", selfcheck.run_selfcheck),
+                     ("write", selfcheck.run_distributed_write_check),
+                     ("context_parallel", selfcheck.run_context_parallel_check)):
+        run(name, fn, {})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = [pool.submit(run, "shuffled", selfcheck.run_shuffled_check,
+                            {"num_processes": SHUFFLE_RANKS}),
+                pool.submit(run, "mixed", selfcheck.run_mixed_check, {}),
+                pool.submit(run, "mesh2d", selfcheck.run_mesh2d_check,
+                            {"num_processes": MESH2D_SHAPE[0],
+                             "devices_per_process": MESH2D_SHAPE[1]})]
+        packed = pool.submit(packed_mesh_check, tmp)
+        for job in jobs:
+            job.result()
+        out["packed_mesh"] = packed.result()
+    out["concurrent_wall_s"] = time.perf_counter() - t0
+    for name in ("pipeline", "context_parallel", "shuffled", "mixed", "mesh2d"):
+        if out[name]["devices"] != ["cuda:0"]:
+            raise AssertionError(f"selfcheck {name} delivered off the card: {out[name]}")
+    if min(out["mixed"]["b2_launches"]) < 1:
+        raise AssertionError(f"the mixed check's ranks launched B2 {out['mixed']['b2_launches']}"
+                             " times")
+    kernels["jpeg_decode_u8"]["launches"] += sum(out["mixed"]["b2_launches"])
     phase("selfcheck", ranks=CP_RANKS, backend=out["context_parallel"]["backend"],
           transport=out["context_parallel"]["transport"], **out)
 
@@ -3624,6 +3762,179 @@ def long_context_phase(tmp, kernels):
           timed_steps=LC_TIMED, write_s=write_s, **runs)
 
 
+def data_parallel_phase(tmp, path, kernels):
+    """Phase 27: the data-parallel flagship trainer, two ranks sharing cuda:0
+    over gloo, on phase 6's dataset with device decode; the ranks' leaves
+    equal bit for bit, and the first step recomputed here from the gathered
+    global batch and draws."""
+    prefix = os.path.join(tmp, "dp")
+    first_path = prefix + ".first.pt"
+    cores = os.cpu_count() or 2
+    workers = max(1, min((cores - 1) // DP_RANKS, 8))
+    cmd = [sys.executable, "-m", "petastorm_tpu_torch.examples.imagenet.train_resnet_cuda",
+           "--dataset-url", path, "--skip-generate", "--side", str(SIDE),
+           "--global-batch", str(DP_BATCH), "--warmup", str(DP_WARMUP),
+           "--steps", str(DP_TIMED), "--workers", str(workers), "--decode", "device",
+           "--device", "cuda", "--report", prefix, "--first-step", first_path]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    error = launch.run_ranks(cmd, DP_RANKS, CHILD_TIMEOUT_S, prefix)
+    if error:
+        raise AssertionError(f"phase 27: {error}")
+    wall = time.perf_counter() - t0
+    reports = []
+    for rank in range(DP_RANKS):
+        with open(f"{prefix}.{rank}.json") as f:
+            reports.append(json.load(f))
+    digests = {r["params_digest"] for r in reports}
+    if len(digests) != 1:
+        raise AssertionError(f"phase 27: the ranks' leaves differ: digests {digests}")
+    for rank, r in enumerate(reports):
+        if r["world_size"] != DP_RANKS or not np.isfinite(r["final_loss"]):
+            raise AssertionError(f"phase 27: rank {rank} reported {r}")
+        # B1 and B3 once a step in every rank: warm-up, timed and the compute
+        # floor's rerun on one resident batch; B2 once a batch the loader
+        # staged: every batch stepped on, and those it prefetched
+        steps = DP_WARMUP + 2 * DP_TIMED
+        got = r["launches"]
+        if (got["normalize_u8"] != steps or got["resized_crop_flip_u8"] != steps
+                or got["jpeg_decode_u8"] < DP_WARMUP + DP_TIMED + 1):
+            raise AssertionError(f"phase 27: rank {rank} launched {got} in {steps} steps over"
+                                 f" {DP_WARMUP + DP_TIMED + 1} batches")
+    for name in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[name]["launches"] += sum(r["launches"][name] for r in reports)
+    recompute = recompute_first_step(first_path)
+    phase("data_parallel_train", ranks=DP_RANKS, global_batch=DP_BATCH,
+          rank_batch=DP_BATCH // DP_RANKS, warmup_steps=DP_WARMUP, timed_steps=DP_TIMED,
+          decode="device", backend="gloo", transport=reports[0]["transport"],
+          samples_per_s=[r["samples_per_sec"] for r in reports],
+          samples_per_s_per_gpu=[r["samples_per_sec_per_gpu"] for r in reports],
+          allreduce_ms=[r["allreduce_ms"] for r in reports],
+          step_ms=[1e3 * r["wall_s"] / r["steps"] for r in reports],
+          consumer_wait_pct=[r["device_idle_pct"] for r in reports],
+          final_loss=reports[0]["final_loss"], params_digest=reports[0]["params_digest"],
+          ranks_leaves_identical=True, launches=[r["launches"] for r in reports],
+          first_step_recomputed=recompute, wall_s=wall)
+
+
+def recompute_first_step(first_path):
+    """The first data-parallel step again in this process, from the seed-0
+    weights and the gathered global batch and draws: as gradient
+    accumulation over the ranks' blocks (the data-parallel step's own
+    arithmetic: each block's bf16 gradients, averaged in float32), held to
+    ``tests/test_torch_train.py``'s bound, 1e-6 * max|leaf| a leaf; and as
+    one pass over the global batch, whose bf16 gradients round once, held to
+    phase 5's bound on the update (relative error 0.03)."""
+    record = torch.load(first_path)
+    images, labels = record["images"].cuda(), record["labels"].cuda()
+    boxes, flips = record["boxes"].cuda(), record["flips"].cuda()
+    ranks_after = [leaf.cuda() for leaf in record["leaves"]]
+    out = {}
+    for mode in ("blocks", "global"):
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        model = model.to(memory_format=torch.channels_last)
+        step = trainer.TrainStep(model, 1000, SIDE)
+        before = [leaf.detach().clone() for leaf in step.leaves]
+        if mode == "global":
+            loss = float(step(images, labels, boxes=boxes, flips=flips))
+        else:
+            n = DP_BATCH // DP_RANKS
+            step.optimizer.zero_grad(set_to_none=True)
+            losses = []
+            for r in range(DP_RANKS):
+                rows = slice(r * n, (r + 1) * n)
+                crops = augment.random_resized_crop(images[rows], None, (SIDE, SIDE),
+                                                    boxes=boxes[rows], flips=flips[rows])
+                block_loss = trainer.softmax_cross_entropy(
+                    model(normalize.normalize_images(crops)), labels[rows], 1000)
+                (block_loss / DP_RANKS).backward()
+                losses.append(block_loss.detach())
+            step.optimizer.step()
+            loss = float(torch.stack(losses).mean())
+        leaf_err = max(float((a - b.detach()).abs().max() / b.detach().abs().max())
+                       for a, b in zip(ranks_after, step.leaves))
+        upd_ranks = torch.cat([(a - b).flatten() for a, b in zip(ranks_after, before)])
+        upd_here = torch.cat([(a.detach() - b).flatten() for a, b in zip(step.leaves, before)])
+        out[mode] = {"loss": loss, "loss_ranks": record["loss"],
+                     "max_leaf_err_over_max_leaf": leaf_err,
+                     "update_rel_err": float((upd_ranks - upd_here).norm() / upd_here.norm())}
+        del model, step, before
+        torch.cuda.empty_cache()
+    if out["blocks"]["max_leaf_err_over_max_leaf"] > 1e-6:
+        raise AssertionError(f"phase 27: the ranks' first step is off its one-process"
+                             f" recomputation over the same blocks: {out}")
+    if out["global"]["update_rel_err"] > 0.03 or abs(out["global"]["loss"] - record["loss"]) > 1e-3:
+        raise AssertionError(f"phase 27: the ranks' first step is off the one-pass step over"
+                             f" the global batch: {out}")
+    out["bounds"] = {"blocks_max_leaf_err_over_max_leaf": 1e-6, "global_update_rel_err": 0.03,
+                     "global_loss_abs": 1e-3}
+    return out
+
+
+def remote_read_phase(tmp, path, kernels, device):
+    """Phase 28: phase 6's device-decode training read through the
+    latency-injecting filesystem with ``io_retries='auto'``: the labels and
+    the first batch's pixels equal phase 6's, the retries counted, one ranged
+    read a rowgroup; then a store that always fails opens the circuit."""
+    fs, stats = latent_filesystem(latency_s=REMOTE_LATENCY_S, fail_first_reads=REMOTE_FAIL_READS,
+                                  fail_first_opens=REMOTE_FAIL_OPENS)
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
+                         decode_placement={"image": "device"}, filesystem=fs,
+                         io_retries="auto")
+    run = train_epoch(path, "device", source=(reader, [reader]))
+    io_stats = reader.io_stats()
+    for name in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[name]["launches"] += run["launches"][name]
+    if not torch.equal(run["labels"], device["labels"]):
+        raise AssertionError("phase 28: the remote read delivered other labels, or in another"
+                             " order, than phase 6's local read")
+    if not torch.equal(run["first"][0].cpu(), device["first_images"]):
+        raise AssertionError("phase 28: the first batch's pixels differ from phase 6's")
+    injected = stats.snapshot()
+    # the _common_metadata probe takes one failure without a retry (the JAX
+    # package's rule); every other failure is retried
+    if (injected["failures_injected"] != REMOTE_FAIL_READS + REMOTE_FAIL_OPENS
+            or io_stats["retries"] != REMOTE_FAIL_READS + REMOTE_FAIL_OPENS - 1
+            or io_stats["reads_per_rowgroup"] != 1.0):
+        raise AssertionError(f"phase 28: injected {injected}, the reader counted {io_stats}")
+    # a store that fails every request once the dataset is open
+    dead_fs, dead_stats = latent_filesystem(latency_s=REMOTE_LATENCY_S)
+    dead = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
+                       decode_placement={"image": "device"}, filesystem=dead_fs,
+                       io_retries="auto")
+    dead_fs.handler._fail_reads[0] = dead_fs.handler._fail_opens[0] = 10 ** 9
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        with CudaDataLoader(dead, batch_size=BATCH, device="cuda") as loader:
+            for _ in loader:
+                pass
+    except Exception as exc:  # noqa: BLE001 - inspected below
+        raised = exc
+    circuit_s = time.perf_counter() - t0
+    chain, exc = [], raised
+    while exc is not None:
+        chain.append(exc)
+        exc = exc.__cause__ or exc.__context__
+    if not any(isinstance(e, CircuitOpenError) for e in chain) or circuit_s > CIRCUIT_BOUND_S:
+        raise AssertionError(f"phase 28: a dead store raised {chain!r} after {circuit_s:.2f} s;"
+                             f" expected CircuitOpenError within {CIRCUIT_BOUND_S} s")
+    steps, timed = run["steps"], run["timed"]
+    phase("remote_read_train_device_decode", latency_ms=1e3 * REMOTE_LATENCY_S,
+          fail_first_reads=REMOTE_FAIL_READS, fail_first_opens=REMOTE_FAIL_OPENS,
+          io_retries="auto", workers=workers, steps=steps, batch=BATCH,
+          samples_per_s=run["samples_per_s"], local_samples_per_s=device["samples_per_s"],
+          consumer_wait_share=run["wait"] / timed, io_stats=io_stats, fake_stats=injected,
+          labels_match_local=True, first_batch_pixels_match_local=True,
+          launches=run["launches"], circuit_breaker=dead.circuit_breaker.snapshot(),
+          dead_store_raised=type(raised).__name__, dead_store_seconds=circuit_s,
+          dead_store_bound_s=CIRCUIT_BOUND_S, dead_store_requests_failed=(
+              dead_stats.snapshot()["failures_injected"]))
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3668,8 +3979,10 @@ def main():
         token_feed_phase(tmp)
         mnist_phase(tmp, kernels)
         torch.cuda.empty_cache()
-        selfcheck_phase(tmp)
+        selfcheck_phase(tmp, kernels)
         long_context_phase(tmp, kernels)
+        data_parallel_phase(tmp, path, kernels)
+        remote_read_phase(tmp, path, kernels, device)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3678,4 +3991,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--packed-mesh-rank"]:
+        packed_mesh_rank(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -17,10 +17,12 @@ the published files.  Converters are deleted at interpreter exit unless
 (``pytorch.BatchedDataLoader``) and ``make_reader``; each warns when the
 shard arguments disagree with the launcher's rank (``:380-414``).
 
-Not part of this package yet (ROADMAP.md queue A item 11): ``make_tf_dataset``
-(it needs the ``tf`` module), Spark DataFrames (materialized on the
-executors by ``df.write.parquet``, ``:116-358``) and remote filesystems
-(``storage_options``): each raises.
+The cache directory may be remote (``storage_options``, ``:283-355``: any
+URL ``fs.get_filesystem_and_path`` resolves); the handle's readers take the
+same ``storage_options``.  Not part of this package yet (ROADMAP.md queue A
+item 11): ``make_tf_dataset`` (it needs the ``tf`` module) and Spark
+DataFrames (materialized on the executors by ``df.write.parquet``,
+``:116-358``): each raises.
 """
 
 from __future__ import annotations
@@ -264,11 +266,13 @@ class DatasetConverter:
     (the reference's ``SparkDatasetConverter``)."""
 
     def __init__(self, cache_url: str, file_urls: List[str], dataset_size: int,
-                 schema: Schema, _owns_cache: bool = True):
+                 schema: Schema, _owns_cache: bool = True,
+                 storage_options: Optional[dict] = None):
         self.cache_url = cache_url
         self.file_urls = list(file_urls)
         self.dataset_size = dataset_size
         self.schema = schema
+        self.storage_options = storage_options
         self._owns_cache = _owns_cache
         self._deleted = False
 
@@ -278,6 +282,7 @@ class DatasetConverter:
     def _checked_reader(self, reader_kwargs: Optional[Dict]):
         reader_kwargs = dict(reader_kwargs or {})
         _check_shard_rank_env(reader_kwargs.get("cur_shard"), reader_kwargs.get("shard_count"))
+        reader_kwargs.setdefault("storage_options", self.storage_options)
         return make_reader(self.cache_url, **reader_kwargs)
 
     def make_reader(self, **kwargs):
@@ -333,7 +338,7 @@ class DatasetConverter:
         if self._deleted or not self._owns_cache:
             self._deleted = True
             return
-        fs, root = get_filesystem_and_path(self.cache_url)
+        fs, root = get_filesystem_and_path(self.cache_url, self.storage_options)
         try:
             fs.delete_dir(root)
         except FileNotFoundError:
@@ -349,12 +354,14 @@ def make_converter(data, cache_dir_url: Optional[str] = None, *,
                    dtype: Optional[str] = "float32",
                    compression_codec: Optional[str] = None,
                    row_group_size_mb: float = DEFAULT_ROW_GROUP_SIZE_MB,
-                   delete_at_exit: bool = True) -> DatasetConverter:
+                   delete_at_exit: bool = True,
+                   storage_options: Optional[dict] = None) -> DatasetConverter:
     """Write in-memory data to cached Parquet once and return its handle.
 
     ``data``: a pandas DataFrame or a pyarrow Table (a Spark DataFrame
     raises: not part of this package yet).  ``cache_dir_url`` (else
-    ``$PETASTORM_TPU_CONVERTER_CACHE_DIR``): a local directory.  The same
+    ``$PETASTORM_TPU_CONVERTER_CACHE_DIR``): a directory URL, local or
+    remote (``storage_options`` go to its filesystem).  The same
     content and parameters give the same ``converted-<fingerprint>``
     directory as the JAX package's converter.
     """
@@ -376,7 +383,7 @@ def make_converter(data, cache_dir_url: Optional[str] = None, *,
     params = {"codec": compression_codec, "rg_mb": row_group_size_mb, "v": 2}
     tag = _fingerprint(table, params)
     ds_url = posixpath.join(cache_dir_url, f"converted-{tag}")
-    fs, root = get_filesystem_and_path(ds_url)
+    fs, root = get_filesystem_and_path(ds_url, storage_options)
     schema = Schema.from_arrow_schema(table.schema, name=f"Converted_{tag[:8]}")
 
     live = _share_live_handle(ds_url, delete_at_exit)
@@ -387,14 +394,15 @@ def make_converter(data, cache_dir_url: Optional[str] = None, *,
         if files:  # another process converted this content
             logger.info("Reusing cached converted dataset %s", ds_url)
             conv = DatasetConverter(ds_url, files, table.num_rows, schema,
-                                    _owns_cache=delete_at_exit)
+                                    _owns_cache=delete_at_exit,
+                                    storage_options=storage_options)
             _register_converter(conv, delete_at_exit)
             return conv
         _move_debris_aside(fs, root, ds_url)
 
     # a temporary directory, then one rename: converters of the same content
     # race benignly (one rename wins, both see a whole dataset)
-    _, cache_root = get_filesystem_and_path(cache_dir_url)
+    _, cache_root = get_filesystem_and_path(cache_dir_url, storage_options)
     tmp_root = posixpath.join(cache_root, f".tmp-{tag}-{uuid.uuid4().hex[:8]}")
     fs.create_dir(tmp_root, recursive=True)
     rows_per_group = max(1, int(row_group_size_mb * 2**20
@@ -403,10 +411,11 @@ def make_converter(data, cache_dir_url: Optional[str] = None, *,
     pq.write_table(stamped, posixpath.join(tmp_root, "part-00000.parquet"), filesystem=fs,
                    row_group_size=rows_per_group, compression=compression_codec)
     _publish_dir(fs, tmp_root, root)
-    stamp_dataset_metadata(ds_url, schema)
+    stamp_dataset_metadata(ds_url, schema, storage_options=storage_options)
     files = _parquet_files(fs, root)
     _wait_files_available(fs, files)
     _advise_on_file_sizes(fs, files)
-    conv = DatasetConverter(ds_url, files, table.num_rows, schema, _owns_cache=delete_at_exit)
+    conv = DatasetConverter(ds_url, files, table.num_rows, schema, _owns_cache=delete_at_exit,
+                            storage_options=storage_options)
     _register_converter(conv, delete_at_exit)
     return conv

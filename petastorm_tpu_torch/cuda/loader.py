@@ -1193,8 +1193,9 @@ class CudaDataLoader:
         stacked) and a zero valid mask, shaped like the last unit (or, when
         none was emitted, from the schema).  ``'_valid_rows'`` is local to a
         process: a consumer weights by ``valid_mask_field`` and runs every
-        step.  ``None``: one process (the default collective over
-        ``torch.distributed`` is not part of this package yet).
+        step.  ``None``: on a mesh of several ranks, an ``all_gather`` of
+        the counts over the mesh's group (the default collective); else one
+        process.
 
         With ``drop_last=True`` a final partial batch's rows are dropped as at
         an epoch end, and with ``stack_batches=K`` the short stack too: up to
@@ -1383,7 +1384,7 @@ def make_cuda_loader(dataset_url: str,
     """
     import inspect
 
-    from petastorm_tpu_torch.parallel.mesh import batch_block, shard_options_from_torch
+    from petastorm_tpu_torch.parallel.mesh import reader_shard, shard_options_from_torch
     from petastorm_tpu_torch.reader import make_batch_reader
 
     loader_params = set(inspect.signature(CudaDataLoader.__init__).parameters) - {
@@ -1396,11 +1397,7 @@ def make_cuda_loader(dataset_url: str,
             kwargs["schema_fields"] = wanted
     if shard_by_process and "cur_shard" not in kwargs:
         if mesh is not None:
-            spec = (next(iter(shardings.values()), None) if isinstance(shardings, dict)
-                    else shardings)
-            if spec is None:
-                spec = sharding_for_batch(mesh, mesh_dim_names(mesh)[:1])
-            cur, count = batch_block(mesh, tuple(spec))
+            cur, count = reader_shard(mesh, shardings)
         else:
             cur, count = shard_options_from_torch()
         if count > 1:

@@ -63,10 +63,12 @@ class ErrorBudgetExceededError(PetastormTpuError):
 
 
 class CircuitOpenError(OSError, PetastormTpuError):
-    """The storage circuit breaker is open.  The breaker belongs to the
-    remote-filesystem retry layer, which is not part of this package yet
-    (ROADMAP.md queue A item 11); the type is kept so the failure taxonomy
-    (an ``OSError``, classified ``'data'``) reads as the JAX package's."""
+    """The storage circuit breaker is open (``retry.CircuitBreaker``):
+    consecutive transient IO failures crossed
+    ``retry.RetryPolicy.circuit_threshold``, and further IO fails at once
+    instead of every worker spending its whole retry budget against a store
+    that is down.  An ``OSError``, so the failure taxonomy reads as the JAX
+    package's (classified ``'data'``); never retried itself."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,9 +17,10 @@ from __future__ import annotations
 import json
 import logging
 from abc import ABC, abstractmethod
-from typing import Dict, List, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
+import pyarrow.fs as pafs
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError
@@ -166,11 +167,15 @@ class FieldNotNullIndexer(RowGroupIndexer):
         return out
 
 
-def build_rowgroup_index(url: str, indexers: Sequence[RowGroupIndexer]) -> None:
+def build_rowgroup_index(url: str, indexers: Sequence[RowGroupIndexer],
+                         filesystem: Optional[pafs.FileSystem] = None,
+                         storage_options: Optional[dict] = None) -> None:
     """Scan the dataset once, feed the indexers, and store the result in
     ``_common_metadata`` beside any index already stored (an index of the
-    same name is replaced)."""
-    info = open_dataset(url, require_stored_schema=True)
+    same name is replaced).  ``filesystem`` / ``storage_options`` as for
+    ``fs.get_filesystem_and_path``."""
+    info = open_dataset(url, storage_options=storage_options, filesystem=filesystem,
+                        require_stored_schema=True)
     schema = info.stored_schema
     needed = sorted({c for ix in indexers for c in ix.column_names})
     missing = [c for c in needed if c not in schema]

@@ -8,9 +8,11 @@ ordinal the read plan permutes - agrees between the two packages.  A dataset
 is a directory (hive ``key=value`` partition directories included) or a
 list of file or directory URLs; each rowgroup carries its file's partition
 values, and the dataset's arrow schema is discovered with
-``HivePartitioning``, so it holds the partition keys too.  Legacy petastorm
-metadata and retries are not part of this package yet (ROADMAP.md queue A
-item 11).
+``HivePartitioning``, so it holds the partition keys too.  On a remote
+filesystem the listing, the key-value metadata and the footer reads go
+through ``retry.retry_call`` (``:205-325``; ``io_retries='auto'`` retries on
+any filesystem that is not local).  Legacy petastorm metadata is not part
+of this package yet (ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError
 from petastorm_tpu_torch.fs import get_filesystem_and_path_or_paths
+from petastorm_tpu_torch.retry import resolve_retry_policy, retry_call
 from petastorm_tpu_torch.schema import SCHEMA_METADATA_KEY, Schema
 
 logger = logging.getLogger(__name__)
@@ -79,6 +82,8 @@ class DatasetInfo:
     kv_metadata: Dict[bytes, bytes]
     row_groups: List[RowGroupRef]
     stored_schema: Optional[Schema]
+    #: transient failures retried while the dataset was opened
+    retries: int = 0
 
     @property
     def partition_keys(self) -> List[str]:
@@ -120,10 +125,15 @@ def list_data_files(fs: pafs.FileSystem, root: str) -> List[str]:
 
 
 def read_kv_metadata(fs: pafs.FileSystem, root: str) -> Dict[bytes, bytes]:
-    """KV metadata of ``_common_metadata``/``_metadata`` if present, else {}."""
+    """KV metadata of ``_common_metadata``/``_metadata`` if present, else {}.
+    A probe that fails counts as absent, as in the JAX package (``:127``)."""
     for name in _METADATA_FILENAMES:
         mpath = posixpath.join(root, name)
-        if fs.get_file_info(mpath).type == pafs.FileType.File:
+        try:
+            info = fs.get_file_info(mpath)
+        except (OSError, pa.ArrowInvalid):
+            continue
+        if info.type == pafs.FileType.File:
             try:
                 return dict(pq.read_metadata(mpath, filesystem=fs).metadata or {})
             except (pa.ArrowInvalid, OSError) as exc:
@@ -138,18 +148,25 @@ def _footer_row_groups(fs: pafs.FileSystem, path: str) -> List[int]:
 
 
 def collect_row_group_counts(fs: pafs.FileSystem, root: str,
-                             files: List[str]) -> Dict[str, List[int]]:
+                             files: List[str], retry=None) -> Dict[str, List[int]]:
     """Per-file rowgroup row counts keyed by path relative to ``root``."""
     files = sorted(files)
+
+    def footer(p: str) -> List[int]:
+        if retry is None:
+            return _footer_row_groups(fs, p)
+        return retry(lambda: _footer_row_groups(fs, p), f"footer of {p}")
+
     with ThreadPoolExecutor(max_workers=_FOOTER_READ_THREADS) as pool:
-        results = list(pool.map(lambda p: _footer_row_groups(fs, p), files))
+        results = list(pool.map(footer, files))
     return {posixpath.relpath(f, root): counts for f, counts in zip(files, results)}
 
 
 def load_row_groups(fs: pafs.FileSystem, root: str, files: List[str],
-                    kv_metadata: Dict[bytes, bytes]) -> List[RowGroupRef]:
+                    kv_metadata: Dict[bytes, bytes], retry=None) -> List[RowGroupRef]:
     """Enumerate rowgroups of path-sorted ``files``: from the stamped counts
-    when they cover every file, else from the file footers."""
+    when they cover every file, else from the file footers (each footer
+    read through ``retry(fn, what)`` when given)."""
     files = sorted(files)
     counts = None
     if ROW_GROUPS_METADATA_KEY in kv_metadata:
@@ -162,7 +179,7 @@ def load_row_groups(fs: pafs.FileSystem, root: str, files: List[str],
                                       for f in files):
             counts = None
     if counts is None:
-        counts = collect_row_group_counts(fs, root, files)
+        counts = collect_row_group_counts(fs, root, files, retry)
     refs: List[RowGroupRef] = []
     for f in files:
         parts = parse_hive_partitions(root, f)
@@ -171,27 +188,35 @@ def load_row_groups(fs: pafs.FileSystem, root: str, files: List[str],
     return refs
 
 
-def _list_files(fs: pafs.FileSystem, url_or_urls, path_or_paths) -> Tuple[List[str], str]:
+def _list_files(fs: pafs.FileSystem, url_or_urls, path_or_paths,
+                list_info=None) -> Tuple[List[str], str]:
     """(the path-sorted data files, the dataset root) of a directory, a
     file, or a list of files and directories (``:246-284``).  A list's root
     is its files' common directory with trailing ``key=value`` segments
     stripped: partition values survive for a list spanning partitions and
     for one drawn from a single partition, and ``_common_metadata`` at the
-    true root is found."""
+    true root is found.  ``list_info`` stands in for ``fs.get_file_info``
+    (the retried listing)."""
+    list_info = list_info or fs.get_file_info
+
+    def data_files(root: str) -> List[str]:
+        return sorted(f.path for f in list_info(pafs.FileSelector(root, recursive=True))
+                      if f.type == pafs.FileType.File and is_data_file(f.path))
+
     if isinstance(path_or_paths, str):
         root = path_or_paths
-        info = fs.get_file_info(root)
+        info = list_info(root)
         if info.type == pafs.FileType.NotFound:
             raise MetadataError(f"Dataset path not found: {url_or_urls!r}")
         if info.type == pafs.FileType.File:
             return [root], posixpath.dirname(root)
-        return list_data_files(fs, root), root
+        return data_files(root), root
     files: List[str] = []
     for p in path_or_paths:
-        info = fs.get_file_info(p)
+        info = list_info(p)
         if info.type == pafs.FileType.NotFound:
             raise MetadataError(f"Dataset path not found: {p!r}")
-        files.extend([p] if info.type == pafs.FileType.File else list_data_files(fs, p))
+        files.extend([p] if info.type == pafs.FileType.File else data_files(p))
     files = sorted(files)
     dirs = [posixpath.dirname(f) for f in files]
     root = posixpath.commonpath(dirs) if len(set(dirs)) > 1 else (dirs[0] if dirs else "")
@@ -201,20 +226,46 @@ def _list_files(fs: pafs.FileSystem, url_or_urls, path_or_paths) -> Tuple[List[s
 
 
 def open_dataset(url_or_urls: Union[str, Sequence[str]],
-                 require_stored_schema: bool = False) -> DatasetInfo:
+                 storage_options: Optional[dict] = None,
+                 filesystem: Optional[pafs.FileSystem] = None,
+                 require_stored_schema: bool = False,
+                 io_retries="auto") -> DatasetInfo:
     """Resolve a dataset directory, one parquet file, or a list of file or
-    directory URLs to a DatasetInfo (``petastorm_tpu/etl/metadata.py:221``)."""
-    fs, path_or_paths = get_filesystem_and_path_or_paths(url_or_urls)
-    files, root = _list_files(fs, url_or_urls, path_or_paths)
+    directory URLs to a DatasetInfo (``petastorm_tpu/etl/metadata.py:221``).
+
+    ``storage_options`` and ``filesystem`` as for
+    ``fs.get_filesystem_and_path``.  ``io_retries``: the transient-failure
+    policy of the listing, key-value and footer reads
+    (``retry.resolve_retry_policy``: ``'auto'`` retries on remote
+    filesystems only); ``DatasetInfo.retries`` counts the retries taken."""
+    fs, path_or_paths = get_filesystem_and_path_or_paths(url_or_urls, storage_options,
+                                                         filesystem)
+    policy = resolve_retry_policy(io_retries, fs)
+    retried = [0]
+
+    def count(_exc) -> None:
+        retried[0] += 1
+
+    def retry(fn, what: str):
+        return retry_call(fn, policy, what=what, on_retry=count)
+
+    def list_info(selector):
+        return retry(lambda: fs.get_file_info(selector),
+                     f"listing {getattr(selector, 'base_dir', selector)}")
+
+    files, root = _list_files(fs, url_or_urls, path_or_paths, list_info)
     if not files:
         raise MetadataError(f"No parquet data files found under {url_or_urls!r}")
-    kv = read_kv_metadata(fs, root)
+    kv = retry(lambda: read_kv_metadata(fs, root), f"metadata of {root}")
     if SCHEMA_METADATA_KEY not in kv:
         # the schema may be stamped in the data files' footers instead
-        with fs.open_input_file(files[0]) as f:
-            file_kv = pq.ParquetFile(f).schema_arrow.metadata or {}
-        if SCHEMA_METADATA_KEY in file_kv:
-            kv = {**file_kv, **kv}
+        def file_kv():
+            with fs.open_input_file(files[0]) as f:
+                return pq.ParquetFile(f).schema_arrow.metadata or {}
+
+        footer_kv = retry(file_kv, f"schema footer of {files[0]}")
+        if SCHEMA_METADATA_KEY in footer_kv:
+            kv = {**footer_kv, **kv}
     stored_schema = (Schema.from_json(kv[SCHEMA_METADATA_KEY])
                      if SCHEMA_METADATA_KEY in kv else None)
     if require_stored_schema and stored_schema is None:
@@ -222,10 +273,12 @@ def open_dataset(url_or_urls: Union[str, Sequence[str]],
             f"Dataset at {url_or_urls!r} has no petastorm-tpu schema metadata; use"
             " make_batch_reader for plain parquet stores, or regenerate metadata with"
             " etl.generate_metadata")
-    dset = pads.dataset(files, filesystem=fs, format="parquet",
-                        partitioning=pads.HivePartitioning.discover())
+    dset = retry(lambda: pads.dataset(files, filesystem=fs, format="parquet",
+                                      partitioning=pads.HivePartitioning.discover()),
+                 f"dataset schema of {root}")
+    row_groups = load_row_groups(fs, root, files, kv, retry)
     return DatasetInfo(url_or_urls, fs, path_or_paths, root, files, dset.schema, kv,
-                       load_row_groups(fs, root, files, kv), stored_schema)
+                       row_groups, stored_schema, retries=retried[0])
 
 
 def infer_or_load_schema(info: DatasetInfo) -> Schema:

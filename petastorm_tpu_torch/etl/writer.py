@@ -71,7 +71,9 @@ def write_dataset(url: str,
                   partition_by: Sequence[str] = (),
                   compression: Optional[Union[str, Dict[str, str]]] = None,
                   stamp_metadata: bool = True,
-                  geometry_sink: Optional[Dict[str, set]] = None) -> List[str]:
+                  geometry_sink: Optional[Dict[str, set]] = None,
+                  filesystem: Optional[pafs.FileSystem] = None,
+                  storage_options: Optional[dict] = None) -> List[str]:
     """Encode and write ``rows`` (dicts) as a dataset under ``url``; returns the files.
 
     Rowgroups hold ``row_group_size_rows`` rows, or as many as fit in
@@ -96,6 +98,10 @@ def write_dataset(url: str,
     ``geometry_sink`` (``{field: set}``) collects them for a caller that
     stamps several writers' files at once (``stamp_metadata=False``).  A
     failed write deletes the files it made.
+
+    ``filesystem`` / ``storage_options``: as for
+    ``fs.get_filesystem_and_path`` (a remote URL, or a filesystem of the
+    caller's, such as a credentialed S3 or an fsspec store).
     """
     if mode not in ("error", "overwrite", "append"):
         raise ValueError(f"mode must be 'error', 'overwrite' or 'append', got {mode!r}")
@@ -104,7 +110,7 @@ def write_dataset(url: str,
             raise SchemaError(f"partition_by field {pcol!r} not in schema")
         if schema[pcol].shape != ():
             raise SchemaError(f"partition_by field {pcol!r} must be scalar")
-    fs, root = get_filesystem_and_path(url)
+    fs, root = get_filesystem_and_path(url, storage_options, filesystem)
     if mode != "append" and fs.get_file_info(root).type == pafs.FileType.Directory:
         existing = list_data_files(fs, root)
         if existing and mode == "error":
@@ -225,21 +231,24 @@ def write_dataset(url: str,
         return []
     if stamp_metadata:
         stamp_dataset_metadata(url, schema, geometries={n: s for n, s in geom_seen.items()
-                                                        if s} or None)
+                                                        if s} or None,
+                               filesystem=filesystem, storage_options=storage_options)
     return files
 
 
 def stamp_dataset_metadata(url: str, schema: Optional[Schema] = None,
                            validate: bool = True,
                            geometries: Optional[Dict[str, Iterable]] = None,
-                           merge_geometries: bool = True) -> None:
+                           merge_geometries: bool = True,
+                           filesystem: Optional[pafs.FileSystem] = None,
+                           storage_options: Optional[dict] = None) -> None:
     """Write or refresh ``_common_metadata``: the schema JSON (``schema``,
     or the one the data files carry), the per-file rowgroup counts and, with
     ``geometries`` (``{field: shapes}``), the geometry contract, merged over
     the shapes already stamped unless ``merge_geometries=False`` (a full
     rescan, which replaces them).  ``validate`` reopens the dataset.
     (``petastorm_tpu/etl/writer.py:310``.)"""
-    fs, root = get_filesystem_and_path(url)
+    fs, root = get_filesystem_and_path(url, storage_options, filesystem)
     files = list_data_files(fs, root)
     if not files:
         raise MetadataError(f"No data files under {url!r} to stamp metadata for")
@@ -273,15 +282,18 @@ def stamp_dataset_metadata(url: str, schema: Optional[Schema] = None,
             {n: sorted(list(s) for s in shapes) for n, shapes in merged.items()}).encode()
     write_metadata_file(fs, root, arrow_schema, kv)
     if validate:
-        info = open_dataset(url, require_stored_schema=True)
+        info = open_dataset(url, storage_options, filesystem, require_stored_schema=True)
         if not info.row_groups:
             raise MetadataError(f"Validation failed: no rowgroups visible at {url!r}")
 
 
 @contextlib.contextmanager
-def materialize_dataset(url: str, schema: Schema) -> Iterator[None]:
+def materialize_dataset(url: str, schema: Schema,
+                        filesystem: Optional[pafs.FileSystem] = None,
+                        storage_options: Optional[dict] = None) -> Iterator[None]:
     """Context manager: write parquet under ``url`` inside the block by any
     engine (cells in the schema's storage types: ``schema.encode_row``);
-    the metadata is stamped and validated on exit."""
+    the metadata is stamped and validated on exit, through ``filesystem`` /
+    ``storage_options`` as ``write_dataset`` takes them."""
     yield
-    stamp_dataset_metadata(url, schema)
+    stamp_dataset_metadata(url, schema, filesystem=filesystem, storage_options=storage_options)

@@ -32,6 +32,24 @@ entropy library cannot be built: it raises.  The step:
    variables dict and ``model.apply`` runs BatchNorm on the running
    statistics, so those leaves take gradient steps too.
 
+Data parallelism (``train_resnet_tpu.py:171-176``, shardings ``:256-257``):
+under ``torchrun --nproc-per-node N`` each rank owns one card and reads its
+block of every global batch through ``cuda.loader.make_cuda_loader`` on
+``parallel.mesh.data_parallel_mesh()`` (the reader sharded by the rank's
+block).  The parameters are replicated: every rank builds them from seed 0,
+and after each backward the gradients (and the loss) are averaged over the
+mesh in one ``parallel.mesh.all_reduce_`` of a flat buffer, where XLA
+inserted that collective itself; SGD-momentum then runs identically on every
+rank.  BatchNorm runs on the running statistics, as in the reference, so
+there are no batch statistics to synchronize.  Each rank draws the crop
+boxes and flips of the whole global batch from the shared seed and keeps
+its block's, so the ranks' draws together are one process's draws for the
+global batch.  One rank (the default, no process group) is the one-card
+trainer.  ``scan_steps=K`` with N > 1 captures the all-reduce in the CUDA
+graph; that needs NCCL: over gloo (ranks sharing a card, collectives
+staged through host memory) it raises, since a graph cannot capture a
+host-staged collective.
+
 ``device='cuda'`` is the default; ``device='cpu'`` runs the kernels' plain
 versions (for tests).  Run ``python -m
 petastorm_tpu_torch.examples.imagenet.train_resnet_cuda --help``.
@@ -40,6 +58,8 @@ petastorm_tpu_torch.examples.imagenet.train_resnet_cuda --help``.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
 import queue
 import tempfile
@@ -49,15 +69,17 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from petastorm_tpu_torch import (CompressedImageCodec, Field, ScalarCodec, Schema, make_reader,
                                  write_dataset)
-from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+from petastorm_tpu_torch.cuda.loader import CudaDataLoader, make_cuda_loader
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.models import ResNet, ResNet50
 from petastorm_tpu_torch.ops import draw_crop_boxes, draw_flips, normalize_images, random_resized_crop
+from petastorm_tpu_torch.parallel import mesh as mesh_ops
 
 AUGMENT_SEED = 17
 LR, MOMENTUM = 0.1, 0.9  # optax.sgd(0.1, momentum=0.9) of the JAX step
@@ -215,10 +237,19 @@ class TrainStep:
     ``last_draws`` holds the last step's.  ``state_dict()`` is the train state
     a checkpoint saves: the model's and the optimizer's state and the
     generator's.
+
+    ``group`` (a ``torch.distributed`` group of several ranks, each holding
+    the same leaves): the step is one rank's of a data-parallel step.  The
+    rank's images are block ``block = (index, count)`` of the global batch;
+    it draws the whole global batch's boxes and flips and keeps its block's,
+    and after the backward it averages the gradients and the loss over
+    ``group`` (one ``parallel.mesh.all_reduce_`` of a flat buffer) before the
+    SGD step.  ``reduce_ms()`` gives the all-reduce's mean time a step.
     """
 
     def __init__(self, model: ResNet, num_classes: int, side: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None,
+                 block: Tuple[int, int] = (0, 1)):
         self.model = model
         self.num_classes = num_classes
         self.side = side
@@ -228,6 +259,11 @@ class TrainStep:
         self.leaves: List[torch.Tensor] = list(model.parameters()) + model.batch_stats()
         self.optimizer = torch.optim.SGD(self.leaves, lr=LR, momentum=MOMENTUM)
         self.last_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.group = group
+        self.world = dist.get_world_size(group) if group is not None else 1
+        self.block = block
+        self._reduce_events: List[Tuple[object, object]] = []
+        self._reduce_host_s: List[float] = []
 
     def state_dict(self) -> Dict:
         """The model's and optimizer's ``state_dict()`` and the generator's
@@ -247,22 +283,72 @@ class TrainStep:
         return [self.optimizer.state.get(leaf, {}).get("momentum_buffer")
                 for leaf in self.leaves]
 
+    def draw(self, n: int, h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's ``n`` crop boxes and flips: its block of the draws of
+        the global batch (``n * count`` rows), boxes first, then flips."""
+        index, count = self.block
+        boxes = draw_crop_boxes(n * count, h, w, self.generator, device=device)
+        flips = draw_flips(n * count, self.generator, device)
+        return boxes[index * n:(index + 1) * n], flips[index * n:(index + 1) * n]
+
     def update(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """Loss of the model on normalized ``x``, backward, one SGD-momentum step."""
+        """Loss of the model on normalized ``x``, backward, one SGD-momentum
+        step; on a data-parallel group the gradients and the loss are first
+        averaged over the ranks."""
         loss = softmax_cross_entropy(self.model(x), labels, self.num_classes)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if self.world > 1:
+            loss = self._average(loss)
         self.optimizer.step()
-        return loss.detach()
+        return loss
+
+    def _average(self, loss: torch.Tensor) -> torch.Tensor:
+        """Average every leaf's gradient and the loss over the group in one
+        all-reduce of a flat buffer; returns the global mean loss."""
+        grads = [leaf.grad for leaf in self.leaves]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).float()])
+        timed = flat.is_cuda and not torch.cuda.is_current_stream_capturing()
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        mesh_ops.all_reduce_(flat, self.group)
+        if timed:
+            end.record()
+            self._reduce_events.append((start, end))
+        elif not flat.is_cuda:
+            self._reduce_host_s.append(time.perf_counter() - t0)
+        flat.div_(self.world)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[-1].clone()
+
+    def reduce_ms(self) -> Optional[float]:
+        """Mean all-reduce time a step over the eager steps since the last
+        call (CUDA events on the card, the host clock on the CPU); None when
+        there was none (one rank, or only replays of a captured graph)."""
+        if self._reduce_events:
+            self._reduce_events[-1][1].synchronize()
+            times = [a.elapsed_time(b) for a, b in self._reduce_events]
+        else:
+            times = [1e3 * t for t in self._reduce_host_s]
+        self._reduce_events, self._reduce_host_s = [], []
+        return sum(times) / len(times) if times else None
 
     def __call__(self, images_u8: torch.Tensor, labels: torch.Tensor,
                  boxes: Optional[torch.Tensor] = None,
                  flips: Optional[torch.Tensor] = None) -> torch.Tensor:
         n, h, w, _ = images_u8.shape
+        index, count = self.block
+        rows = slice(index * n, (index + 1) * n)
         if boxes is None:
-            boxes = draw_crop_boxes(n, h, w, self.generator, device=images_u8.device)
+            boxes = draw_crop_boxes(n * count, h, w, self.generator, device=images_u8.device)[rows]
         if flips is None:
-            flips = draw_flips(n, self.generator, images_u8.device)
+            flips = draw_flips(n * count, self.generator, images_u8.device)[rows]
         self.last_draws = (boxes, flips)
         # crop + flip in one resized-crop launch on the card, then normalize to bf16
         crops = random_resized_crop(images_u8, None, (self.side, self.side), boxes=boxes,
@@ -308,11 +394,11 @@ class ScanStep:
 
     def draw(self, n: int, h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """K steps' (boxes, flips), drawn as K eager steps draw them."""
-        gen = self.step.generator
         boxes, flips = [], []
         for _ in range(self.scan_steps):
-            boxes.append(draw_crop_boxes(n, h, w, gen, device=device))
-            flips.append(draw_flips(n, gen, device))
+            b, f = self.step.draw(n, h, w, device)
+            boxes.append(b)
+            flips.append(f)
         return torch.stack(boxes), torch.stack(flips)
 
     def eager(self, images: torch.Tensor, labels: torch.Tensor, boxes: torch.Tensor,
@@ -427,16 +513,75 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _save_first_step(path: str, step: TrainStep, first: Dict, loss: torch.Tensor, group,
+                     world: int) -> None:
+    """Rank 0 saves the first step's global batch, every rank's draws (rank
+    order) and the leaves after the step (see :func:`train`)."""
+    boxes, flips = step.last_draws
+    record = {"images": first["image"], "labels": first["label"], "boxes": boxes,
+              "flips": flips.to(torch.uint8)}
+    if world > 1:
+        record = {k: mesh_ops.gather_blocks(v, group) for k, v in record.items()}
+    record = {k: v.cpu() for k, v in record.items()}
+    record["flips"] = record["flips"].bool()
+    if world == 1 or dist.get_rank() == 0:
+        record["leaves"] = [leaf.detach().cpu().clone() for leaf in step.leaves]
+        record["loss"] = float(loss)
+        torch.save(record, path)
+
+
 DECODES = ("host", "device")
 INPUTS = ("petastorm", "tfdata")
+
+
+def kernel_launches() -> Dict[str, int]:
+    """This process's launch counts of the step's kernels: B1 (normalize),
+    B3 (the tiled resized crop) and B2 (the tiled JPEG decode)."""
+    from petastorm_tpu_torch.ops import augment, jpeg, normalize
+
+    return {"normalize_u8": normalize.normalize_kernel.launches,
+            "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
+            "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches_tiled}
+
+
+def leaves_digest(step: TrainStep) -> str:
+    """sha256 over every leaf's float32 bytes, in ``step.leaves`` order."""
+    h = hashlib.sha256()
+    for leaf in step.leaves:
+        h.update(leaf.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _probe_allreduce_ms(step: TrainStep, reps: int = 5) -> float:
+    """Mean time of the step's all-reduce (a flat buffer as large as the
+    leaves and the loss) run alone, for a captured step that cannot be timed
+    inside its graph."""
+    device = step.leaves[0].device
+    flat = torch.zeros(sum(leaf.numel() for leaf in step.leaves) + 1, device=device)
+    mesh_ops.all_reduce_(flat, step.group)
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            mesh_ops.all_reduce_(flat, step.group)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            mesh_ops.all_reduce_(flat, step.group)
+            times.append(1e3 * (time.perf_counter() - t0))
+    return sum(times) / len(times)
 
 
 def train(dataset_url: str, steps: int, global_batch: int, side: int,
           num_classes: int = 1000, decode: str = "device", workers: int = 4,
           prefetch: int = 2, device="cuda", scan_steps: int = 1,
-          cache: str = "null", input_pipeline: str = "petastorm") -> Dict:
-    """Run one warm-up unit and ``steps`` timed ResNet-50 training steps fed
-    by the loader; returns samples/s, the input-wait share of the timed
+          cache: str = "null", input_pipeline: str = "petastorm",
+          first_step_path: Optional[str] = None, warmup: int = 1) -> Dict:
+    """Run ``warmup`` warm-up units (one by default) and ``steps`` timed
+    ResNet-50 training steps fed by the loader; returns samples/s, the input-wait share of the timed
     window (``device_idle_pct``), the stall against a rerun of as many units
     on one resident unit (``input_stall_pct``), and the model FLOP counts.
     ``decode``: ``'device'`` (hybrid JPEG decode, kernel B2) or ``'host'``.
@@ -451,22 +596,70 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
     :class:`TfdataDeviceFeed` into the same step (``decode`` and ``cache``
     do not apply; the result says ``decode='tfdata-host'``); under
     ``scan_steps=K`` each unit stacks K tf.data batches on the card
-    (``train_resnet_tpu.py:270-280``)."""
+    (``train_resnet_tpu.py:270-280``).
+
+    In an initialized process group of N > 1 ranks the step is data
+    parallel (see the module docstring): ``global_batch`` is split over the
+    ranks, the report adds ``world_size``, ``transport``,
+    ``samples_per_sec_per_gpu``, ``allreduce_ms`` (the gradient
+    all-reduce's mean time a step: CUDA events around it in eager steps, a
+    probe of the same buffer alone under ``scan_steps > 1``) and
+    ``params_digest`` (:func:`leaves_digest` after the last step).
+    ``first_step_path``: rank 0 saves there (``torch.save``) the first
+    step's global batch (images, labels), its crop boxes and flips (every
+    rank's, in rank order) and the leaves after it, for a one-process
+    recomputation; ``scan_steps=1`` only.  ``launches`` counts this
+    process's launches of B1, B3 (tiled) and B2 (tiled) over the whole run."""
     if decode not in DECODES:
         raise ValueError(f"decode must be one of {DECODES}, got {decode!r}")
     if input_pipeline not in INPUTS:
         raise ValueError(f"input_pipeline must be one of {INPUTS}, got {input_pipeline!r}")
     if scan_steps < 1:
         raise ValueError("scan_steps must be >= 1")
+    if first_step_path is not None and scan_steps != 1:
+        raise ValueError("first_step_path records a single step: use scan_steps=1")
+    if warmup < 1:
+        raise ValueError("warmup must be >= 1 (the first unit sets up cuDNN and the graph)")
     device = resolve_device(device)
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    mesh = group = transport = None
+    block = (0, 1)
+    if world > 1:
+        from torch.distributed.tensor import Shard
+
+        if input_pipeline != "petastorm":
+            raise ValueError("input_pipeline='tfdata' runs on one rank; the data-parallel"
+                             " trainer reads through the petastorm loader")
+        if global_batch % world:
+            raise ValueError(f"global_batch {global_batch} does not divide over {world} ranks")
+        backend = dist.get_backend()
+        mesh = mesh_ops.data_parallel_mesh(device_type="cuda" if backend == "nccl" else "cpu")
+        group = mesh_ops.mesh_group(mesh)
+        transport = mesh_ops.transport_name(group, device)
+        if scan_steps > 1 and device.type == "cuda" and backend != "nccl":
+            raise ValueError(
+                f"scan_steps={scan_steps} over {world} ranks captures the gradient all-reduce"
+                f" in a CUDA graph, which needs NCCL; the transport here is {transport!r}"
+                " (ranks sharing a card stage collectives through host memory, which a"
+                " graph cannot capture). Give each rank its own card, or use scan_steps=1")
+        block = mesh_ops.batch_block(mesh, (Shard(0),))
     model = ResNet50(num_classes=num_classes, dtype=torch.bfloat16, device=device,
                      generator=torch.Generator().manual_seed(0))
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     step = TrainStep(model, num_classes, side,
-                     generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED))
+                     generator=torch.Generator(device=device).manual_seed(AUGMENT_SEED),
+                     group=group, block=block)
     reader = None
-    if input_pipeline == "tfdata":
+    if world > 1:
+        feed = make_cuda_loader(dataset_url, global_batch, mesh=mesh,
+                                shardings={"image": (Shard(0),), "label": (Shard(0),)},
+                                reader_factory=make_reader, num_epochs=None,
+                                workers_count=workers, decode_placement={"image": decode},
+                                cache_type=cache, device=device, prefetch=prefetch,
+                                stack_batches=scan_steps)
+        reader = feed._reader
+    elif input_pipeline == "tfdata":
         tfr = dataset_url.rstrip("/") + ".tfrecord"
         if not os.path.exists(tfr):
             build_tfrecord(dataset_url, tfr)
@@ -505,7 +698,12 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
             flops_per_step = scan.flops_per_step
         else:
             flops_per_step, loss = count_flops(step, first["image"], first["label"])
+        if first_step_path is not None:
+            _save_first_step(first_step_path, step, first, loss, group, world)
+        for _ in range(warmup - 1):
+            loss = run_unit(pull_unit())
         _sync(device)
+        step.reduce_ms()  # the warm-up's all-reduce is not the timed one
         wait0 = consumer_wait()
         done, units = 0, 0
         t0 = time.perf_counter()
@@ -516,6 +714,9 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         _sync(device)
         dt = time.perf_counter() - t0
         input_wait_s = consumer_wait() - wait0
+        allreduce_ms = step.reduce_ms() if world > 1 else None
+        if world > 1 and allreduce_ms is None:
+            allreduce_ms = _probe_allreduce_ms(step)
         # compute floor: as many units on one resident unit, no input inside the loop
         resident = pull_unit()
         t1 = time.perf_counter()
@@ -526,6 +727,12 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
         diagnostics = feed.diagnostics() if reader is not None else {}
     return {
         "samples_per_sec": done * global_batch / dt,
+        "samples_per_sec_per_gpu": done * global_batch / dt / world,
+        "world_size": world,
+        "transport": transport,
+        "allreduce_ms": allreduce_ms,
+        "params_digest": leaves_digest(step),
+        "launches": kernel_launches(),
         "device_idle_pct": 100.0 * input_wait_s / dt,
         "input_stall_pct": 100.0 * max(0.0, dt - compute_dt) / dt,
         "compute_floor_wall_s": compute_dt,
@@ -546,12 +753,37 @@ def train(dataset_url: str, steps: int, global_batch: int, side: int,
     }
 
 
-if __name__ == "__main__":
+def _init_from_env(device: str) -> torch.device:
+    """Under torchrun with WORLD_SIZE > 1: initialize the process group and
+    pick this rank's device (NCCL when the ranks have distinct cards, gloo
+    when they share one or run on the host); the device alone otherwise."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world <= 1:
+        return resolve_device(device)
+    rank = int(os.environ["RANK"])
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if device == "cuda":
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("--device cuda was requested but no CUDA GPU is available;"
+                               " pass --device cpu to run on the host")
+        dev = torch.device("cuda", local_rank % cards)
+        torch.cuda.set_device(dev)
+        backend = "nccl" if local_world <= cards else "gloo"
+    else:
+        dev, backend = torch.device(device), "gloo"
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
+    return dev
+
+
+def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dataset-url", default=None)
     parser.add_argument("--rows", type=int, default=256)
     parser.add_argument("--side", type=int, default=224)
     parser.add_argument("--steps", type=int, default=8)
+    parser.add_argument("--warmup", type=int, default=1, help="warm-up units before the timing")
     parser.add_argument("--global-batch", type=int, default=32)
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--prefetch", type=int, default=2)
@@ -570,15 +802,49 @@ if __name__ == "__main__":
                              " stacked unit (stack_batches=K)")
     parser.add_argument("--skip-generate", action="store_true",
                         help="dataset-url already holds the dataset")
-    args = parser.parse_args()
-    url = args.dataset_url or tempfile.mkdtemp(prefix="imagenet_cuda_") + "/imagenet"
-    if not args.skip_generate:
-        generate_dataset(url, args.rows, args.side)
-    m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
-              decode=args.decode, workers=args.workers, prefetch=args.prefetch,
-              device=args.device, scan_steps=args.scan_steps, cache=args.cache,
-              input_pipeline=args.input)
-    print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
-          f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']} ({m['input']}, decode"
-          f" {m['decode']}, cache {m['cache']}, {m['scan_steps']} steps a unit), input wait"
-          f" {m['device_idle_pct']:.1f}% of the window, final loss {m['final_loss']:.4f}")
+    parser.add_argument("--first-step", default=None,
+                        help="rank 0 saves the first step's batch, draws and leaves here")
+    parser.add_argument("--report", default=None,
+                        help="write this rank's report as JSON to <report>.<rank>.json")
+    args = parser.parse_args(argv)
+    device = _init_from_env(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        url = args.dataset_url
+        if url is None:
+            port = os.environ.get("MASTER_PORT", str(os.getpid()))
+            url = os.path.join(tempfile.gettempdir(), f"imagenet_cuda_{port}", "imagenet")
+        if not args.skip_generate and rank == 0:
+            generate_dataset(url, args.rows, args.side)
+        if world > 1:
+            dist.barrier()
+        m = train(url, args.steps, args.global_batch, args.side, num_classes=args.num_classes,
+                  decode=args.decode, workers=args.workers, prefetch=args.prefetch,
+                  device=device, scan_steps=args.scan_steps, cache=args.cache,
+                  input_pipeline=args.input, first_step_path=args.first_step,
+                  warmup=args.warmup)
+        if args.report:
+            out = {k: v for k, v in m.items() if k != "diagnostics"}
+            with open(f"{args.report}.{rank}.json", "w") as f:
+                json.dump(out, f, default=str)
+        if rank == 0:
+            print(f"{m['steps'] * m['global_batch']} samples in {m['wall_s']:.2f}s"
+                  f" = {m['samples_per_sec']:.1f} samples/sec on {m['device_kind']}"
+                  f" ({m['samples_per_sec_per_gpu']:.1f} a GPU over {world} rank(s)"
+                  + (f", {m['transport']}, all-reduce {m['allreduce_ms']:.2f} ms a step"
+                     if world > 1 else "")
+                  + f"; {m['input']}, decode {m['decode']}, cache {m['cache']},"
+                  f" {m['scan_steps']} steps a unit), input wait"
+                  f" {m['device_idle_pct']:.1f}% of the window, final loss"
+                  f" {m['final_loss']:.4f}")
+        if world > 1:
+            dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

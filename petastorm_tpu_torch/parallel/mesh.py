@@ -148,6 +148,28 @@ def batch_block(mesh, placements: Placements) -> Tuple[int, int]:
     return index, count
 
 
+def reader_shard(mesh, shardings) -> Tuple[int, int]:
+    """(index, count) of the reader shard this rank reads for a loader on
+    ``mesh`` with ``shardings`` (one placement tuple, or a dict of them whose
+    first entry rules; by default the batch axis over the mesh's first
+    dimension): :func:`batch_block` of those placements."""
+    spec = next(iter(shardings.values()), None) if isinstance(shardings, dict) else shardings
+    if spec is None:
+        spec = sharding_for_batch(mesh, mesh_dim_names(mesh)[:1])
+    return batch_block(mesh, tuple(spec))
+
+
+def gather_blocks(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's block of ``tensor`` (each rank gives the same shape),
+    concatenated on dim 0 in rank order, on the host."""
+    n = dist.get_world_size(group)
+    src = tensor.contiguous().to(group_device(group))
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.cpu()
+
+
 def mesh_group(mesh):
     """The process group spanning every rank of ``mesh``: its own group for a
     1-D mesh, the default group for one that covers the world."""

@@ -38,7 +38,9 @@ policy a work item that fails with a data error is quarantined
 the digest at its plan position, and held to the policy's budgets.  A
 dataset is a directory (hive partitions included) or, for
 ``make_batch_reader``, a list of URLs; a predicate over partition keys alone
-is pushed down to the partitions (``:659-681``).  The shared cache tier,
+is pushed down to the partitions (``:659-681``).  Remote stores are read
+through ``fs.py`` with ``io_retries`` and one ranged read a rowgroup
+(``worker.py``, ``io_window.py``).  The shared cache tier,
 the ``'auto'`` placement, telemetry, chaos injection, liveness and the
 ingest service are not part of this package yet (ROADMAP.md queue A item
 11).
@@ -62,10 +64,12 @@ from petastorm_tpu_torch.errors import (EpochNotFinishedError, ErrorBudgetExceed
 from petastorm_tpu_torch.etl.indexing import get_row_group_indexes
 from petastorm_tpu_torch.etl.metadata import (declared_geometries, infer_or_load_schema,
                                               open_dataset)
+from petastorm_tpu_torch.fs import FilesystemFactory
 from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, elastic_resume_plan,
                                       resolve_cursor)
 from petastorm_tpu_torch.pool import WorkerError, make_executor
+from petastorm_tpu_torch.retry import make_circuit_breaker, resolve_retry_policy
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
 from petastorm_tpu_torch.sequence.dataset import is_sequence_field
@@ -106,7 +110,10 @@ def make_reader(dataset_url: str,
                 transform_spec: Optional[TransformSpec] = None,
                 ngram=None,
                 on_error="raise",
-                verify_checksums: bool = False) -> "Reader":
+                verify_checksums: bool = False,
+                storage_options: Optional[dict] = None,
+                filesystem=None,
+                io_retries="auto") -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -200,7 +207,17 @@ def make_reader(dataset_url: str,
 
     A predicate whose fields are all hive partition keys filters rowgroups
     by their directory values before the plan is made, and the workers get
-    no predicate (``petastorm_tpu/reader.py:659-681``)."""
+    no predicate (``petastorm_tpu/reader.py:659-681``).
+
+    ``storage_options`` / ``filesystem``: how the URL's filesystem is
+    resolved (``fs.get_filesystem_and_path``: GCS, S3, HDFS, fsspec, or a
+    filesystem of the caller's, used as is).  ``io_retries``: the transient
+    remote-IO policy (``retry.resolve_retry_policy``): ``'auto'`` retries
+    with backoff on any filesystem that is not local and arms the shared
+    circuit breaker (``reader.circuit_breaker``), an int sets the attempt
+    budget, a ``RetryPolicy`` customizes it, ``None`` disables it
+    (``:713-738``).  ``io_stats()`` counts the retries and the ranged reads
+    a rowgroup cost."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
@@ -208,7 +225,7 @@ def make_reader(dataset_url: str,
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
                         transform_spec, ngram, on_error, verify_checksums,
-                        batched_output=False)
+                        storage_options, filesystem, io_retries, batched_output=False)
 
 
 def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
@@ -236,7 +253,10 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                       transform_spec: Optional[TransformSpec] = None,
                       ngram=None,
                       on_error="raise",
-                      verify_checksums: bool = False) -> "Reader":
+                      verify_checksums: bool = False,
+                      storage_options: Optional[dict] = None,
+                      filesystem=None,
+                      io_retries="auto") -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with an inferred schema:
     scalar columns, list-of-scalar columns as ``(None,)`` ``ScalarListCodec``
@@ -253,7 +273,7 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
                         transform_spec, ngram, on_error, verify_checksums,
-                        batched_output=True)
+                        storage_options, filesystem, io_retries, batched_output=True)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -464,7 +484,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  decode_roi, resume_from, cache_type, cache_location, cache_size_limit,
                  shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
                  transform_spec, ngram, on_error, verify_checksums,
-                 batched_output) -> "Reader":
+                 storage_options, filesystem, io_retries, batched_output) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     if ngram is not None and batched_output:
@@ -488,7 +508,8 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     # one analysis walk a reader: the worker's cache signature and
     # output-caching verdict both come from this triple
     tf_cache_info = transform_cache_info(transform_spec)
-    info = open_dataset(dataset_url, require_stored_schema=not batched_output)
+    info = open_dataset(dataset_url, storage_options=storage_options, filesystem=filesystem,
+                        require_stored_schema=not batched_output, io_retries=io_retries)
     full_schema = infer_or_load_schema(info)
     # a predicate over partition keys alone filters rowgroups by their path
     # values before the plan is made; the workers then get none
@@ -574,18 +595,28 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                              **({} if error_policy is None else dict(
                                  stop_on_failure=False,
                                  max_requeue_attempts=error_policy.max_requeue_attempts)))
+    # one breaker for every worker of the reader: a store that is down fails
+    # fast with CircuitOpenError instead of each worker spending its whole
+    # retry budget (``petastorm_tpu/reader.py:731-738``)
+    retry_policy = resolve_retry_policy(io_retries, info.filesystem)
+    circuit_breaker = make_circuit_breaker(retry_policy)
+    fs_factory = FilesystemFactory(dataset_url if isinstance(dataset_url, str)
+                                   else dataset_url[0], storage_options, filesystem=filesystem)
     worker = RowGroupDecoderWorker(full_schema, read_fields, device_fields,
                                    mixed_fields=mixed_fields, decode_threads=decode_threads, decode_roi=decode_roi,
                                    cache=cache, dataset_url=_url_key(dataset_url),
                                    predicate=worker_predicate, transform=transform_spec,
                                    transform_cache_info=tf_cache_info,
                                    ngram=ngram, ngram_schema=ngram_schema,
-                                   verify_checksums=verify_checksums)
-    return Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
-                  deterministic=deterministic, shuffle_seed=shuffle_seed,
-                  start_item=start_item, digest_state=digest_state, ngram=ngram,
-                  error_policy=error_policy, declared_geometries=declared_geometries(info),
-                  device_decode_mixed=mixed_fields, dataset_info=info)
+                                   verify_checksums=verify_checksums, fs_factory=fs_factory,
+                                   retry_policy=retry_policy, circuit_breaker=circuit_breaker)
+    reader = Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
+                    deterministic=deterministic, shuffle_seed=shuffle_seed,
+                    start_item=start_item, digest_state=digest_state, ngram=ngram,
+                    error_policy=error_policy, declared_geometries=declared_geometries(info),
+                    device_decode_mixed=mixed_fields, dataset_info=info)
+    reader.circuit_breaker = circuit_breaker
+    return reader
 
 
 def _url_key(url_or_urls) -> str:
@@ -695,6 +726,9 @@ class Reader:
         #: quarantine ledger: one entry per skipped work item
         self._quarantine: List[dict] = []
         self._declared_geometries = dict(declared_geometries or {})
+        #: the storage circuit breaker its workers share (``retry``), set by
+        #: make_reader when ``io_retries`` arms one; None otherwise
+        self.circuit_breaker = None
 
     def decode_stats(self) -> dict:
         """The native decode counters (``batch_calls``, ``batch_images``,
@@ -702,6 +736,18 @@ class Reader:
         ``coef_batch_images``) summed over every rowgroup the workers
         decoded so far: the proof that image columns took the batched path."""
         return self._worker.decode_stats()
+
+    def io_stats(self) -> dict:
+        """Remote-IO counters: ``retries`` (the dataset open's and the
+        workers' rowgroup reads'), ``read_calls`` and ``rowgroups_read``
+        through the workers' one-read windows, and ``reads_per_rowgroup``
+        (None on a local filesystem).  The JAX reader counts these as
+        ``io.*`` telemetry, which this package does not have yet (ROADMAP.md
+        queue A item 11)."""
+        out = self._worker.io_stats()
+        if self.dataset_info is not None:
+            out["retries"] += self.dataset_info.retries
+        return out
 
     def cache_stats(self) -> dict:
         """The rowgroup cache's ``hits`` and ``misses`` (and, for
@@ -855,15 +901,18 @@ class Reader:
         infra retries of the pool and the fault ledger: the skip count and
         the last 20 quarantine entries (``petastorm_tpu/reader.py:2113-2132``;
         :attr:`quarantined_rowgroups` has them all)."""
-        return {"items_per_epoch": self._items_per_epoch,
-                "consumed_items": self._consumed_items,
-                "expected_items": self._expected_items,
-                "deterministic": self.deterministic,
-                "stream_digest": self._digest.summary(),
-                "requeued_items": self._executor.requeued_items,
-                "skipped_rowgroups": len(self._quarantine),
-                "quarantined_rowgroups": list(
-                    self._quarantine[-_DIAGNOSTICS_QUARANTINE_TAIL:])}
+        out = {"items_per_epoch": self._items_per_epoch,
+               "consumed_items": self._consumed_items,
+               "expected_items": self._expected_items,
+               "deterministic": self.deterministic,
+               "stream_digest": self._digest.summary(),
+               "requeued_items": self._executor.requeued_items,
+               "skipped_rowgroups": len(self._quarantine),
+               "quarantined_rowgroups": list(
+                   self._quarantine[-_DIAGNOSTICS_QUARANTINE_TAIL:])}
+        if self.circuit_breaker is not None:
+            out["circuit_breaker"] = self.circuit_breaker.snapshot()
+        return out
 
     @property
     def quarantined_rowgroups(self) -> list:

@@ -143,11 +143,25 @@ def make_packed_sequence_loader(dataset_urls, batch_size: int, seq_len: int,
     pure function of it (``shuffle_seed`` is refused).  ``loader_kwargs``
     go to the loader, the other kwargs to every corpus reader.  A context
     manager: closing the loader closes the readers.
+
+    Over a mesh (``loader_kwargs={"mesh": ..., "shardings": ...}``, one
+    process a rank), ``batch_size`` is global and each rank's corpus readers
+    read the shard of its block of the batch axis
+    (``parallel.mesh.batch_block``, the rule of ``make_cuda_loader``), unless
+    ``cur_shard`` is given: ranks that differ only on a ``seq`` dimension
+    read, and pack, the same rows.  A rank's block of each batch is then its
+    shard's packed rows in order.
     """
     from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.parallel.mesh import reader_shard
     from petastorm_tpu_torch.sequence.dataset import make_sequence_reader
     from petastorm_tpu_torch.sequence.mixing import make_mixed_sequence_reader
 
+    mesh = (loader_kwargs or {}).get("mesh")
+    if mesh is not None and "cur_shard" not in reader_kwargs:
+        cur, count = reader_shard(mesh, loader_kwargs.get("shardings"))
+        if count > 1:
+            reader_kwargs = dict(reader_kwargs, cur_shard=cur, shard_count=count)
     if isinstance(dataset_urls, str):
         if "shuffle_seed" in reader_kwargs:
             raise PetastormTpuError(

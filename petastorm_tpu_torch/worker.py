@@ -49,6 +49,18 @@ misses.  The pool's threads fill a key once: a rowgroup read again while
 its first read still decodes (the next epoch's items are issued before
 this one's are done) waits for that read and hits, so a warm epoch
 decodes nothing.
+
+Files are opened through the reader's ``fs.FilesystemFactory``
+(``:56-94``): a local file is memory-mapped; a file on any other filesystem
+is opened through an ``io_window.WindowedFile`` (``:185-221``), which
+fetches the byte span of a rowgroup's needed column chunks in one ranged
+read before ``read_row_group`` (``:494-497``; ``pre_buffer`` stays on for
+spans the window refuses).  The rowgroup read runs under
+``retry.retry_call`` (``:225-253``) with the reader's retry policy and
+shared circuit breaker; a retry drops the cached file handle.  The worker
+counts the retries, the raw reads and the rowgroups read
+(``io_stats()``, which stands in for the JAX worker's ``io.*`` telemetry
+until telemetry is ported).
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.fs as pafs
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch import transform as transform_mod
@@ -68,8 +81,10 @@ from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.cache import CacheBase, NullCache
 from petastorm_tpu_torch.codecs import decode_options
 from petastorm_tpu_torch.errors import PetastormTpuError
+from petastorm_tpu_torch.io_window import WindowedFile, rowgroup_span
 from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import WorkItem
+from petastorm_tpu_torch.retry import retry_call
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import seed_stream
 
@@ -95,8 +110,13 @@ def _partition_column(field, value: str, n: int) -> np.ndarray:
 
 class RowGroupDecoderWorker:
     """Worker factory: ``worker()`` returns a ``process(WorkItem) -> ColumnBatch``
-    closure that keeps its own memory-mapped file handles, so each pool
-    thread calls the factory once."""
+    closure that keeps its own file handles (memory-mapped locally, windowed
+    elsewhere), so each pool thread calls the factory once.
+
+    ``fs_factory`` gives the dataset's filesystem (default: the local one);
+    ``retry_policy`` (``retry.RetryPolicy`` or None) and ``circuit_breaker``
+    (``retry.CircuitBreaker`` or None, shared by the reader's workers)
+    govern the rowgroup reads."""
 
     def __init__(self, schema: Schema, read_fields: Sequence[str],
                  device_decode_fields: Sequence[str] = (), mixed_fields: Sequence[str] = (),
@@ -105,8 +125,15 @@ class RowGroupDecoderWorker:
                  cache: Optional[CacheBase] = None, dataset_url: str = "",
                  predicate=None, transform: Optional[transform_mod.TransformSpec] = None,
                  transform_cache_info=None, ngram=None, ngram_schema: Optional[Schema] = None,
-                 verify_checksums: bool = False):
+                 verify_checksums: bool = False, fs_factory=None, retry_policy=None,
+                 circuit_breaker=None):
         self._schema = schema
+        self._fs_factory = fs_factory
+        self._retry_policy = retry_policy
+        self._circuit_breaker = circuit_breaker
+        #: retries taken, raw reads issued through windows, rowgroups read
+        #: through windows (``petastorm_tpu/worker.py:500-505``'s counters)
+        self._io = {"retries": 0, "read_calls": 0, "rowgroups_read": 0}
         #: verify the Parquet page checksums on read (``petastorm_tpu/worker.py:218``)
         self._verify_checksums = bool(verify_checksums)
         self._read_fields = list(read_fields)
@@ -174,6 +201,17 @@ class RowGroupDecoderWorker:
         with self._stats_lock:
             return dict(self._stats)
 
+    def io_stats(self) -> dict:
+        """``retries`` (rowgroup reads retried), ``read_calls`` and
+        ``rowgroups_read`` (raw reads and rowgroups through a remote file's
+        window) and ``reads_per_rowgroup``, their ratio (1.0 when the window
+        covers every rowgroup; None when nothing was read remotely)."""
+        with self._stats_lock:
+            out = dict(self._io)
+        out["reads_per_rowgroup"] = (out["read_calls"] / out["rowgroups_read"]
+                                     if out["rowgroups_read"] else None)
+        return out
+
     def transform_cache_stats(self) -> dict:
         """``transform_hits`` and ``transform_misses``, the lookups of cached
         transform output (both 0 unless the output is cached); ``{}``
@@ -205,21 +243,26 @@ class RowGroupDecoderWorker:
         y, x, crop_h, crop_w = spec
         return (int(y), int(x), crop_h, crop_w)
 
-    def _file_fingerprint(self, path: str) -> str:
+    def _file_fingerprint(self, path: str, fs=None) -> str:
         """``size:mtime_ns`` of a dataset file, memoized per path: a file
-        rewritten in place changes the key (``petastorm_tpu/worker.py:366``)."""
+        rewritten in place changes the key (``petastorm_tpu/worker.py:366``).
+        A file of a remote filesystem is asked through ``fs``."""
         fp = self._file_fps.get(path)
         if fp is None:
             try:
-                st = os.stat(path)
-                fp = f"{st.st_size}:{st.st_mtime_ns}"
+                if fs is None or isinstance(fs, pafs.LocalFileSystem):
+                    st = os.stat(path)
+                    fp = f"{st.st_size}:{st.st_mtime_ns}"
+                else:
+                    info = fs.get_file_info(path)
+                    fp = f"{info.size}:{info.mtime_ns}"
             except OSError:
                 fp = "?"
             self._file_fps[path] = fp
         return fp
 
     def _cache_key(self, item: WorkItem, stage: str = "decode",
-                   span: Optional[tuple] = None) -> str:
+                   span: Optional[tuple] = None, fs=None) -> str:
         """The cache key of one work item (``petastorm_tpu/worker.py:384``)
         over the rows ``span`` it loads (default: its row slice);
         ``stage=_TRANSFORM_STAGE`` keys the transform's output."""
@@ -227,7 +270,7 @@ class RowGroupDecoderWorker:
         rg = item.row_group
         tag = self._fields_tag if stage == "decode" else self._transform_fields_tag
         return (f"{self._cache_prefix}:{rg.path}:{rg.row_group}:{start}:{stop}"
-                f":{tag}:{self._file_fingerprint(rg.path)}")
+                f":{tag}:{self._file_fingerprint(rg.path, fs)}")
 
     def _cached(self, key: str, fill: Callable[[], ColumnBatch]) -> ColumnBatch:
         """``cache.get(key, fill)``, one thread at a time for one key."""
@@ -265,17 +308,29 @@ class RowGroupDecoderWorker:
         return ColumnBatch(cols, 0)
 
     def __call__(self) -> Callable[[WorkItem], ColumnBatch]:
+        fs = self._fs_factory() if self._fs_factory is not None else pafs.LocalFileSystem()
+        local = isinstance(fs, pafs.LocalFileSystem)
         open_files: Dict[str, tuple] = {}
 
         def parquet_file(path: str) -> tuple:
-            """(ParquetFile, the names of the columns it stores)."""
+            """(ParquetFile, the names of the columns it stores, its
+            ``WindowedFile`` or None)."""
             entry = open_files.get(path)
             if entry is None:
                 if len(open_files) >= _MAX_OPEN_FILES:
                     open_files.pop(next(iter(open_files)))[0].close()
-                pf = pq.ParquetFile(pa.memory_map(path),
+                window = None
+                if local:
+                    source = pa.memory_map(path)
+                else:
+                    # one ranged read a rowgroup (io_window); pre_buffer
+                    # coalesces the spans the window refuses, and its reads
+                    # land inside the window when one is armed
+                    window = WindowedFile(fs.open_input_file(path))
+                    source = pa.PythonFile(window, mode="r")
+                pf = pq.ParquetFile(source, pre_buffer=not local,
                                     page_checksum_verification=self._verify_checksums)
-                entry = open_files[path] = (pf, frozenset(pf.schema_arrow.names))
+                entry = open_files[path] = (pf, frozenset(pf.schema_arrow.names), window)
             return entry
 
         def load(item: WorkItem, fields: Sequence[str],
@@ -285,11 +340,21 @@ class RowGroupDecoderWorker:
             ``fields``, keep the ``mask``ed rows, then decode them
             (``petastorm_tpu/worker.py:481``)."""
             rg = item.row_group
-            pf, file_cols = parquet_file(rg.path)
+            pf, file_cols, window = parquet_file(rg.path)
             stored = [f for f in fields if f in file_cols]
+            reads_before = window.raw_reads if window is not None else 0
+            if window is not None and stored:
+                span = rowgroup_span(pf.metadata, rg.row_group, stored)
+                if span is not None:
+                    window.prefetch(span[0], span[1])
             # the pool provides the parallelism; arrow's own fan-out per read
             # only adds handoff cost
             table = pf.read_row_group(rg.row_group, columns=stored, use_threads=False)
+            if window is not None:
+                window.discard_window()  # the table owns the bytes now
+                with self._stats_lock:
+                    self._io["read_calls"] += window.raw_reads - reads_before
+                    self._io["rowgroups_read"] += 1
             start, stop = row_range if row_range is not None else item.row_slice()
             if (start, stop) != (0, table.num_rows):
                 table = table.slice(start, stop - start)
@@ -361,7 +426,7 @@ class RowGroupDecoderWorker:
                     filled.append(True)
                     return self._apply_transform(load(item, self._read_fields))
 
-                batch = self._cached(self._cache_key(item, _TRANSFORM_STAGE),
+                batch = self._cached(self._cache_key(item, _TRANSFORM_STAGE, fs=fs),
                                      decode_and_transform)
                 with self._stats_lock:
                     self._transform_events["transform_misses" if filled
@@ -370,7 +435,7 @@ class RowGroupDecoderWorker:
             if self._cache_is_null:
                 batch = load(item, self._read_fields)
             else:
-                batch = self._cached(self._cache_key(item),
+                batch = self._cached(self._cache_key(item, fs=fs),
                                      lambda: load(item, self._read_fields))
             return self._apply_transform(batch)
 
@@ -389,16 +454,33 @@ class RowGroupDecoderWorker:
             elif self._cache_is_null:
                 batch = load(whole, self._read_fields, row_range=row_range)
             else:
-                batch = self._cached(self._cache_key(whole, span=row_range),
+                batch = self._cached(self._cache_key(whole, span=row_range, fs=fs),
                                      lambda: load(whole, self._read_fields, row_range=row_range))
             if batch.num_rows == 0:
                 return batch
             return self._ngram.form_windows(self._ngram_schema, self._apply_transform(batch),
                                             anchor_range=anchor)
 
+        def drop_handle(path: str) -> None:
+            """Count a retry and drop the file's cached handle: the failure
+            may have poisoned its stream (``petastorm_tpu/worker.py:232-240``)."""
+            with self._stats_lock:
+                self._io["retries"] += 1
+            entry = open_files.pop(path, None)
+            if entry is not None:
+                try:
+                    entry[0].close()
+                except Exception:  # noqa: BLE001 - already failing
+                    pass
+
         def process(item: WorkItem) -> ColumnBatch:
             before = native_image.decode_stats()
-            batch = decode(item) if self._ngram is None else decode_windows(item)
+            run = decode if self._ngram is None else decode_windows
+            rg = item.row_group
+            batch = retry_call(lambda: run(item), self._retry_policy,
+                               what=f"rowgroup {rg.path}#{rg.row_group}",
+                               on_retry=lambda _exc: drop_handle(rg.path),
+                               breaker=self._circuit_breaker)
             # this thread's counters: a hit decoded nothing and adds nothing
             after = native_image.decode_stats()
             with self._stats_lock:

@@ -1520,3 +1520,66 @@ def test_block_attention_refuses_what_the_kernel_does_not_take():
         ra.block_attention_fwd(q, k.cpu(), v, o, l, m, 0.1)
     with pytest.raises(ValueError, match="shape"):
         ra.block_attention_fwd(q, k, v, o, l[:, :1], m, 0.1)
+
+
+@pytest.mark.cuda
+def test_data_parallel_trainer_at_two_ranks_on_the_card(tmp_path):
+    """The flagship trainer under two ranks sharing the card (gloo, the
+    gradient all-reduce staged through host memory): B2, B3 and B1 on both
+    ranks, finite losses, and one replicated state (equal leaf digests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import json
+    import os
+    import sys
+
+    from petastorm_tpu_torch.parallel.launch import run_ranks
+
+    url = str(tmp_path / "ds")
+    trainer.generate_dataset(url, 64, 64)
+    prefix = str(tmp_path / "report")
+    cmd = [sys.executable, "-m", "petastorm_tpu_torch.examples.imagenet.train_resnet_cuda",
+           "--dataset-url", url, "--skip-generate", "--side", "64", "--global-batch", "16",
+           "--steps", "2", "--num-classes", "10", "--device", "cuda", "--report", prefix]
+    error = run_ranks(cmd, 2, 300, str(tmp_path / "log"))
+    assert error is None, error
+    reports = []
+    for rank in range(2):
+        with open(f"{prefix}.{rank}.json") as f:
+            reports.append(json.load(f))
+    assert reports[0]["params_digest"] == reports[1]["params_digest"]
+    assert all(r["world_size"] == 2 and r["transport"] == "gloo, host-staged" for r in reports)
+    assert all(np.isfinite(r["final_loss"]) and r["allreduce_ms"] > 0 for r in reports)
+    assert os.path.exists(f"{prefix}.1.json")
+
+
+@pytest.mark.cuda
+def test_remote_read_on_the_card_equals_the_local_read(tmp_path):
+    """Device decode (B2) through a latent, failing filesystem
+    (``test_util.latency_fs``, ``io_retries='auto'``): the labels and pixels
+    on the card equal a local read's, retries counted, one ranged read a
+    rowgroup."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.test_util.latency_fs import latent_filesystem
+
+    url = str(tmp_path / "ds")
+    trainer.generate_dataset(url, 64, 64)
+
+    def read(**kwargs):
+        reader = make_reader(url, shuffle_seed=0, num_epochs=1, workers_count=2,
+                             decode_placement={"image": "device"}, **kwargs)
+        with CudaDataLoader(reader, 16, device="cuda") as loader:
+            batches = [(b["label"].cpu(), b["image"].cpu()) for b in loader]
+        return batches, reader.io_stats()
+
+    local, _ = read()
+    fs, stats = latent_filesystem(latency_s=0.005, fail_first_reads=2, fail_first_opens=2)
+    remote, io = read(filesystem=fs, io_retries="auto")
+    assert len(local) == len(remote) == 4
+    for (la, ia), (lb, ib) in zip(local, remote):
+        assert torch.equal(la, lb) and torch.equal(ia, ib)
+    assert stats.failures_injected == 4 and io["retries"] == 3
+    assert io["reads_per_rowgroup"] == 1.0

@@ -507,3 +507,96 @@ def test_jax_loader_module_still_shards_by_process_index():
     """The line the port departs from (``jax/loader.py:1923-1926``)."""
     src = inspect.getsource(jax_loader_mod.make_jax_loader)
     assert "jax.process_index(), jax.process_count()" in src
+
+
+# -- the selfcheck's shuffled, mixed-decode and 2-D mesh checks ----------------------------
+
+def test_selfcheck_shuffled_stacked_delivery_and_drain(tmp_path):
+    report = selfcheck.run_shuffled_check(num_processes=2, timeout=120,
+                                          workdir=str(tmp_path), device="cpu")
+    _assert_ok(report)
+    assert report["rho_global"] <= 0.5 and report["devices"] == ["cpu"]
+
+
+def test_selfcheck_shuffled_over_four_ranks(tmp_path):
+    """The JAX check's four processes, a rank each."""
+    report = selfcheck.run_shuffled_check(num_processes=4, timeout=180,
+                                          workdir=str(tmp_path), device="cpu")
+    _assert_ok(report)
+
+
+def test_selfcheck_mixed_decode(tmp_path):
+    report = selfcheck.run_mixed_check(num_processes=2, timeout=120, workdir=str(tmp_path),
+                                       device="cpu")
+    _assert_ok(report)
+    assert report["max_pixel_err"] <= 6 and report["mean_pixel_err"] < 1.0
+    assert all(g == {"image": 2} for g in report["geometries_per_rank"])
+
+
+def test_selfcheck_mesh2d(tmp_path):
+    report = selfcheck.run_mesh2d_check(num_processes=2, devices_per_process=2, timeout=120,
+                                        workdir=str(tmp_path), device="cpu")
+    _assert_ok(report)
+    assert report["mesh"] == {"data": 2, "model": 2} and report["rel_err"] < 1e-5
+
+
+def test_the_new_selfcheck_checks_run_on_the_card_unless_asked(monkeypatch, tmp_path):
+    fns = (selfcheck.run_shuffled_check, selfcheck.run_mixed_check,
+           selfcheck.run_mesh2d_check)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in fns:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            fn(num_processes=2, workdir=str(tmp_path))
+    assert os.listdir(tmp_path) == []
+
+
+# -- the packed token loader over a mesh ---------------------------------------------------
+
+def _jax_packed_rows(urls, seq_len, seed, shard, count, weights=None):
+    """The JAX PackedSequenceReader's rows over one shard, in one process."""
+    from petastorm_tpu.sequence.dataset import make_sequence_reader as jax_sequence_reader
+    from petastorm_tpu.sequence.loader import PackedSequenceReader as JaxPacked
+    from petastorm_tpu.sequence.mixing import make_mixed_sequence_reader as jax_mixed
+
+    kwargs = dict(cur_shard=shard, shard_count=count, workers_count=1)
+    source = (jax_sequence_reader(urls[0], shuffle_seed=seed, **kwargs) if len(urls) == 1
+              else jax_mixed(urls, weights=weights, seed=seed, **kwargs))
+    out = {}
+    with JaxPacked(source, seq_len, rows_per_batch=4) as packed:
+        for block in packed.iter_batches():
+            for k, v in block.columns.items():
+                out.setdefault(k, []).append(np.asarray(v))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("mesh,corpora", [((2, 1), 1), ((2, 1), 2), ((1, 2), 1)],
+                         ids=["data2", "data2-mixed", "seq2"])
+def test_packed_loader_blocks_equal_the_jax_packing_of_each_shard(tmp_path, mesh, corpora):
+    """Each rank's delivered block of every batch is, in order, the JAX
+    PackedSequenceReader's rows over the shard of its batch-axis block (ranks
+    of one ``seq`` ring read and pack the same rows)."""
+    from petastorm_tpu_torch.test_util.synthetic import write_token_corpus
+
+    urls = []
+    for c in range(corpora):
+        url = str(tmp_path / f"corpus{c}")
+        write_token_corpus(url, n_docs=96, rows_per_rg=8, vocab=500, mean_len=12.0,
+                           max_len=40, seed=c)
+        urls.append(url)
+    weights = [0.7, 0.3] if corpora > 1 else None
+    global_batch, seq_len, seed = 4, 16, 3
+    launch("packed", 2, {"out": str(tmp_path), "urls": urls, "mesh": list(mesh),
+                         "global_batch": global_batch, "seq_len": seq_len, "seed": seed,
+                         "weights": weights}, timeout=120)
+    data_par = mesh[0]
+    local = global_batch // data_par
+    for rank in range(2):
+        got = dict(np.load(tmp_path / f"rank{rank}.npz"))
+        block = rank // mesh[1]
+        want = _jax_packed_rows(urls, seq_len, seed, block, data_par, weights)
+        n = got["tokens"].shape[0]
+        assert n > 0 and n % local == 0
+        for field in ("tokens", "segment_ids", "positions", "loss_mask"):
+            np.testing.assert_array_equal(got[field], want[field][:n], err_msg=field)

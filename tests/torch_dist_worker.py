@@ -153,7 +153,72 @@ def _trainer(rank, world, args):
     np.savez(os.path.join(args["out"], f"rank{rank}.npz"), **out)
 
 
-CASES = {"attention": _attention, "loader": _loader, "drain": _drain, "trainer": _trainer}
+def _dp_step(rank, world, args):
+    """Data-parallel ResNet steps: each rank runs ``TrainStep`` (on the
+    default group) on its block of the global batches in ``args['inputs']``,
+    from the state in ``args['state']``: the whole step on explicit boxes
+    and flips (``feed='augment'``), or the update on given normalized inputs
+    (``feed='jax-inputs'``).  Saves the losses and the leaves."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.examples.imagenet import train_resnet_cuda as trainer
+    from petastorm_tpu_torch.models.resnet import ResNet
+
+    data = np.load(args["inputs"])
+    model = ResNet([1, 1], num_classes=args["classes"], num_filters=8, dtype=torch.float32,
+                   device="cpu")
+    model.load_state_dict(torch.load(args["state"]), strict=True)
+    step = trainer.TrainStep(model, args["classes"], args["side"], group=dist.group.WORLD,
+                             block=(rank, world))
+    losses = []
+    for i in range(data["labels"].shape[0]):
+        n = data["labels"].shape[1] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        labels = torch.from_numpy(data["labels"][i, rows]).long()
+        if args["feed"] == "augment":
+            loss = step(torch.from_numpy(data["images"][i, rows]), labels,
+                        boxes=torch.from_numpy(data["boxes"][i, rows]),
+                        flips=torch.from_numpy(data["flips"][i, rows]))
+        else:
+            x = torch.from_numpy(data["x"][i, rows]).to(torch.bfloat16)
+            loss = step.update(x, labels)
+        losses.append(float(loss))
+    out = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    out["losses"] = np.array(losses)
+    out["digest"] = np.array(trainer.leaves_digest(step))
+    np.savez(os.path.join(args["out"], f"rank{rank}.npz"), **out)
+
+
+def _packed(rank, world, args):
+    """The packed token loader over a mesh of ``args['mesh']``: every
+    delivered block of this rank, in order."""
+    import numpy as np
+    from torch.distributed.tensor import Replicate, Shard
+
+    from petastorm_tpu_torch.sequence import make_packed_sequence_loader
+
+    mesh = _mesh(args["mesh"])
+    spec = (Shard(0), Replicate())
+    fields = ("tokens", "segment_ids", "positions", "loss_mask")
+    urls = args["urls"] if len(args["urls"]) > 1 else args["urls"][0]
+    out = {f: [] for f in fields}
+    with make_packed_sequence_loader(urls, args["global_batch"], args["seq_len"],
+                                     weights=args.get("weights"), seed=args["seed"],
+                                     device="cpu", workers_count=1,
+                                     loader_kwargs={"mesh": mesh,
+                                                    "shardings": {f: spec for f in fields}}
+                                     ) as loader:
+        for batch in loader:
+            for f in fields:
+                out[f].append(batch[f].numpy())
+    np.savez(os.path.join(args["out"], f"rank{rank}.npz"),
+             **{f: np.concatenate(v) for f, v in out.items()})
+
+
+CASES = {"attention": _attention, "loader": _loader, "drain": _drain, "trainer": _trainer,
+         "dp_step": _dp_step, "packed": _packed}
 
 
 def _main() -> None:
