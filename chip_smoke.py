@@ -288,9 +288,32 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    phase 6's, 3 retries counted (the ``_common_metadata`` probe takes one
    failure without a retry, as in the JAX package), one ranged read a
    rowgroup, samples/s beside phase 6's; then a store failing every request
-   raises ``CircuitOpenError`` within 10 s.
+   raises ``CircuitOpenError`` within 10 s;
+29. the process pool on the main path: phase 6's and then phase 5's
+   training epoch with ``reader_pool_type='process'`` (spawned workers, the
+   default 7 of them, results through a shared-memory arena the reader
+   sizes to the window of 17 rowgroups and 4 more: 1.62 GB for the
+   coefficient planes, counted at twice the pixels, 0.81 GB for the pixels,
+   so no batch waits for room): the labels and every batch's image
+   sum equal phases 6's and 5's, B2, B3 and B1 once a batch or step, every
+   batch through the arena and none pickled, the host route's images all
+   decoded straight into arena slots, no child process left after
+   ``stop()``; samples/s beside phases 5's and 6's, the input-idle share,
+   the arena's high-water mark, the workers' spawn seconds and resident sets;
+30. liveness under chaos (``test_util.chaos.ChaosSpec``) on phase 6's
+   device route: the process pool with one ordinal hung past
+   ``item_deadline_s=5`` (killed and respawned) and one worker killed with
+   ``os._exit`` (its item requeued); the thread pool with the same hang
+   (its slot abandoned); a slow ordinal (3 s) under ``hedge_after_s=1``
+   (hedged, delivered once); each training its epoch with phase 29's
+   labels and image sums, B2, B3 and B1 counted, and the wall time the hang
+   cost held to the deadline plus one respawn; then every attempt hanging
+   with no deadline and ``stall_abort_s=5``: ``PipelineStallError`` within
+   10 s of the last batch, its diagnostics naming the stuck ordinal, and no
+   loader thread or worker process left.
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+Then a ``wall`` line (the script's seconds so far), a ``{"kernels": [...]}``
+line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
 without a CUDA GPU it exits non-zero at once.
 """
@@ -299,6 +322,7 @@ import contextlib
 import io
 import itertools
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -348,6 +372,8 @@ from petastorm_tpu_torch.parallel import launch, selfcheck  # noqa: E402
 from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
+from petastorm_tpu_torch.pool import PipelineStallError  # noqa: E402
+from petastorm_tpu_torch.test_util.chaos import ChaosSpec  # noqa: E402
 from petastorm_tpu_torch.test_util.latency_fs import latent_filesystem  # noqa: E402
 from petastorm_tpu_torch.sequence import PackedSequenceReader, make_sequence_reader  # noqa: E402
 from petastorm_tpu_torch.sequence import (SequencePacker, iter_documents,  # noqa: E402
@@ -394,6 +420,10 @@ DP_RANKS, DP_BATCH, DP_WARMUP, DP_TIMED = 2, 256, 2, 4  # phase 27: the data-par
 REMOTE_LATENCY_S = 0.02                           # phase 28: a request's injected latency
 REMOTE_FAIL_READS, REMOTE_FAIL_OPENS = 2, 2       # phase 28: the first reads, opens failing
 CIRCUIT_BOUND_S = 10.0                            # phase 28: a dead store's CircuitOpenError
+CHAOS_DEADLINE_S, CHAOS_STALL_S = 5.0, 5.0        # phase 30: item deadline, stall abort
+CHAOS_SLOW_S, CHAOS_HEDGE_S = 3.0, 1.0            # phase 30: the slow item, the hedge age
+CHAOS_HANG, CHAOS_KILL, CHAOS_SLOW = 5, 9, 7      # phase 30: the ordinals hit
+CHAOS_HANG_S = 600.0                              # phase 30: a hang, "forever"
 SIDE = 224
 MAIN_SHAPE = (BATCH, SIDE, SIDE, 3)
 
@@ -1296,10 +1326,15 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     cached = reader_kwargs.get("cache_type", "null") != "null"
     if decoded_images is None:
         decoded_images = N_ROWS * (1 if cached else epochs)
-    stats = [part.decode_stats() for part in parts]
-    decoded = check_native_decode({k: sum(s[k] for s in stats) for k in stats[0]},
-                                  decoded_images, f"training, {decode} decode",
-                                  "batch" if decode == "host" else "coef_batch")
+    if reader_kwargs.get("reader_pool_type") == "process":
+        # the workers count their decode in their own processes: the caller
+        # reads the pool's transport counters instead
+        decoded = None
+    else:
+        stats = [part.decode_stats() for part in parts]
+        decoded = check_native_decode({k: sum(s[k] for s in stats) for k in stats[0]},
+                                      decoded_images, f"training, {decode} decode",
+                                      "batch" if decode == "host" else "coef_batch")
     timed = end - timed_start
     return {"step": step, "model": model, "first": first, "flops": flops,
             "labels": torch.cat(labels_seen).cpu(), "losses": losses, "steps": steps,
@@ -1352,7 +1387,8 @@ def train_path_phase(path, kernels):
                                   if peak_flops else None),
           step_vs_f32_plain=step_check)
     return {"labels": run["labels"], "first_images": first[0].cpu(),
-            "samples_per_s": samples_per_s, "losses": run["losses"], "digest": run["digest"]}
+            "samples_per_s": samples_per_s, "losses": run["losses"], "digest": run["digest"],
+            "image_sums": run["image_sums"]}
 
 
 def train_path_device_decode_phase(path, kernels, host):
@@ -1393,7 +1429,7 @@ def train_path_device_decode_phase(path, kernels, host):
           losses=run["losses"].tolist(), labels_match_host_order=True,
           decode_stats=run["decode_stats"], first_batch_vs_host_decode=vs_cv2)
     return {"labels": run["labels"], "samples_per_s": run["samples_per_s"],
-            "first_images": images}
+            "first_images": images, "image_sums": run["image_sums"], "epoch_s": run["epoch_s"]}
 
 
 def shuffled_train_path_phase(path, device):
@@ -3935,7 +3971,154 @@ def remote_read_phase(tmp, path, kernels, device):
               dead_stats.snapshot()["failures_injected"]))
 
 
+def same_epoch(run, want, what):
+    """``run`` delivered ``want``'s labels in its order and every batch's
+    image sum equal; a failure names ``what``."""
+    if not torch.equal(run["labels"], want["labels"]):
+        raise AssertionError(f"{what}: other labels, or in another order, than the clean run")
+    if not torch.equal(run["image_sums"], want["image_sums"]):
+        bad = (run["image_sums"] != want["image_sums"]).nonzero().flatten().tolist()
+        raise AssertionError(f"{what}: the image sums of batches {bad} differ from the clean run")
+
+
+def no_children(what):
+    """No child process of this one is left (bounded wait for their exit)."""
+    deadline = time.monotonic() + 10
+    while multiprocessing.active_children() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"{what}: child processes left after stop(): {left}")
+
+
+def process_pool_phase(path, kernels, host, device):
+    """Phase 29: phases 6 and 5 with ``reader_pool_type='process'``."""
+    t0 = time.perf_counter()
+    runs, out = {}, {}
+    for decode, want, name in (("device", device, "phase 6"), ("host", host, "phase 5")):
+        run = train_epoch(path, decode, reader_kwargs=dict(reader_pool_type="process"))
+        no_children(f"phase 29, {decode} decode")
+        same_epoch(run, want, f"phase 29, {decode} decode against {name}")
+        for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+            kernels[kernel]["launches"] += run["launches"][kernel]
+        stats = run["diagnostics"]["transport"]
+        steps = run["steps"]
+        if stats["shm_batches"] != N_ROWS // ROWS_PER_GROUP or stats["pickled_batches"]:
+            raise AssertionError(f"phase 29, {decode} decode: {stats['shm_batches']} batches"
+                                 f" through the arena and {stats['pickled_batches']} pickled;"
+                                 f" expected {N_ROWS // ROWS_PER_GROUP} and 0")
+        want_slots = N_ROWS if decode == "host" else 0
+        if stats["slot_rows"] != want_slots:
+            raise AssertionError(f"phase 29, {decode} decode: {stats['slot_rows']} images"
+                                 f" decoded into arena slots, expected {want_slots}")
+        runs[decode] = run
+        out[decode] = {
+            "samples_per_s": run["samples_per_s"], f"{name.replace(' ', '')}_samples_per_s":
+            want["samples_per_s"], "relative": run["samples_per_s"] / want["samples_per_s"] - 1,
+            "epoch_s": run["epoch_s"], "step_ms": 1e3 * run["timed"] / (steps - WARMUP_STEPS),
+            "input_idle_share": run["wait"] / run["timed"], "launches": run["launches"],
+            "shm_size_bytes": stats["shm_size_bytes"],
+            "shm_high_water_bytes": stats["shm_high_water_bytes"],
+            "shm_batches": stats["shm_batches"], "pickled_batches": stats["pickled_batches"],
+            "slot_rows": stats["slot_rows"], "worker_spawn_s": stats["worker_spawn_s"],
+            "worker_rss_bytes": stats["worker_rss_bytes"],
+            "reader_liveness": {k: run["diagnostics"]["reader"][k]
+                                for k in ("requeued_items", "hung_workers_killed")}}
+    phase("process_pool_train", workers=runs["device"]["workers"], batch=BATCH,
+          steps=runs["device"]["steps"], labels_and_image_sums_match=True, children_left=0,
+          seconds=time.perf_counter() - t0, **out)
+    return runs["device"]
+
+
+def chaos_phase(path, kernels, clean, device):
+    """Phase 30: liveness under chaos on phase 6's device route.  The time a
+    run lost is its epoch's seconds less those of the same pool's clean
+    epoch: phase 29's for the process pool (its first batch waits for the
+    workers' spawn), phase 6's for the thread pool."""
+    t0 = time.perf_counter()
+    out = {}
+
+    def chaotic(name, pool_type, spec, **kwargs):
+        run = train_epoch(path, "device", reader_kwargs=dict(
+            reader_pool_type=pool_type, chaos=spec, **kwargs))
+        no_children(f"phase 30, {name}")
+        same_epoch(run, clean, f"phase 30, {name}")
+        for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+            kernels[kernel]["launches"] += run["launches"][kernel]
+        diag = run["diagnostics"]["reader"]
+        base = (clean if pool_type == "process" else device)["epoch_s"]
+        out[name] = {"samples_per_s": run["samples_per_s"], "epoch_s": run["epoch_s"],
+                     "clean_epoch_s": base, "lost_s": run["epoch_s"] - base,
+                     "input_idle_share": run["wait"] / run["timed"],
+                     **{k: diag[k] for k in ("requeued_items", "hung_workers_killed",
+                                             "hung_workers_abandoned", "hedged_items",
+                                             "hedge_wins")}}
+        if pool_type == "process":
+            stats = run["diagnostics"]["transport"]
+            out[name].update(pickled_batches=stats["pickled_batches"],
+                             worker_spawn_s=stats["worker_spawn_s"])
+        return run, diag, out[name]
+
+    # 1. the process pool: a hang past the deadline, and a worker killed
+    run, diag, res = chaotic(
+        "process_hang_and_kill", "process",
+        ChaosSpec(hang_ordinals=(CHAOS_HANG,), kill_ordinals=(CHAOS_KILL,), hang_s=CHAOS_HANG_S),
+        item_deadline_s=CHAOS_DEADLINE_S)
+    respawn_s = max(s for s in res["worker_spawn_s"] if s is not None)
+    res["lost_bound_s"] = CHAOS_DEADLINE_S + respawn_s
+    if not (diag["hung_workers_killed"] == 1 and diag["requeued_items"] >= 2
+            and res["pickled_batches"] == 0 and res["lost_s"] <= res["lost_bound_s"]):
+        raise AssertionError(f"phase 30, process pool hang and kill: {res}")
+    # 2. the thread pool: the same hang, its slot abandoned
+    run, diag, res = chaotic("thread_hang", "thread",
+                             ChaosSpec(hang_ordinals=(CHAOS_HANG,), hang_s=CHAOS_HANG_S),
+                             item_deadline_s=CHAOS_DEADLINE_S)
+    res["lost_bound_s"] = CHAOS_DEADLINE_S
+    if not (diag["hung_workers_abandoned"] == 1 and diag["requeued_items"] == 1
+            and res["lost_s"] <= res["lost_bound_s"]):
+        raise AssertionError(f"phase 30, thread pool hang: {res}")
+    # 3. a slow ordinal hedged onto an idle worker, delivered once
+    run, diag, res = chaotic("process_slow_hedged", "process",
+                             ChaosSpec(slow_ordinals=(CHAOS_SLOW,), slow_s=CHAOS_SLOW_S),
+                             hedge_after_s=CHAOS_HEDGE_S)
+    if diag["hedged_items"] < 1:
+        raise AssertionError(f"phase 30, slow item: nothing hedged: {res}")
+    # 4. every attempt hangs, no deadline: the stall watchdog aborts
+    reader = make_reader(path, reader_pool_type="process", shuffle_seed=0, num_epochs=1,
+                         workers_count=max(1, min((os.cpu_count() or 2) - 1, 16)),
+                         decode_placement={"image": "device"},
+                         chaos=ChaosSpec(hang_ordinals=(CHAOS_HANG,), hang_on_retry=True,
+                                         hang_s=CHAOS_HANG_S),
+                         stall_abort_s=CHAOS_STALL_S)
+    loader = CudaDataLoader(reader, batch_size=BATCH, device="cuda")
+    delivered, raised, last = 0, None, time.perf_counter()
+    try:
+        for _ in loader:
+            delivered += 1
+            last = time.perf_counter()
+    except PipelineStallError as exc:
+        raised = exc
+    finally:
+        loader.stop()
+    abort_s = time.perf_counter() - last
+    threads_alive = [t.name for t in (loader._thread, loader._transfer_thread) if t.is_alive()]
+    no_children("phase 30, stall abort")
+    busy = [b[1] for b in raised.diagnostics.get("workers_busy", [])] if raised else []
+    out["stall_abort"] = {"raised": type(raised).__name__, "batches_before": delivered,
+                          "abort_s_after_last_batch": abort_s,
+                          "bound_s": CHAOS_STALL_S + 5, "stuck_ordinals": busy,
+                          "loader_threads_alive": threads_alive, "children_left": 0}
+    if (raised is None or delivered != CHAOS_HANG or abort_s > CHAOS_STALL_S + 5
+            or CHAOS_HANG not in busy or threads_alive):
+        raise AssertionError(f"phase 30, stall abort: {out['stall_abort']}")
+    phase("chaos_liveness", deadline_s=CHAOS_DEADLINE_S, hedge_after_s=CHAOS_HEDGE_S,
+          slow_s=CHAOS_SLOW_S, stall_abort_s=CHAOS_STALL_S,
+          ordinals={"hang": CHAOS_HANG, "kill": CHAOS_KILL, "slow": CHAOS_SLOW},
+          labels_and_image_sums_match=True, seconds=time.perf_counter() - t0, **out)
+
+
 def main():
+    started = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -3983,7 +4166,10 @@ def main():
         long_context_phase(tmp, kernels)
         data_parallel_phase(tmp, path, kernels)
         remote_read_phase(tmp, path, kernels, device)
+        clean = process_pool_phase(path, kernels, host, device)
+        chaos_phase(path, kernels, clean, device)
 
+    phase("wall", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,29 @@ MEMORY_SIZE_LIMIT = 4 * 2 ** 30
 
 class CacheBase(ABC):
     """``get(key, fill)`` returns the cached value or computes and stores
-    ``fill()``; ``hits`` and ``misses`` count the lookups."""
+    ``fill()``; ``hits`` and ``misses`` count the lookups.
+
+    ``retains_value_references``: whether the cache may keep references to
+    the values it was filled with or served (``petastorm_tpu/cache.py:38``).
+    The worker arms the process pool's decode-into-slot only when it is
+    False: a kept reference to an arena-backed array would dangle once the
+    consumer frees its block.  A cache pickles (into a process-pool worker)
+    with fresh locks and its own counters."""
+
+    retains_value_references = True
+    #: the lock attributes, recreated when a cache is unpickled
+    _LOCKS = ("_count_lock",)
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        for name in self._LOCKS:
+            state.pop(name, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        for name in self._LOCKS:
+            setattr(self, name, threading.Lock())
 
     def __init__(self):
         self.hits = 0
@@ -77,6 +99,8 @@ class CacheBase(ABC):
 class NullCache(CacheBase):
     """No cache: every ``get`` fills.  It counts nothing."""
 
+    retains_value_references = False
+
     def get(self, key: str, fill_cache_func: Callable[[], Any]) -> Any:
         return fill_cache_func()
 
@@ -89,6 +113,9 @@ class InMemoryCache(CacheBase):
     place cannot corrupt the cache; the copies are made outside the lock,
     so the pool's threads do not serialize on them.
     """
+
+    retains_value_references = False  # private copies only
+    _LOCKS = ("_count_lock", "_lock")
 
     def __init__(self, size_limit_bytes: int = MEMORY_SIZE_LIMIT):
         super().__init__()
@@ -193,6 +220,8 @@ class LocalDiskCache(CacheBase):
     first.  Eviction is best effort: a sweep runs every ``SWEEP_EVERY``
     stores, so the cap may be overshot by that many entries between sweeps.
     """
+
+    retains_value_references = False  # pickled bytes only
 
     #: a ``.tmp`` older than this is a crashed writer's orphan: evictable
     ORPHAN_TMP_S = 300.0

@@ -14,8 +14,10 @@ released, optionally only each image's crop window), as
 ``petastorm_tpu/codecs.py:589-627``; every other image column decodes per
 cell through OpenCV, with PIL where OpenCV is missing, which is also the
 native decode's plain version.  The worker threads its options down to
-``decode_column`` through :func:`decode_options` (``:46-113``, without the
-process pool's ``batch_slots``).
+``decode_column`` through :func:`decode_options` (``:46-113``), with the
+process pool's ``batch_slots``: the native decode then writes into an
+arena slot of the shared-memory transport (``:630``), so the column ships
+with no copy.
 """
 
 from __future__ import annotations
@@ -72,21 +74,28 @@ class DecodeOptions:
     * ``roi`` - ``(crop_ys, crop_xs, crop_h, crop_w)`` partial decode of
       image columns (``make_reader(decode_roi=...)``): only the kept window
       is decoded (native path) or sliced (per-cell path) - output rows are
-      ``(crop_h, crop_w[, C])``.
+      ``(crop_h, crop_w[, C])``;
+    * ``batch_slots`` - allocate the native decode's output from the active
+      shared-memory ``native.transport.SlotAllocator`` (a process-pool
+      worker), so the pool ships it with no further copy; the worker arms it
+      only where no cache would keep a reference to the arena-backed array.
     """
 
-    __slots__ = ("nthreads", "roi")
+    __slots__ = ("nthreads", "roi", "batch_slots")
 
-    def __init__(self, nthreads: Optional[int] = None, roi: Optional[Tuple] = None):
+    def __init__(self, nthreads: Optional[int] = None, roi: Optional[Tuple] = None,
+                 batch_slots: bool = False):
         self.nthreads = nthreads
         self.roi = roi
+        self.batch_slots = batch_slots
 
 
 @contextlib.contextmanager
-def decode_options(nthreads: Optional[int] = None, roi: Optional[Tuple] = None):
+def decode_options(nthreads: Optional[int] = None, roi: Optional[Tuple] = None,
+                   batch_slots: bool = False):
     """Install :class:`DecodeOptions` for decode calls on this thread."""
     prev = getattr(_DECODE_CTX, "opts", None)
-    _DECODE_CTX.opts = DecodeOptions(nthreads=nthreads, roi=roi)
+    _DECODE_CTX.opts = DecodeOptions(nthreads=nthreads, roi=roi, batch_slots=batch_slots)
     try:
         yield
     finally:
@@ -468,10 +477,10 @@ class CompressedImageCodec(Codec):
         if native_decodable(field) and column.null_count == 0:
             if roi is not None:
                 ys, xs, crop_h, crop_w = roi
-                out = np.empty((len(column), crop_h, crop_w) + field.shape[2:], np.uint8)
+                out = self._alloc_output((len(column), crop_h, crop_w) + field.shape[2:], opts)
                 native_roi, full_shape = (ys, xs), field.shape[:2]
             else:
-                out = np.empty((len(column),) + field.shape, np.uint8)
+                out = self._alloc_output((len(column),) + field.shape, opts)
                 native_roi, full_shape = None, None
             nthreads = opts.nthreads if opts.nthreads is not None else _decode_threads()
             if native_image.decode_column_native(column, out, nthreads=nthreads,
@@ -481,6 +490,20 @@ class CompressedImageCodec(Codec):
         if roi is not None:
             decoded = _slice_roi(decoded, roi)
         return decoded
+
+    @staticmethod
+    def _alloc_output(shape, opts: DecodeOptions) -> np.ndarray:
+        """The native decode's output: an arena slot under ``batch_slots``
+        when one is free, else plain memory (``petastorm_tpu/codecs.py:630``)."""
+        if opts.batch_slots:
+            from petastorm_tpu_torch.native.transport import current_slot_allocator
+
+            allocator = current_slot_allocator()
+            if allocator is not None:
+                out = allocator.alloc(shape, np.uint8)
+                if out is not None:
+                    return out
+        return np.empty(shape, dtype=np.uint8)
 
     @staticmethod
     def _pil_decode(field, value: bytes) -> np.ndarray:

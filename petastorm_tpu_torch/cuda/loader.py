@@ -66,6 +66,15 @@ tensor on its card: the rows of its batch-axis block and, for a field
 sharded on a second axis, its range of that axis (``_placement_for``,
 ``:1461-1486``).  ``transfer_commit``, ``trace_dir``, telemetry and
 ``set_prefetch`` are not part of this package yet.
+
+A reader on the process pool (``reader_pool_type='process'``) hands over
+batches whose columns are views of its shared-memory arena.  The loader
+copies them into its staging (the host shuffle buffer copies rows into its
+own store, and host fields are copied out) and then drops them, so each
+arena block goes back as soon as its batch is staged and no view of the
+arena reaches the consumer.  ``diagnostics()`` then carries the pool's
+``shm_batches``, ``pickled_batches`` and ``shm_high_water_bytes`` (and all
+of ``Reader.transport_stats()`` under ``transport``).
 """
 
 from __future__ import annotations
@@ -96,6 +105,7 @@ from petastorm_tpu_torch.parallel.mesh import (Placements, group_device, mesh_co
                                                mesh_dim_names, mesh_group, shard_slices,
                                                sharding_for_batch)
 from petastorm_tpu_torch.seeding import reader_buffer_seed
+from petastorm_tpu_torch.native.transport import is_arena_backed
 from petastorm_tpu_torch.shuffle import (NoopShufflingBuffer, RandomShufflingBuffer,
                                          iter_batched, iter_batched_multi)
 
@@ -692,7 +702,9 @@ class CudaDataLoader:
             for key, col in batch.columns.items():
                 if key.startswith(name + COEF_COLUMN_SEP) and key != meta_name:
                     coef[key] = col
-        host = {n: batch.columns[n] for n in self._host_fields}
+        # host fields are delivered as they are: a view of the process
+        # pool's arena is copied out, so no lease outlives the staging copy
+        host = {n: _detached(batch.columns[n]) for n in self._host_fields}
         return _HostBatch(cols, coef, layouts, host, batch.num_rows, mixed)
 
     def _assemble(self) -> None:
@@ -1160,6 +1172,15 @@ class CudaDataLoader:
             if self._declared_geometries:
                 out["declared_geometries"] = {
                     name: len(shapes) for name, shapes in self._declared_geometries.items()}
+        transport = getattr(self._reader, "transport_stats", None)
+        stats = transport() if callable(transport) else {}
+        if stats:
+            # the process pool's arena: batches through it and pickled, and
+            # its high-water mark (the JAX loader reads the telemetry counter
+            # ``decode.batch_slots`` for the slot decode, ``pool.py:1990``)
+            out["transport"] = stats
+            for key in ("shm_batches", "pickled_batches", "shm_high_water_bytes"):
+                out[key] = stats[key]
         reader_diag = getattr(self._reader, "diagnostics", None)
         if isinstance(reader_diag, dict):
             # the reader's own (a packed token feed's ``packing`` stats among
@@ -1419,6 +1440,11 @@ def _batch_axis_only(placements: Placements) -> Placements:
     """``placements`` with every mesh dimension that does not shard dim 0
     replicated: how the batch axis alone is laid out."""
     return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in placements)
+
+
+def _detached(col: np.ndarray) -> np.ndarray:
+    """``col``, copied when it is a view of the process pool's arena."""
+    return col.copy() if is_arena_backed(col) else col
 
 
 def _host_filler(tmpl: np.ndarray) -> np.ndarray:

@@ -81,9 +81,11 @@ class ErrorPolicy:
     (``quarantined_rowgroups``), and iteration continues.  *Infrastructure*
     errors (an in-worker ``MemoryError``) are first requeued onto a worker
     up to ``max_requeue_attempts``; only an item that exhausts its attempts
-    is handed to the skip path.  (The JAX package also counts both in
-    telemetry, ``errors.skipped_rowgroups`` and ``errors.requeued_items``;
-    telemetry is not part of this package yet, ROADMAP.md queue A item 11.)
+    is handed to the skip path.  Both are counted in ``Reader.diagnostics``
+    (``skipped_rowgroups``, ``requeued_items``), where the JAX package also
+    counts them as telemetry (``errors.skipped_rowgroups``,
+    ``errors.requeued_items``), which this package does not have yet
+    (ROADMAP.md queue A item 11).
 
     ``max_skipped_rowgroups``: absolute skip budget (None = unlimited).
     ``max_skipped_fraction``: skipped / expected items (None = unlimited);

@@ -8,7 +8,9 @@ of the source, the flags and the libraries it links, and ``ctypes`` loads it.
 - ``jpeg_coef`` (``jpeg_coef.cpp``): the entropy half of the hybrid JPEG
   decode, linked against libjpeg;
 - ``image_decode`` (``image_decode.cpp``): the batched host decode of PNG
-  and JPEG columns, linked against libjpeg and libpng.
+  and JPEG columns, linked against libjpeg and libpng;
+- ``shm_arena`` (``shm_arena.cpp``): the process pool's shared-memory
+  allocator, linked against nothing but libc.
 
 Headers: the libjpeg-turbo 6.2-ABI and libpng 1.6 headers vendored in
 ``include/`` (with their licenses), so a build needs no ``-dev`` package.
@@ -42,6 +44,7 @@ LIB_DIR = os.path.join(os.path.dirname(_DIR), "_lib")
 LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "jpeg_coef": ("jpeg_coef.cpp", ("libjpeg",)),
     "image_decode": ("image_decode.cpp", ("libjpeg", "libpng")),
+    "shm_arena": ("shm_arena.cpp", ()),
 }
 
 CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-pthread"]

@@ -40,10 +40,15 @@ dataset is a directory (hive partitions included) or, for
 ``make_batch_reader``, a list of URLs; a predicate over partition keys alone
 is pushed down to the partitions (``:659-681``).  Remote stores are read
 through ``fs.py`` with ``io_retries`` and one ranged read a rowgroup
-(``worker.py``, ``io_window.py``).  The shared cache tier,
-the ``'auto'`` placement, telemetry, chaos injection, liveness and the
-ingest service are not part of this package yet (ROADMAP.md queue A item
-11).
+(``worker.py``, ``io_window.py``).  Liveness
+(``item_deadline_s``, ``hedge_after_s``) and the stall watchdog
+(``stall_warn_s``, ``stall_abort_s``, ``:1470-1580``) guard the pools
+against hung and straggling workers; ``reader_pool_type='process'`` runs
+the workers as spawned processes over a shared-memory transport
+(``pool.ProcessExecutor``); ``chaos`` injects faults for tests
+(``test_util.chaos``).  The shared cache tier, the ``'auto'`` placement,
+telemetry and the ingest service are not part of this package yet
+(ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import shutil
 from typing import FrozenSet, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -64,11 +70,12 @@ from petastorm_tpu_torch.errors import (EpochNotFinishedError, ErrorBudgetExceed
 from petastorm_tpu_torch.etl.indexing import get_row_group_indexes
 from petastorm_tpu_torch.etl.metadata import (declared_geometries, infer_or_load_schema,
                                               open_dataset)
-from petastorm_tpu_torch.fs import FilesystemFactory
+from petastorm_tpu_torch.fs import FilesystemFactory, get_filesystem_and_path
 from petastorm_tpu_torch.native import image as native_image
 from petastorm_tpu_torch.plan import (ElasticResumePlan, ReadPlan, WorkItem, elastic_resume_plan,
                                       resolve_cursor)
-from petastorm_tpu_torch.pool import WorkerError, make_executor
+from petastorm_tpu_torch.pool import (PipelineStallError, SerialExecutor, WorkerError,
+                                      env_seconds, make_executor)
 from petastorm_tpu_torch.retry import make_circuit_breaker, resolve_retry_policy
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
@@ -80,9 +87,22 @@ from petastorm_tpu_torch.worker import RowGroupDecoderWorker
 logger = logging.getLogger(__name__)
 
 _DEFAULT_RESULTS_QUEUE_BATCHES = 10
+#: stall watchdog defaults; the environment (``PETASTORM_TPU_STALL_WARN_S``,
+#: ``PETASTORM_TPU_STALL_ABORT_S``) is read again whenever a reader is made
+_STALL_WARN_S = 120.0
+_STALL_ABORT_S = 0.0
 #: entries of the quarantine ledger ``Reader.diagnostics`` carries (the
 #: ``quarantined_rowgroups`` property has them all)
 _DIAGNOSTICS_QUARANTINE_TAIL = 20
+#: the pool's keys ``Reader.diagnostics`` carries (``petastorm_tpu/pool.py:
+#: 555-562``, ``:1275-1301``, ``:2043-2076``)
+_POOL_DIAGNOSTICS = ("requeued_items", "hung_workers_killed", "hung_workers_abandoned",
+                     "hedged_items", "hedge_wins", "workers_busy", "workers_abandoned",
+                     "workers_count", "workers_alive", "shm_transport")
+#: the process pool's transport counters (``Reader.transport_stats``)
+_TRANSPORT_STATS = ("shm_size_bytes", "shm_free_bytes", "shm_high_water_bytes", "shm_batches",
+                    "pickled_batches", "slot_columns", "slot_rows", "worker_spawn_s",
+                    "worker_rss_bytes")
 
 
 def make_reader(dataset_url: str,
@@ -113,7 +133,12 @@ def make_reader(dataset_url: str,
                 verify_checksums: bool = False,
                 storage_options: Optional[dict] = None,
                 filesystem=None,
-                io_retries="auto") -> "Reader":
+                io_retries="auto",
+                item_deadline_s: Optional[float] = None,
+                hedge_after_s=None,
+                stall_warn_s: Optional[float] = None,
+                stall_abort_s: Optional[float] = None,
+                chaos=None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
@@ -217,7 +242,43 @@ def make_reader(dataset_url: str,
     circuit breaker (``reader.circuit_breaker``), an int sets the attempt
     budget, a ``RetryPolicy`` customizes it, ``None`` disables it
     (``:713-738``).  ``io_stats()`` counts the retries and the ranged reads
-    a rowgroup cost."""
+    a rowgroup cost.
+
+    ``reader_pool_type``: ``'thread'`` (default), ``'process'`` or
+    ``'serial'``.  ``'process'`` spawns ``workers_count`` worker processes
+    (they import no ``torch``) whose result batches travel through a
+    shared-memory arena sized to hold the ``workers_count +
+    results_queue_size`` rowgroups in flight and four more the consumer may
+    still hold (``_arena_bytes``); a batch that finds it full for 10 s
+    travels pickled (``transport_stats()['pickled_batches']``).  A
+    host-decoded image column is decoded straight into the arena.  It raises
+    when the arena's library cannot be built.  Under it ``decode_stats()``,
+    ``io_stats()`` and ``cache_stats()`` count this process's work only
+    (none): the workers count theirs in their own processes.
+
+    ``item_deadline_s`` / ``hedge_after_s``: the liveness layer
+    (``petastorm_tpu/reader.py:222-233``).  An item that gives no result for
+    ``item_deadline_s`` gets its worker SIGKILLed and respawned (process
+    pool) or its slot abandoned (thread pool), and is requeued through the
+    ``on_error`` requeue budget; an item that hangs every attempt ends as a
+    data error, which a skip policy quarantines.  ``hedge_after_s`` re-issues
+    an item busy for that many seconds to an idle worker, first result wins;
+    ``'auto'`` hedges nothing (without telemetry, as the JAX reader).  Both
+    do nothing on the serial pool.  ``diagnostics`` counts
+    ``requeued_items``, ``hung_workers_killed``, ``hung_workers_abandoned``,
+    ``hedged_items`` and ``hedge_wins``.
+
+    ``stall_warn_s`` / ``stall_abort_s``: the stall watchdog.  When no result
+    arrives for ``stall_warn_s`` seconds (default 120) a warning names the
+    busy workers and their items; past ``stall_abort_s`` (default 0, off)
+    the reader stops and raises ``pool.PipelineStallError`` carrying its
+    ``diagnostics``.  None reads ``PETASTORM_TPU_STALL_WARN_S`` /
+    ``PETASTORM_TPU_STALL_ABORT_S``; 0 disables.  The serial pool cannot
+    abort (its work runs inline) and warns from its own watchdog.
+
+    ``chaos``: a ``test_util.chaos.ChaosSpec``, deterministic fault injection
+    for tests; its worker faults wrap the worker (``ChaosWorker``) and its
+    filesystem faults the dataset's filesystem (``latency_fs``)."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
@@ -225,7 +286,9 @@ def make_reader(dataset_url: str,
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
                         transform_spec, ngram, on_error, verify_checksums,
-                        storage_options, filesystem, io_retries, batched_output=False)
+                        storage_options, filesystem, io_retries, batched_output=False,
+                        item_deadline_s=item_deadline_s, hedge_after_s=hedge_after_s,
+                        stall_warn_s=stall_warn_s, stall_abort_s=stall_abort_s, chaos=chaos)
 
 
 def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
@@ -256,7 +319,12 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                       verify_checksums: bool = False,
                       storage_options: Optional[dict] = None,
                       filesystem=None,
-                      io_retries="auto") -> "Reader":
+                      io_retries="auto",
+                      item_deadline_s: Optional[float] = None,
+                      hedge_after_s=None,
+                      stall_warn_s: Optional[float] = None,
+                      stall_abort_s: Optional[float] = None,
+                      chaos=None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with an inferred schema:
     scalar columns, list-of-scalar columns as ``(None,)`` ``ScalarListCodec``
@@ -273,7 +341,9 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                         cache_type, cache_location, cache_size_limit,
                         shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
                         transform_spec, ngram, on_error, verify_checksums,
-                        storage_options, filesystem, io_retries, batched_output=True)
+                        storage_options, filesystem, io_retries, batched_output=True,
+                        item_deadline_s=item_deadline_s, hedge_after_s=hedge_after_s,
+                        stall_warn_s=stall_warn_s, stall_abort_s=stall_abort_s, chaos=chaos)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -484,7 +554,9 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  decode_roi, resume_from, cache_type, cache_location, cache_size_limit,
                  shuffle_row_drop_partitions, predicate, rowgroup_selector, shard_mode,
                  transform_spec, ngram, on_error, verify_checksums,
-                 storage_options, filesystem, io_retries, batched_output) -> "Reader":
+                 storage_options, filesystem, io_retries, batched_output,
+                 item_deadline_s=None, hedge_after_s=None, stall_warn_s=None,
+                 stall_abort_s=None, chaos=None) -> "Reader":
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     if ngram is not None and batched_output:
@@ -504,6 +576,14 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             " windows spanning masked rows would be silently lost. Use"
             " shuffle_row_drop_partitions=1.")
     error_policy = resolve_error_policy(on_error)
+    if chaos is not None and chaos.affects_filesystem():
+        # transient-IO chaos sits in the filesystem layer, beneath the real
+        # retry paths; the wrapper is not local, so io_retries='auto' arms
+        # as it would on a remote store (``petastorm_tpu/reader.py:584-594``)
+        base_fs, _ = get_filesystem_and_path(
+            dataset_url if isinstance(dataset_url, str) else dataset_url[0],
+            storage_options, filesystem)
+        filesystem = chaos.wrap_filesystem(base_fs)
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
     # one analysis walk a reader: the worker's cache signature and
     # output-caching verdict both come from this triple
@@ -591,10 +671,17 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     cache = make_cache(cache_type, cache_location, cache_size_limit)
     # raise mode takes the default pool; a skip policy's keeps running past
     # a failure, so the reader can quarantine the item (``:832-852``)
-    executor = make_executor(reader_pool_type, workers_count, results_queue_size,
-                             **({} if error_policy is None else dict(
-                                 stop_on_failure=False,
-                                 max_requeue_attempts=error_policy.max_requeue_attempts)))
+    pool_kwargs = {} if error_policy is None else dict(
+        stop_on_failure=False, max_requeue_attempts=error_policy.max_requeue_attempts)
+    # only what is set: the defaults stay the pool's own
+    pool_kwargs.update({k: v for k, v in (("item_deadline_s", item_deadline_s),
+                                          ("hedge_after_s", hedge_after_s),
+                                          ("stall_warn_s", stall_warn_s)) if v is not None})
+    if reader_pool_type == "process":
+        pool_kwargs["shm_size_bytes"] = _arena_bytes(
+            full_schema, read_fields, device_fields, decode_roi or {}, plan,
+            workers_count + max(results_queue_size, 1), ngram)
+    executor = make_executor(reader_pool_type, workers_count, results_queue_size, **pool_kwargs)
     # one breaker for every worker of the reader: a store that is down fails
     # fast with CircuitOpenError instead of each worker spending its whole
     # retry budget (``petastorm_tpu/reader.py:731-738``)
@@ -610,13 +697,59 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                                    ngram=ngram, ngram_schema=ngram_schema,
                                    verify_checksums=verify_checksums, fs_factory=fs_factory,
                                    retry_policy=retry_policy, circuit_breaker=circuit_breaker)
+    pool_worker = worker
+    if chaos is not None and chaos.affects_worker():
+        from petastorm_tpu_torch.test_util.chaos import ChaosWorker
+
+        pool_worker = ChaosWorker(worker, chaos)
     reader = Reader(schema, plan, executor, worker, num_epochs, batched_output, device_fields,
                     deterministic=deterministic, shuffle_seed=shuffle_seed,
                     start_item=start_item, digest_state=digest_state, ngram=ngram,
                     error_policy=error_policy, declared_geometries=declared_geometries(info),
-                    device_decode_mixed=mixed_fields, dataset_info=info)
+                    device_decode_mixed=mixed_fields, dataset_info=info,
+                    pool_worker=pool_worker, stall_warn_s=stall_warn_s,
+                    stall_abort_s=stall_abort_s)
     reader.circuit_breaker = circuit_breaker
     return reader
+
+
+#: the process pool's smallest arena (the JAX pool's fixed size)
+_MIN_ARENA_BYTES = 256 * 2 ** 20
+#: result batches the consumer may hold past the pool's window (the loader's
+#: queue, the batch being staged, a stack being filled)
+_ARENA_SLACK_BATCHES = 4
+
+
+def _arena_bytes(schema: Schema, read_fields, device_fields, decode_roi, plan, window: int,
+                 ngram=None, shm_dir: str = "/dev/shm") -> int:
+    """The process pool's arena: ``window`` result batches in flight and
+    ``_ARENA_SLACK_BATCHES`` more, each of the plan's largest item at the
+    fixed-shape fields' widths (a ``decode_roi`` field at its crop, a
+    ``'device'`` field at twice its pixels: its int16 coefficient planes are
+    1x its pixels at 4:2:0 and 2x at 4:4:4; a ragged or object field travels
+    pickled and takes none), at least 256 MiB, and at most half the free
+    space of ``shm_dir``: a segment larger than its filesystem's room would
+    fault when written, where a batch that does not fit travels pickled."""
+    per_row = 0
+    for name in read_fields:
+        field = schema[name]
+        if not field.is_fixed_shape or field.dtype.kind in ("O", "U", "S"):
+            continue
+        shape = field.shape
+        if name in decode_roi:
+            shape = _roi_crop_hw(_normalize_roi_spec(name, decode_roi[name])) + tuple(shape[2:])
+        nbytes = int(np.prod(shape, dtype=np.int64)) * field.dtype.itemsize
+        per_row += 2 * nbytes if name in device_fields else nbytes
+    if ngram is not None:
+        per_row *= ngram.length  # a window carries a row a timestep
+    rows = max((stop - start for start, stop in
+                (item.row_slice() for item in plan.epoch_items(0))), default=0)
+    size = max(_MIN_ARENA_BYTES, (window + _ARENA_SLACK_BATCHES) * rows * per_row)
+    try:
+        size = min(size, max(shutil.disk_usage(shm_dir).free // 2, 1 << 20))
+    except OSError:
+        pass  # no such filesystem here: the estimate stands
+    return int(size)
 
 
 def _url_key(url_or_urls) -> str:
@@ -674,9 +807,28 @@ class Reader:
                  error_policy: Optional[ErrorPolicy] = None,
                  declared_geometries: Optional[dict] = None,
                  device_decode_mixed: FrozenSet[str] = frozenset(),
-                 dataset_info=None):
+                 dataset_info=None, pool_worker=None,
+                 stall_warn_s: Optional[float] = None,
+                 stall_abort_s: Optional[float] = None):
         if start_item < 0:
             raise PetastormTpuError("start_item must be >= 0")
+        # an explicit argument wins; None reads the environment, whose
+        # absence leaves the module defaults (``petastorm_tpu/reader.py:1211``)
+        self._stall_warn_s = (float(stall_warn_s) if stall_warn_s is not None
+                              else env_seconds("PETASTORM_TPU_STALL_WARN_S", _STALL_WARN_S))
+        self._stall_abort_s = (float(stall_abort_s) if stall_abort_s is not None
+                               else env_seconds("PETASTORM_TPU_STALL_ABORT_S", _STALL_ABORT_S))
+        self._stall_warned_at = 0.0
+        self._stall_last = 0.0
+        if isinstance(executor, SerialExecutor) and self._stall_abort_s > 0:
+            # work runs inline inside the consumer's next(): nothing can
+            # watch it from outside (``petastorm_tpu/reader.py:1222-1234``)
+            logger.warning(
+                "stall_abort_s=%.0f is inoperative with reader_pool_type='serial': work"
+                " runs inline inside the consumer's next(), so a wedged work item blocks"
+                " the stall loop itself (the serial watchdog still WARNS via"
+                " stall_warn_s). Use the thread or process pool when stall abort"
+                " matters.", self._stall_abort_s)
         #: the opened dataset (``etl.metadata.DatasetInfo``): files, rowgroups,
         #: the stored schema (``petastorm_tpu/reader.py:1192``)
         self.dataset_info = dataset_info
@@ -694,7 +846,9 @@ class Reader:
         self.num_epochs = num_epochs
         self.batched_output = batched_output
         self._executor = executor
-        self._executor.start(worker)
+        # the pool runs the chaos wrapper when there is one; the counters
+        # are the worker's own
+        self._executor.start(pool_worker if pool_worker is not None else worker)
         self._batches: Optional[Iterator[ColumnBatch]] = None
         self._rows: Iterator = iter(())
         self._rows_left = 0
@@ -749,6 +903,18 @@ class Reader:
             out["retries"] += self.dataset_info.retries
         return out
 
+    def transport_stats(self) -> dict:
+        """The process pool's shared-memory transport (``{}`` under another
+        pool): the arena's size, free bytes and high-water mark, the batches
+        that came through it (``shm_batches``) and those that travelled
+        pickled (``pickled_batches``), the columns and rows decoded straight
+        into arena slots, and the workers' spawn seconds and resident sets.
+        The JAX reader counts the slots as telemetry
+        (``decode.batch_slots``), which this package does not have yet
+        (ROADMAP.md queue A item 11)."""
+        pool = self._executor.diagnostics
+        return {k: pool[k] for k in _TRANSPORT_STATS if k in pool}
+
     def cache_stats(self) -> dict:
         """The rowgroup cache's ``hits`` and ``misses`` (and, for
         ``cache_type='memory'``, the ``entries`` and estimated ``bytes``
@@ -771,13 +937,20 @@ class Reader:
         if self._stopped:
             raise ReaderClosedError("Reader is stopped")
         if self._batches is None:
-            self._batches = self._executor.imap(self._items(), start=self._start_item)
+            self._batches = self._executor.imap(self._items(), start=self._start_item,
+                                                on_idle=self._on_idle)
         while True:
             try:
                 batch = next(self._batches)
             except StopIteration:
                 if self._all_items_consumed():
                     self.last_row_consumed = True
+                raise
+            except WorkerError as exc:
+                if exc.item is None:
+                    # unattributable (every worker died, a stall): nothing
+                    # to skip, and the pool must not run on
+                    self.stop()
                 raise
             ordinal = self._start_item + self._consumed_items
             if isinstance(batch, WorkerError):
@@ -895,21 +1068,49 @@ class Reader:
         if self.deterministic == "seed":
             self._skip(ordinal)
 
+    def _on_idle(self, stalled: float) -> None:
+        """The stall watchdog (``petastorm_tpu/reader.py:1481-1580``), called
+        by the pool while it waits with the seconds since its last result:
+        a warning every ``stall_warn_s``, a :class:`pool.PipelineStallError`
+        past ``stall_abort_s``, after the reader has stopped and joined its
+        pool (bounded: hung workers are killed or abandoned)."""
+        if stalled < self._stall_last:  # a new wait
+            self._stall_warned_at = 0.0
+        self._stall_last = stalled
+        if self._stall_abort_s > 0 and stalled > self._stall_abort_s:
+            diag = self.diagnostics  # the snapshot before stop()
+            self.stop()
+            # the stuck workers will not finish: a short, bounded join
+            self._executor.join(timeout=1.0)
+            raise PipelineStallError(
+                f"No result for {stalled:.0f}s (stall_abort_s={self._stall_abort_s:.0f});"
+                f" pipeline state: {diag}", diagnostics=diag)
+        if (self._stall_warn_s > 0 and stalled > self._stall_warn_s
+                and stalled - self._stall_warned_at > self._stall_warn_s):
+            self._stall_warned_at = stalled
+            logger.warning("Reader has produced no batch for %.0fs; pipeline state: %s",
+                           stalled, self.diagnostics)
+
     @property
     def diagnostics(self) -> dict:
         """Items per epoch, consumed and expected, the stream digest, the
-        infra retries of the pool and the fault ledger: the skip count and
-        the last 20 quarantine entries (``petastorm_tpu/reader.py:2113-2132``;
-        :attr:`quarantined_rowgroups` has them all)."""
+        fault ledger (the skip count and the last 20 quarantine entries,
+        ``petastorm_tpu/reader.py:2113-2132``; :attr:`quarantined_rowgroups`
+        has them all), and the pool's liveness keys: the requeues, hung
+        workers killed or abandoned, hedges and their wins, and the busy
+        workers (``workers_busy``: worker, ordinal, seconds on it).  Every
+        key is one of the JAX reader's; the process pool's arena counters
+        are :meth:`transport_stats`."""
         out = {"items_per_epoch": self._items_per_epoch,
                "consumed_items": self._consumed_items,
                "expected_items": self._expected_items,
                "deterministic": self.deterministic,
                "stream_digest": self._digest.summary(),
-               "requeued_items": self._executor.requeued_items,
                "skipped_rowgroups": len(self._quarantine),
                "quarantined_rowgroups": list(
                    self._quarantine[-_DIAGNOSTICS_QUARANTINE_TAIL:])}
+        pool = self._executor.diagnostics
+        out.update((k, pool[k]) for k in _POOL_DIAGNOSTICS if k in pool)
         if self.circuit_breaker is not None:
             out["circuit_breaker"] = self.circuit_breaker.snapshot()
         return out

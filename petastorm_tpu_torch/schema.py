@@ -150,6 +150,14 @@ class Schema:
                 selected[n] = None
         return list(selected)
 
+    def __getstate__(self):
+        # the cached namedtuple type is made at run time and does not pickle
+        # (a process-pool worker receives the schema by pickle); it is made
+        # again on the other side
+        state = self.__dict__.copy()
+        state["_namedtuple"] = None
+        return state
+
     def make_namedtuple_type(self):
         """Namedtuple type for one row of this schema (cached per instance)."""
         if self._namedtuple is None:

@@ -61,6 +61,14 @@ shared circuit breaker; a retry drops the cached file handle.  The worker
 counts the retries, the raw reads and the rowgroups read
 (``io_stats()``, which stands in for the JAX worker's ``io.*`` telemetry
 until telemetry is ported).
+
+Under the process pool the factory is pickled into every worker process
+(its locks recreated there, its counters then per process), and a host
+decode writes its image column straight into an arena slot of the
+shared-memory transport (``batch_slots``, ``:125-131``, ``:545-551``), so
+the column ships with no copy.  Slots are armed only where the cache keeps
+no reference to the batches it is given (``cache.CacheBase.
+retains_value_references``).
 """
 
 from __future__ import annotations
@@ -158,6 +166,9 @@ class RowGroupDecoderWorker:
         #: the reader's rowgroup cache (``cache.make_cache``)
         self.cache = cache or NullCache()
         self._cache_is_null = isinstance(self.cache, NullCache)
+        #: decode-into-slot is safe only when the cache keeps no reference to
+        #: a decoded batch (``petastorm_tpu/worker.py:125-131``)
+        self._allow_batch_slots = not getattr(self.cache, "retains_value_references", True)
         self._cache_prefix = hashlib.md5(dataset_url.encode()).hexdigest()
         # one analysis walk a reader (it md5s bytecode and captured arrays):
         # make_reader passes the triple in, a direct construction computes it
@@ -194,6 +205,19 @@ class RowGroupDecoderWorker:
         #: key -> [lock, users]: the fill in progress of each key
         self._filling: Dict[str, list] = {}
         self._filling_lock = threading.Lock()
+
+    def __getstate__(self):
+        # into a process-pool worker: its locks are recreated there
+        state = dict(self.__dict__)
+        for name in ("_stats_lock", "_filling_lock", "_filling"):
+            del state[name]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._stats_lock = threading.Lock()
+        self._filling_lock = threading.Lock()
+        self._filling = {}
 
     def decode_stats(self) -> dict:
         """The native decode counters (``native.image.decode_stats`` keys)
@@ -371,7 +395,8 @@ class RowGroupDecoderWorker:
                     columns.update(pack(name, chunk, field, nthreads=self._decode_threads))
                 else:
                     with decode_options(nthreads=self._decode_threads,
-                                        roi=self._roi_for(name, item, n)):
+                                        roi=self._roi_for(name, item, n),
+                                        batch_slots=self._allow_batch_slots):
                         columns[name] = field.codec.decode_column(field, chunk)
             # fields the file does not store: hive partition keys, constant
             # over the rowgroup, from its path (``:552-560``)

@@ -1583,3 +1583,45 @@ def test_remote_read_on_the_card_equals_the_local_read(tmp_path):
         assert torch.equal(la, lb) and torch.equal(ia, ib)
     assert stats.failures_injected == 4 and io["retries"] == 3
     assert io["reads_per_rowgroup"] == 1.0
+
+
+@pytest.mark.cuda
+def test_the_process_pool_feeds_the_loader_on_the_card_through_a_hang(tmp_path):
+    """The device-decode route through ``reader_pool_type='process'`` with
+    one worker hung past ``item_deadline_s`` (killed and respawned): the
+    thread pool's batches on the card, element for element, one B2 launch a
+    batch, every batch through the arena and none pickled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, \
+        write_dataset
+    from petastorm_tpu_torch.cuda.loader import CudaDataLoader
+    from petastorm_tpu_torch.ops import jpeg
+    from petastorm_tpu_torch.test_util.chaos import ChaosSpec
+
+    rng = np.random.default_rng(9)
+    schema = Schema("P", [Field("label", np.int64),
+                          Field("image", np.uint8, (40, 48, 3), CompressedImageCodec("jpeg", 90))])
+    path = str(tmp_path / "ds")
+    write_dataset(path, schema, [{"label": i, "image": rng.integers(0, 256, (40, 48, 3),
+                                                                   dtype=np.uint8)}
+                                 for i in range(128)], row_group_size_rows=16)
+    runs = {}
+    for kind, extra in (("thread", {}),
+                        ("process", dict(item_deadline_s=2.0,
+                                         chaos=ChaosSpec(hang_ordinals=(3,), hang_s=120)))):
+        reader = make_reader(path, reader_pool_type=kind, workers_count=2, shuffle_seed=0,
+                             decode_placement={"image": "device"}, **extra)
+        jpeg.jpeg_decode_kernel.launches = 0
+        with CudaDataLoader(reader, 16, device="cuda") as loader:
+            batches = [{k: v.cpu() for k, v in b.items()} for b in loader]
+            diag = loader.diagnostics()
+        runs[kind] = (batches, diag, jpeg.jpeg_decode_kernel.launches)
+    (want, _, _), (got, diag, launches) = runs["thread"], runs["process"]
+    assert len(got) == len(want) == 8 and launches == 8
+    for g, w in zip(got, want):
+        for name in w:
+            assert torch.equal(g[name], w[name]), name
+    assert diag["shm_batches"] == 8 and diag["pickled_batches"] == 0
+    assert diag["reader"]["hung_workers_killed"] == 1
+

@@ -28,6 +28,7 @@ from petastorm_tpu import errors as jax_errors
 from petastorm_tpu import pool as jax_pool
 from petastorm_tpu import reader as jax_reader
 from petastorm_tpu import transform as jax_transform
+from petastorm_tpu.test_util import chaos as jax_chaos
 from petastorm_tpu.jax import JaxDataLoader
 
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema
@@ -35,6 +36,7 @@ from petastorm_tpu_torch import errors, pool, reader, transform, worker
 from petastorm_tpu_torch.cache import InMemoryCache
 from petastorm_tpu_torch.cuda.loader import CudaDataLoader
 from petastorm_tpu_torch.etl.writer import materialize_dataset, write_dataset
+from petastorm_tpu_torch.test_util import chaos as torch_chaos
 
 SCHEMA = Schema("Faulty", [Field("x", np.int64)])
 N_ROWS, RG_ROWS = 40, 4  # 10 rowgroups of 4 rows
@@ -757,3 +759,26 @@ def test_reader_diagnostics_are_a_subset_of_the_jax_readers(tmp_path):
         if key == "quarantined_rowgroups":
             value, want = _same_names(value), _same_names(want)
         assert value == want, key
+    # the liveness keys: a thread pool whose worker hangs on one item past its
+    # deadline (abandoned, requeued) and a straggler hedged, the same chaos in
+    # both packages; the busy-worker list names threads by timing, so only
+    # its shape is held
+    chaos_mods = {"jax": jax_chaos, "torch": torch_chaos}
+    for pkg in ("jax", "torch"):
+        spec = chaos_mods[pkg].ChaosSpec(hang_ordinals=(3,), hang_s=3.0)
+        with PKG[pkg][0].make_batch_reader(url, reader_pool_type="thread", workers_count=2,
+                                           shuffle_row_groups=False, chaos=spec,
+                                           item_deadline_s=0.5) as r:
+            assert sorted(int(x) for b in r.iter_batches() for x in b.columns["x"]) == \
+                list(range(N_ROWS))
+            diags[pkg] = r.diagnostics
+    assert set(diags["torch"]) <= set(diags["jax"])
+    liveness = {"requeued_items", "hung_workers_killed", "hung_workers_abandoned",
+                "hedged_items", "hedge_wins", "workers_count", "workers_busy",
+                "workers_abandoned"}
+    assert liveness <= set(diags["torch"])
+    for key in liveness - {"workers_busy", "workers_abandoned"}:
+        assert diags["torch"][key] == diags["jax"][key], key
+    assert diags["torch"]["hung_workers_abandoned"] == 1
+    for key in ("workers_busy", "workers_abandoned"):
+        assert len(diags["torch"][key]) == len(diags["jax"][key]), key

@@ -94,5 +94,8 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/test_util/__init__.py",
                      "petastorm_tpu_torch/test_util/synthetic.py",
                      "petastorm_tpu_torch/test_util/shuffling_analysis.py",
-                     "petastorm_tpu_torch/test_util/latency_fs.py"):
+                     "petastorm_tpu_torch/test_util/latency_fs.py",
+                     "petastorm_tpu_torch/test_util/chaos.py",
+                     "petastorm_tpu_torch/native/transport.py",
+                     "petastorm_tpu_torch/pool.py"):
         assert required in names
