@@ -310,7 +310,24 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    cost held to the deadline plus one respawn; then every attempt hanging
    with no deadline and ``stall_abort_s=5``: ``PipelineStallError`` within
    10 s of the last batch, its diagnostics naming the stuck ordinal, and no
-   loader thread or worker process left.
+   loader thread or worker process left;
+31. observability and self-tuning on the main path, phase 6's training step
+   with B2, B3 and B1 counted in each part: (a) one epoch with a
+   ``telemetry.Telemetry`` recorder, ``metrics_port``, ``flight_record_path``
+   and the sampler, phase 6's labels and image sums, a localhost scrape in
+   the epoch showing the stage and queue series, a dominant stage, a flight
+   record written and read back, samples/s beside phase 6's; then
+   TRACE_STEPS steps through a loader with ``trace_dir``, whose
+   ``torch.profiler`` trace names B2's, B3's and B1's kernels; (b) one epoch
+   with ``decode_placement={'image': 'auto'}`` and ``workers_count='auto'``
+   (planner and autotune armed), ``set_decode_split('host')`` after step 8:
+   B2 once on each device-form batch and never on a host-form one, each
+   batch's image sum phase 5's (host form) or phase 6's (device form), the
+   planner's and autotune's diagnostics, and a second reader planned from
+   the written profile; (c) ``cache_type='shared'``: two epochs, then a
+   spawned process attached to the same namespace, every later read an L1
+   hit with phase 6's labels and sums, samples/s beside phase 14's warm
+   cache, and no segment left after ``cleanup()``.
 
 Then a ``wall`` line (the script's seconds so far), a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``.
@@ -329,6 +346,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -373,6 +391,10 @@ from petastorm_tpu_torch.plan import WorkItem  # noqa: E402
 from petastorm_tpu_torch.predicates import in_pseudorandom_split, in_set  # noqa: E402
 from petastorm_tpu_torch.selectors import SingleIndexSelector  # noqa: E402
 from petastorm_tpu_torch.pool import PipelineStallError  # noqa: E402
+from petastorm_tpu_torch.autotune import AutotunePolicy  # noqa: E402
+from petastorm_tpu_torch.cache_shared import SharedWarmCache  # noqa: E402
+from petastorm_tpu_torch.telemetry import Telemetry, dominant_stage  # noqa: E402
+from petastorm_tpu_torch.telemetry import sampler as telemetry_sampler  # noqa: E402
 from petastorm_tpu_torch.test_util.chaos import ChaosSpec  # noqa: E402
 from petastorm_tpu_torch.test_util.latency_fs import latent_filesystem  # noqa: E402
 from petastorm_tpu_torch.sequence import PackedSequenceReader, make_sequence_reader  # noqa: E402
@@ -1310,9 +1332,12 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     # kernel once a step when the decode finishes on the card, never
     # otherwise, and B2's general kernel never
     want = {"normalize_u8": steps, "resized_crop_flip_u8": steps, "resized_crop_aa_u8": 0,
-            # a geometry bucket each: the caller holds them to its buckets
+            # a geometry bucket each: the caller holds them to its buckets;
+            # under the live split once a device-form batch, never a host-form one
             "jpeg_decode_u8": {"device": steps,
-                               "device-mixed": launches["jpeg_decode_u8"]}.get(decode, 0)}
+                               "device-mixed": launches["jpeg_decode_u8"],
+                               "auto": diagnostics.get("decode_split_batches", {}).get(
+                                   "device", -1)}.get(decode, 0)}
     if general_launches or general_b2:
         raise AssertionError(f"the general resized-crop and JPEG decode kernels launched"
                              f" {general_launches} and {general_b2} times in {steps} steps,"
@@ -1330,6 +1355,16 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
         # the workers count their decode in their own processes: the caller
         # reads the pool's transport counters instead
         decoded = None
+    elif decode == "auto":
+        # the live split: entropy-only decode for device-form rowgroups, the
+        # full decode for host-form ones, nothing else
+        decoded = parts[0].decode_stats()
+        other = {k: v for k, v in decoded.items()
+                 if k not in ("batch_calls", "batch_images", "coef_batch_calls",
+                              "coef_batch_images") and v}
+        if decoded["batch_images"] + decoded["coef_batch_images"] != decoded_images or other:
+            raise AssertionError(f"training, live split: native decode counters {decoded},"
+                                 f" expected {decoded_images} images in all")
     else:
         stats = [part.decode_stats() for part in parts]
         decoded = check_native_decode({k: sum(s[k] for s in stats) for k in stats[0]},
@@ -2234,6 +2269,7 @@ def warm_cache_train_phase(path):
                                  for k, r in runs.items()},
           reader_alone_entropy_only=reader_alone, labels_equal=True, image_sums_equal=True,
           first_batch_bit_equal=True, digest_equal=True)
+    return {"samples_per_s": warm["samples_per_s"], "per_epoch": per_epoch(warm)}
 
 
 FILTER_DROPPED_GROUPS = (2, 5, 9, 13)  # phase 15: rowgroups the selector leaves out
@@ -4117,6 +4153,254 @@ def chaos_phase(path, kernels, clean, device):
           labels_and_image_sums_match=True, seconds=time.perf_counter() - t0, **out)
 
 
+
+SPLIT_AFTER_STEP = 8                              # phase 31: set_decode_split('host') after it
+SHARED_TIER_BYTES = 1 << 30                       # phase 31: the warm tier's arena
+TRACE_STEPS = 2                                   # phase 31: training steps in the trace
+
+
+def observability_phase(tmp, path, kernels, host, device, warm):
+    """Phase 31: observability and self-tuning on the main path, phase 6's
+    training step at full width with B2, B3 and B1 counted in each part."""
+    t0 = time.perf_counter()
+    workers = max(1, min((os.cpu_count() or 2) - 1, 16))
+    out = {"telemetry": telemetry_part(tmp, path, kernels, device, workers),
+           "live_split": live_split_part(tmp, path, kernels, host, device),
+           "shared_tier": shared_tier_part(tmp, path, kernels, device, warm, workers)}
+    phase("observability_and_self_tuning", batch=BATCH, seconds=time.perf_counter() - t0,
+          **out)
+
+
+def telemetry_part(tmp, path, kernels, device, workers):
+    """(a) One epoch of phase 6 with a recorder, the metrics endpoint, the
+    flight recorder and the sampler on: phase 6's labels and image sums, a
+    scrape in the epoch showing the stage and queue series, a dominant
+    stage, the recorder's cost beside phase 6's samples/s; then a loader with
+    ``trace_dir`` over TRACE_STEPS steps, its ``torch.profiler`` trace
+    holding the B2, B3 and B1 launches."""
+    tele = Telemetry()
+    flight_path = os.path.join(tmp, "flight.jsonl")
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
+                         decode_placement={"image": "device"}, telemetry=tele, metrics_port=0,
+                         flight_record_path=flight_path, sample_interval_s=0.25)
+    port = reader.metrics_server.port
+    scraped = {}
+
+    def scrape(_batch):
+        if scraped:
+            return
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            scraped["text"] = resp.read().decode()
+
+    run = train_epoch(path, "device", source=(reader, [reader]), on_batch=scrape)
+    same_epoch(run, device, "phase 31, telemetry against phase 6")
+    for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[kernel]["launches"] += run["launches"][kernel]
+    text = scraped["text"]
+    series = ('petastorm_tpu_stage_busy_seconds_total{stage="decode"}',
+              'petastorm_tpu_stage_busy_seconds_total{stage="device-transfer"}',
+              "petastorm_tpu_queue_results_empty_wait_s_total",
+              "petastorm_tpu_loader_consumer_wait_s_total")
+    missing = [name for name in series if name not in text]
+    if missing:
+        raise AssertionError(f"phase 31: the scrape in the epoch lacks {missing}")
+    snapshot = reader.diagnostics["telemetry"]
+    dominant = dominant_stage(snapshot)
+    if not dominant:
+        raise AssertionError("phase 31: the pipeline report names no dominant stage")
+    record = telemetry_sampler.flight_record(reader.sampler, reason="phase 31")
+    telemetry_sampler.dump_flight_record(record, flight_path)
+    loaded = telemetry_sampler.load_flight_records(flight_path)
+    if len(loaded) != 1 or not loaded[0]["points"]:
+        raise AssertionError(f"phase 31: the flight record holds {loaded}")
+    counters = snapshot["counters"]
+    if (counters["reader.rows_emitted"], counters["loader.batches_delivered"]) != (
+            N_ROWS, N_ROWS // BATCH):
+        raise AssertionError(f"phase 31: telemetry counted {counters}")
+    return {"samples_per_s": run["samples_per_s"],
+            "phase6_samples_per_s": device["samples_per_s"],
+            "relative": run["samples_per_s"] / device["samples_per_s"] - 1,
+            "input_idle_share": run["wait"] / run["timed"], "launches": run["launches"],
+            "dominant_stage": dominant, "report": reader.telemetry.pipeline_report(),
+            "scrape_bytes": len(text), "scrape_series": len(text.splitlines()),
+            "sampled_points": len(loaded[0]["points"]),
+            "trace": traced_steps(tmp, path, workers)}
+
+
+def traced_steps(tmp, path, workers):
+    """TRACE_STEPS training steps through a loader with ``trace_dir``: the
+    kernels its ``torch.profiler`` trace names, and their device time."""
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device="cuda",
+                     generator=torch.Generator().manual_seed(0)).to(
+                         memory_format=torch.channels_last)
+    step = trainer.TrainStep(model, 1000, SIDE, generator=torch.Generator(
+        device="cuda").manual_seed(trainer.AUGMENT_SEED))
+    trace_dir = os.path.join(tmp, "trace")
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0, num_epochs=1,
+                         decode_placement={"image": "device"})
+    loader = CudaDataLoader(reader, batch_size=BATCH, device="cuda", trace_dir=trace_dir)
+    try:
+        for k, batch in enumerate(loader):
+            step(batch["image"], batch["label"] % 1000)
+            if k + 1 == TRACE_STEPS:
+                break
+    finally:
+        loader.stop()
+    with open(loader.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_us, kernel_n = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernel_us[e["name"]] = kernel_us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+            kernel_n[e["name"]] = kernel_n.get(e["name"], 0) + 1
+    found = {want: sorted(n for n in kernel_us if want in n)
+             for want in ("jpeg_decode_tiled_kernel", "resized_crop_u8_tiled_kernel",
+                          "normalize")}
+    if not all(found.values()):
+        raise AssertionError(f"phase 31: the trace lacks {[k for k, v in found.items() if not v]};"
+                             f" it names {len(kernel_us)} kernels")
+    # the transfer thread stages units ahead of the steps until stop(): B2
+    # may run more often than TRACE_STEPS
+    return {"steps": TRACE_STEPS, "trace_bytes": os.path.getsize(loader.trace_path),
+            "kernels_named": len(kernel_us),
+            "launches": {want: sum(kernel_n[n] for n in names) for want, names in found.items()},
+            "device_ms": {want: sum(kernel_us[n] for n in names) / 1e3
+                          for want, names in found.items()}}
+
+
+def live_split_part(tmp, path, kernels, host, device):
+    """(b) One epoch with ``decode_placement={'image': 'auto'}`` and
+    ``workers_count='auto'`` (the planner and autotune armed), the split set
+    to ``'host'`` after step SPLIT_AFTER_STEP: B2 once on each device-form
+    batch and never on a host-form one; each host-form batch's image sum is
+    phase 5's for its rows (the same host decode) and each device-form
+    batch's phase 6's (the same B2 on the same planes), so their labels and
+    pixels carry phase 6's check against phase 5.  A second reader starts
+    from the written profile."""
+    location = os.path.join(tmp, "planner")
+    # one worker, one results slot and one unit a loader stage bound what is
+    # decoded ahead of the consumer (2 in the pool, 4 in the loader), so the
+    # last rowgroups decode after the flip; the split itself is not tuned
+    # under deterministic='seed', and neither are the two bounds
+    split_kwargs = dict(workers_count="auto", results_queue_size=1, shuffle_seed=0,
+                        num_epochs=1, decode_placement={"image": "auto"},
+                        cache_location=location,
+                        autotune=AutotunePolicy(max_workers=1,
+                                                exclude_knobs=("results_queue", "prefetch")))
+    reader = make_reader(path, **split_kwargs)
+    loader = CudaDataLoader(reader, batch_size=BATCH, device="cuda", prefetch=1)
+    forms = []
+
+    def flip(_batch):
+        forms.append(loader.last_decode_form)
+        if len(forms) == SPLIT_AFTER_STEP:
+            reader.set_decode_split("host")
+
+    run = train_epoch(path, "auto", source=(reader, [reader]), loader=loader, on_batch=flip)
+    for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[kernel]["launches"] += run["launches"][kernel]
+    groups = {host["labels"][k * BATCH:(k + 1) * BATCH].numpy().tobytes(): k
+              for k in range(N_ROWS // BATCH)}
+    for i, form in enumerate(forms):
+        k = groups.get(run["labels"][i * BATCH:(i + 1) * BATCH].numpy().tobytes())
+        if k is None:
+            raise AssertionError(f"phase 31, live split: batch {i} is none of phase 5's")
+        want = (host if form == "host" else device)["image_sums"][k]
+        if run["image_sums"][i] != want:
+            raise AssertionError(f"phase 31, live split: {form}-form batch {i} (phase 5's"
+                                 f" batch {k}) has image sum {int(run['image_sums'][i])},"
+                                 f" expected {int(want)}")
+    if sorted(run["labels"].tolist()) != sorted(host["labels"].tolist()):
+        raise AssertionError("phase 31, live split: other labels than phase 5")
+    diag = reader.diagnostics
+    counts = run["diagnostics"]["decode_split_batches"]
+    if counts["device"] < 1 or counts["host"] < 1 or reader.decode_split != "host":
+        raise AssertionError(f"phase 31, live split: batches by form {counts}")
+    second = make_reader(path, **split_kwargs)
+    with second:
+        replanned = second.diagnostics["planner"]
+    if replanned["knobs"]["workers"]["source"] != "profile":
+        raise AssertionError(f"phase 31: the second reader planned {replanned['knobs']}")
+    return {"samples_per_s": run["samples_per_s"],
+            "phase6_samples_per_s": device["samples_per_s"],
+            "input_idle_share": run["wait"] / run["timed"], "launches": run["launches"],
+            "batches_by_form": counts, "forms_in_order": forms,
+            "decode_stats": run["decode_stats"], "planner": diag["planner"],
+            "autotune": diag["autotune"], "second_reader_planner": replanned["knobs"]}
+
+
+def shared_tier_part(tmp, path, kernels, device, warm, workers):
+    """(c) ``cache_type='shared'``: two epochs of phase 6 in this process,
+    then a spawned process attached to the same namespace reading one epoch
+    through the loader: every later read hits L1, with phase 6's labels and
+    image sums; samples/s beside phase 14's warm local cache; ``cleanup()``
+    leaves no segment."""
+    location = os.path.join(tmp, "warm")
+    groups = N_ROWS // ROWS_PER_GROUP
+    kwargs = {"cache_type": "shared", "cache_location": location,
+              "cache_size_limit": SHARED_TIER_BYTES}
+    run = train_epoch(path, "device", epochs=2, reader_kwargs=kwargs)
+    for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[kernel]["launches"] += run["launches"][kernel]
+    steps = N_ROWS // BATCH
+    same_epoch({"labels": run["labels"][:steps * BATCH], "image_sums": run["image_sums"][:steps]},
+               device, "phase 31, shared tier, cold epoch")
+    # the warm epoch is the plan's second permutation: each of its batches
+    # (one rowgroup) is one of phase 6's, with its image sum
+    sums = {device["labels"][k * BATCH:(k + 1) * BATCH].numpy().tobytes():
+            int(device["image_sums"][k]) for k in range(steps)}
+    for i in range(steps, 2 * steps):
+        key = run["labels"][i * BATCH:(i + 1) * BATCH].numpy().tobytes()
+        if sums.get(key) != int(run["image_sums"][i]):
+            raise AssertionError(f"phase 31, shared tier: warm batch {i - steps} is not one of"
+                                 " phase 6's batches with its image sum")
+    stats = run["cache_stats"]
+    if (stats["misses"], stats["hits"], stats["l2_hits"]) != (groups, groups, 0):
+        raise AssertionError(f"phase 31, shared tier: {stats}")
+    code = (
+        "import json, sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+        "from petastorm_tpu_torch import make_reader\n"
+        "from petastorm_tpu_torch.cuda.loader import CudaDataLoader\n"
+        f"reader = make_reader({path!r}, workers_count={workers}, shuffle_seed=0, num_epochs=1,"
+        f" decode_placement={{'image': 'device'}}, cache_type='shared',"
+        f" cache_location={location!r}, cache_size_limit={SHARED_TIER_BYTES})\n"
+        f"with CudaDataLoader(reader, batch_size={BATCH}, device='cuda') as loader:\n"
+        "    got = [(b['label'].tolist(), int(b['image'].sum(dtype=torch.int64)))"
+        " for b in loader]\n"
+        "print(json.dumps({'labels': [x for b in got for x in b[0]],"
+        " 'sums': [s for _, s in got], 'stats': reader.cache_stats()}))\n")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           timeout=300)
+    if child.returncode:
+        raise AssertionError(f"phase 31: the attached process failed: {child.stderr[-2000:]}")
+    attached = json.loads(child.stdout.strip().splitlines()[-1])
+    attached_s = time.perf_counter() - t0
+    if (attached["labels"] != device["labels"].tolist()
+            or attached["sums"] != device["image_sums"].tolist()):
+        raise AssertionError("phase 31: the attached process read other labels or images")
+    if (attached["stats"]["misses"], attached["stats"]["hits"]) != (groups, 2 * groups):
+        raise AssertionError(f"phase 31: the attached process's reads {attached['stats']}")
+    tier = SharedWarmCache(location=location, l1_bytes=SHARED_TIER_BYTES)
+    final = tier.stats()
+    names = tier.segment_names
+    tier.cleanup()
+    left = [n for n in names if os.path.exists(os.path.join("/dev/shm", n))]
+    if left:
+        raise AssertionError(f"phase 31: cleanup() left {left}")
+    marks = [run["timed_start"]] + run["epoch_marks"]
+    per_epoch = [{"epoch": k + 1, "samples_per_s": (steps - (WARMUP_STEPS if k == 0 else 0))
+                  * BATCH / (t1 - t0_), "input_idle_share": (w1 - w0) / (t1 - t0_)}
+                 for k, ((t0_, w0), (t1, w1)) in enumerate(zip(marks, marks[1:]))]
+    return {"samples_per_s": run["samples_per_s"], "per_epoch": per_epoch,
+            "phase14_warm_memory_samples_per_s": warm["samples_per_s"],
+            "phase14_per_epoch": warm["per_epoch"], "launches": run["launches"],
+            "decode_stats": run["decode_stats"], "tier": final,
+            "attached_process": {"seconds": attached_s, "stats": attached["stats"]},
+            "segments_left": 0}
+
+
 def main():
     started = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4150,7 +4434,7 @@ def main():
         scan = scan_train_phase(path, device)
         checkpoint_resume_phase(path, host, scan["loss_bound"])
         shuffled_inference_phase(path, main_samples_per_s)
-        warm_cache_train_phase(path)
+        warm = warm_cache_train_phase(path)
         filtered_train_phase(path, kernels, device)
         transformed_train_phase(path, kernels, host)
         mixed_train_phase(tmp, path, kernels, device)
@@ -4168,6 +4452,7 @@ def main():
         remote_read_phase(tmp, path, kernels, device)
         clean = process_pool_phase(path, kernels, host, device)
         chaos_phase(path, kernels, clean, device)
+        observability_phase(tmp, path, kernels, host, device, warm)
 
     phase("wall", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

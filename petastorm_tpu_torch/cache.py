@@ -6,9 +6,9 @@ Counterpart of ``petastorm_tpu/cache.py``: ``CacheBase``, ``NullCache``,
 same contracts.  An entry is a whole decoded ``ColumnBatch``, so a hit skips
 the Parquet read and the decode of a rowgroup (on the hybrid route, the
 entropy decode: the entry holds the coefficient planes).  Each cache counts
-its lookups in ``hits`` and ``misses`` (the JAX package's ``cache.hits`` and
-``cache.misses`` telemetry counters; telemetry itself is not part of this
-package yet, nor is the host-wide ``'shared'`` tier).
+its lookups in ``hits`` and ``misses``, and in the reader's telemetry as the
+``cache.hits`` and ``cache.misses`` series.  ``make_cache('shared')`` is the
+host-wide warm tier (``cache_shared.SharedWarmCache``).
 
 The default local-disk directory is the port's own, and the worker's keys
 carry a port tag, so a directory shared with the JAX package never serves
@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
-from petastorm_tpu_torch.errors import PetastormTpuError
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -53,7 +53,8 @@ class CacheBase(ABC):
     The worker arms the process pool's decode-into-slot only when it is
     False: a kept reference to an arena-backed array would dangle once the
     consumer frees its block.  A cache pickles (into a process-pool worker)
-    with fresh locks and its own counters."""
+    with fresh locks and its own counters, and re-resolves its telemetry
+    there (``petastorm_tpu/cache.py:56-65``)."""
 
     retains_value_references = True
     #: the lock attributes, recreated when a cache is unpickled
@@ -61,7 +62,7 @@ class CacheBase(ABC):
 
     def __getstate__(self):
         state = dict(self.__dict__)
-        for name in self._LOCKS:
+        for name in self._LOCKS + ("_telemetry",):
             state.pop(name, None)
         return state
 
@@ -69,11 +70,13 @@ class CacheBase(ABC):
         self.__dict__.update(state)
         for name in self._LOCKS:
             setattr(self, name, threading.Lock())
+        self._telemetry = _resolve_telemetry(None)
 
-    def __init__(self):
+    def __init__(self, telemetry=None):
         self.hits = 0
         self.misses = 0
         self._count_lock = threading.Lock()
+        self._telemetry = _resolve_telemetry(telemetry)
 
     @abstractmethod
     def get(self, key: str, fill_cache_func: Callable[[], Any]) -> Any:
@@ -89,6 +92,9 @@ class CacheBase(ABC):
                 self.hits += 1
             else:
                 self.misses += 1
+        tele = self._telemetry
+        if tele.enabled:
+            tele.counter("cache.hits" if hit else "cache.misses").add(1)
 
     def stats(self) -> Dict[str, int]:
         """``hits`` and ``misses`` so far."""
@@ -117,8 +123,8 @@ class InMemoryCache(CacheBase):
     retains_value_references = False  # private copies only
     _LOCKS = ("_count_lock", "_lock")
 
-    def __init__(self, size_limit_bytes: int = MEMORY_SIZE_LIMIT):
-        super().__init__()
+    def __init__(self, size_limit_bytes: int = MEMORY_SIZE_LIMIT, telemetry=None):
+        super().__init__(telemetry)
         self._entries: "OrderedDict[str, Any]" = OrderedDict()
         self._sizes: Dict[str, int] = {}
         self._size_limit = size_limit_bytes
@@ -229,8 +235,8 @@ class LocalDiskCache(CacheBase):
     #: directory; on every store a cold epoch would go quadratic)
     SWEEP_EVERY = 16
 
-    def __init__(self, path: str, size_limit_bytes: int = DISK_SIZE_LIMIT):
-        super().__init__()
+    def __init__(self, path: str, size_limit_bytes: int = DISK_SIZE_LIMIT, telemetry=None):
+        super().__init__(telemetry)
         self._dir = path
         self._size_limit = size_limit_bytes
         # a race between two threads only shifts the sweep cadence by one
@@ -318,23 +324,27 @@ class LocalDiskCache(CacheBase):
 
 
 def make_cache(cache_type: Optional[str] = "null", cache_location: Optional[str] = None,
-               cache_size_limit: Optional[int] = None) -> CacheBase:
-    """``'null'`` | ``'memory'`` | ``'local-disk'``
+               cache_size_limit: Optional[int] = None, telemetry=None) -> CacheBase:
+    """``'null'`` | ``'memory'`` | ``'local-disk'`` | ``'shared'``
     (``petastorm_tpu/cache.py:320``).  ``cache_location`` is the local-disk
-    directory (default ``<tmp>/petastorm_tpu_torch_cache``);
+    directory (default ``<tmp>/petastorm_tpu_torch_cache``) or the shared
+    tier's namespace (default ``<tmp>/petastorm_tpu_torch_warm``);
     ``cache_size_limit`` caps the bytes (defaults 4 GiB in memory, 10 GiB on
-    disk)."""
+    disk) or sizes the shared tier's arena (default 256 MiB).  ``telemetry``
+    records the ``cache.*`` series."""
     if cache_type in (None, "null", "none"):
         return NullCache()
     if cache_type == "local-disk":
         if not cache_location:
             cache_location = os.path.join(tempfile.gettempdir(), "petastorm_tpu_torch_cache")
-        return LocalDiskCache(cache_location, cache_size_limit or DISK_SIZE_LIMIT)
+        return LocalDiskCache(cache_location, cache_size_limit or DISK_SIZE_LIMIT,
+                              telemetry=telemetry)
     if cache_type == "memory":
-        return InMemoryCache(cache_size_limit or MEMORY_SIZE_LIMIT)
+        return InMemoryCache(cache_size_limit or MEMORY_SIZE_LIMIT, telemetry=telemetry)
     if cache_type == "shared":
-        raise PetastormTpuError(
-            "cache_type='shared' (the host-wide warm tier of petastorm_tpu/cache_shared.py,"
-            " beside the process pool) is not part of this package yet: ROADMAP queue A"
-            " item 11. Use cache_type='memory' or 'local-disk'.")
+        from petastorm_tpu_torch.cache_shared import DEFAULT_L1_BYTES, SharedWarmCache
+
+        return SharedWarmCache(location=cache_location,
+                               l1_bytes=cache_size_limit or DEFAULT_L1_BYTES,
+                               telemetry=telemetry)
     raise ValueError(f"Unknown cache_type {cache_type!r}")

@@ -64,8 +64,34 @@ With a ``mesh`` (one process per card, ``jax/loader.py:196-197``) the
 loader delivers this rank's block of each global batch as an ordinary
 tensor on its card: the rows of its batch-axis block and, for a field
 sharded on a second axis, its range of that axis (``_placement_for``,
-``:1461-1486``).  ``transfer_commit``, ``trace_dir``, telemetry and
-``set_prefetch`` are not part of this package yet.
+``:1461-1486``).
+
+A reader with a ``decode_placement='auto'`` field (the live host/device
+split) hands over rowgroups in either form: the decoded pixels under the
+field's name, or its coefficient planes.  The assembly keeps the two forms
+in separate shuffling buffers (``shuffle.iter_batched_multi``), so no batch
+mixes them (``jax/loader.py:703-733``); a device-form batch runs B2 on the
+copy stream exactly as a ``'device'`` field's does, a host-form batch stages
+its pixels like any column.  ``last_decode_form`` names the form of the
+unit ``__next__`` returned last.
+
+Telemetry (``jax/loader.py:217-236``, ``:1499-1583``): the loader records
+into the reader's recorder by default - the ``host-assemble`` (a rowgroup's
+selection and padding), ``host-prep`` (a batch's transform and mask) and
+``device-transfer`` (staging, copy and device decode) stages,
+``loader.consumer_wait_s``, ``loader.batches_delivered``,
+``loader.straggler_releases`` and the ``loader.host_queue_depth`` and
+``loader.prefetch_depth`` gauges.  ``prefetch`` and :meth:`set_prefetch`
+move both stage queues' bound while the loader runs (autotune's third knob:
+a loader over an autotuned reader attaches itself).  ``transfer_commit``
+says whether the transfer thread waits on each unit's copy event before it
+takes the next (``True``, ``False``, or ``'auto'``, which times that wait
+once on an idle stream and turns it off when it costs more than 20 ms, as
+the JAX loader probes its readiness sync; a commit that costs far more than
+its bytes explain twice in a row turns it off too).  ``trace_dir`` brackets
+the loader's life in a ``torch.profiler`` trace with CUDA activity, written
+there as a Chrome trace at the end, where the JAX loader calls
+``jax.profiler.start_trace``.
 
 A reader on the process pool (``reader_pool_type='process'``) hands over
 batches whose columns are views of its shared-memory arena.  The loader
@@ -82,6 +108,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -108,6 +135,8 @@ from petastorm_tpu_torch.seeding import reader_buffer_seed
 from petastorm_tpu_torch.native.transport import is_arena_backed
 from petastorm_tpu_torch.shuffle import (NoopShufflingBuffer, RandomShufflingBuffer,
                                          iter_batched, iter_batched_multi)
+from petastorm_tpu_torch.telemetry import NULL_CONTEXT
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -119,6 +148,9 @@ _JOIN_TIMEOUT_S = 10.0
 
 #: key of the true row count on a zero-padded last batch (``drop_last=False``)
 VALID_ROWS = "_valid_rows"
+#: transfer_commit='auto' turns the commit off when an idle event wait costs
+#: more than this (``jax/loader.py:1129``'s probe threshold)
+_COMMIT_PROBE_THRESHOLD_S = 0.02
 
 
 class _Done:
@@ -342,6 +374,12 @@ class CudaDataLoader:
       unsharded axis (``:1467``); the valid mask and ``'_valid_rows'``
       count this rank's rows.
 
+    * ``telemetry``: the recorder (default: the reader's), ``trace_dir``: a
+      ``torch.profiler`` Chrome trace of the loader's life, and
+      ``transfer_commit``: ``True``, ``False`` or ``'auto'`` (module
+      docstring).  A live-split field (``decode_placement='auto'``) cannot be
+      stacked (``stack_batches > 1``), as in the JAX loader.
+
     ``diagnostics()['consumer_wait_s']`` is the time ``__next__`` spent
     waiting for the producer: the input-bound share of a training loop;
     ``assemble_s`` and ``transfer_s`` are the seconds each producer thread
@@ -366,9 +404,15 @@ class CudaDataLoader:
                  device_shuffle_capacity: int = 0,
                  device_shuffle_seed: Optional[int] = None,
                  mesh=None,
-                 shardings: Union[None, Placements, Dict[str, Placements]] = None):
+                 shardings: Union[None, Placements, Dict[str, Placements]] = None,
+                 trace_dir: Optional[str] = None,
+                 transfer_commit: Union[bool, str] = "auto",
+                 telemetry=None):
         if batch_size < 1:
             raise PetastormTpuError("batch_size must be >= 1")
+        if not any(transfer_commit is v for v in (True, False, "auto")):
+            raise PetastormTpuError(
+                f"transfer_commit must be True, False or 'auto'; got {transfer_commit!r}")
         if stack_batches < 1:
             raise PetastormTpuError("stack_batches must be >= 1")
         self._stack = int(stack_batches)
@@ -411,6 +455,18 @@ class CudaDataLoader:
         #: bucket at a time and fitted to a static target each
         self._mixed_fields = frozenset(getattr(reader, "device_decode_mixed", ()) or ()
                                        ).intersection(self._decode_fields)
+        #: the subset under the live split: a rowgroup carries its pixels
+        #: (host form) or its planes (device form)
+        self._split_fields = frozenset(getattr(reader, "device_decode_split", ()) or ()
+                                       ).intersection(self._decode_fields)
+        if self._stack > 1 and self._split_fields:
+            raise PetastormTpuError(
+                f"stack_batches={self._stack} cannot be combined with the"
+                f" live decode split (decode_placement='auto' fields"
+                f" {sorted(self._split_fields)}): the K stacked batches could"
+                " straddle a split flip and mix wire forms. Pin the split"
+                " with decode_placement='host'/'device' for scan-feed"
+                " delivery.")
         #: geometries decoded a mixed field (layout-meta bytes), the (field, h,
         #: w, channels) already warned about, and the dataset's stamped contract
         self._mixed_geometries: Dict[str, set] = {}
@@ -522,6 +578,31 @@ class CudaDataLoader:
             self._shuffling = False
 
         self._prefetch = prefetch
+        self._telemetry = _resolve_telemetry(
+            telemetry if telemetry is not None else getattr(reader, "telemetry", None))
+        tele = self._telemetry
+        self._m_consumer_wait = tele.counter("loader.consumer_wait_s")
+        self._m_delivered = tele.counter("loader.batches_delivered")
+        self._m_straggler = tele.counter("loader.straggler_releases")
+        self._g_host_depth = tele.gauge("loader.host_queue_depth")
+        self._g_prefetch_depth = tele.gauge("loader.prefetch_depth")
+        if tele.enabled:
+            for stage in ("host-assemble", "host-prep", "device-transfer"):
+                tele.register_stage(stage)
+        self._trace_dir = trace_dir
+        self._profiler = None
+        #: the written trace (``trace_dir``), once the loader ends or stops
+        self.trace_path: Optional[str] = None
+        #: the commit policy and its state (``jax/loader.py:307-321``, ``:496-510``)
+        self._commit_mode = transfer_commit
+        self._commit_transfers = transfer_commit is not False
+        self._commit_probed = transfer_commit != "auto"
+        self._commit_probe_ms: Optional[float] = None
+        self._commit_count = 0
+        self._commit_breaches = 0
+        #: units delivered in each split form, and the last one's form
+        self._forms = {"host": 0, "device": 0}
+        self.last_decode_form: Optional[str] = None
         self._host_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._out: "queue.Queue" = queue.Queue(maxsize=prefetch)
         #: staging slots of each (column, row shape, dtype) signature
@@ -550,6 +631,41 @@ class CudaDataLoader:
         self._assemble_s = 0.0
         self._fetch_prepare_s = 0.0
         self._transfer_s = 0.0
+        controller = getattr(reader, "autotune", None)
+        if controller is not None:
+            # the prefetch depth becomes the autotune controller's third knob
+            controller.attach_loader(self)
+
+    # -- the prefetch knob (``jax/loader.py:524-552``) ---------------------
+
+    @property
+    def prefetch(self) -> int:
+        """The bound of both producer-stage queues."""
+        return self._out.maxsize
+
+    def set_prefetch(self, depth: int) -> int:
+        """Move both stage queues' bound in place: a wider bound wakes a
+        blocked producer at once, a narrower one drops nothing (puts wait
+        until the consumer is below it).  The autotune controller's prefetch
+        knob; safe while the loader runs.  Returns the new depth."""
+        depth = max(1, int(depth))
+        for q in (self._host_q, self._out):
+            with q.not_full:
+                q.maxsize = depth
+                q.not_full.notify_all()
+        return depth
+
+    @property
+    def telemetry(self):
+        """The recorder this loader records into (the reader's by default)."""
+        return self._telemetry
+
+    def _form_route(self, batch: ColumnBatch) -> tuple:
+        """The assembly key of a rowgroup: the live-split fields it carries
+        as pixels (``jax/loader.py:728-735``); () without split fields."""
+        if not self._split_fields:
+            return ()
+        return tuple(n for n in sorted(self._split_fields) if n in batch.columns)
 
     def _mixed_target(self, name: str) -> Tuple[int, ...]:
         """The static (H, W[, C]) every image of a 'device-mixed' field is
@@ -651,6 +767,11 @@ class CudaDataLoader:
         field passes as its derived columns, its geometry checked."""
         cols: Dict[str, np.ndarray] = {}
         for name in self._fields + self._host_fields:
+            if name in self._split_fields and name in batch.columns:
+                # the host form of a live-split field: its pixels, staged
+                # like any column
+                cols[name] = batch.columns[name]
+                continue
             if name in self._decode_fields:
                 if name not in self._mixed_fields:
                     self._check_geometry(name, batch.columns[f"{name}{COEF_COLUMN_SEP}m"])
@@ -672,6 +793,7 @@ class CudaDataLoader:
 
     def _on_straggler_release(self) -> None:
         self._straggler_releases += 1
+        self._m_straggler.add(1)
         if self._straggler_releases == 1:
             logger.warning(
                 "straggler release: emitted a buffered batch past the shuffle decorrelation"
@@ -682,7 +804,8 @@ class CudaDataLoader:
     def _prep_cols(self, batch: ColumnBatch) -> _HostBatch:
         """Per-batch host prep: the delivered columns through ``transform_fn``,
         the valid mask, and each device-decode field's planes and geometry."""
-        cols = {n: batch.columns[n] for n in self._fields if n not in self._decode_fields}
+        cols = {n: batch.columns[n] for n in self._fields
+                if n not in self._decode_fields or n in batch.columns}
         if self._transform_fn is not None:
             cols = {k: np.asarray(v) for k, v in self._transform_fn(cols).items()}
             if self._valid_mask is not None and self._valid_mask in cols:
@@ -694,6 +817,8 @@ class CudaDataLoader:
             cols[self._valid_mask] = np.ones(batch.num_rows, np.float32)
         coef, layouts, mixed = {}, {}, {}
         for name in self._decode_fields:
+            if name in batch.columns:
+                continue  # a live-split field in its host form
             if name in self._mixed_fields:
                 mixed[name] = batch.columns[f"{name}{COEF_COLUMN_SEP}{MIXED_CELL_SUFFIX}"]
                 continue
@@ -711,6 +836,7 @@ class CudaDataLoader:
         """Stage 1: reader rowgroups -> assembled host batches."""
         fetcher = None
         waited = [0.0]  # this thread's seconds blocked on the reader or the fetcher
+        tele = self._telemetry
         try:
             def prepared(on_fetch_thread: bool):
                 batches = self._reader.iter_batches()
@@ -720,7 +846,9 @@ class CudaDataLoader:
                     t1 = time.perf_counter()
                     if raw is None or self._stop.is_set():
                         return
-                    out = self._prepare(raw)
+                    with (tele.stage("host-assemble", rows=raw.num_rows)
+                          if tele.enabled else NULL_CONTEXT):
+                        out = self._prepare(raw)
                     if on_fetch_thread:
                         self._fetch_prepare_s += time.perf_counter() - t1
                     else:
@@ -738,9 +866,14 @@ class CudaDataLoader:
                         waited[0] += time.perf_counter() - t0
 
                 batches: Iterator[ColumnBatch] = iter_batched_multi(
-                    next_fn, lambda _batch: (), self._make_buffer, self._batch_size,
+                    next_fn, self._form_route, self._make_buffer, self._batch_size,
                     straggler_release_s=self._straggler_s,
                     on_straggler_release=self._on_straggler_release)
+            elif self._split_fields:
+                # the two forms of a live split assemble in their own buffers
+                source = prepared(False)
+                batches = iter_batched_multi(lambda _timeout: next(source), self._form_route,
+                                             self._make_buffer, self._batch_size)
             else:
                 batches = iter_batched(prepared(False), self._make_buffer(), self._batch_size)
             t0, w0 = time.perf_counter(), waited[0]
@@ -749,7 +882,9 @@ class CudaDataLoader:
                     break
                 if out.num_rows < self._batch_size and self._drop_last:
                     continue  # the short tail is dropped
-                item = self._prep_cols(out)
+                with (tele.stage("host-prep", rows=out.num_rows)
+                      if tele.enabled else NULL_CONTEXT):
+                    item = self._prep_cols(out)
                 self._assemble_s += time.perf_counter() - t0 - (waited[0] - w0)
                 self._host_push(item)
                 t0, w0 = time.perf_counter(), waited[0]
@@ -764,6 +899,8 @@ class CudaDataLoader:
         while not self._stop.is_set():
             try:
                 self._host_q.put(value, timeout=_POLL_S)
+                if self._telemetry.enabled:
+                    self._g_host_depth.set(self._host_q.qsize())
                 return
             except queue.Full:
                 continue
@@ -976,7 +1113,7 @@ class CudaDataLoader:
         else:
             residents, drained = list(self._device_buffer.drain()), None
         self._transfer_s += time.perf_counter() - t0
-        units = [(batch, drained) for batch in residents] + self._tail_units
+        units = [(batch, drained, None) for batch in residents] + self._tail_units
         self._tail_units = []
         return units
 
@@ -988,6 +1125,9 @@ class CudaDataLoader:
         layout = self._layout(item)
         if self._stack > 1:
             self._check_stack(group, layout)
+        form = None
+        if self._split_fields:
+            form = "host" if any(n in item.cols for n in self._split_fields) else "device"
         if self._cuda:
             slot = self._slot(layout)
             self._fill(slot.host, group)
@@ -1003,6 +1143,7 @@ class CudaDataLoader:
                 slot.copied = torch.cuda.Event()
                 slot.copied.record(self._copy_stream)
             copied = slot.copied
+            self._commit(copied, slot)
         else:
             staged = {name: torch.empty(self._lead + shape, dtype=_torch_dtype(dt))
                       for name, (shape, dt) in layout.items()}
@@ -1023,9 +1164,9 @@ class CudaDataLoader:
                 if self._device_buffer is not None:
                     # a consumer reads the padded tail as the epoch's end:
                     # it follows the buffer's drain (jax/loader.py:973-983)
-                    self._tail_units.append((batch, copied))
+                    self._tail_units.append((batch, copied, form))
                     return None
-            return batch, copied
+            return batch, copied, form
         valids = [it.rows for it in group]
         missing = self._stack - len(group)
         for name in self._host_fields:
@@ -1033,7 +1174,7 @@ class CudaDataLoader:
             batch[name] = np.stack(steps + [_host_filler(steps[-1])] * missing)
         if missing or any(v < self._batch_size for v in valids):
             batch[VALID_ROWS] = torch.tensor(valids + [0] * missing, dtype=torch.int64)
-        return batch, copied
+        return batch, copied, form
 
     def _transfer(self) -> None:
         """Stage 2: host batches -> staged, copied (and decoded) units.  With
@@ -1070,9 +1211,57 @@ class CudaDataLoader:
             self._sentinel_pending = True
             self._abort_upstream()
 
+    def _commit(self, copied: "torch.cuda.Event", slot: _Slot) -> None:
+        """Wait for the unit's copy event before the next unit, when the
+        commit is on (``jax/loader.py:1070-1120``).  A first wait is
+        warm-up; a later one that costs more than 0.1 s plus its bytes at
+        100 MB/s, twice in a row, turns the commit off for good."""
+        if not self._commit_probed:
+            self._probe_commit_cost()
+        if not self._commit_transfers:
+            return
+        t0 = time.perf_counter()
+        copied.synchronize()
+        took = time.perf_counter() - t0
+        self._commit_count += 1
+        if self._commit_count == 1:
+            return
+        nbytes = sum(t.numel() * t.element_size() for t in slot.host.values())
+        if took > 0.1 + nbytes / 100e6:
+            self._commit_breaches += 1
+            if self._commit_breaches >= 2:
+                self._commit_transfers = False
+                logger.warning(
+                    "transfer commit took %.0f ms for %.1f MB (twice in a row);"
+                    " disabling the per-unit commit", took * 1e3, nbytes / 1e6)
+        else:
+            self._commit_breaches = 0
+
+    def _probe_commit_cost(self) -> None:
+        """``transfer_commit='auto'``: the least of three waits on an event
+        of the idle copy stream (after one warm-up); above 20 ms the commit
+        starts off (``jax/loader.py:1122-1142``)."""
+        self._commit_probed = True
+        costs = []
+        for _ in range(4):
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+            t0 = time.perf_counter()
+            event.synchronize()
+            costs.append(time.perf_counter() - t0)
+        cost = min(costs[1:])
+        self._commit_probe_ms = cost * 1e3
+        if cost > _COMMIT_PROBE_THRESHOLD_S:
+            self._commit_transfers = False
+            logger.info("an idle event wait costs %.0f ms; starting without the per-unit"
+                        " commit (transfer_commit=True pins it)", cost * 1e3)
+
     def _stage_and_push(self, group: List[_HostBatch]) -> None:
         t0 = time.perf_counter()
-        value = self._stage(group)
+        tele = self._telemetry
+        with (tele.stage("device-transfer", rows=sum(it.rows for it in group))
+              if tele.enabled else NULL_CONTEXT):
+            value = self._stage(group)
         self._units_staged += 1
         self._transfer_s += time.perf_counter() - t0
         if value is not None:
@@ -1101,9 +1290,43 @@ class CudaDataLoader:
     def __iter__(self):
         if not self._started:
             self._started = True
+            if self._trace_dir:
+                self._start_trace()  # before the producers: their first launches count
             self._thread.start()
             self._transfer_thread.start()
         return self
+
+    def _start_trace(self) -> None:
+        """A ``torch.profiler`` trace of the host and the card (CUDA activity
+        is recorded process-wide, so the copy stream's B2 launches are in
+        it) until the loader ends or stops (``jax/loader.py:1557-1565``).
+        One that cannot start (another profiler is running) is warned about
+        and the loader runs untraced."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self._cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.__enter__()
+            self._profiler = profiler
+        except (RuntimeError, OSError) as exc:
+            logger.warning("trace_dir=%r: could not start the torch profiler: %s",
+                           self._trace_dir, exc)
+
+    def _stop_trace(self) -> Optional[str]:
+        """End the trace and write it as ``<trace_dir>/loader_trace.json``;
+        returns the path (None when nothing was traced)."""
+        profiler, self._profiler = self._profiler, None
+        if profiler is None:
+            return None
+        if self._cuda:
+            torch.cuda.synchronize(self._device)
+        profiler.__exit__(None, None, None)
+        os.makedirs(self._trace_dir, exist_ok=True)
+        path = os.path.join(self._trace_dir, "loader_trace.json")
+        profiler.export_chrome_trace(path)
+        self.trace_path = path
+        return path
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         if self._failure is not None:
@@ -1115,6 +1338,9 @@ class CudaDataLoader:
         while True:
             try:
                 value = self._out.get(timeout=_POLL_S)
+                if self._telemetry.enabled:
+                    self._m_consumer_wait.add(time.perf_counter() - t0)
+                    self._g_prefetch_depth.set(self._out.qsize())
                 break
             except queue.Empty:
                 if self._stop.is_set():
@@ -1127,17 +1353,23 @@ class CudaDataLoader:
                     except queue.Empty:
                         self._failure = PetastormTpuError(
                             "Loader transfer thread died silently")
+                        self._stop_trace()
                         raise self._failure from None
         self._consumer_wait_s += time.perf_counter() - t0
         if isinstance(value, _Done):
             self._finished = True
             self._sentinel_pending = False
+            self._stop_trace()  # the end of the stream writes the trace
             raise StopIteration
         if isinstance(value, _Error):
             self._failure = value.exc
             self._sentinel_pending = False
+            self._stop_trace()
             raise value.exc
-        batch, copied = value
+        batch, copied, form = value
+        self.last_decode_form = form
+        if form is not None:
+            self._forms[form] += 1
         if copied is not None:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(copied)
@@ -1145,6 +1377,7 @@ class CudaDataLoader:
                 if isinstance(tensor, torch.Tensor) and tensor.is_cuda:
                     tensor.record_stream(stream)
         self._delivered += 1
+        self._m_delivered.add(1)
         return batch
 
     def diagnostics(self) -> Dict[str, float]:
@@ -1161,7 +1394,12 @@ class CudaDataLoader:
                "straggler_releases": self._straggler_releases,
                "assemble_s": self._assemble_s + self._fetch_prepare_s,
                "transfer_s": self._transfer_s,
+               "transfer_commit": self._commit_transfers and self._cuda,
+               "transfer_commit_probe_ms": self._commit_probe_ms,
                "unquiesced_threads": list(self._unquiesced)}
+        if self._split_fields:
+            # units delivered in each form of the live split
+            out["decode_split_batches"] = dict(self._forms)
         if self._stack > 1:
             out["stack_batches"] = self._stack
         if self._mixed_geometries:
@@ -1347,6 +1585,7 @@ class CudaDataLoader:
         self._stop.set()
         self._reader.stop()
         self.join()
+        self._stop_trace()
 
     def join(self) -> None:
         """Wait for the producer threads and the reader to exit, after
@@ -1411,6 +1650,10 @@ def make_cuda_loader(dataset_url: str,
     loader_params = set(inspect.signature(CudaDataLoader.__init__).parameters) - {
         "self", "reader", "batch_size", "mesh", "shardings"}
     loader_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in loader_params}
+    if "telemetry" in loader_kwargs:
+        # one recorder observes the whole pipeline: the reader gets it too
+        # (``jax/loader.py:1912-1915``)
+        kwargs["telemetry"] = loader_kwargs["telemetry"]
     if "schema_fields" not in kwargs:
         wanted = list(loader_kwargs.get("fields") or [])
         wanted += list(loader_kwargs.get("host_fields") or [])

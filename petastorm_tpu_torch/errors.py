@@ -82,10 +82,9 @@ class ErrorPolicy:
     errors (an in-worker ``MemoryError``) are first requeued onto a worker
     up to ``max_requeue_attempts``; only an item that exhausts its attempts
     is handed to the skip path.  Both are counted in ``Reader.diagnostics``
-    (``skipped_rowgroups``, ``requeued_items``), where the JAX package also
-    counts them as telemetry (``errors.skipped_rowgroups``,
-    ``errors.requeued_items``), which this package does not have yet
-    (ROADMAP.md queue A item 11).
+    (``skipped_rowgroups``, ``requeued_items``) and, with telemetry, as the
+    ``errors.skipped_rowgroups`` and ``errors.requeued_items`` series, as in
+    the JAX package.
 
     ``max_skipped_rowgroups``: absolute skip budget (None = unlimited).
     ``max_skipped_fraction``: skipped / expected items (None = unlimited);

@@ -229,7 +229,7 @@ def open_dataset(url_or_urls: Union[str, Sequence[str]],
                  storage_options: Optional[dict] = None,
                  filesystem: Optional[pafs.FileSystem] = None,
                  require_stored_schema: bool = False,
-                 io_retries="auto") -> DatasetInfo:
+                 io_retries="auto", telemetry=None) -> DatasetInfo:
     """Resolve a dataset directory, one parquet file, or a list of file or
     directory URLs to a DatasetInfo (``petastorm_tpu/etl/metadata.py:221``).
 
@@ -237,7 +237,8 @@ def open_dataset(url_or_urls: Union[str, Sequence[str]],
     ``fs.get_filesystem_and_path``.  ``io_retries``: the transient-failure
     policy of the listing, key-value and footer reads
     (``retry.resolve_retry_policy``: ``'auto'`` retries on remote
-    filesystems only); ``DatasetInfo.retries`` counts the retries taken."""
+    filesystems only); ``DatasetInfo.retries`` counts the retries taken, and
+    ``telemetry`` as ``io.retries``."""
     fs, path_or_paths = get_filesystem_and_path_or_paths(url_or_urls, storage_options,
                                                          filesystem)
     policy = resolve_retry_policy(io_retries, fs)
@@ -247,7 +248,7 @@ def open_dataset(url_or_urls: Union[str, Sequence[str]],
         retried[0] += 1
 
     def retry(fn, what: str):
-        return retry_call(fn, policy, what=what, on_retry=count)
+        return retry_call(fn, policy, what=what, on_retry=count, telemetry=telemetry)
 
     def list_info(selector):
         return retry(lambda: fs.get_file_info(selector),

@@ -130,6 +130,12 @@ class SharedArena:
     def closed(self) -> bool:
         return self._closed
 
+    def disown(self) -> None:
+        """Give up unlinking the segment: :meth:`close` then only unmaps it,
+        and it stays alive for the other processes attached to it (the warm
+        cache tier's lifecycle, ``petastorm_tpu/native/__init__.py:159``)."""
+        self._owner = False
+
     def close(self) -> None:
         """Unlink (if this process created it) and unmap the segment.  While
         zero-copy views are alive the unmap is deferred: allocation stops at

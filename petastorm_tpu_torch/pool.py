@@ -41,11 +41,13 @@ worker that is not mid-delivery, respawns it in its slot, and requeues the
 item; a worker process that dies is not respawned, and its item is requeued
 from its heartbeat.  ``hedge_after_s`` re-issues an item busy past that
 many seconds to an idle worker, first result wins (``hedged_items``,
-``hedge_wins``).  ``'auto'`` resolves to no hedging: the JAX pool derives it
-from the telemetry decode p99 and hedges nothing without telemetry, and
-this package has no telemetry yet.  The serial pool runs work inline, so it
-takes both with a warning that they do nothing, and watches its own items
-for ``stall_warn_s``.
+``hedge_wins``).  ``'auto'`` is ``max(4 x p99 of stage.decode.latency_s,
+0.5)`` seconds once 20 decodes are recorded in this process's telemetry, and
+no hedging before that or without telemetry (``petastorm_tpu/pool.py:
+440-457``); the process pool's decodes are recorded in its workers, so
+there it hedges nothing.  The serial pool runs work inline, so it takes both
+with a warning that they do nothing, and watches its own items for
+``stall_warn_s``.
 
 The process pool (``ProcessExecutor``) spawns its workers (never forks: a
 fork after CUDA is initialised is broken) and moves their results through
@@ -59,8 +61,24 @@ training script that imports ``torch`` at its top level does not load it
 into every worker (seconds of start-up, and gigabytes of resident memory,
 a worker).
 
-Left out with autotune and telemetry: ``resize_workers``, ``max_workers``,
-the results-queue resize and the full-wait harvest.
+Telemetry (``petastorm_tpu/pool.py:312-330``): the pools record the
+``ventilate`` stage, the ventilator's waits for an in-flight slot, the
+queue-depth gauges and the ``errors.requeued_items`` and ``liveness.*``
+counters.  The ventilator's wait is where backpressure shows here (the
+thread pool's input queue is unbounded; the in-flight window bounds what is
+issued): a wait that begins with the results part of the window full of
+undelivered batches is the consumer's (``queue.results_full_wait_s``), any
+other the workers' (``queue.input_full_wait_s``).  The process pool counts
+``decode.batch_slots``, the columns its workers decoded straight into arena
+slots.
+
+Autotune's knobs (``petastorm_tpu/pool.py:849-960``, ``:1681``):
+``resize_workers`` grows or shrinks both pools in place (a retired worker
+finishes its item first), the process pool up to ``max_workers`` slots made
+at construction; ``set_results_bound`` resizes the thread pool's results
+part of the window; a thread pool under target management
+(``_heal_to_target``) respawns the slots it loses to deaths and abandoned
+hangs.
 """
 
 from __future__ import annotations
@@ -77,6 +95,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 from petastorm_tpu_torch.errors import (DEFAULT_REQUEUE_ATTEMPTS, PetastormTpuError,
                                         ReaderClosedError, classify_error)
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -210,6 +229,44 @@ def _check_liveness_args(item_deadline_s, hedge_after_s) -> None:
             f" got {hedge_after_s!r}")
 
 
+class _Window:
+    """The in-flight window: a counting semaphore whose bound can move
+    (autotune's worker and results-queue knobs).  ``bound`` is the results
+    part alone (what ``set_results_bound`` sets); the window holds
+    ``workers + bound`` slots."""
+
+    def __init__(self, workers: int, results: int):
+        self._cond = threading.Condition()
+        self._workers = workers
+        self.bound = results
+        self._taken = 0
+
+    @property
+    def size(self) -> int:
+        return self._workers + self.bound
+
+    def resize(self, workers: Optional[int] = None, results: Optional[int] = None) -> None:
+        with self._cond:
+            if workers is not None:
+                self._workers = workers
+            if results is not None:
+                self.bound = results
+            self._cond.notify_all()
+
+    def acquire(self, timeout: Optional[float] = None) -> bool:
+        with self._cond:
+            if self._taken >= self.size and not self._cond.wait_for(
+                    lambda: self._taken < self.size, timeout):
+                return False
+            self._taken += 1
+            return True
+
+    def release(self) -> None:
+        with self._cond:
+            self._taken -= 1
+            self._cond.notify()
+
+
 class _LedgerExecutor:
     """The thread and process pools' shared part: the ventilator thread, the
     in-flight ledger and the in-order delivery of ``imap``.
@@ -225,7 +282,7 @@ class _LedgerExecutor:
 
     def __init__(self, workers_count: int, results_queue_size: int,
                  stop_on_failure: bool, max_requeue_attempts: int,
-                 item_deadline_s: Optional[float], hedge_after_s):
+                 item_deadline_s: Optional[float], hedge_after_s, telemetry=None):
         if workers_count < 1:
             raise PetastormTpuError("workers_count must be >= 1")
         _check_liveness_args(item_deadline_s, hedge_after_s)
@@ -234,7 +291,31 @@ class _LedgerExecutor:
         self._max_requeue = max_requeue_attempts
         self._item_deadline_s = item_deadline_s
         self._hedge_after = hedge_after_s
-        self._window = threading.Semaphore(workers_count + max(results_queue_size, 1))
+        self._window = _Window(workers_count, max(results_queue_size, 1))
+        #: resize_workers and the heal sweep, against each other
+        self._resize_lock = threading.RLock()
+        #: set by the first resize_workers: the worker count is then a target
+        self._target_managed = False
+        #: slots told to exit at their next item boundary, and slots that did
+        #: (resize_workers' shrink; a grow reuses a retired slot)
+        self._retiring: set = set()
+        self._retired: set = set()
+        self._telemetry = tele = _resolve_telemetry(telemetry)
+        self._m_input_full = tele.counter("queue.input_full_wait_s")
+        self._m_results_full = tele.counter("queue.results_full_wait_s")
+        self._g_in_depth = tele.gauge("pool.in_queue_depth")
+        self._g_out_depth = tele.gauge("pool.results_queue_depth")
+        self._m_requeued = tele.counter("errors.requeued_items")
+        self._m_hung_killed = tele.counter("liveness.hung_workers_killed")
+        self._m_hung_abandoned = tele.counter("liveness.hung_workers_abandoned")
+        self._m_hedged = tele.counter("liveness.hedged_items")
+        self._m_hedge_wins = tele.counter("liveness.hedge_wins")
+        #: arrivals ahead of their turn, held for in-order delivery (the JAX
+        #: reader's reorder-stage counter, ``petastorm_tpu/reader.py:1590``)
+        self._m_reordered = tele.counter("reader.reordered_batches")
+        self._awaited = 0
+        if tele.enabled:
+            tele.register_stage("ventilate")
         #: ordinal -> latest in-flight VentilatedItem
         self._inflight: Dict[int, VentilatedItem] = {}
         self._inflight_lock = threading.Lock()
@@ -267,13 +348,41 @@ class _LedgerExecutor:
         """Items re-ventilated after an infra failure, a death or a hang."""
         return self._requeued_items
 
+    @property
+    def _out_slots(self) -> _Window:
+        """The window, whose ``bound`` is the results part (the autotune
+        controller reads ``_out_slots.bound``, as of the JAX pool)."""
+        return self._window
+
+    def set_results_bound(self, n: int) -> int:
+        """Resize the results part of the in-flight window in place
+        (``petastorm_tpu/pool.py:949``, autotune's queue knob); a smaller
+        bound only holds the ventilator back until the consumer catches up.
+        Returns the new bound."""
+        n = max(1, int(n))
+        self._window.resize(results=n)
+        return n
+
     # -- the ventilator ------------------------------------------------------
 
     def _take_slot(self) -> bool:
-        """Wait for an in-flight slot; False once stopped or quiesced."""
-        while not self._window.acquire(timeout=_POLL_S):
-            if self._stop.is_set() or self._pause.is_set():
-                return False
+        """Wait for an in-flight slot; False once stopped or quiesced.  The
+        wait is recorded as the consumer's (``queue.results_full_wait_s``)
+        when it began with the results part of the window full of
+        undelivered batches, else as the workers'
+        (``queue.input_full_wait_s``)."""
+        if not self._window.acquire(timeout=0):
+            t0 = time.perf_counter()
+            with self._results_lock:
+                consumer_bound = len(self._results) >= self._window.bound
+            try:
+                while not self._window.acquire(timeout=_POLL_S):
+                    if self._stop.is_set() or self._pause.is_set():
+                        return False
+            finally:
+                if self._telemetry.enabled:
+                    (self._m_results_full if consumer_bound
+                     else self._m_input_full).add(time.perf_counter() - t0)
         if self._stop.is_set() or self._pause.is_set():
             self._window.release()
             return False
@@ -281,8 +390,14 @@ class _LedgerExecutor:
 
     def _ventilate(self, items: Iterable[Any]) -> None:
         issued = 0
+        tele = self._telemetry
         try:
             for item in items:
+                if tele.enabled:
+                    # the stage's busy time leaves out the waits for a slot,
+                    # which the queue counters hold (``petastorm_tpu/pool.py:2230``)
+                    t0 = time.perf_counter_ns()
+                    waited0 = self._m_input_full.value + self._m_results_full.value
                 if not self._take_slot():
                     break
                 vitem = VentilatedItem(self._start + issued, item)
@@ -294,6 +409,12 @@ class _LedgerExecutor:
                     self._settle(vitem.ordinal)
                     self._window.release()
                     break
+                if tele.enabled:
+                    waited = (self._m_input_full.value + self._m_results_full.value
+                              - waited0)
+                    tele.record_stage("ventilate", t0,
+                                      max(time.perf_counter_ns() - t0 - int(waited * 1e9), 0),
+                                      {"ordinal": vitem.ordinal})
                 self._ventilated += 1
                 issued += 1
         except BaseException as exc:  # noqa: BLE001 - delivered to the consumer
@@ -340,6 +461,7 @@ class _LedgerExecutor:
         # a requeue supersedes an outstanding hedge of this ordinal
         self._hedged_attempt.pop(ordinal, None)
         self._requeued_items += 1
+        self._m_requeued.add(1)
         logger.warning("Requeueing work item %s after %s (attempt %d/%d)",
                        ordinal, why, retry.attempt, self._max_requeue)
         if not self._try_enqueue(retry):
@@ -371,12 +493,20 @@ class _LedgerExecutor:
         self._store(ordinal, err)
 
     def _hedge_threshold(self) -> Optional[float]:
-        """The hedge age in seconds, or None.  ``'auto'`` gives None: the JAX
-        pool derives it from the telemetry decode p99 and hedges nothing
-        without telemetry (``petastorm_tpu/pool.py:448-451``)."""
+        """The hedge age in seconds, or None (``petastorm_tpu/pool.py:
+        438-457``).  ``'auto'`` is 4x the p99 of this process's recorded
+        decode latency, floored at 0.5 s, once 20 decodes are recorded; None
+        before that and without telemetry."""
         h = self._hedge_after
-        if h is None or h == "auto":
+        if h is None:
             return None
+        if h == "auto":
+            if not self._telemetry.enabled:
+                return None
+            hist = self._telemetry.histogram("stage.decode.latency_s")
+            if getattr(hist, "count", 0) < 20:
+                return None
+            return max(4.0 * hist.quantile(0.99), 0.5)
         return float(h)
 
     def _hedge(self, ordinal, why: str) -> bool:
@@ -395,6 +525,7 @@ class _LedgerExecutor:
             self._inflight[ordinal] = copy
         self._hedged_attempt[ordinal] = copy.attempt
         self._hedged_items += 1
+        self._m_hedged.add(1)
         logger.info("Hedging work item %s after %s (speculative attempt %d/%d;"
                     " first result wins)", ordinal, why, copy.attempt, self._max_requeue)
         return True
@@ -405,6 +536,7 @@ class _LedgerExecutor:
         hedged_at = self._hedged_attempt.pop(ordinal, None)
         if hedged_at is not None and attempt >= hedged_at:
             self._hedge_wins += 1
+            self._m_hedge_wins.add(1)
 
     def _store(self, ordinal: int, outcome: Any) -> None:
         with self._results_lock:
@@ -428,6 +560,8 @@ class _LedgerExecutor:
         value = self._unwrap(result.value)
         if not self._settle(result.ordinal):
             return  # duplicate: the first arrival was kept
+        if result.ordinal != self._awaited:
+            self._m_reordered.add(1)
         self._note_delivery(result.ordinal, result.attempt)
         self._count_delivery(result.value)
         self._store(result.ordinal, value)
@@ -471,6 +605,7 @@ class _LedgerExecutor:
         ordinal = start
         last_arrival = time.monotonic()
         while True:
+            self._awaited = ordinal
             with self._results_lock:
                 entry = self._results.pop(ordinal, None)
                 ended = (entry is None and self._total is not None
@@ -483,6 +618,8 @@ class _LedgerExecutor:
                 try:
                     self._accept(self._next_arrival(_POLL_S))
                     last_arrival = time.monotonic()
+                    if self._telemetry.enabled:
+                        self._stamp_depths()
                 except queue.Empty:
                     self._service_faults()
                     if on_idle is not None:
@@ -506,6 +643,18 @@ class _LedgerExecutor:
         """The seconds ``imap`` has waited that count as a stall: since the
         last arrival (or since ``imap`` began)."""
         return time.monotonic() - last_arrival
+
+    def _in_queue_depth(self) -> int:
+        raise NotImplementedError
+
+    def _stamp_depths(self) -> None:
+        """The queue-depth gauges, at an arrival (``petastorm_tpu/pool.py:1215``)."""
+        with self._results_lock:
+            self._g_out_depth.set(len(self._results))
+        try:
+            self._g_in_depth.set(self._in_queue_depth())
+        except (NotImplementedError, OSError):
+            pass
 
     def quiesce(self, start: int = 0) -> int:
         """Stop ventilating and wait for the ventilator; returns the absolute
@@ -542,6 +691,7 @@ class _LedgerExecutor:
                 "hedge_wins": self._hedge_wins,
                 "reorder_held": held,
                 "workers_count": self._workers_count,
+                "workers_retired": len(self._retired),
                 "stopped": self._stopped}
 
 
@@ -562,8 +712,20 @@ class SerialExecutor:
     def __init__(self, stop_on_failure: bool = True,
                  max_requeue_attempts: int = DEFAULT_REQUEUE_ATTEMPTS,
                  item_deadline_s: Optional[float] = None, hedge_after_s=None,
-                 stall_warn_s: Optional[float] = None):
+                 stall_warn_s: Optional[float] = None, telemetry=None):
         _check_liveness_args(item_deadline_s, hedge_after_s)
+        self._telemetry = tele = _resolve_telemetry(telemetry)
+        self._m_requeued = tele.counter("errors.requeued_items")
+        # the JAX serial pool's instruments, so its series names are the
+        # thread pool's (nothing waits or hedges here: they stay 0)
+        for name in ("queue.input_full_wait_s", "queue.results_full_wait_s",
+                     "liveness.hung_workers_killed", "liveness.hung_workers_abandoned",
+                     "liveness.hedged_items", "liveness.hedge_wins"):
+            tele.counter(name)
+        for name in ("pool.in_queue_depth", "pool.results_queue_depth"):
+            tele.gauge(name)
+        if tele.enabled:
+            tele.register_stage("ventilate")
         if item_deadline_s is not None or hedge_after_s is not None:
             logger.warning(
                 "item_deadline_s/hedge_after_s are inoperative on the serial"
@@ -627,12 +789,17 @@ class SerialExecutor:
                 target=self._watch_loop, daemon=True, name="petastorm-torch-serial-watchdog")
             self._watch_thread.start()
         self._issued = start
+        tele = self._telemetry
         for item in items:
+            t0 = time.perf_counter_ns() if tele.enabled else 0
             with self._lock:
                 if self._stopped or self._paused:
                     return
                 ordinal = self._issued
                 self._issued += 1
+            if tele.enabled:
+                tele.record_stage("ventilate", t0, time.perf_counter_ns() - t0,
+                                  {"ordinal": ordinal})
             vitem = VentilatedItem(ordinal, item)
             while True:
                 self._watch(vitem if self._stall_warn_s > 0 else None)
@@ -651,6 +818,7 @@ class SerialExecutor:
                         # no other worker to move the item to: retry inline
                         vitem = VentilatedItem(ordinal, item, vitem.attempt + 1)
                         self.requeued_items += 1
+                        self._m_requeued.add(1)
                         logger.warning("Serial worker infra failure on item %s (%s);"
                                        " retrying inline (attempt %d/%d)", ordinal,
                                        failure.exc_type, vitem.attempt, self._max_requeue)
@@ -702,9 +870,10 @@ class ThreadedExecutor(_LedgerExecutor):
     def __init__(self, workers_count: int = 4, results_queue_size: int = 10,
                  stop_on_failure: bool = True,
                  max_requeue_attempts: int = DEFAULT_REQUEUE_ATTEMPTS,
-                 item_deadline_s: Optional[float] = None, hedge_after_s=None):
+                 item_deadline_s: Optional[float] = None, hedge_after_s=None,
+                 telemetry=None):
         super().__init__(workers_count, results_queue_size, stop_on_failure,
-                         max_requeue_attempts, item_deadline_s, hedge_after_s)
+                         max_requeue_attempts, item_deadline_s, hedge_after_s, telemetry)
         self._in_q: "queue.Queue" = queue.Queue()
         #: worker results and the ventilator's end marker, for the consumer
         self._arrivals: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -721,12 +890,70 @@ class ThreadedExecutor(_LedgerExecutor):
 
     def start(self, worker_factory: WorkerFactory) -> None:
         self._factory = worker_factory
-        for i in range(self._workers_count):
+        with self._resize_lock:
+            for _ in range(self._workers_count):
+                self._spawn_slot()
+
+    def _in_queue_depth(self) -> int:
+        return self._in_q.qsize()
+
+    def _spawn_slot(self) -> int:
+        """Start a worker thread, in a cleanly retired slot when one is free
+        (hold ``_resize_lock``; ``petastorm_tpu/pool.py:883``)."""
+        for i in sorted(self._retired):
+            if not self._threads[i].is_alive():
+                self._retired.discard(i)
+                self._reaped.discard(i)
+                self._worker_state[i] = [None, time.monotonic()]
+                break
+        else:
+            i = len(self._worker_state)
+            # state before thread: readers index states by thread index
             self._worker_state.append([None, time.monotonic()])
-            t = threading.Thread(target=self._work, args=(i,), name=f"petastorm-torch-worker-{i}",
-                                 daemon=True)
-            t.start()
-            self._threads.append(t)
+            self._threads.append(None)
+        t = threading.Thread(target=self._work, args=(i,), name=f"petastorm-torch-worker-{i}",
+                             daemon=True)
+        self._threads[i] = t
+        t.start()
+        return i
+
+    def _active_slots(self) -> list:
+        """The slots of the live worker plane."""
+        return [i for i, t in enumerate(self._threads)
+                if i not in self._retired and i not in self._retiring
+                and i not in self._abandoned and t.is_alive()]
+
+    def resize_workers(self, n: int) -> int:
+        """Grow or shrink the worker plane to ``n`` threads in place
+        (``petastorm_tpu/pool.py:849``, autotune's worker knob).  A grow
+        starts threads (in retired slots first); a shrink marks the highest
+        live slots, each of which finishes its item and exits, so no item is
+        dropped or repeated.  The window follows: ``n`` plus the results
+        bound.  From the first call the count is a target the pool heals to.
+        Returns the new count."""
+        n = max(1, int(n))
+        with self._resize_lock:
+            self._target_managed = True
+            if self._factory is not None:
+                active = self._active_slots()
+                if len(active) < n:
+                    for _ in range(n - len(active)):
+                        self._spawn_slot()
+                else:
+                    self._retiring.update(sorted(active, reverse=True)[:len(active) - n])
+            self._workers_count = n
+            self._window.resize(workers=n)
+            return n
+
+    def _heal_to_target(self) -> None:
+        """Respawn the slots lost to deaths and abandoned hangs, up to the
+        target, once ``resize_workers`` manages the count (``petastorm_tpu/
+        pool.py:921``): a requeued item needs a live worker to land on."""
+        if not self._target_managed or self._factory is None or self._stop.is_set():
+            return
+        with self._resize_lock:
+            for _ in range(self._workers_count - len(self._active_slots())):
+                self._spawn_slot()
 
     def _try_enqueue(self, vitem: VentilatedItem) -> bool:
         self._in_q.put(vitem)  # unbounded: the window bounds what is issued
@@ -745,6 +972,13 @@ class ThreadedExecutor(_LedgerExecutor):
         except BaseException as exc:  # noqa: BLE001 - delivered with each item
             fn, factory_exc, takes_ventilated = None, exc, False
         while not self._stop.is_set():
+            if index in self._retiring:
+                # retire at the item boundary, marked before the exit so the
+                # reap sweep never takes it for a death
+                with self._resize_lock:
+                    self._retiring.discard(index)
+                    self._retired.add(index)
+                return
             try:
                 vitem = self._in_q.get(timeout=_POLL_S)
             except queue.Empty:
@@ -779,7 +1013,7 @@ class ThreadedExecutor(_LedgerExecutor):
         if self._stop.is_set():
             return
         for i, t in enumerate(self._threads):
-            if t.is_alive() or i in self._reaped:
+            if t.is_alive() or i in self._reaped or i in self._retired:
                 continue
             self._reaped.add(i)
             ordinal = self._worker_state[i][0]
@@ -788,9 +1022,10 @@ class ThreadedExecutor(_LedgerExecutor):
             self._worker_state[i][0] = None
             self._requeue_lost(ordinal, f"worker thread {i} death")
         self._check_liveness()
+        self._heal_to_target()
         if ((self._reaped or self._abandoned) and self._threads
                 and all(not t.is_alive() or i in self._abandoned
-                        for i, t in enumerate(self._threads))
+                        for i, t in enumerate(self._threads) if i not in self._retired)
                 and self._arrivals.empty()):
             self._raise_no_workers("All worker threads died or were abandoned as"
                                    " hung; no result will arrive")
@@ -810,7 +1045,8 @@ class ThreadedExecutor(_LedgerExecutor):
             s = self._worker_state[i]
             ordinal = s[0]
             if ordinal is None:
-                self._abandoned.pop(i, None)  # recovered and went idle
+                if self._abandoned.pop(i, None) is not None:
+                    self._trim_recovered(i)  # recovered and went idle
                 continue
             if self._abandoned.get(i) == ordinal:
                 continue  # this hang is handled
@@ -821,6 +1057,7 @@ class ThreadedExecutor(_LedgerExecutor):
             if deadline is not None and elapsed > deadline:
                 self._abandoned[i] = ordinal
                 self._hung_workers_abandoned += 1
+                self._m_hung_abandoned.add(1)
                 logger.warning(
                     "Worker thread %d hung on item %s for %.1fs > item_deadline_s=%.1f;"
                     " abandoning the slot and requeueing the item onto a sibling worker",
@@ -832,6 +1069,16 @@ class ThreadedExecutor(_LedgerExecutor):
                     and self._hedge(ordinal, f"straggling {elapsed:.1f}s on worker thread"
                                     f" {i} (hedge threshold {hedge_s:.1f}s)")):
                 idle = False  # one speculative copy a sweep
+
+    def _trim_recovered(self, index: int) -> None:
+        """Retire a recovered abandoned slot that overshoots the managed
+        target (its replacement was healed in meanwhile;
+        ``petastorm_tpu/pool.py:935``)."""
+        if not self._target_managed:
+            return
+        with self._resize_lock:
+            if len(self._active_slots()) > self._workers_count:
+                self._retiring.add(index)
 
     def join(self, timeout: float = 5.0) -> None:
         """Wait for the threads, ``timeout`` seconds in all.  Not waited for:
@@ -866,6 +1113,7 @@ class ThreadedExecutor(_LedgerExecutor):
                 busy.append((i, ordinal, round(max(0.0, now - s[1]), 3)))
         return {**super().diagnostics,
                 "in_queue_size": self._in_q.qsize(),
+                "results_queue_bound": self._window.bound,
                 # [(worker index, item ordinal, seconds on it)]: a stalled
                 # pipeline names the exact worker and work item
                 "workers_busy": busy,
@@ -945,7 +1193,7 @@ def _portable_failure(exc: BaseException, ordinal=None, item=None) -> _Failure:
 
 
 def _process_worker_main(worker_factory, in_queue, out_queue, stop_event, index,
-                         heartbeats, ready, peaks):
+                         heartbeats, ready, peaks, retire_flags):
     """A worker process's loop (``petastorm_tpu/pool.py:1419``).
 
     ``heartbeats``: shared doubles, three a slot: [ordinal (-1 idle), wall
@@ -955,6 +1203,8 @@ def _process_worker_main(worker_factory, in_queue, out_queue, stop_event, index,
     dies names the item it held.  ``ready``: the wall clock at which this
     worker's function was built (its spawn time, read by the parent).
     ``peaks``: the largest arena use this worker saw after an encode.
+    ``retire_flags``: a set flag makes the worker exit at its next item
+    boundary (``resize_workers``' shrink).
     """
     out_queue.worker_init()
     try:
@@ -968,6 +1218,8 @@ def _process_worker_main(worker_factory, in_queue, out_queue, stop_event, index,
     ready[index] = time.time()
     base = 3 * index
     while not stop_event.is_set():
+        if retire_flags[index]:
+            return
         try:
             vitem = in_queue.get(timeout=_POLL_S)
         except queue.Empty:
@@ -1068,9 +1320,10 @@ class ProcessExecutor(_LedgerExecutor):
                  stop_on_failure: bool = True,
                  max_requeue_attempts: int = DEFAULT_REQUEUE_ATTEMPTS,
                  item_deadline_s: Optional[float] = None, hedge_after_s=None,
-                 shm_size_bytes: Optional[int] = None):
+                 shm_size_bytes: Optional[int] = None, telemetry=None,
+                 max_workers: Optional[int] = None):
         super().__init__(workers_count, results_queue_size, stop_on_failure,
-                         max_requeue_attempts, item_deadline_s, hedge_after_s)
+                         max_requeue_attempts, item_deadline_s, hedge_after_s, telemetry)
         from petastorm_tpu_torch.native import load_arena
 
         load_arena()  # raises when the library cannot be built
@@ -1078,10 +1331,13 @@ class ProcessExecutor(_LedgerExecutor):
 
         self._ctx = mp.get_context("spawn")
         self._shm_size = int(shm_size_bytes or self.DEFAULT_SHM_BYTES)
-        self._in_queue = self._ctx.Queue(workers_count + 2)
-        window = workers_count + max(results_queue_size, 1)
+        #: worker slots made at start: resize_workers grows up to this many
+        self._slot_capacity = max(workers_count, int(max_workers or workers_count))
+        cap = self._slot_capacity
+        self._in_queue = self._ctx.Queue(cap + 2)
+        window = cap + max(results_queue_size, 1)
         # room for the window and for duplicates of requeued or hedged items
-        self._out_queue = _CrashSafeResultsChannel(self._ctx, window + 2 * workers_count)
+        self._out_queue = _CrashSafeResultsChannel(self._ctx, window + 2 * cap)
         self._stop_event = self._ctx.Event()
         self._procs: list = []
         self._spawned_at: list = []
@@ -1097,6 +1353,16 @@ class ProcessExecutor(_LedgerExecutor):
         self._pickled_batches = 0
         self._slot_columns = 0
         self._slot_rows = 0
+        self._retire_flags = None
+
+    @property
+    def max_resize_workers(self) -> int:
+        """The most workers ``resize_workers`` can run (the slots made at
+        start); the autotune controller caps its worker knob here."""
+        return self._slot_capacity
+
+    def _in_queue_depth(self) -> int:
+        return self._in_queue.qsize()
 
     def start(self, worker_factory: WorkerFactory) -> None:
         if self._procs:
@@ -1107,16 +1373,64 @@ class ProcessExecutor(_LedgerExecutor):
         self._arena = SharedArena.create(self._shm_size)
         self._factory = ShmResultEncoder(worker_factory, self._arena.name)
         self._needs_main = _refers_to_main(self._factory)
-        n = self._workers_count
-        self._heartbeats = self._ctx.RawArray("d", 3 * n)
-        self._ready = self._ctx.RawArray("d", n)
-        self._peaks = self._ctx.RawArray("d", n)
-        for i in range(n):
+        cap = self._slot_capacity
+        self._heartbeats = self._ctx.RawArray("d", 3 * cap)
+        self._ready = self._ctx.RawArray("d", cap)
+        self._peaks = self._ctx.RawArray("d", cap)
+        self._retire_flags = self._ctx.RawArray("b", cap)
+        for i in range(cap):
             self._heartbeats[3 * i] = -1.0
             self._heartbeats[3 * i + 2] = -1.0
-            self._procs.append(None)
-            self._spawned_at.append(0.0)
-            self._spawn_worker(i)
+        with self._resize_lock:
+            for i in range(self._workers_count):
+                self._procs.append(None)
+                self._spawned_at.append(0.0)
+                self._spawn_worker(i)
+
+    def resize_workers(self, n: int) -> int:
+        """Grow or shrink the worker processes to ``n`` in place
+        (``petastorm_tpu/pool.py:1681``), at most :attr:`max_resize_workers`.
+        A grow respawns retired slots, then spawns into unused ones; a
+        shrink flags the highest live slots, each of which delivers its item
+        and exits at the item boundary.  Returns the new count."""
+        n = max(1, min(int(n), self._slot_capacity))
+        with self._resize_lock:
+            self._target_managed = True
+            if self._procs:
+                self._reap_retired()
+                active = [i for i, p in enumerate(self._procs)
+                          if i not in self._retired and i not in self._retiring
+                          and i not in self._reaped and p.is_alive()]
+                if len(active) < n:
+                    for i in sorted(self._retired):
+                        if len(active) >= n:
+                            break
+                        self._retired.discard(i)
+                        self._retire_flags[i] = 0
+                        self._clear_heartbeat(i)
+                        self._spawn_worker(i)
+                        active.append(i)
+                    while len(active) < n and len(self._procs) < self._slot_capacity:
+                        i = len(self._procs)
+                        self._procs.append(None)
+                        self._spawned_at.append(0.0)
+                        self._spawn_worker(i)
+                        active.append(i)
+                elif len(active) > n:
+                    for i in sorted(active, reverse=True)[:len(active) - n]:
+                        self._retiring.add(i)
+                        self._retire_flags[i] = 1
+            self._workers_count = n
+            self._window.resize(workers=n)
+            return n
+
+    def _reap_retired(self) -> None:
+        """Move the flagged slots whose worker has exited to ``_retired``."""
+        for i in list(self._retiring):
+            if not self._procs[i].is_alive():
+                self._procs[i].join(timeout=0)
+                self._retiring.discard(i)
+                self._retired.add(i)
 
     def _spawn_worker(self, index: int) -> None:
         """Spawn (or respawn, once its predecessor is dead) slot ``index``."""
@@ -1124,7 +1438,7 @@ class ProcessExecutor(_LedgerExecutor):
         p = self._ctx.Process(
             target=_process_worker_main,
             args=(self._factory, self._in_queue, self._out_queue, self._stop_event, index,
-                  self._heartbeats, self._ready, self._peaks),
+                  self._heartbeats, self._ready, self._peaks, self._retire_flags),
             name=f"petastorm-torch-worker-{index}", daemon=True)
         self._spawned_at[index] = time.time()
         with contextlib.nullcontext() if self._needs_main else _without_main():
@@ -1176,7 +1490,11 @@ class ProcessExecutor(_LedgerExecutor):
 
         if isinstance(raw, ShmBatchRef):
             self._shm_batches += 1
-            self._slot_columns += slot_column_count(raw)
+            slots = slot_column_count(raw)
+            self._slot_columns += slots
+            if slots and self._telemetry.enabled:
+                # the parent's proof of decode-into-slot (``petastorm_tpu/pool.py:1984``)
+                self._telemetry.counter("decode.batch_slots").add(slots)
             self._slot_rows += slot_row_count(raw)
             self._consumer_peak = max(self._consumer_peak, self._arena.used_bytes())
         elif carries_raw_columns(raw):
@@ -1209,8 +1527,10 @@ class ProcessExecutor(_LedgerExecutor):
         self._flush_pending_requeues()
         if self._stop.is_set():
             return
+        with self._resize_lock:
+            self._reap_retired()
         for i, p in enumerate(self._procs):
-            if p.is_alive() or i in self._reaped:
+            if p.is_alive() or i in self._reaped or i in self._retired:
                 continue
             self._reaped.add(i)
             hb_ordinal, _since = self._read_heartbeat(i)
@@ -1221,7 +1541,8 @@ class ProcessExecutor(_LedgerExecutor):
             self._clear_heartbeat(i)
             self._requeue_lost(ordinal, f"worker process {i} death (exit code {p.exitcode})")
         self._check_liveness()
-        if self._procs and not any(p.is_alive() for p in self._procs):
+        if self._procs and not any(p.is_alive() for i, p in enumerate(self._procs)
+                                   if i not in self._retired):
             self._raise_no_workers("All worker processes died (possible crash/OOM);"
                                    " no result will arrive")
 
@@ -1259,6 +1580,7 @@ class ProcessExecutor(_LedgerExecutor):
                 hb_ordinal, _since = self._read_heartbeat(i)
                 self._clear_heartbeat(i)
                 self._hung_workers_killed += 1
+                self._m_hung_killed.add(1)
                 self._spawn_worker(i)
                 self._requeue_lost(int(hb_ordinal) if hb_ordinal >= 0 else None,
                                    f"hung worker process {i} SIGKILLed after exceeding item"
@@ -1359,7 +1681,8 @@ def make_executor(kind: str = "thread", workers_count: int = 4, results_queue_si
                   max_requeue_attempts: int = DEFAULT_REQUEUE_ATTEMPTS,
                   item_deadline_s: Optional[float] = None, hedge_after_s=None,
                   stall_warn_s: Optional[float] = None,
-                  shm_size_bytes: Optional[int] = None):
+                  shm_size_bytes: Optional[int] = None, telemetry=None,
+                  max_workers: Optional[int] = None):
     """``'thread'``, ``'process'`` or ``'serial'`` (``'dummy'``, upstream
     petastorm's name for it) (``petastorm_tpu/pool.py:2096``).
 
@@ -1370,15 +1693,18 @@ def make_executor(kind: str = "thread", workers_count: int = 4, results_queue_si
     serial pool warns that they do nothing).  ``stall_warn_s`` reaches the
     serial pool's watchdog; the thread and process pools take their stall
     thresholds from the reader.  ``shm_size_bytes`` sizes the process
-    pool's arena.
+    pool's arena, and ``max_workers`` its worker slots (autotune's ceiling).
+    ``telemetry`` records the pool's series.
     """
     common = dict(stop_on_failure=stop_on_failure, max_requeue_attempts=max_requeue_attempts,
-                  item_deadline_s=item_deadline_s, hedge_after_s=hedge_after_s)
+                  item_deadline_s=item_deadline_s, hedge_after_s=hedge_after_s,
+                  telemetry=telemetry)
     if kind == "thread":
         return ThreadedExecutor(workers_count, results_queue_size, **common)
     if kind == "process":
         return ProcessExecutor(workers_count, results_queue_size,
-                               shm_size_bytes=shm_size_bytes, **common)
+                               shm_size_bytes=shm_size_bytes, max_workers=max_workers,
+                               **common)
     if kind in ("serial", "dummy"):
         return SerialExecutor(stall_warn_s=stall_warn_s, **common)
     raise PetastormTpuError(

@@ -46,17 +46,25 @@ through ``fs.py`` with ``io_retries`` and one ranged read a rowgroup
 against hung and straggling workers; ``reader_pool_type='process'`` runs
 the workers as spawned processes over a shared-memory transport
 (``pool.ProcessExecutor``); ``chaos`` injects faults for tests
-(``test_util.chaos``).  The shared cache tier, the ``'auto'`` placement,
-telemetry and the ingest service are not part of this package yet
-(ROADMAP.md queue A item 11).
+(``test_util.chaos``).  ``telemetry`` observes the whole pipeline, with a
+sampler, a localhost metrics endpoint and a flight recorder
+(``telemetry/``, ``:1179-1396``); ``autotune`` (implied by
+``workers_count='auto'``) runs the static planner (``planner.py``) and then
+the runtime controller (``autotune.py``); ``cache_type='shared'`` is the
+host-wide warm tier (``cache_shared.py``); ``decode_placement='auto'`` is
+the live host/device decode split (``:715-731``, ``:2015-2060``).  The
+ingest service is not part of this package yet (ROADMAP.md queue A item
+11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import multiprocessing
 import os
 import shutil
+import time
 from typing import FrozenSet, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -80,6 +88,8 @@ from petastorm_tpu_torch.retry import make_circuit_breaker, resolve_retry_policy
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import StreamDigest, resolve_deterministic
 from petastorm_tpu_torch.sequence.dataset import is_sequence_field
+from petastorm_tpu_torch.telemetry import dominant_stage
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 from petastorm_tpu_torch.transform import (TransformSpec, transform_cache_info,
                                            transform_schema)
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker
@@ -96,7 +106,9 @@ _STALL_ABORT_S = 0.0
 _DIAGNOSTICS_QUARANTINE_TAIL = 20
 #: the pool's keys ``Reader.diagnostics`` carries (``petastorm_tpu/pool.py:
 #: 555-562``, ``:1275-1301``, ``:2043-2076``)
-_POOL_DIAGNOSTICS = ("requeued_items", "hung_workers_killed", "hung_workers_abandoned",
+_POOL_DIAGNOSTICS = ("ventilated", "consumed", "in_queue_size", "reorder_held", "stopped",
+                     "results_queue_bound", "workers_retired",
+                     "requeued_items", "hung_workers_killed", "hung_workers_abandoned",
                      "hedged_items", "hedge_wins", "workers_busy", "workers_abandoned",
                      "workers_count", "workers_alive", "shm_transport")
 #: the process pool's transport counters (``Reader.transport_stats``)
@@ -138,20 +150,32 @@ def make_reader(dataset_url: str,
                 hedge_after_s=None,
                 stall_warn_s: Optional[float] = None,
                 stall_abort_s: Optional[float] = None,
-                chaos=None) -> "Reader":
+                chaos=None,
+                telemetry=None,
+                metrics_port: Optional[int] = None,
+                flight_record_path: Optional[str] = None,
+                sample_interval_s: Optional[float] = None,
+                autotune=None,
+                trace_items=None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
     (the loader's path).  ``num_epochs=None`` reads forever.
 
-    ``decode_placement``: field -> ``'host'``, ``'device'`` or
-    ``'device-mixed'``.  A ``'device'`` field (a fixed-shape JPEG image of
+    ``decode_placement``: field -> ``'host'``, ``'device'``,
+    ``'device-mixed'`` or ``'auto'``.  A ``'device'`` field (a fixed-shape JPEG image of
     one geometry) is entropy-decoded in the workers and finished on the card
     by ``cuda.CudaDataLoader``; such a reader is consumed through that loader
     only.  A ``'device-mixed'`` field may mix JPEG sizes and subsamplings and
     may declare wildcard dims (``(None, None, 3)``): its rows travel as
     object cells (``native.image.pack_coef_columns_mixed``) and the loader
     decodes each geometry bucket of a batch in one B2 launch and fits it to
-    one target shape (the schema's, else one ``pad_shapes`` entry).
+    one target shape (the schema's, else one ``pad_shapes`` entry).  An
+    ``'auto'`` field (fixed shape, as ``'device'``) is the live host/device
+    split: each rowgroup ships the coefficient planes or the decoded pixels,
+    as the reader's split cell says when a worker takes it (``'device'`` at
+    start, or the planner's profile); ``Reader.set_decode_split`` moves it,
+    and so does an armed autotune controller.  The loader assembles the two
+    forms apart, so no batch mixes them.
 
     ``deterministic``: ``'seed'``, ``'off'`` or ``'auto'`` (``'seed'`` when a
     ``shuffle_seed`` is given).  Under ``'seed'`` an unseeded loader shuffle
@@ -185,7 +209,12 @@ def make_reader(dataset_url: str,
     ``decode_placement='device'`` field is cached as its coefficient planes:
     a hit skips the entropy decode, and the loader still finishes the decode
     on the device.  ``Reader.cache_stats()`` counts the hits and misses.
-    The host-wide ``'shared'`` tier is not part of this package yet.
+    ``'shared'`` is the host-wide warm tier (``cache_shared.SharedWarmCache``):
+    decoded rowgroups in a shared-memory arena that every worker, reader and
+    job on the host naming the same ``cache_location`` (default
+    ``<tmp>/petastorm_tpu_torch_warm``) hits, over a disk tier;
+    ``cache_size_limit`` sizes the arena (default 256 MiB).  It raises when
+    the arena's library cannot be built.
 
     ``rowgroup_selector``: a ``selectors`` object resolved against the
     dataset's stored indexes (``etl.indexing.build_rowgroup_index``); only
@@ -263,7 +292,10 @@ def make_reader(dataset_url: str,
     ``on_error`` requeue budget; an item that hangs every attempt ends as a
     data error, which a skip policy quarantines.  ``hedge_after_s`` re-issues
     an item busy for that many seconds to an idle worker, first result wins;
-    ``'auto'`` hedges nothing (without telemetry, as the JAX reader).  Both
+    ``'auto'`` is 4x the p99 of the recorded decode latency, at least 0.5 s,
+    once 20 decodes are recorded here (nothing before that, without
+    telemetry, or under the process pool, whose decodes are recorded in its
+    workers).  Both
     do nothing on the serial pool.  ``diagnostics`` counts
     ``requeued_items``, ``hung_workers_killed``, ``hung_workers_abandoned``,
     ``hedged_items`` and ``hedge_wins``.
@@ -278,7 +310,28 @@ def make_reader(dataset_url: str,
 
     ``chaos``: a ``test_util.chaos.ChaosSpec``, deterministic fault injection
     for tests; its worker faults wrap the worker (``ChaosWorker``) and its
-    filesystem faults the dataset's filesystem (``latency_fs``)."""
+    filesystem faults the dataset's filesystem (``latency_fs``).
+
+    ``telemetry``: a ``telemetry.Telemetry`` recorder for the whole pipeline
+    (None: the process default when ``PETASTORM_TPU_TELEMETRY=1``, else the
+    no-op recorder), ``Reader.telemetry``.  ``metrics_port`` serves the
+    Prometheus text on localhost (0: any free port, ``reader.metrics_server.
+    port``; ``PETASTORM_TPU_METRICS_PORT``), ``flight_record_path`` writes
+    the sampled series and the trace tail on a terminal failure
+    (``PETASTORM_TPU_FLIGHT_RECORD``), ``sample_interval_s`` sets the
+    sampler's cadence (``PETASTORM_TPU_SAMPLE_INTERVAL_S``, 1 s; <= 0 stops
+    it).  Any of them, ``autotune`` or a positive ``sample_interval_s``
+    makes a private recorder when none is enabled.  ``trace_items`` is the
+    ingest service's per-item tracing and raises without it.
+
+    ``autotune``: ``True``, an ``autotune.AutotunePolicy``, or ``False``;
+    None arms it for ``workers_count='auto'`` only.  The planner seeds the
+    worker count, decode fan-out, results bound, loader prefetch, the shared
+    tier's residency and the split side from the footer and the dataset's
+    recorded profile (``Reader.diagnostics['planner']``); the controller
+    then moves them from the sampler's queue waits
+    (``Reader.diagnostics['autotune']``).  Under ``deterministic='seed'``
+    the split is not tuned.  Inoperative on the serial pool."""
     return _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
@@ -288,7 +341,11 @@ def make_reader(dataset_url: str,
                         transform_spec, ngram, on_error, verify_checksums,
                         storage_options, filesystem, io_retries, batched_output=False,
                         item_deadline_s=item_deadline_s, hedge_after_s=hedge_after_s,
-                        stall_warn_s=stall_warn_s, stall_abort_s=stall_abort_s, chaos=chaos)
+                        stall_warn_s=stall_warn_s, stall_abort_s=stall_abort_s, chaos=chaos,
+                        telemetry=telemetry, metrics_port=metrics_port,
+                        flight_record_path=flight_record_path,
+                        sample_interval_s=sample_interval_s, autotune=autotune,
+                        trace_items=trace_items)
 
 
 def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
@@ -324,7 +381,13 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                       hedge_after_s=None,
                       stall_warn_s: Optional[float] = None,
                       stall_abort_s: Optional[float] = None,
-                      chaos=None) -> "Reader":
+                      chaos=None,
+                      telemetry=None,
+                      metrics_port: Optional[int] = None,
+                      flight_record_path: Optional[str] = None,
+                      sample_interval_s: Optional[float] = None,
+                      autotune=None,
+                      trace_items=None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with an inferred schema:
     scalar columns, list-of-scalar columns as ``(None,)`` ``ScalarListCodec``
@@ -332,8 +395,9 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
     ``dataset_url_or_urls`` is a dataset directory or a list of parquet file
     (or directory) URLs; a list's root is the common directory above any
     ``key=value`` segments, so its partition values and ``_common_metadata``
-    are found.  The other arguments as for :func:`make_reader`; ``ngram`` is
-    refused, as the JAX package refuses it."""
+    are found.  The other arguments (telemetry, autotune and the shared tier
+    included) as for :func:`make_reader`; ``ngram`` is refused, as the JAX
+    package refuses it."""
     return _make_reader(dataset_url_or_urls, schema_fields, reader_pool_type, workers_count,
                         results_queue_size, shuffle_row_groups, shuffle_seed,
                         num_epochs, cur_shard, shard_count, decode_placement,
@@ -343,7 +407,11 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                         transform_spec, ngram, on_error, verify_checksums,
                         storage_options, filesystem, io_retries, batched_output=True,
                         item_deadline_s=item_deadline_s, hedge_after_s=hedge_after_s,
-                        stall_warn_s=stall_warn_s, stall_abort_s=stall_abort_s, chaos=chaos)
+                        stall_warn_s=stall_warn_s, stall_abort_s=stall_abort_s, chaos=chaos,
+                        telemetry=telemetry, metrics_port=metrics_port,
+                        flight_record_path=flight_record_path,
+                        sample_interval_s=sample_interval_s, autotune=autotune,
+                        trace_items=trace_items)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -363,23 +431,20 @@ def elastic_resume(states: Sequence[dict]) -> dict:
 
 def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], schema: Schema,
                                read_fields: Sequence[str], transform_spec=None,
-                               predicate=None, ngram=None) -> Tuple[List[str], FrozenSet[str]]:
-    """The fields to decode on the device and the subset of them in the
-    mixed-geometry format (``'device-mixed'``); raises on a placement the
-    port does not take.  The checks of ``petastorm_tpu/reader.py:1052-1145``
-    for ``'host'``, ``'device'`` and ``'device-mixed'``; ``'auto'`` (the live
-    host/device split) is not part of this package yet."""
+                               predicate=None, ngram=None
+                               ) -> Tuple[List[str], FrozenSet[str], FrozenSet[str]]:
+    """The fields to decode on the device, the subset of them in the
+    mixed-geometry format (``'device-mixed'``) and the subset under the live
+    split (``'auto'``); raises on a placement the port does not take (the
+    checks of ``petastorm_tpu/reader.py:1052-1145``)."""
     device_fields: List[str] = []
     mixed_fields = set()
+    split_fields = set()
     for name, place in (decode_placement or {}).items():
-        if place == "auto":
+        if place not in ("host", "device", "device-mixed", "auto"):
             raise PetastormTpuError(
-                f"decode_placement[{name!r}]='auto' (the live host/device split) is not part"
-                " of this package yet: use 'host', 'device' or 'device-mixed'")
-        if place not in ("host", "device", "device-mixed"):
-            raise PetastormTpuError(
-                f"decode_placement[{name!r}] must be 'host', 'device' or 'device-mixed',"
-                f" got {place!r}")
+                f"decode_placement[{name!r}] must be 'host', 'device',"
+                f" 'device-mixed' or 'auto', got {place!r}")
         if name not in schema:
             raise PetastormTpuError(f"decode_placement field {name!r} not in"
                                     f" schema {list(schema.fields)}")
@@ -402,7 +467,7 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
                 + (f"({codec.image_codec})" if isinstance(codec, CompressedImageCodec) else "")
                 + ". PNG's deflate stream cannot be entropy-split for decode on the"
                 " device - store images as jpeg for device decode.")
-        if place == "device" and not field.is_fixed_shape:
+        if place in ("device", "auto") and not field.is_fixed_shape:
             raise PetastormTpuError(
                 f"decode_placement='device' field {name!r} needs a fixed shape (got"
                 f" {field.shape}): a batch is decoded in one launch of one geometry. For"
@@ -433,11 +498,13 @@ def _validate_decode_placement(decode_placement: Optional[Mapping[str, str]], sc
         device_fields.append(name)
         if place == "device-mixed":
             mixed_fields.add(name)
+        elif place == "auto":
+            split_fields.add(name)
     if device_fields:
         # the entropy half's library: a missing g++ or libjpeg raises here,
         # not in the first worker
         native_image.load()
-    return device_fields, frozenset(mixed_fields)
+    return device_fields, frozenset(mixed_fields), frozenset(split_fields)
 
 
 _ROI_MODES = ("center", "random")
@@ -556,7 +623,11 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  transform_spec, ngram, on_error, verify_checksums,
                  storage_options, filesystem, io_retries, batched_output,
                  item_deadline_s=None, hedge_after_s=None, stall_warn_s=None,
-                 stall_abort_s=None, chaos=None) -> "Reader":
+                 stall_abort_s=None, chaos=None, telemetry=None, metrics_port=None,
+                 flight_record_path=None, sample_interval_s=None, autotune=None,
+                 trace_items=None) -> "Reader":
+    from petastorm_tpu_torch.autotune import resolve_autotune
+
     if num_epochs is not None and num_epochs < 1:
         raise PetastormTpuError("num_epochs must be >= 1 or None (infinite)")
     if ngram is not None and batched_output:
@@ -575,6 +646,48 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             " boundary are computed before the predicate masks rows, so"
             " windows spanning masked rows would be silently lost. Use"
             " shuffle_row_drop_partitions=1.")
+    if trace_items:
+        raise PetastormTpuError(
+            "trace_items arms DISTRIBUTED per-item tracing across the"
+            " ingest service's processes and needs service_address; local"
+            " pools already trace every stage span into the telemetry"
+            " trace buffer")
+    telemetry = _resolve_telemetry(telemetry)
+    deterministic = resolve_deterministic(deterministic, shuffle_seed)
+    # None is the default bound; an explicit int, even the default's value,
+    # is pinned and the planner never moves it (``petastorm_tpu/reader.py:489``)
+    results_queue_pinned = results_queue_size is not None
+    if results_queue_size is None:
+        results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
+    autotune_policy = resolve_autotune(autotune, workers_count, reader_pool_type)
+    if (deterministic == "seed" and autotune_policy is not None
+            and "decode_split" not in autotune_policy.exclude_knobs):
+        # a live split flip changes which form a rowgroup ships by when a
+        # worker took it: no seed-stable stream survives it (``:503-514``)
+        autotune_policy = dataclasses.replace(
+            autotune_policy, exclude_knobs=autotune_policy.exclude_knobs | {"decode_split"})
+    if not flight_record_path:
+        flight_record_path = os.environ.get("PETASTORM_TPU_FLIGHT_RECORD", "").strip() or None
+    if metrics_port is None:
+        raw_port = os.environ.get("PETASTORM_TPU_METRICS_PORT", "").strip()
+        if raw_port:
+            try:
+                metrics_port = int(raw_port)
+            except ValueError:
+                logger.warning("Ignoring non-integer PETASTORM_TPU_METRICS_PORT=%r", raw_port)
+    if ((flight_record_path or metrics_port is not None or autotune_policy is not None
+         or (sample_interval_s is not None and sample_interval_s > 0))
+            and not telemetry.enabled):
+        # the observability knobs and the autotune loop need a live
+        # recorder: a private one (``:559-568``)
+        from petastorm_tpu_torch.telemetry import Telemetry
+
+        telemetry = Telemetry()
+    if telemetry.enabled:
+        # the stages this pipeline runs, shown as "no samples yet" until then
+        telemetry.register_stage("decode")
+        if transform_spec is not None:
+            telemetry.register_stage("transform")
     error_policy = resolve_error_policy(on_error)
     if chaos is not None and chaos.affects_filesystem():
         # transient-IO chaos sits in the filesystem layer, beneath the real
@@ -584,12 +697,12 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             dataset_url if isinstance(dataset_url, str) else dataset_url[0],
             storage_options, filesystem)
         filesystem = chaos.wrap_filesystem(base_fs)
-    deterministic = resolve_deterministic(deterministic, shuffle_seed)
     # one analysis walk a reader: the worker's cache signature and
     # output-caching verdict both come from this triple
     tf_cache_info = transform_cache_info(transform_spec)
     info = open_dataset(dataset_url, storage_options=storage_options, filesystem=filesystem,
-                        require_stored_schema=not batched_output, io_retries=io_retries)
+                        require_stored_schema=not batched_output, io_retries=io_retries,
+                        telemetry=telemetry)
     full_schema = infer_or_load_schema(info)
     # a predicate over partition keys alone filters rowgroups by their path
     # values before the plan is made; the workers then get none
@@ -613,9 +726,10 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         view = full_schema.view([n for n in required if n in full_schema])
         schema = ngram_schema
     read_fields = [f.name for f in view]
-    device_fields, mixed_fields = _validate_decode_placement(
+    device_fields, mixed_fields, split_fields = _validate_decode_placement(
         decode_placement, full_schema, read_fields, transform_spec, worker_predicate, ngram)
-    if any(native_decodable(full_schema[f]) for f in read_fields if f not in device_fields):
+    if any(native_decodable(full_schema[f]) for f in read_fields
+           if f not in device_fields or f in split_fields):
         # the batched decode's library: a missing g++, libjpeg or libpng
         # raises here, not in the first worker
         native_image.load_decoder()
@@ -645,8 +759,16 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             raise NoDataAvailableError(f"No rowgroups to read in {dataset_url!r}")
     if cache_type not in (None, "null", "none") and worker_predicate is not None:
         # a cached rowgroup would hold the rows of one predicate (reference
-        # py_dict_reader_worker.py:145-150)
+        # py_dict_reader_worker.py:145-150); refused before make_cache, which
+        # makes the shared tier's segments
         raise PetastormTpuError("cache_type cannot be combined with a predicate")
+    if cache_type == "memory" and reader_pool_type == "process":
+        raise PetastormTpuError(
+            "cache_type='memory' is process-local: every spawned worker would"
+            " hold its own empty cache, giving zero hits while multiplying"
+            " memory. Use reader_pool_type='thread' (the cache is shared and"
+            " thread-safe), cache_type='shared' or cache_type='local-disk' with the"
+            " process pool.")
     start_item, digest_state = 0, None
     if resume_from is not None and "elastic" not in resume_from:
         # the digest chain continues across the split (an elastic resume
@@ -665,10 +787,46 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                     " elastic_resume() with every shard's state instead")
         else:
             start_item = int(resume_from.get("position", 0))
-    if results_queue_size is None:
-        results_queue_size = _DEFAULT_RESULTS_QUEUE_BATCHES
+    decode_split_cell = None
+    if split_fields:
+        # one shared int cell every worker reads a rowgroup (0 host pixels, 1
+        # device planes); a spawn-context Value crosses into process-pool
+        # workers with their arguments.  It starts on the device side
+        # (``petastorm_tpu/reader.py:719-731``)
+        decode_split_cell = multiprocessing.get_context("spawn").Value("i", 1, lock=False)
+    planner_verdict = None
+    if autotune_policy is not None and autotune_policy.planner:
+        from petastorm_tpu_torch import planner as _planner
+
+        try:
+            planner_verdict = _planner.plan_reader(
+                info, read_fields, policy=autotune_policy, cores=_usable_cores(),
+                cache_type=cache_type, cache_location=cache_location,
+                transform_signature=tf_cache_info[0], split_fields=split_fields,
+                workers_count=workers_count, decode_threads=decode_threads,
+                results_queue_size=results_queue_size,
+                results_queue_pinned=results_queue_pinned,
+                image_fields=[f.name for f in view
+                              if isinstance(f.codec, CompressedImageCodec)])
+        except Exception:  # noqa: BLE001 - planning must not fail the read
+            logger.warning("pipeline planner failed; starting from static defaults",
+                           exc_info=True)
+    if planner_verdict is not None:
+        # the knob resolution order pinned > profile > metadata > default
+        # (``petastorm_tpu/reader.py:770-790``)
+        planned = planner_verdict.knobs
+        if workers_count == "auto" and "workers" in planned:
+            workers_count = planned["workers"].value
+        if decode_threads == "auto" and "decode_threads" in planned:
+            decode_threads = planned["decode_threads"].value
+        if ("results_queue" in planned
+                and planned["results_queue"].source in ("profile", "metadata")):
+            results_queue_size = planned["results_queue"].value
+        if ("decode_split" in planned and decode_split_cell is not None
+                and "decode_split" not in autotune_policy.exclude_knobs):
+            decode_split_cell.value = planned["decode_split"].value
     workers_count, decode_threads = _size_pool(workers_count, decode_threads)
-    cache = make_cache(cache_type, cache_location, cache_size_limit)
+    cache = make_cache(cache_type, cache_location, cache_size_limit, telemetry=telemetry)
     # raise mode takes the default pool; a skip policy's keeps running past
     # a failure, so the reader can quarantine the item (``:832-852``)
     pool_kwargs = {} if error_policy is None else dict(
@@ -678,10 +836,14 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                                           ("hedge_after_s", hedge_after_s),
                                           ("stall_warn_s", stall_warn_s)) if v is not None})
     if reader_pool_type == "process":
+        # resize slots up to the autotune ceiling are made at start
+        max_workers = autotune_policy.max_workers if autotune_policy is not None else None
+        pool_kwargs["max_workers"] = max_workers
         pool_kwargs["shm_size_bytes"] = _arena_bytes(
             full_schema, read_fields, device_fields, decode_roi or {}, plan,
-            workers_count + max(results_queue_size, 1), ngram)
-    executor = make_executor(reader_pool_type, workers_count, results_queue_size, **pool_kwargs)
+            max(workers_count, max_workers or 0) + max(results_queue_size, 1), ngram)
+    executor = make_executor(reader_pool_type, workers_count, results_queue_size,
+                             telemetry=telemetry, **pool_kwargs)
     # one breaker for every worker of the reader: a store that is down fails
     # fast with CircuitOpenError instead of each worker spending its whole
     # retry budget (``petastorm_tpu/reader.py:731-738``)
@@ -696,7 +858,9 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                                    transform_cache_info=tf_cache_info,
                                    ngram=ngram, ngram_schema=ngram_schema,
                                    verify_checksums=verify_checksums, fs_factory=fs_factory,
-                                   retry_policy=retry_policy, circuit_breaker=circuit_breaker)
+                                   retry_policy=retry_policy, circuit_breaker=circuit_breaker,
+                                   telemetry=telemetry, split_fields=split_fields,
+                                   decode_split=decode_split_cell)
     pool_worker = worker
     if chaos is not None and chaos.affects_worker():
         from petastorm_tpu_torch.test_util.chaos import ChaosWorker
@@ -708,8 +872,36 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                     error_policy=error_policy, declared_geometries=declared_geometries(info),
                     device_decode_mixed=mixed_fields, dataset_info=info,
                     pool_worker=pool_worker, stall_warn_s=stall_warn_s,
-                    stall_abort_s=stall_abort_s)
+                    stall_abort_s=stall_abort_s, telemetry=telemetry,
+                    metrics_port=metrics_port, flight_record_path=flight_record_path,
+                    sample_interval_s=sample_interval_s, autotune_policy=autotune_policy,
+                    device_decode_split=split_fields, decode_split_cell=decode_split_cell,
+                    planner=planner_verdict)
     reader.circuit_breaker = circuit_breaker
+    from petastorm_tpu_torch.cache_shared import SharedWarmCache
+
+    if isinstance(cache, SharedWarmCache):
+        # the reader publishes the tier's cache.* series and shows its stats
+        reader.warm_cache = cache
+        if (planner_verdict is not None and "cache_mem" in planner_verdict.knobs
+                and cache.get_target_bytes() == int(0.8 * cache.l1_size_bytes)
+                and cache.stats().get("bytes", 0)
+                <= planner_verdict.knobs["cache_mem"].value * 2 ** 20):
+            # seed the residency target only while it sits at its creation
+            # default and applying it evicts nothing: it lives in the tier's
+            # shared header, for every job on it (``:917-930``)
+            cache.set_target_bytes(planner_verdict.knobs["cache_mem"].value * 2 ** 20)
+        if reader.autotune is not None:
+            mb = 2 ** 20
+            reader.autotune.attach_cache_memory(
+                get=lambda: max(1, cache.get_target_bytes() // mb),
+                set_=lambda n: cache.set_target_bytes(n * mb) // mb,
+                lo_mb=16, hi_mb=max(16, int(0.8 * cache.l1_size_bytes) // mb))
+    if decode_split_cell is not None and reader.autotune is not None:
+        # the split as a live knob: a starved consumer pushes the decode to
+        # the device, a consumer-bound pipeline pulls it back (``:940-947``)
+        reader.autotune.attach_decode_split(get=lambda: int(decode_split_cell.value),
+                                            set_=reader.set_decode_split)
     return reader
 
 
@@ -750,6 +942,28 @@ def _arena_bytes(schema: Schema, read_fields, device_fields, decode_roi, plan, w
     except OSError:
         pass  # no such filesystem here: the estimate stands
     return int(size)
+
+
+def _native_diagnostics() -> dict:
+    """Whether the batched image decode and the arena libraries load here
+    (built at first use), why the shared-memory transport is or is not
+    available, and the command that builds them; the JAX reader's keys
+    (``petastorm_tpu/reader.py:2136-2150``)."""
+    from petastorm_tpu_torch.native import load_arena
+
+    def loads(load) -> Optional[str]:
+        try:
+            load()
+            return None
+        except Exception as exc:  # noqa: BLE001 - reported, not raised
+            return f"{type(exc).__name__}: {exc}"
+
+    arena_error = loads(load_arena)
+    return {"image_decode": loads(native_image.load_decoder) is None,
+            "shm_arena": arena_error is None,
+            "shm_transport": {"available": arena_error is None,
+                              "reason": "ok" if arena_error is None else arena_error},
+            "build_command": native_image.BUILD_COMMAND}
 
 
 def _url_key(url_or_urls) -> str:
@@ -809,9 +1023,45 @@ class Reader:
                  device_decode_mixed: FrozenSet[str] = frozenset(),
                  dataset_info=None, pool_worker=None,
                  stall_warn_s: Optional[float] = None,
-                 stall_abort_s: Optional[float] = None):
+                 stall_abort_s: Optional[float] = None,
+                 telemetry=None, metrics_port: Optional[int] = None,
+                 flight_record_path: Optional[str] = None,
+                 sample_interval_s: Optional[float] = None, autotune_policy=None,
+                 device_decode_split: FrozenSet[str] = frozenset(),
+                 decode_split_cell=None, planner=None):
         if start_item < 0:
             raise PetastormTpuError("start_item must be >= 0")
+        #: the pipeline's recorder (``telemetry.Telemetry``, or the no-op one);
+        #: ``reader.telemetry.pipeline_report()`` names the dominant stage
+        self.telemetry = _resolve_telemetry(telemetry)
+        tele = self.telemetry
+        self._m_results_empty = tele.counter("queue.results_empty_wait_s")
+        self._m_rows_emitted = tele.counter("reader.rows_emitted")
+        self._m_batches = tele.counter("reader.batches_consumed")
+        self._m_skipped = tele.counter("errors.skipped_rowgroups")
+        self._g_digest = tele.gauge("stream.digest")
+        tele.counter("reader.reordered_batches")  # the pools count it
+        #: the fields under the live host/device split, and its shared cell
+        self.device_decode_split: FrozenSet[str] = frozenset(device_decode_split)
+        self._decode_split_cell = decode_split_cell
+        #: the static planner's verdict (``planner.PlanVerdict``), or None;
+        #: ``stop()`` writes the run's profile from it
+        self.planner = planner
+        self._profile_written = False
+        #: the shared warm tier (``cache_type='shared'``), set by make_reader;
+        #: the reader publishes its ``cache.*`` series
+        self.warm_cache = None
+        self._cache_publish_at = 0.0
+        #: the sampler (``telemetry.MetricsSampler``), the localhost metrics
+        #: endpoint and the autotune controller, each None unless armed
+        self.sampler = None
+        self.metrics_server = None
+        self.autotune = None
+        self._flight_record_path = flight_record_path
+        self._flight_record: Optional[dict] = None
+        self._final_snapshot: Optional[dict] = None
+        self._observability_closed = False
+        self._native: Optional[dict] = None
         # an explicit argument wins; None reads the environment, whose
         # absence leaves the module defaults (``petastorm_tpu/reader.py:1211``)
         self._stall_warn_s = (float(stall_warn_s) if stall_warn_s is not None
@@ -858,6 +1108,7 @@ class Reader:
         self.last_row_consumed = False
         self._namedtuple_type = schema.make_namedtuple_type()
         self._stopped = False
+        self._stall_aborted = False
         #: fields read with decode_placement='device': their batches carry
         #: coefficient planes, which only cuda.CudaDataLoader finishes
         self.device_decode_fields: List[str] = list(device_decode_fields)
@@ -865,6 +1116,7 @@ class Reader:
         #: decoded a geometry bucket at a time (``reader.py:900-901``)
         self.device_decode_mixed: FrozenSet[str] = frozenset(device_decode_mixed)
         self._worker = worker
+        self._start_observability(sample_interval_s, metrics_port, autotune_policy)
         #: cursor: the pool delivers in plan order, so the items consumed
         #: are exactly the prefix [0, start_item + consumed) of the stream
         self._start_item = start_item
@@ -884,6 +1136,147 @@ class Reader:
         #: make_reader when ``io_retries`` arms one; None otherwise
         self.circuit_breaker = None
 
+    # -- observability (``petastorm_tpu/reader.py:1318-1396``) ---------------
+
+    def _start_observability(self, sample_interval_s, metrics_port, autotune_policy) -> None:
+        """The sampler, the metrics endpoint and the autotune controller; on
+        a failure (a port already bound) they and the pool are stopped before
+        the error propagates, so a retry loop leaks no thread or port."""
+        try:
+            if self.telemetry.enabled:
+                from petastorm_tpu_torch.telemetry.sampler import (DEFAULT_INTERVAL_S,
+                                                                   MetricsSampler)
+
+                interval = (float(sample_interval_s) if sample_interval_s is not None
+                            else env_seconds("PETASTORM_TPU_SAMPLE_INTERVAL_S",
+                                             DEFAULT_INTERVAL_S))
+                if interval > 0:  # <= 0 keeps telemetry, samples nothing
+                    self.sampler = MetricsSampler(self.telemetry, interval_s=interval)
+                    self.sampler.start()
+            if self._flight_record_path and self.sampler is None:
+                logger.warning(
+                    "flight_record_path=%r is inert: sampling is disabled"
+                    " (sample_interval_s <= 0 or telemetry has no sampler);"
+                    " no flight record will be written on failure",
+                    self._flight_record_path)
+            if metrics_port is not None:
+                from petastorm_tpu_torch.telemetry.export import MetricsExportServer
+
+                self.metrics_server = MetricsExportServer(self.telemetry, sampler=self.sampler,
+                                                          port=metrics_port)
+                self.metrics_server.start()
+            if autotune_policy is not None:
+                if self.sampler is None:
+                    logger.warning(
+                        "autotune is inert: sampling is disabled"
+                        " (sample_interval_s <= 0); the pipeline runs with"
+                        " its static knobs")
+                else:
+                    from petastorm_tpu_torch.autotune import AutotuneController
+
+                    self.autotune = AutotuneController(self._executor, self.sampler,
+                                                       self.telemetry, policy=autotune_policy)
+                    self.autotune.start()
+        except BaseException:
+            self._close_observability()
+            self._executor.stop()
+            raise
+
+    def _close_observability(self) -> None:
+        """Stop the controller, take the last sample, latch the final
+        snapshot and stop the endpoint; idempotent."""
+        if self._observability_closed:
+            return
+        self._observability_closed = True
+        if self.autotune is not None:
+            try:
+                self.autotune.stop()
+            except Exception:  # noqa: BLE001 - teardown is best-effort
+                logger.debug("autotune stop failed", exc_info=True)
+        if self.sampler is not None:
+            try:  # the trailing partial interval
+                self.sampler.sample_now()
+            except Exception:  # noqa: BLE001 - teardown is best-effort
+                logger.debug("final sample failed", exc_info=True)
+            self.sampler.stop()
+        if self.telemetry.enabled and self._final_snapshot is None:
+            self._final_snapshot = self.telemetry.snapshot()
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+
+    def _maybe_publish_cache(self, now: float) -> None:
+        """Fold the shared tier's counters into this reader's telemetry, at
+        most every 0.5 s (the tier's lock is not taken a batch)."""
+        if now - self._cache_publish_at < 0.5:
+            return
+        self._cache_publish_at = now
+        try:
+            self.warm_cache.publish_telemetry()
+        except Exception:  # noqa: BLE001 - observability must not break reads
+            logger.debug("warm-cache telemetry publish failed", exc_info=True)
+
+    def _record_flight(self, reason: str) -> None:
+        """The flight record (the sampled series and the trace tail), once,
+        at the first terminal failure, written to ``flight_record_path``
+        when set (``petastorm_tpu/reader.py:1767-1799``)."""
+        if self._flight_record is not None or self.sampler is None:
+            return
+        try:
+            from petastorm_tpu_torch.telemetry.sampler import dump_flight_record, flight_record
+
+            self._flight_record = flight_record(self.sampler, reason=reason)
+            self._flight_record["stream_digest"] = self._digest.summary()
+            if self._flight_record_path:
+                dump_flight_record(self._flight_record, self._flight_record_path)
+                logger.warning("Flight record (%d sampled points) written to %s",
+                               len(self._flight_record["points"]), self._flight_record_path)
+        except Exception:  # noqa: BLE001 - diagnostics must not mask the failure
+            logger.warning("flight-record capture failed", exc_info=True)
+
+    def _stalled_stage(self) -> str:
+        """The telemetry's dominant stage, or '' without telemetry."""
+        if not self.telemetry.enabled:
+            return ""
+        try:
+            return dominant_stage(self.telemetry.snapshot())
+        except Exception:  # noqa: BLE001 - diagnostics must not mask a stall
+            return ""
+
+    # -- the live host/device split (``petastorm_tpu/reader.py:2015-2056``) --
+
+    @property
+    def decode_split(self) -> Optional[str]:
+        """``'host'`` or ``'device'`` for the ``decode_placement='auto'``
+        fields; None when the reader has none."""
+        if self._decode_split_cell is None:
+            return None
+        return "device" if int(self._decode_split_cell.value) else "host"
+
+    def set_decode_split(self, mode) -> int:
+        """Move the live split: ``'host'``/0 ships decoded pixels (the host
+        decode in the workers), ``'device'``/1 the coefficient planes (the
+        loader finishes them on the card).  It takes effect a rowgroup at a
+        time: rowgroups already decoded keep their form, and the loader
+        assembles the two forms apart.  The autotune controller's
+        ``decode_split`` knob; safe while the reader runs.  Returns 0 or 1."""
+        if self._decode_split_cell is None:
+            raise PetastormTpuError(
+                "set_decode_split needs a decode_placement='auto' field"
+                " (no live-split field on this reader)")
+        if mode in ("host", 0, False):
+            value = 0
+        elif mode in ("device", 1, True):
+            value = 1
+        else:
+            raise PetastormTpuError(
+                f"decode split mode must be 'host'/0 or 'device'/1,"
+                f" got {mode!r}")
+        self._decode_split_cell.value = value
+        if self.telemetry.enabled:
+            self.telemetry.gauge("decode.split").set(value)
+            self.telemetry.counter(f"decode.split_to_{'device' if value else 'host'}").add(1)
+        return value
+
     def decode_stats(self) -> dict:
         """The native decode counters (``batch_calls``, ``batch_images``,
         ``roi_calls``, ``roi_images``, ``coef_batch_calls``,
@@ -895,9 +1288,9 @@ class Reader:
         """Remote-IO counters: ``retries`` (the dataset open's and the
         workers' rowgroup reads'), ``read_calls`` and ``rowgroups_read``
         through the workers' one-read windows, and ``reads_per_rowgroup``
-        (None on a local filesystem).  The JAX reader counts these as
-        ``io.*`` telemetry, which this package does not have yet (ROADMAP.md
-        queue A item 11)."""
+        (None on a local filesystem).  With telemetry the same counts are
+        the ``io.retries``, ``io.read_calls``, ``io.rowgroups_read`` and
+        ``io.reads_per_rowgroup`` series, as in the JAX reader."""
         out = self._worker.io_stats()
         if self.dataset_info is not None:
             out["retries"] += self.dataset_info.retries
@@ -909,9 +1302,8 @@ class Reader:
         that came through it (``shm_batches``) and those that travelled
         pickled (``pickled_batches``), the columns and rows decoded straight
         into arena slots, and the workers' spawn seconds and resident sets.
-        The JAX reader counts the slots as telemetry
-        (``decode.batch_slots``), which this package does not have yet
-        (ROADMAP.md queue A item 11)."""
+        With telemetry the slot columns are also the ``decode.batch_slots``
+        series, as in the JAX reader."""
         pool = self._executor.diagnostics
         return {k: pool[k] for k in _TRANSPORT_STATS if k in pool}
 
@@ -939,7 +1331,11 @@ class Reader:
         if self._batches is None:
             self._batches = self._executor.imap(self._items(), start=self._start_item,
                                                 on_idle=self._on_idle)
+        tele = self.telemetry
         while True:
+            # time blocked on the pool is the consumer starving: the worker
+            # plane is the bottleneck (``petastorm_tpu/reader.py:1530-1581``)
+            t0 = time.perf_counter() if tele.enabled else None
             try:
                 batch = next(self._batches)
             except StopIteration:
@@ -947,11 +1343,19 @@ class Reader:
                     self.last_row_consumed = True
                 raise
             except WorkerError as exc:
+                if exc.item is None or self._error_policy is None:
+                    self._record_flight(f"WorkerError ({exc.exc_type or 'unattributable'},"
+                                        f" kind={exc.kind})")
                 if exc.item is None:
                     # unattributable (every worker died, a stall): nothing
                     # to skip, and the pool must not run on
                     self.stop()
                 raise
+            finally:
+                if t0 is not None:
+                    self._m_results_empty.add(time.perf_counter() - t0)
+            if self.warm_cache is not None:
+                self._maybe_publish_cache(time.monotonic())
             ordinal = self._start_item + self._consumed_items
             if isinstance(batch, WorkerError):
                 # a skip policy's pool yields the failure at its position
@@ -959,6 +1363,9 @@ class Reader:
                 continue
             self._digest_deliver(ordinal, batch)
             self._consumed_items += 1
+            if tele.enabled:
+                self._m_batches.add(1)
+                self._m_rows_emitted.add(batch.num_rows)
             # a rowgroup the predicate emptied counts in the cursor and the
             # digest and is never delivered (``petastorm_tpu/reader.py:1686``)
             if batch.num_rows:
@@ -1009,6 +1416,8 @@ class Reader:
                                       item.row_group.row_group, start, stop, batch.num_rows)
         else:
             self._digest.record_batch(epoch, ordinal, -1, -1, 0, 0, batch.num_rows)
+        if self.telemetry.enabled:
+            self._g_digest.set(self._digest.combined)
 
     def _skip(self, ordinal: int) -> None:
         """Fold one policy-skipped work item into the stream certificate and
@@ -1018,6 +1427,8 @@ class Reader:
                                  item.row_group.global_index if item is not None else -1,
                                  item.row_group.row_group if item is not None else -1)
         self._consumed_items += 1
+        if self.telemetry.enabled:
+            self._g_digest.set(self._digest.combined)
 
     def _skip_or_raise(self, exc: WorkerError, ordinal: int) -> None:
         """Quarantine a worker failure a skip policy's pool yielded
@@ -1026,6 +1437,7 @@ class Reader:
         at its plan position, so the epoch ends at the same count with the
         quarantined rows missing - never duplicated."""
         if exc.item is None:  # the item source failed: nothing to skip
+            self._record_flight(f"WorkerError (unattributable, kind={exc.kind})")
             self.stop()
             raise exc
         policy = self._error_policy
@@ -1035,6 +1447,7 @@ class Reader:
                  # last traceback line: the remote exception's message
                  "error": str(exc).splitlines()[-1]}
         self._quarantine.append(entry)
+        self._m_skipped.add(1)
         logger.warning("Skipping work item %s (rowgroup %s#%s) after %s error: %s",
                        exc.ordinal, entry["path"], entry["row_group"], exc.kind,
                        entry["error"])
@@ -1059,6 +1472,7 @@ class Reader:
                 over = (f"{skipped}/{denom} skipped work items exceed"
                         f" max_skipped_fraction={policy.max_skipped_fraction}")
         if over is not None:
+            self._record_flight(f"ErrorBudgetExceededError: {over}")
             diag = self.diagnostics  # the snapshot before stop()
             self.stop()
             raise ErrorBudgetExceededError(
@@ -1078,29 +1492,43 @@ class Reader:
             self._stall_warned_at = 0.0
         self._stall_last = stalled
         if self._stall_abort_s > 0 and stalled > self._stall_abort_s:
+            self._stall_aborted = True
+            # the flight record before the snapshot, so the error carries it
+            self._record_flight(f"PipelineStallError: no result for {stalled:.0f}s")
             diag = self.diagnostics  # the snapshot before stop()
+            stage = self._stalled_stage()
             self.stop()
             # the stuck workers will not finish: a short, bounded join
             self._executor.join(timeout=1.0)
+            shown = {k: v for k, v in diag.items() if k not in ("flight_recorder", "telemetry")}
             raise PipelineStallError(
-                f"No result for {stalled:.0f}s (stall_abort_s={self._stall_abort_s:.0f});"
-                f" pipeline state: {diag}", diagnostics=diag)
+                f"No result for {stalled:.0f}s (stall_abort_s={self._stall_abort_s:.0f})"
+                + (f"; busiest stage: {stage}" if stage else "")
+                + f"; pipeline state: {shown}", diagnostics=diag)
         if (self._stall_warn_s > 0 and stalled > self._stall_warn_s
                 and stalled - self._stall_warned_at > self._stall_warn_s):
             self._stall_warned_at = stalled
-            logger.warning("Reader has produced no batch for %.0fs; pipeline state: %s",
-                           stalled, self.diagnostics)
+            stage = self._stalled_stage()
+            logger.warning("Reader has produced no batch for %.0fs%s; pipeline state: %s",
+                           stalled, f" (busiest stage: {stage})" if stage else "",
+                           self.diagnostics)
 
     @property
     def diagnostics(self) -> dict:
         """Items per epoch, consumed and expected, the stream digest, the
         fault ledger (the skip count and the last 20 quarantine entries,
-        ``petastorm_tpu/reader.py:2113-2132``; :attr:`quarantined_rowgroups`
-        has them all), and the pool's liveness keys: the requeues, hung
-        workers killed or abandoned, hedges and their wins, and the busy
-        workers (``workers_busy``: worker, ordinal, seconds on it).  Every
-        key is one of the JAX reader's; the process pool's arena counters
-        are :meth:`transport_stats`."""
+        ``petastorm_tpu/reader.py:2113-2180``; :attr:`quarantined_rowgroups`
+        has them all), the pool's keys (``ventilated``, ``consumed``,
+        ``in_queue_size``, the requeues, hung workers killed or abandoned,
+        hedges and their wins, and the busy workers: worker, ordinal, seconds
+        on it), the native libraries (``native``), and, where armed, the
+        planner's verdict (``planner``), the autotune controller's knobs and
+        decisions (``autotune``), the split side (``decode_split``), the
+        shared tier's stats (``cache``), the flight record
+        (``flight_recorder``), the final telemetry snapshot (``telemetry``,
+        latched at stop) and the metrics port.  Every key is one of the JAX
+        reader's; the process pool's arena counters are
+        :meth:`transport_stats`."""
         out = {"items_per_epoch": self._items_per_epoch,
                "consumed_items": self._consumed_items,
                "expected_items": self._expected_items,
@@ -1111,8 +1539,28 @@ class Reader:
                    self._quarantine[-_DIAGNOSTICS_QUARANTINE_TAIL:])}
         pool = self._executor.diagnostics
         out.update((k, pool[k]) for k in _POOL_DIAGNOSTICS if k in pool)
+        if self._native is None:  # probed once a reader: a failed build is not retried
+            self._native = _native_diagnostics()
+        out["native"] = dict(self._native)
         if self.circuit_breaker is not None:
             out["circuit_breaker"] = self.circuit_breaker.snapshot()
+        if self._decode_split_cell is not None:
+            out["decode_split"] = self.decode_split
+        if self.warm_cache is not None:
+            try:
+                out["cache"] = self.warm_cache.stats()
+            except Exception:  # noqa: BLE001 - diagnostics must not raise
+                logger.debug("warm-cache stats failed", exc_info=True)
+        if self.autotune is not None:
+            out["autotune"] = self.autotune.diagnostics
+        if self.planner is not None:
+            out["planner"] = self.planner.to_dict()
+        if self._flight_record is not None:
+            out["flight_recorder"] = self._flight_record
+        if self._final_snapshot is not None:
+            out["telemetry"] = self._final_snapshot
+        if self.metrics_server is not None:
+            out["metrics_port"] = self.metrics_server.port
         return out
 
     @property
@@ -1245,10 +1693,39 @@ class Reader:
         return self.ngram.row(self._ngram_views, self._ngram_types, self._windows, pos)
 
     def stop(self) -> None:
+        """Stop the pool.  Every close path ends here, so this is where the
+        run's profile is written (an autotuned reader), the shared tier's
+        counters are folded in a last time, and the final telemetry
+        snapshot is latched into ``diagnostics['telemetry']``
+        (``petastorm_tpu/reader.py:1974-2013``)."""
         self._stopped = True
+        if self.planner is not None and not self._profile_written:
+            self._profile_written = True
+            try:
+                from petastorm_tpu_torch import planner as _planner
+
+                _planner.write_profile(self)
+            except Exception:  # noqa: BLE001 - teardown is best-effort
+                logger.debug("flight-profile write failed", exc_info=True)
+        if self.warm_cache is not None:
+            try:
+                self.warm_cache.publish_telemetry()
+            except Exception:  # noqa: BLE001 - teardown is best-effort
+                logger.debug("final warm-cache publish failed", exc_info=True)
+        if self.autotune is not None:
+            # before the pool: a tick mid-close must not resize a stopped pool
+            try:
+                self.autotune.stop()
+            except Exception:  # noqa: BLE001 - teardown is best-effort
+                logger.debug("autotune stop failed", exc_info=True)
         self._executor.stop()
+        self._close_observability()
 
     def join(self) -> None:
+        """Wait for the pool (bounded after a stall abort)."""
+        if self._stall_aborted:
+            self._executor.join(timeout=5.0)
+            return
         self._executor.join()
 
     def __enter__(self):

@@ -228,12 +228,10 @@ def retry_call(fn: Callable, policy: Optional[RetryPolicy], *, what: str = "io",
     short-cuts the remaining backoff so the outage surfaces now, not after
     the full retry budget.
 
-    ``telemetry`` is accepted and ignored: the JAX function counts retries
-    and circuit opens in its telemetry (``io.retries``,
-    ``liveness.circuit_opens``, ``petastorm_tpu/retry.py:298-326``), which is
-    not part of this package yet (ROADMAP.md queue A item 11).  Callers
-    count retries through ``on_retry`` meanwhile (the reader's
-    ``io_stats()``).
+    ``telemetry`` counts each retry (``io.retries`` and
+    ``io.retries.<first word of what>``) and each circuit-open transition
+    (``liveness.circuit_opens``), with a trace event each, as
+    ``petastorm_tpu/retry.py:298-326`` does; resolved only on those paths.
     """
     if policy is None and breaker is None:
         return fn()
@@ -259,6 +257,7 @@ def retry_call(fn: Callable, policy: Optional[RetryPolicy], *, what: str = "io",
                     " transient IO failures reached threshold %d; failing"
                     " fast for %.0fs instead of retrying", what,
                     breaker.threshold, breaker.cooldown_s)
+                _record_circuit_open(telemetry, what, exc)
             if attempt >= max_attempts:
                 raise
             if breaker is not None and breaker.is_open:
@@ -276,6 +275,7 @@ def retry_call(fn: Callable, policy: Optional[RetryPolicy], *, what: str = "io",
             logger.warning("Transient IO failure in %s (attempt %d/%d): %s;"
                            " retrying in %.2fs", what, attempt,
                            policy.max_attempts, exc, delay)
+            _record_retry(telemetry, what, exc)
             if on_retry is not None:
                 try:
                     on_retry(exc)
@@ -287,6 +287,36 @@ def retry_call(fn: Callable, policy: Optional[RetryPolicy], *, what: str = "io",
             if breaker is not None:
                 breaker.record_success()
             return result
+
+
+def _record_circuit_open(telemetry, what: str, exc: BaseException) -> None:
+    """Count one circuit-open transition."""
+    from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
+
+    tele = _resolve_telemetry(telemetry)
+    if not tele.enabled:
+        return
+    tele.counter("liveness.circuit_opens").add(1)
+    trace = getattr(tele, "trace", None)
+    if trace is not None:
+        trace.add("circuit-open", "fault", time.perf_counter_ns(), 0,
+                  {"what": what, "error": str(exc)})
+
+
+def _record_retry(telemetry, what: str, exc: BaseException) -> None:
+    """Count one retry."""
+    from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
+
+    tele = _resolve_telemetry(telemetry)
+    if not tele.enabled:
+        return
+    tele.counter("io.retries").add(1)
+    category = what.split(" ", 1)[0] if what else "io"
+    tele.counter(f"io.retries.{category}").add(1)
+    trace = getattr(tele, "trace", None)
+    if trace is not None:
+        trace.add("io-retry", "fault", time.perf_counter_ns(), 0,
+                  {"what": what, "error": str(exc)})
 
 
 def resolve_retry_policy(io_retries: Union[None, bool, int, str, RetryPolicy],

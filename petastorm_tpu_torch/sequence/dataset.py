@@ -8,9 +8,8 @@ ordinary dataset whose document column is a variable-length 1-D list field
 column; :func:`iter_documents` flattens its batches into one document at a
 time, the stream the packer (``sequence.packing``) consumes.  Predicates
 push down as for images: the predicate columns decode first and only the
-surviving rows' token lists decode.  The worker's ``sequence.rows_filtered``
-counter is telemetry, which is not part of this package yet (ROADMAP.md
-queue A item 11).
+surviving rows' token lists decode, and with telemetry the worker counts
+the rows the predicate dropped as ``sequence.rows_filtered``.
 """
 
 from __future__ import annotations

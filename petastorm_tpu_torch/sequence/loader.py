@@ -26,6 +26,7 @@ from petastorm_tpu_torch.errors import PetastormTpuError
 from petastorm_tpu_torch.schema import Field, Schema
 from petastorm_tpu_torch.sequence.dataset import iter_documents
 from petastorm_tpu_torch.sequence.packing import SequencePacker, iter_packed_blocks
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 
 
 class PackedSequenceReader:
@@ -51,7 +52,8 @@ class PackedSequenceReader:
         self._tokens_dtype = np.dtype(tokens_dtype)
         self.packer = SequencePacker(seq_len, open_bins=open_bins, long_docs=long_docs,
                                      tokens_dtype=tokens_dtype, mask_dtype=mask_dtype,
-                                     pad_token=pad_token)
+                                     pad_token=pad_token,
+                                     telemetry=getattr(source, "telemetry", None))
         self.seq_len = int(seq_len)
         self.schema = Schema("PackedSequence", [
             Field("tokens", self._tokens_dtype, (self.seq_len,)),
@@ -66,9 +68,15 @@ class PackedSequenceReader:
         self.shuffle_seed = getattr(source, "shuffle_seed", None)
         self.device_decode_fields: list = []
         self.device_decode_mixed: frozenset = frozenset()
+        self.device_decode_split: frozenset = frozenset()
         self.declared_geometries: dict = {}
         self.last_row_consumed = False
         self._iterating = False
+
+    @property
+    def telemetry(self):
+        """The source's recorder, where the packer's ``sequence.*`` series land."""
+        return _resolve_telemetry(getattr(self._source, "telemetry", None))
 
     @property
     def diagnostics(self) -> Dict:

@@ -11,9 +11,11 @@ the same whatever the worker count.  Each packed row carries
 quadruple a packed-attention step consumes.  :func:`iter_ragged_batches`
 is the other delivery: a flat token buffer plus offsets, for consumers
 that pack on the device.  :func:`packed_stream_digest` is the stream's
-certificate.  The JAX packer's ``telemetry=`` argument and its
-``sequence.*`` series are not part of this package yet (ROADMAP.md queue A
-item 11); ``stats()`` and ``fill_rate`` carry the same numbers.
+certificate.  ``stats()`` and ``fill_rate`` report the accounting, and
+with a ``telemetry`` recorder the same numbers ride the JAX packer's
+``sequence.*`` series (``sequence.docs_packed``, ``.tokens_packed``,
+``.pad_tokens``, ``.rows_emitted``, ``.docs_split`` and the
+``sequence.fill_rate`` gauge; ``petastorm_tpu/sequence/packing.py:133-188``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 from petastorm_tpu_torch.errors import PetastormTpuError
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 
 #: policies for a document longer than ``seq_len``
 LONG_DOC_POLICIES = ("split", "truncate", "error")
@@ -85,7 +88,8 @@ class SequencePacker:
     """
 
     def __init__(self, seq_len: int, open_bins: int = 8, long_docs: str = "split",
-                 tokens_dtype=np.int32, mask_dtype=np.float32, pad_token: int = 0):
+                 tokens_dtype=np.int32, mask_dtype=np.float32, pad_token: int = 0,
+                 telemetry=None):
         if seq_len < 1:
             raise PetastormTpuError("seq_len must be >= 1")
         if open_bins < 1:
@@ -107,10 +111,22 @@ class SequencePacker:
         self._docs_empty = 0
         self._tokens = 0
         self._rows = 0
+        self._telemetry = tele = _resolve_telemetry(telemetry)
+        self._m_docs = tele.counter("sequence.docs_packed")
+        self._m_tokens = tele.counter("sequence.tokens_packed")
+        self._m_pad = tele.counter("sequence.pad_tokens")
+        self._m_rows = tele.counter("sequence.rows_emitted")
+        self._m_split = tele.counter("sequence.docs_split")
+        self._g_fill = tele.gauge("sequence.fill_rate")
 
     def _emit(self, idx: int) -> Dict[str, np.ndarray]:
         self._rows += 1
-        return self._bins.pop(idx).row()
+        b = self._bins.pop(idx)
+        if self._telemetry.enabled:
+            self._m_rows.add(1)
+            self._m_pad.add(self.seq_len - b.used)
+            self._g_fill.set(self.fill_rate)
+        return b.row()
 
     def _chunks(self, doc: np.ndarray) -> List[np.ndarray]:
         """The pieces ``doc`` packs as, under the long-document policy; counts
@@ -128,7 +144,13 @@ class SequencePacker:
             raise PetastormTpuError(
                 f"document of {len(doc)} tokens exceeds seq_len {self.seq_len}"
                 " (long_docs='error')")
-        self._tokens += sum(len(c) for c in chunks)
+        kept = sum(len(c) for c in chunks)
+        self._tokens += kept
+        if self._telemetry.enabled:
+            self._m_docs.add(1)
+            self._m_tokens.add(kept)
+            if len(chunks) > 1:
+                self._m_split.add(1)
         return chunks
 
     def feed(self, doc) -> List[Dict[str, np.ndarray]]:

@@ -11,8 +11,9 @@ order-sensitive crc chain, the mixture digest, beside each sub-reader's own
 stream digest (``Reader.stream_digest``): over the same readers and seeds
 it equals the JAX mixer's bit for bit.  ``deterministic='auto'`` derives a
 mixer seed from the first reader's ``shuffle_seed`` when every sub-reader
-runs seed-stable delivery and the mixer was given none.  The JAX mixer's
-``telemetry`` property is not part of this package yet (telemetry is not).
+runs seed-stable delivery and the mixer was given none.  ``telemetry`` is
+the first sub-reader's recorder, through which a loader or a packer over
+the mix records (``petastorm_tpu/weighted_sampling.py:162``).
 """
 
 from __future__ import annotations
@@ -150,6 +151,12 @@ class WeightedSamplingReader:
     def last_row_consumed(self) -> bool:
         """True once every underlying reader finished its epochs."""
         return all(r.last_row_consumed for r in self._readers)
+
+    @property
+    def telemetry(self):
+        """The first sub-reader's recorder (a loader or a packer over the mix
+        records through it)."""
+        return getattr(self._readers[0], "telemetry", None)
 
     # -- mixture certificate ------------------------------------------------
 

@@ -1,7 +1,6 @@
 """Rowgroup decode worker: a parquet rowgroup -> a decoded ColumnBatch.
 
-Counterpart of ``petastorm_tpu/worker.py:47 RowGroupDecoderWorker``, without
-the shared cache tier and the live decode split.  A work item reads
+Counterpart of ``petastorm_tpu/worker.py:47 RowGroupDecoderWorker``.  A work item reads
 only its row slice (``row_slice()``: the whole rowgroup, or one row-drop
 partition, ``:512-515``).  Image columns decode in one native call each
 (``codecs.CompressedImageCodec.decode_column``), fanned out over
@@ -10,7 +9,10 @@ partition, ``:512-515``).  Image columns decode in one native call each
 leaves the worker in the coefficient wire form (``:527-541``): the entropy
 half of the JPEG decode runs here, over ``decode_threads`` too, and the field
 travels as its derived plane columns (``native.image.pack_coef_columns``);
-the loader finishes the decode on the device.
+the loader finishes the decode on the device.  A field under the live split
+(``decode_placement='auto'``) reads the reader's shared split cell once a
+rowgroup (``:438-444``): 1 ships the coefficient form, 0 the decoded pixels,
+and the value is part of the rowgroup's cache key (``:393-396``).
 
 A predicate splits the read (``:581-680``): its columns are read and decoded
 first, the mask filters the other columns' arrow table before their decode
@@ -59,8 +61,16 @@ spans the window refuses).  The rowgroup read runs under
 ``retry.retry_call`` (``:225-253``) with the reader's retry policy and
 shared circuit breaker; a retry drops the cached file handle.  The worker
 counts the retries, the raw reads and the rowgroups read
-(``io_stats()``, which stands in for the JAX worker's ``io.*`` telemetry
-until telemetry is ported).
+(``io_stats()``), and with telemetry records them as the JAX worker's
+``io.*`` series.
+
+Telemetry (``petastorm_tpu/worker.py:179-271``, ``:304-364``): the worker
+records the ``decode`` and ``transform`` stage spans of every item,
+``worker.rowgroups_decoded`` and ``worker.rows_decoded``, the native
+decoder's counters as ``decode.*``, the retries, and the rows a predicate
+dropped before the payload decode (``sequence.rows_filtered``).  The
+recorder is resolved where the worker runs: a process-pool worker's is its
+own (``PETASTORM_TPU_TELEMETRY``), so its stages stay in its process.
 
 Under the process pool the factory is pickled into every worker process
 (its locks recreated there, its counters then per process), and a host
@@ -95,6 +105,8 @@ from petastorm_tpu_torch.plan import WorkItem
 from petastorm_tpu_torch.retry import retry_call
 from petastorm_tpu_torch.schema import Schema
 from petastorm_tpu_torch.seeding import seed_stream
+from petastorm_tpu_torch.telemetry import NULL_CONTEXT
+from petastorm_tpu_torch.telemetry import resolve as _resolve_telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -134,8 +146,15 @@ class RowGroupDecoderWorker:
                  predicate=None, transform: Optional[transform_mod.TransformSpec] = None,
                  transform_cache_info=None, ngram=None, ngram_schema: Optional[Schema] = None,
                  verify_checksums: bool = False, fs_factory=None, retry_policy=None,
-                 circuit_breaker=None):
+                 circuit_breaker=None, telemetry=None, split_fields: Sequence[str] = (),
+                 decode_split=None):
         self._schema = schema
+        #: resolved in ``__call__``, where the worker runs
+        self._telemetry = _resolve_telemetry(telemetry) if telemetry is not None else None
+        #: the ``'auto'`` fields and the reader's shared split cell (0 host
+        #: pixels, 1 device coefficient planes)
+        self._split_fields = frozenset(split_fields)
+        self._decode_split = decode_split
         self._fs_factory = fs_factory
         self._retry_policy = retry_policy
         self._circuit_breaker = circuit_breaker
@@ -198,7 +217,11 @@ class RowGroupDecoderWorker:
                # the key carries the transform's signature at either stage
                + "|tf:" + self._transform_signature
                + "|" + _CACHE_KEY_TAG)
-        self._fields_tag = hashlib.md5(tag.encode()).hexdigest()[:8]
+        # the live split changes the stored form: one tag a side
+        splits = (None,) if decode_split is None else (0, 1)
+        self._fields_tags = {
+            v: hashlib.md5((tag + ("" if v is None else f"|split:{v}")).encode()).hexdigest()[:8]
+            for v in splits}
         self._transform_fields_tag = hashlib.md5(
             (tag + "|stage:" + _TRANSFORM_STAGE).encode()).hexdigest()[:8]
         self._file_fps: Dict[str, str] = {}
@@ -207,10 +230,12 @@ class RowGroupDecoderWorker:
         self._filling_lock = threading.Lock()
 
     def __getstate__(self):
-        # into a process-pool worker: its locks are recreated there
+        # into a process-pool worker: its locks are recreated there, and its
+        # recorder is resolved from that process's environment
         state = dict(self.__dict__)
         for name in ("_stats_lock", "_filling_lock", "_filling"):
             del state[name]
+        state["_telemetry"] = None
         return state
 
     def __setstate__(self, state):
@@ -286,13 +311,14 @@ class RowGroupDecoderWorker:
         return fp
 
     def _cache_key(self, item: WorkItem, stage: str = "decode",
-                   span: Optional[tuple] = None, fs=None) -> str:
+                   span: Optional[tuple] = None, fs=None, split: Optional[int] = None) -> str:
         """The cache key of one work item (``petastorm_tpu/worker.py:384``)
-        over the rows ``span`` it loads (default: its row slice);
-        ``stage=_TRANSFORM_STAGE`` keys the transform's output."""
+        over the rows ``span`` it loads (default: its row slice), with the
+        split side it decodes under; ``stage=_TRANSFORM_STAGE`` keys the
+        transform's output."""
         start, stop = span if span is not None else item.row_slice()
         rg = item.row_group
-        tag = self._fields_tag if stage == "decode" else self._transform_fields_tag
+        tag = self._fields_tags[split] if stage == "decode" else self._transform_fields_tag
         return (f"{self._cache_prefix}:{rg.path}:{rg.row_group}:{start}:{stop}"
                 f":{tag}:{self._file_fingerprint(rg.path, fs)}")
 
@@ -309,6 +335,25 @@ class RowGroupDecoderWorker:
                 entry[1] -= 1
                 if not entry[1]:
                     del self._filling[key]
+
+    def _note_transform_cache(self, hit: bool) -> None:
+        """One post-transform cache lookup: in the shared tier's header, or
+        in this worker's telemetry (``petastorm_tpu/worker.py:417-429``)."""
+        note = getattr(self.cache, "note_transform_event", None)
+        if note is not None:
+            note(hit)
+            return
+        tele = self._telemetry
+        if tele is not None and tele.enabled:
+            tele.counter("cache.transform_hits" if hit else "cache.transform_stores").add(1)
+
+    def _ships_coefficients(self, name: str, split: Optional[int]) -> bool:
+        """Whether field ``name`` leaves this rowgroup in the coefficient
+        form: a ``'device'`` field always, an ``'auto'`` one when the split
+        read for the rowgroup is 1."""
+        if name not in self._device_decode_fields:
+            return False
+        return name not in self._split_fields or split != 0
 
     def _apply_transform(self, batch: ColumnBatch) -> ColumnBatch:
         """The transform on a decoded batch; a 0-row batch passes untouched
@@ -332,9 +377,21 @@ class RowGroupDecoderWorker:
         return ColumnBatch(cols, 0)
 
     def __call__(self) -> Callable[[WorkItem], ColumnBatch]:
+        if self._telemetry is None:
+            self._telemetry = _resolve_telemetry(None)
+        tele = self._telemetry
         fs = self._fs_factory() if self._fs_factory is not None else pafs.LocalFileSystem()
         local = isinstance(fs, pafs.LocalFileSystem)
         open_files: Dict[str, tuple] = {}
+        #: the split side of the item this thread decodes (read once an item)
+        current = {"split": None}
+
+        def stage(name: str, item: Optional[WorkItem] = None):
+            if not tele.enabled:
+                return NULL_CONTEXT
+            if item is None:
+                return tele.stage(name)
+            return tele.stage(name, path=item.row_group.path, rowgroup=item.row_group.row_group)
 
         def parquet_file(path: str) -> tuple:
             """(ParquetFile, the names of the columns it stores, its
@@ -376,9 +433,14 @@ class RowGroupDecoderWorker:
             table = pf.read_row_group(rg.row_group, columns=stored, use_threads=False)
             if window is not None:
                 window.discard_window()  # the table owns the bytes now
+                reads = window.raw_reads - reads_before
                 with self._stats_lock:
-                    self._io["read_calls"] += window.raw_reads - reads_before
+                    self._io["read_calls"] += reads
                     self._io["rowgroups_read"] += 1
+                if tele.enabled:
+                    tele.counter("io.read_calls").add(reads)
+                    tele.counter("io.rowgroups_read").add(1)
+                    tele.gauge("io.reads_per_rowgroup").set(reads)
             start, stop = row_range if row_range is not None else item.row_slice()
             if (start, stop) != (0, table.num_rows):
                 table = table.slice(start, stop - start)
@@ -389,7 +451,7 @@ class RowGroupDecoderWorker:
             for name in stored:
                 field = self._schema[name]
                 chunk = table.column(name).combine_chunks()
-                if name in self._device_decode_fields:
+                if self._ships_coefficients(name, current["split"]):
                     pack = (native_image.pack_coef_columns_mixed if name in self._mixed_fields
                             else native_image.pack_coef_columns)
                     columns.update(pack(name, chunk, field, nthreads=self._decode_threads))
@@ -422,6 +484,9 @@ class RowGroupDecoderWorker:
             pred_batch = load(item, pred_fields, row_range=row_range)
             mask = np.asarray(self._predicate.do_include_vectorized(pred_batch.columns),
                               dtype=bool)
+            if tele.enabled:
+                # rows dropped before the payload decode (``petastorm_tpu/worker.py:591-599``)
+                tele.counter("sequence.rows_filtered").add(int(mask.size - mask.sum()))
             if not mask.any():
                 return self._empty_batch()
             # phase 2: the other columns, filtered by the mask before decode
@@ -440,29 +505,42 @@ class RowGroupDecoderWorker:
                     kept.update((k, c) for k, c in columns.items() if k.startswith(prefix))
             return ColumnBatch(kept, int(mask.sum()))
 
+        def transformed(batch: ColumnBatch) -> ColumnBatch:
+            if self._transform is None or batch.num_rows == 0:
+                return batch
+            with stage("transform"):
+                return self._apply_transform(batch)
+
         def decode(item: WorkItem) -> ColumnBatch:
             if self._predicate is not None:
                 # the reader refuses a cache beside a predicate
-                return self._apply_transform(load_with_predicate(item))
+                with stage("decode", item):
+                    batch = load_with_predicate(item)
+                return transformed(batch)
             if self._transform_output_cached:
                 filled = []
 
                 def decode_and_transform() -> ColumnBatch:
+                    # the spans live inside the fill: a warm hit records none
                     filled.append(True)
-                    return self._apply_transform(load(item, self._read_fields))
+                    with stage("decode", item):
+                        fresh = load(item, self._read_fields)
+                    return transformed(fresh)
 
                 batch = self._cached(self._cache_key(item, _TRANSFORM_STAGE, fs=fs),
                                      decode_and_transform)
                 with self._stats_lock:
                     self._transform_events["transform_misses" if filled
                                            else "transform_hits"] += 1
+                self._note_transform_cache(hit=not filled)
                 return batch
-            if self._cache_is_null:
-                batch = load(item, self._read_fields)
-            else:
-                batch = self._cached(self._cache_key(item, fs=fs),
-                                     lambda: load(item, self._read_fields))
-            return self._apply_transform(batch)
+            with stage("decode", item):
+                if self._cache_is_null:
+                    batch = load(item, self._read_fields)
+                else:
+                    batch = self._cached(self._cache_key(item, fs=fs, split=current["split"]),
+                                         lambda: load(item, self._read_fields))
+            return transformed(batch)
 
         def decode_windows(item: WorkItem) -> ColumnBatch:
             """An ngram item: its rows (and lookahead), transformed, then
@@ -474,17 +552,21 @@ class RowGroupDecoderWorker:
                 anchor = (0, hi - lo)
             else:
                 row_range, anchor = whole.row_slice(), (lo, hi)
-            if self._predicate is not None:
-                batch = load_with_predicate(whole, row_range)
-            elif self._cache_is_null:
-                batch = load(whole, self._read_fields, row_range=row_range)
-            else:
-                batch = self._cached(self._cache_key(whole, span=row_range, fs=fs),
-                                     lambda: load(whole, self._read_fields, row_range=row_range))
+            with stage("decode", item):
+                if self._predicate is not None:
+                    batch = load_with_predicate(whole, row_range)
+                elif self._cache_is_null:
+                    batch = load(whole, self._read_fields, row_range=row_range)
+                else:
+                    batch = self._cached(self._cache_key(whole, span=row_range, fs=fs),
+                                         lambda: load(whole, self._read_fields,
+                                                      row_range=row_range))
             if batch.num_rows == 0:
                 return batch
-            return self._ngram.form_windows(self._ngram_schema, self._apply_transform(batch),
-                                            anchor_range=anchor)
+            with stage("transform"):
+                return self._ngram.form_windows(self._ngram_schema,
+                                                self._apply_transform(batch),
+                                                anchor_range=anchor)
 
         def drop_handle(path: str) -> None:
             """Count a retry and drop the file's cached handle: the failure
@@ -502,15 +584,23 @@ class RowGroupDecoderWorker:
             before = native_image.decode_stats()
             run = decode if self._ngram is None else decode_windows
             rg = item.row_group
+            cell = self._decode_split
+            current["split"] = None if cell is None else int(cell.value)
             batch = retry_call(lambda: run(item), self._retry_policy,
                                what=f"rowgroup {rg.path}#{rg.row_group}",
                                on_retry=lambda _exc: drop_handle(rg.path),
-                               breaker=self._circuit_breaker)
+                               telemetry=tele, breaker=self._circuit_breaker)
             # this thread's counters: a hit decoded nothing and adds nothing
             after = native_image.decode_stats()
             with self._stats_lock:
                 for key, value in after.items():
                     self._stats[key] += value - before[key]
+            if tele.enabled:
+                tele.counter("worker.rowgroups_decoded").add(1)
+                tele.counter("worker.rows_decoded").add(batch.num_rows)
+                for key, value in after.items():
+                    if value - before[key]:
+                        tele.counter(f"decode.{key}").add(value - before[key])
             return batch
 
         return process

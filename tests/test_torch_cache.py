@@ -209,11 +209,46 @@ def test_make_cache_types_and_defaults(tmp_path, monkeypatch):
     assert not os.path.exists(disk._dir)  # noqa: SLF001
 
 
-def test_shared_cache_type_raises_naming_the_missing_tier(dataset):
-    with pytest.raises(PetastormTpuError, match=r"cache_type='shared'.*queue A item 11"):
-        make_cache("shared")
+def test_shared_cache_type_raises_naming_the_missing_tier(dataset, tmp_path, monkeypatch):
+    """The shared tier has no fallback: without its arena library it raises,
+    naming the shared-memory level it lacks (where the JAX tier degrades to
+    its disk level)."""
+    from petastorm_tpu_torch import native
+
+    def no_library():
+        raise RuntimeError("g++ failed for shm_arena.cpp")
+
+    monkeypatch.setattr(native, "load_arena", no_library)
+    location = str(tmp_path / "warm")
+    with pytest.raises(PetastormTpuError,
+                       match=r"cache_type='shared' needs its shared-memory level.*g\+\+"):
+        make_cache("shared", location)
     with pytest.raises(PetastormTpuError, match="cache_type='shared'"):
-        make_reader(dataset, cache_type="shared")
+        make_reader(dataset, cache_type="shared", cache_location=location)
+
+
+@pytest.mark.parametrize("place", ["host", "device"])
+def test_shared_tier_reader_equals_uncached_and_jax_shared_reader(dataset, tmp_path, place):
+    from petastorm_tpu.cache_shared import SharedWarmCache as JaxSharedWarmCache
+
+    from petastorm_tpu_torch.cache_shared import SharedWarmCache
+
+    ours, theirs = str(tmp_path / "warm"), str(tmp_path / "jax_warm")
+    try:
+        got, digest, (decoded, cached) = _read(torch_package, dataset, place,
+                                               cache_type="shared", cache_location=ours)
+        want, want_digest, _ = _read(jax_package, dataset, place, cache_type="shared",
+                                     cache_location=theirs)
+    finally:
+        SharedWarmCache(location=ours, l1_bytes=2 ** 20).cleanup()
+        JaxSharedWarmCache(location=theirs, l1_bytes=2 ** 20).cleanup()
+    plain, plain_digest, _ = _read(torch_package, dataset, place)
+    _assert_same_batches(got, plain)
+    _assert_same_batches(got, want)
+    assert digest == plain_digest == want_digest
+    assert (cached["hits"], cached["misses"], cached["entries"]) == (10, 5, 5)
+    kind = "batch" if place == "host" else "coef_batch"
+    assert decoded[f"{kind}_images"] == N_ROWS
 
 
 # -- the reader with a cache against the reader without -------------------------------

@@ -741,8 +741,8 @@ def test_skips_and_requeues_under_thread_stress_keep_exact_accounting(tmp_path):
 
 def test_reader_diagnostics_are_a_subset_of_the_jax_readers(tmp_path):
     """Every key the port's ``Reader.diagnostics`` carries is one of the JAX
-    reader's, with the same value after the same read (ROADMAP §C: the
-    queue depths, native-plane and telemetry keys are not ported)."""
+    reader's, with the same value after the same read; the native-plane
+    key's build command names the port's own module."""
     url = _write(tmp_path)
     diags = {}
     for pkg in ("jax", "torch"):
@@ -758,6 +758,10 @@ def test_reader_diagnostics_are_a_subset_of_the_jax_readers(tmp_path):
         want = diags["jax"][key]
         if key == "quarantined_rowgroups":
             value, want = _same_names(value), _same_names(want)
+        if key == "native":
+            assert value.pop("build_command").startswith(
+                'python -c "from petastorm_tpu_torch.native import build;')
+            want = {k: v for k, v in want.items() if k != "build_command"}
         assert value == want, key
     # the liveness keys: a thread pool whose worker hangs on one item past its
     # deadline (abandoned, requeued) and a straggler hedged, the same chaos in

@@ -554,9 +554,8 @@ def test_decode_placement_validation_errors(dataset, tmp_path):
         make_batch_reader(dataset, decode_placement={"imge": "host"})  # typo
     with pytest.raises(PetastormTpuError, match="not being read"):
         make_reader(dataset, schema_fields=["label"], decode_placement={"image": "device"})
-    for place in ("chip", "auto"):
-        with pytest.raises(PetastormTpuError, match="'host', 'device' or 'device-mixed'"):
-            make_reader(dataset, decode_placement={"image": place})
+    with pytest.raises(PetastormTpuError, match="'host', 'device', 'device-mixed' or 'auto'"):
+        make_reader(dataset, decode_placement={"image": "chip"})
     with pytest.raises(PetastormTpuError, match="jpeg"):
         make_reader(dataset, decode_placement={"label": "device"})
     png = Schema("P", [Field("image", np.uint8, (16, 16, 3), CompressedImageCodec("png"))])
@@ -565,8 +564,9 @@ def test_decode_placement_validation_errors(dataset, tmp_path):
         make_reader(str(tmp_path / "png"), decode_placement={"image": "device"})
     var = Schema("V", [Field("image", np.uint8, (None, None, 3), CompressedImageCodec("jpeg"))])
     write_dataset(str(tmp_path / "var"), var, [{"image": _smooth(16, 24, 0)}])
-    with pytest.raises(PetastormTpuError, match="fixed shape"):
-        make_reader(str(tmp_path / "var"), decode_placement={"image": "device"})
+    for place in ("device", "auto"):
+        with pytest.raises(PetastormTpuError, match="fixed shape"):
+            make_reader(str(tmp_path / "var"), decode_placement={"image": place})
 
 
 def test_rows_of_a_device_field_are_refused(dataset):

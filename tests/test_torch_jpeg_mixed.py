@@ -34,7 +34,7 @@ from petastorm_tpu.schema import Field as JaxField, Schema as JaxSchema
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_batch_reader
 from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
 from petastorm_tpu_torch.errors import CodecError, PetastormTpuError
-from petastorm_tpu_torch.etl.writer import stamp_dataset_metadata
+from petastorm_tpu_torch.etl.writer import stamp_dataset_metadata, write_dataset
 from petastorm_tpu_torch.native import image as native
 from petastorm_tpu_torch.pool import WorkerError
 
@@ -335,8 +335,34 @@ def test_refusals_match_the_jax_reader(mixed_ds, tmp_path, case):
 
 
 def test_auto_placement_raises_until_the_live_split_is_ported(mixed_ds):
-    with pytest.raises(PetastormTpuError, match="'auto'"):
+    """The live split (``'auto'``) needs one fixed geometry, as ``'device'``
+    does: on the mixed dataset it raises the JAX package's error."""
+    with pytest.raises(PetastormTpuError, match="needs a fixed shape") as got:
         make_batch_reader(mixed_ds, decode_placement={"image": "auto"})
+    with pytest.raises(JaxPetastormTpuError, match="needs a fixed shape"):
+        jax_make_batch_reader(mixed_ds, decode_placement={"image": "auto"})
+    assert "decode_placement='device' field 'image'" in str(got.value)
+
+
+def test_auto_placement_reads_a_fixed_geometry_through_the_loader(tmp_path):
+    """``'auto'`` on a fixed-geometry JPEG field: both forms of the live
+    split deliver every row, as ``'device'`` and ``'host'`` do."""
+    schema = Schema("Fixed", [Field("idx", np.int64),
+                              Field("image", np.uint8, (32, 48, 3), CompressedImageCodec("jpeg"))])
+    url = str(tmp_path / "fixed")
+    write_dataset(url, schema, [{"idx": i, "image": _smooth_rgb(32, 48, seed=i)}
+                                for i in range(24)], row_group_size_rows=4)
+    got = {}
+    for place in ("auto", "device", "host"):
+        with make_batch_reader(url, shuffle_row_groups=False, workers_count=1,
+                               results_queue_size=1, decode_placement={"image": place}) as r:
+            if place == "auto":
+                assert r.decode_split == "device"
+            with CudaDataLoader(r, 8, device="cpu") as loader:
+                got[place] = [(b["idx"].clone(), b["image"].clone()) for b in loader]
+    assert len(got["auto"]) == 3
+    for (ai, aim), (di, dim) in zip(got["auto"], got["device"]):
+        assert torch.equal(ai, di) and torch.equal(aim, dim)
 
 
 def test_rows_of_a_mixed_field_are_refused(mixed_ds):

@@ -97,9 +97,23 @@ def test_make_executor_rejects_bad_liveness_args_like_jax(kind, kwargs):
 def test_make_executor_takes_good_liveness_args():
     ex = pool.make_executor("thread", item_deadline_s=5.0, hedge_after_s="auto")
     assert ex.diagnostics["hung_workers_killed"] == 0 and ex.diagnostics["hedged_items"] == 0
-    # 'auto' needs the telemetry decode p99, which this package lacks: no hedging
+    # 'auto' needs the recorded decode p99: without telemetry, no hedging
     assert ex._hedge_threshold() is None
     assert pool.make_executor("thread", hedge_after_s=2.5)._hedge_threshold() == 2.5
+    # with 20 recorded decodes it is 4x their p99, at least 0.5 s, as in JAX
+    from petastorm_tpu import telemetry as jax_telemetry
+
+    from petastorm_tpu_torch import telemetry
+
+    got = []
+    for pool_mod, tele_mod, scale in ((jax_pool, jax_telemetry, 0.4), (pool, telemetry, 0.4),
+                                      (jax_pool, jax_telemetry, 0.01), (pool, telemetry, 0.01)):
+        tele = tele_mod.Telemetry()
+        for i in range(20):
+            tele.histogram("stage.decode.latency_s").record(scale * (1 + i % 5))
+        got.append(pool_mod.make_executor("thread", hedge_after_s="auto",
+                                          telemetry=tele)._hedge_threshold())
+    assert got[1] == got[0] > 0.5 and got[3] == got[2] == 0.5
 
 
 @pytest.mark.parametrize("value", ["auto", "1.5", "0.01", "0", "-2", "soon", "nan"])

@@ -501,13 +501,14 @@ def test_auto_sizing_matches_jax_reader(monkeypatch, image_dataset, cores, worke
     spy(torch_reader, "torch")
     real_executor = torch_reader.make_executor
 
-    def executor(kind, workers, queue):
+    def executor(kind, workers, queue, **pool_kwargs):
         seen["torch_workers"] = workers
-        return real_executor(kind, workers, queue)
+        return real_executor(kind, workers, queue, **pool_kwargs)
 
     monkeypatch.setattr(torch_reader, "make_executor", executor)
     kwargs = dict(workers_count=workers_count, decode_threads=decode_threads)
-    with torch_reader.make_batch_reader(image_dataset, **kwargs):
+    # 'auto' arms autotune in both packages: the static sizing is compared
+    with torch_reader.make_batch_reader(image_dataset, autotune=False, **kwargs):
         pass
     with jax_reader.make_batch_reader(image_dataset, autotune=False, **kwargs) as r:
         jax_workers = r.diagnostics["workers_count"]

@@ -97,5 +97,14 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/test_util/latency_fs.py",
                      "petastorm_tpu_torch/test_util/chaos.py",
                      "petastorm_tpu_torch/native/transport.py",
-                     "petastorm_tpu_torch/pool.py"):
+                     "petastorm_tpu_torch/pool.py",
+                     "petastorm_tpu_torch/telemetry/__init__.py",
+                     "petastorm_tpu_torch/telemetry/registry.py",
+                     "petastorm_tpu_torch/telemetry/report.py",
+                     "petastorm_tpu_torch/telemetry/trace.py",
+                     "petastorm_tpu_torch/telemetry/sampler.py",
+                     "petastorm_tpu_torch/telemetry/export.py",
+                     "petastorm_tpu_torch/cache_shared.py",
+                     "petastorm_tpu_torch/autotune.py",
+                     "petastorm_tpu_torch/planner.py"):
         assert required in names

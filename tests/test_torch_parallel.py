@@ -228,8 +228,8 @@ def test_make_jax_loader_shards_by_process_whatever_the_mesh(monkeypatch):
 def test_make_cuda_loader_splits_kwargs_like_make_jax_loader():
     jax_params = set(inspect.signature(JaxDataLoader.__init__).parameters)
     port_params = set(inspect.signature(CudaDataLoader.__init__).parameters)
-    # the JAX loader's own knobs that the port has not (ROADMAP queue A item 11)
-    assert jax_params - port_params == {"trace_dir", "transfer_commit", "telemetry"}
+    # every JAX loader knob, trace_dir, transfer_commit and telemetry included
+    assert jax_params - port_params == set()
     assert port_params - jax_params == {"device"}
     kwargs = dict(fields=["tokens"], host_fields=["id"], shuffling_queue_capacity=16,
                   pad_shapes={"tokens": (SEQ,)}, drop_last=False, predicate=None,
@@ -243,6 +243,14 @@ def test_make_cuda_loader_splits_kwargs_like_make_jax_loader():
                                      "workers_count": 1, "schema_fields": ["tokens", "id"]}
     assert set(inspect.signature(make_cuda_loader).parameters) == \
         set(inspect.signature(make_jax_loader).parameters)
+    # a loader's recorder observes the reader too, in both packages
+    recorder = object()
+    seen_jax, seen_port = {}, {}
+    with pytest.raises(_Captured):
+        make_jax_loader("unused", GB, reader_factory=_capture(seen_jax), telemetry=recorder)
+    with pytest.raises(_Captured):
+        make_cuda_loader("unused", GB, reader_factory=_capture(seen_port), telemetry=recorder)
+    assert seen_port["telemetry"] is seen_jax["telemetry"] is recorder
 
 
 def test_make_cuda_loader_stops_the_reader_when_the_loader_fails(tokens_url):

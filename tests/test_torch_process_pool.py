@@ -17,7 +17,9 @@ process behind.  The card's case (the process pool feeding
 """
 
 import functools
+import gc
 import multiprocessing
+import os
 import re
 import time
 
@@ -290,3 +292,61 @@ def test_the_arena_is_sized_from_the_window_and_the_widest_item(tmp_path):
     assert size(roi={"image": ("center", 224, 224)}) == reader._MIN_ARENA_BYTES
     free = __import__("shutil").disk_usage(str(tmp_path)).free
     assert size(window=10 ** 9, shm_dir=str(tmp_path)) == free // 2
+
+
+# -- the arena's segments across readers (tests/test_endurance.py:66-82) -----------
+
+
+def _segment_exists(name: str) -> bool:
+    return os.path.exists(os.path.join("/dev/shm", name.lstrip("/")))
+
+
+def test_readers_reclaim_their_own_arena_segments(url):
+    """Each process-pool reader's arena segment is gone once the reader is
+    closed: after a full read, an early stop, and a read through a killed
+    and a hung worker.  Only this test's own segments are counted (other
+    processes share ``/dev/shm``)."""
+    names = []
+    for case in ("full", "full", "early", "faults"):
+        kwargs = dict(reader_pool_type="process", workers_count=WORKERS, shuffle_seed=3)
+        if case == "faults":
+            kwargs.update(item_deadline_s=1.0,
+                          chaos=chaos.ChaosSpec(kill_ordinals=(2,), hang_ordinals=(5,),
+                                                hang_s=30))
+        with reader.make_batch_reader(url, **kwargs) as r:
+            arena = r._executor._arena  # noqa: SLF001
+            names.append(arena.name)
+            assert _segment_exists(arena.name)
+            if case == "early":
+                next(r.iter_batches())
+            else:
+                assert sum(len(b.columns["x"]) for b in r.iter_batches()) == N_ROWS
+        gc.collect()
+        assert not _segment_exists(names[-1]), case
+    assert len(set(names)) == len(names)
+    assert not any(_segment_exists(n) for n in names)
+
+
+def test_batched_data_loader_over_the_process_pool_keeps_its_leases(url):
+    """``pytorch.BatchedDataLoader`` tensors are views of the arena
+    (``torch.from_numpy``): they stay valid after the reader closes, and the
+    arena unmaps once they are gone."""
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader
+
+    with reader.make_reader(url, reader_pool_type="thread", workers_count=WORKERS,
+                            shuffle_seed=3) as r:
+        want = [{k: v.clone() for k, v in b.items()} for b in BatchedDataLoader(r, RG_ROWS)]
+    with reader.make_reader(url, reader_pool_type="process", workers_count=WORKERS,
+                            shuffle_seed=3) as r:
+        arena = r._executor._arena  # noqa: SLF001
+        got = list(BatchedDataLoader(r, RG_ROWS))
+        assert r.transport_stats()["shm_batches"] == N_ROWS // RG_ROWS
+    # the reader is closed: the arena's name is gone, its mapping is not
+    assert not _segment_exists(arena.name) and not arena._unmapped  # noqa: SLF001
+    assert len(got) == len(want) == N_ROWS // RG_ROWS
+    assert all(set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w)
+               for g, w in zip(got, want))
+    del got, r  # the reader's exhausted generator held the last batch
+    gc.collect()
+    arena.close()
+    assert arena._unmapped  # noqa: SLF001

@@ -4,8 +4,8 @@ fake (``test_util/latency_fs.py``).
 
 The JAX suite's cases (``tests/test_fs_remote.py``, ``tests/test_remote_latency.py``)
 on the port, with ``CudaDataLoader`` on the CPU where they feed
-``JaxDataLoader`` and the thread pool where they spawn a process pool (the
-port has no process pool yet); rows and order through a latent filesystem
+``JaxDataLoader`` and the port's process pool where they spawn the JAX
+one; rows and order through a latent filesystem
 held equal to the JAX reader's; and the parameter names of the seven
 functions that take remote storage held to the JAX package's.
 """
@@ -102,8 +102,8 @@ def test_memory_scheme_mixed_authority_rejected(memfs):
 
 def test_dir_scheme_factory_pickles_and_re_resolves(tmp_path):
     """The fsspec filesystem re-resolves from (url, storage_options) after a
-    pickle round trip, the FilesystemFactory contract; the read goes through
-    the thread pool."""
+    pickle round trip, the FilesystemFactory contract, and inside spawned
+    process-pool workers (``tests/test_fs_remote.py:106``)."""
     backing = tmp_path / "backing"
     backing.mkdir()
     url = "dir://ds"
@@ -112,10 +112,10 @@ def test_dir_scheme_factory_pickles_and_re_resolves(tmp_path):
     assert (backing / "ds" / "_common_metadata").exists()
     clone = pickle.loads(pickle.dumps(FilesystemFactory(url, opts)))
     assert clone().get_file_info("ds/_common_metadata").is_file
-    with make_reader(url, reader_pool_type="thread", workers_count=2, num_epochs=1,
+    with make_reader(url, reader_pool_type="process", workers_count=2, num_epochs=1,
                      shuffle_row_groups=False, storage_options=opts) as r:
         rows = list(r)
-    assert sorted(row.id for row in rows) == list(range(ROWS))
+    assert [row.id for row in rows] == list(range(ROWS))
 
 
 # -- tests/test_remote_latency.py ---------------------------------------------------

@@ -24,6 +24,7 @@ from petastorm_tpu.reader import make_reader as jax_make_reader
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, make_reader, write_dataset
 from petastorm_tpu_torch.convert import resnet_state_from_flax
 from petastorm_tpu_torch.cuda.loader import VALID_ROWS, CudaDataLoader
+from petastorm_tpu_torch.errors import PetastormTpuError
 from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.shuffle import NoopShufflingBuffer, iter_batched
 from petastorm_tpu_torch.models.resnet import ResNet
@@ -148,16 +149,16 @@ class _FakeEvent:
         self.log.append("sync")
 
 
-def test_pinned_slot_reused_only_after_its_copy_completed(dataset, monkeypatch):
-    """The rotation over staging slots waits on each slot's previous copy
-    event before writing into it again (checked without a GPU by swapping the
-    copy for a recorder and running both producer stages in turn)."""
+def _fake_cuda_run(dataset, monkeypatch, **loader_kwargs):
+    """Both producer stages in turn on this thread, with the copy swapped for
+    a recorder (no GPU): the event log, the events made, the staging ring
+    and the delivered units."""
     import queue
 
     from petastorm_tpu_torch.cuda import loader as loader_mod
 
     reader = make_reader(dataset, reader_pool_type="serial", shuffle_seed=0, num_epochs=1)
-    ld = CudaDataLoader(reader, BATCH, device="cpu", prefetch=2)
+    ld = CudaDataLoader(reader, BATCH, device="cpu", prefetch=2, **loader_kwargs)
     ld._cuda = True
     log, events = [], []
     original_fill = ld._fill
@@ -193,18 +194,59 @@ def test_pinned_slot_reused_only_after_its_copy_completed(dataset, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", _Context)
     monkeypatch.setattr(torch.cuda, "Event", make_event)
     ld._fill = fill
-    # both stages in turn on this thread, through unbounded queues
     ld._host_q, ld._out = queue.Queue(), queue.Queue()
     ld._assemble()
     ld._transfer()
     delivered = [ld._out.get_nowait() for _ in range(ld._out.qsize())]
+    (ring,) = ld._slots.values()
+    assert isinstance(delivered[-1], loader_mod._Done)
+    return log, events, ring, delivered[:-1], ld
+
+
+def test_pinned_slot_reused_only_after_its_copy_completed(dataset, monkeypatch):
+    """The rotation over staging slots waits on each slot's previous copy
+    event before writing into it again (checked without a GPU by swapping the
+    copy for a recorder and running both producer stages in turn).  The
+    per-unit commit, which waits on the same events, is off here."""
+    log, events, ring, delivered, _ = _fake_cuda_run(dataset, monkeypatch,
+                                                     transfer_commit=False)
     n_batches = N_ROWS // BATCH
     assert log.count("fill") == n_batches
-    (ring,) = ld._slots.values()
     assert log.count("sync") == n_batches - len(ring)
     assert len(events) == n_batches
-    assert isinstance(delivered[-1], loader_mod._Done)
-    assert [copied for _, copied in delivered[:-1]] == events
+    assert [copied for _, copied, _form in delivered] == events
+
+
+@pytest.mark.parametrize("mode", [True, "auto"])
+def test_transfer_commit_waits_on_each_units_copy(dataset, monkeypatch, mode):
+    """``transfer_commit`` on (``True``, or ``'auto'`` after its probe finds
+    the wait cheap): the transfer thread waits on every unit's event right
+    after recording it, before the next unit; ``'auto'`` probes on four
+    events of the idle stream first (``jax/loader.py:1070-1142``)."""
+    log, events, ring, delivered, ld = _fake_cuda_run(dataset, monkeypatch,
+                                                      transfer_commit=mode)
+    n_batches = N_ROWS // BATCH
+    probes = 4 if mode == "auto" else 0
+    assert len(events) == n_batches + probes
+    unit_events = [copied for _, copied, _form in delivered]
+    assert len(unit_events) == n_batches and all(ev.done for ev in unit_events)
+    # each unit's own wait, and the rotation's on reuse (already done then)
+    assert log.count("sync") == probes + n_batches + (n_batches - len(ring))
+    assert log.index("sync") == log.index("fill") + 1  # before the next fill
+    diag = ld.diagnostics()
+    assert diag["transfer_commit"] is True
+    assert (diag["transfer_commit_probe_ms"] is not None) == (mode == "auto")
+
+
+def test_transfer_commit_values_are_the_jax_loaders(dataset):
+    reader = make_reader(dataset, reader_pool_type="serial", num_epochs=1)
+    with reader:
+        for bad in (0, 1, "yes", None):
+            with pytest.raises(PetastormTpuError,
+                               match="transfer_commit must be True, False or 'auto'"):
+                CudaDataLoader(reader, BATCH, device="cpu", transfer_commit=bad)
+        # on the CPU there is no copy to wait on
+        assert CudaDataLoader(reader, BATCH, device="cpu").diagnostics()["transfer_commit"] is False
 
 
 # -- the filtered and transformed feed: selector, predicate, row-drop
