@@ -327,12 +327,31 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    the written profile; (c) ``cache_type='shared'``: two epochs, then a
    spawned process attached to the same namespace, every later read an L1
    hit with phase 6's labels and sums, samples/s beside phase 14's warm
-   cache, and no segment left after ``cleanup()``.
+   cache, and no segment left after ``cleanup()``;
+32. the ingest service on the main path: a dispatcher and 3 workers (2 items
+   each, an shm arena each sized to the reader's window) started by
+   ``python -m petastorm_tpu_torch.service.cli`` as processes of this host,
+   then phase 6's training feed through ``make_reader(...,
+   service_address=...)``: (a) one epoch, phase 6's labels and image sums,
+   B2, B3 and B1 once a batch, every result an ``"shm"`` payload, samples/s,
+   input-idle share and epoch seconds beside phases 6 and 29, the fleet's
+   entropy decode of the epoch's images and the workers' shm payload cost;
+   (b) the epoch again beside a second, host-only tenant on a thread, both
+   on the workers' shared tier: each its exact rows, the fleet decoding each
+   rowgroup once (the tier's misses, the fleet's decode counters), the
+   slowdown; (c) an epoch with ``trace_items=True`` whose items each sleep
+   SERVICE_SLOW_S, once clean and once with a worker SIGKILLed after step 4:
+   phase 6's labels and sums, items requeued, a merged trace with client,
+   dispatcher and worker tracks, the ``service.hop.*`` p50s and the seconds
+   the kill cost; every fleet process reaped and no shm segment left.
 
 Then a ``wall`` line (the script's seconds so far), a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result;
-without a CUDA GPU it exits non-zero at once.
+without a CUDA GPU it exits non-zero at once.  ``python3 chip_smoke.py
+--service-ab`` runs no phase: it measures phase 32 (b)'s second tenant on a
+thread against one in a process of its own, with and without the shared
+tier (``service_tenants_ab``).
 """
 
 import contextlib
@@ -345,6 +364,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -1351,9 +1371,10 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
     cached = reader_kwargs.get("cache_type", "null") != "null"
     if decoded_images is None:
         decoded_images = N_ROWS * (1 if cached else epochs)
-    if reader_kwargs.get("reader_pool_type") == "process":
+    if (reader_kwargs.get("reader_pool_type") == "process"
+            or reader_kwargs.get("service_address") is not None):
         # the workers count their decode in their own processes: the caller
-        # reads the pool's transport counters instead
+        # reads the pool's transport counters, or the fleet's, instead
         decoded = None
     elif decode == "auto":
         # the live split: entropy-only decode for device-form rowgroups, the
@@ -1464,7 +1485,8 @@ def train_path_device_decode_phase(path, kernels, host):
           losses=run["losses"].tolist(), labels_match_host_order=True,
           decode_stats=run["decode_stats"], first_batch_vs_host_decode=vs_cv2)
     return {"labels": run["labels"], "samples_per_s": run["samples_per_s"],
-            "first_images": images, "image_sums": run["image_sums"], "epoch_s": run["epoch_s"]}
+            "first_images": images, "image_sums": run["image_sums"], "epoch_s": run["epoch_s"],
+            "input_idle_share": run["wait"] / timed}
 
 
 def shuffled_train_path_phase(path, device):
@@ -4401,6 +4423,329 @@ def shared_tier_part(tmp, path, kernels, device, warm, workers):
             "segments_left": 0}
 
 
+SERVICE_WORKERS, SERVICE_CAPACITY = 3, 2           # phase 32: worker processes, items each
+SERVICE_KILL_AFTER_STEP = 4                       # phase 32 (c): SIGKILL a worker after it
+SERVICE_SLOW_S = 1.0                              # phase 32 (c): each item's added seconds
+SERVICE_WINDOW_SLACK = 4                          # phase 32: arena rowgroups past the window
+
+
+def fleet_probe(addr, kind="stats?"):
+    """One ``stats?`` (or ``fleet?``) probe of the dispatcher at ``addr``."""
+    from petastorm_tpu_torch.service.protocol import connect_frames, parse_address
+
+    conn = connect_frames(parse_address(addr), timeout=10.0)
+    try:
+        conn.send({"t": kind})
+        reply = conn.recv(timeout=10.0)
+    finally:
+        conn.close()
+    return reply[kind.rstrip("?")]
+
+
+def start_fleet(tmp):
+    """Phase 32's fleet, started by the port's CLI as processes of this host:
+    a dispatcher on ``127.0.0.1:0`` and SERVICE_WORKERS workers, each with an
+    shm arena that holds the reader's whole window of coefficient planes
+    (its items at the dispatcher, those held for their turn and
+    SERVICE_WINDOW_SLACK more), capped by half of ``/dev/shm``'s free space
+    over the workers.  Returns (address, dispatcher, {name: worker}, arena
+    MB)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "petastorm_tpu_torch.service.cli"]
+    log = open(os.path.join(tmp, "dispatcher.log"), "w")
+    disp = subprocess.Popen(cli + ["dispatcher", "--host", "127.0.0.1", "--port", "0"],
+                            cwd=here, stdout=subprocess.PIPE, stderr=log, text=True)
+    line = disp.stdout.readline()  # "dispatcher listening on HOST:PORT"
+    if "listening on" not in line:
+        disp.kill()
+        raise AssertionError(f"phase 32: the dispatcher did not start: {line!r}")
+    addr = line.split("listening on")[1].strip()
+    planes = ROWS_PER_GROUP * SIDE * SIDE * 3  # int16 Y + two 4:2:0 chroma planes
+    window = 2 * max(4, 10) + SERVICE_WINDOW_SLACK  # the reader's default window
+    free = shutil.disk_usage("/dev/shm").free
+    arena_mb = min(window * planes, free // (2 * SERVICE_WORKERS)) >> 20
+    workers = {}
+    for i in range(SERVICE_WORKERS):
+        name = f"w{i}"
+        workers[name] = subprocess.Popen(
+            cli + ["worker", "--address", addr, "--capacity", str(SERVICE_CAPACITY),
+                   "--name", name, "--shm-size-mb", str(arena_mb)],
+            cwd=here, stdout=subprocess.DEVNULL,
+            stderr=open(os.path.join(tmp, f"{name}.log"), "w"))
+    deadline = time.monotonic() + 60
+    while len(fleet_probe(addr)["workers"]) < SERVICE_WORKERS:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 32: the workers did not register")
+        time.sleep(0.1)
+    return addr, disp, workers, arena_mb
+
+
+def stop_fleet(disp, workers):
+    """Workers first (SIGTERM: a graceful drain), then the dispatcher
+    (SIGINT), each bounded, then killed; every process reaped."""
+    for proc in workers.values():
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in list(workers.values()) + [disp]:
+        if proc is disp and proc.poll() is None:
+            proc.send_signal(2)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+    left = [p.pid for p in list(workers.values()) + [disp] if p.poll() is None]
+    if left:
+        raise AssertionError(f"phase 32: fleet processes left: {left}")
+
+
+def service_phase(tmp, path, kernels, device, clean):
+    """Phase 32: the ingest service on the main path.  Phase 6's training
+    feed through a dispatcher and worker processes of the port's CLI: (a) one
+    epoch, (b) the epoch again beside a host-only second tenant, both on the
+    workers' shared tier, (c) a traced epoch with a worker SIGKILLed after
+    step SERVICE_KILL_AFTER_STEP.  The fleet decodes an epoch in a fraction
+    of the trainer's time, so in (c) every item sleeps SERVICE_SLOW_S first
+    (``ChaosSpec.slow_s``): the trainer then waits on the fleet, whose
+    workers hold items when the kill comes, and the same throttled epoch
+    without the kill is the kill's baseline."""
+    t0 = time.perf_counter()
+    shm_before = set(os.listdir("/dev/shm"))
+    addr, disp, workers, arena_mb = start_fleet(tmp)
+    steps = N_ROWS // BATCH
+    out = {"workers": SERVICE_WORKERS, "capacity": SERVICE_CAPACITY, "arena_mb": arena_mb,
+           "fleet_start_s": time.perf_counter() - t0}
+    try:
+        def count(run, what):
+            for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+                kernels[kernel]["launches"] += run["launches"][kernel]
+            payloads = run["diagnostics"]["reader"]["payloads"]
+            if payloads != {"shm": steps, "bin": 0, "pickle": 0}:
+                raise AssertionError(f"phase 32, {what}: results by payload kind {payloads},"
+                                     f" expected {steps} shm")
+            return payloads
+
+        def rates(run):
+            idle = (run["input_idle_share"] if "input_idle_share" in run
+                    else run["wait"] / run["timed"])
+            return {"samples_per_s": run["samples_per_s"], "epoch_s": run["epoch_s"],
+                    "input_idle_share": idle}
+
+        # (a) the flagship feed through the fleet
+        run = train_epoch(path, "device", reader_kwargs=dict(service_address=addr))
+        same_epoch(run, device, "phase 32 (a) against phase 6")
+        out["a"] = {**rates(run), "payloads": count(run, "(a)"), "launches": run["launches"],
+                    "phase6": rates(device), "phase29": rates(clean)}
+        base_epoch_s = run["epoch_s"]
+
+        # (b) two tenants on the workers' shared tier
+        location = os.path.join(tmp, "service_tier")
+        tier_kwargs = dict(cache_type="shared", cache_location=location,
+                           cache_size_limit=SHARED_TIER_BYTES)
+        def fleet_decoded(at_least, settle_s=2.5):
+            """The fleet's entropy-decoded images once the heartbeats (every
+            2 s) folded at least ``at_least``, read again a heartbeat later."""
+            deadline = time.monotonic() + 15
+            key = "service.fleet.decode.coef_batch_images"
+            while (fleet_probe(addr)["counters"].get(key, 0) < at_least
+                   and time.monotonic() < deadline):
+                time.sleep(0.25)
+            time.sleep(settle_s)
+            return fleet_probe(addr)["counters"].get(key, 0)
+
+        decoded0 = fleet_decoded(N_ROWS)  # (a)'s epoch
+        if decoded0 != N_ROWS:
+            raise AssertionError(f"phase 32 (a): the fleet entropy-decoded {decoded0} images,"
+                                 f" expected {N_ROWS}")
+        # the workers' cost of a result's shm payload (one copy of a
+        # rowgroup's coefficient planes into the arena), from their heartbeats
+        encode = fleet_probe(addr, "fleet?")["merged_hists"].get(
+            "stage.service.encode.latency_s", {}).get("snapshot", {})
+        out["a"]["shm_encode_ms"] = {
+            "count": encode.get("count"),
+            "mean": 1e3 * encode.get("sum", 0.0) / max(encode.get("count") or 1, 1),
+            "buckets_s": encode.get("buckets"), "counts": encode.get("counts"),
+            "rowgroup_mb": ROWS_PER_GROUP * SIDE * SIDE * 3 / 1e6}
+        second = {}
+
+        def tenant():
+            t_ = time.perf_counter()
+            with make_reader(path, service_address=addr, shuffle_seed=1, num_epochs=1,
+                             decode_placement={"image": "device"}, **tier_kwargs) as r:
+                second["labels"] = sorted(int(x) for b in r.iter_batches()
+                                          for x in b.columns["label"])
+            second["seconds"] = time.perf_counter() - t_
+
+        thread = threading.Thread(target=tenant)
+        thread.start()
+        run = train_epoch(path, "device", reader_kwargs=dict(service_address=addr, **tier_kwargs))
+        thread.join(timeout=300)
+        if thread.is_alive():
+            raise AssertionError("phase 32 (b): the second tenant did not finish")
+        same_epoch(run, device, "phase 32 (b) against phase 6")
+        if second["labels"] != sorted(device["labels"].tolist()):
+            raise AssertionError("phase 32 (b): the second tenant's rows differ")
+        tier = SharedWarmCache(location=location, l1_bytes=SHARED_TIER_BYTES)
+        stats = tier.stats()
+        tier.cleanup()
+        if stats["misses"] != steps or stats["hits"] + stats["l2_hits"] != steps:
+            raise AssertionError(f"phase 32 (b): tier {stats}, expected {steps} misses and"
+                                 f" {steps} hits")
+        decoded = fleet_decoded(decoded0 + N_ROWS) - decoded0
+        if decoded != N_ROWS:
+            raise AssertionError(f"phase 32 (b): the fleet entropy-decoded {decoded} images,"
+                                 f" expected {N_ROWS} (each rowgroup once)")
+        out["b"] = {**rates(run), "payloads": count(run, "(b)"), "slowdown": run["epoch_s"]
+                    / base_epoch_s - 1, "second_tenant_s": second["seconds"],
+                    "tier": {k: stats[k] for k in ("misses", "hits", "l2_hits")},
+                    "fleet_decoded_images": decoded}
+
+        # (c) a worker SIGKILLed mid-epoch, the epoch traced
+        slow = ChaosSpec(slow_rate=1.0, slow_s=SERVICE_SLOW_S)
+        base = train_epoch(path, "device", reader_kwargs=dict(
+            service_address=addr, trace_items=True, telemetry=Telemetry(), chaos=slow))
+        same_epoch(base, device, "phase 32 (c), throttled, against phase 6")
+        count(base, "(c) throttled")
+        tele = Telemetry()
+        killed = {}
+
+        def kill(_batch):
+            # from step SERVICE_KILL_AFTER_STEP on, the first worker seen
+            # holding an item dies
+            killed["step"] = killed.get("step", 0) + 1
+            if killed["step"] < SERVICE_KILL_AFTER_STEP or "victim" in killed:
+                return
+            busy = sorted(name for name, w in fleet_probe(addr)["workers"].items()
+                          if w["inflight"] > 0)
+            if busy:
+                workers[busy[0]].kill()
+                workers[busy[0]].wait(timeout=30)
+                killed.update(victim=busy[0], at_step=killed["step"])
+
+        run = train_epoch(path, "device", on_batch=kill, reader_kwargs=dict(
+            service_address=addr, trace_items=True, telemetry=tele, chaos=slow))
+        same_epoch(run, device, "phase 32 (c) against phase 6")
+        if "victim" not in killed:
+            raise AssertionError(f"phase 32 (c): no worker held an item from step"
+                                 f" {SERVICE_KILL_AFTER_STEP} on")
+        reader_diag = run["diagnostics"]["reader"]
+        requeued = tele.snapshot()["counters"].get("service.requeued_items", 0)
+        if requeued < 1 or reader_diag["requeued_items"] < 1:
+            raise AssertionError(f"phase 32 (c): {requeued} items requeued after the kill")
+        trace = tele.trace.chrome_trace()
+        tracks = {e["args"]["name"] for e in trace["traceEvents"]
+                  if e.get("name") == "process_name"}
+        spans = {e["name"] for e in trace["traceEvents"]
+                 if e.get("cat") == "service.trace" and e.get("ph") == "X"}
+        if not ({"service.item", "client.serialize"} <= spans
+                and any(t.startswith("dispatcher@") for t in tracks)
+                and any(t.startswith("worker:") for t in tracks)):
+            raise AssertionError(f"phase 32 (c): the merged trace lacks a track: {tracks}")
+        hists = tele.snapshot()["histograms"]
+        from petastorm_tpu_torch.telemetry.report import hist_quantile
+
+        # p50 is a bucket bound of the fixed latency buckets; the mean is exact
+        hops = {n[len("service.hop."):]: {"count": h["count"],
+                                          "p50_ms": 1e3 * hist_quantile(h, 0.5),
+                                          "mean_ms": 1e3 * h["sum"] / h["count"]}
+                for n, h in hists.items() if n.startswith("service.hop.") and h["count"]}
+        out["c"] = {**rates(run), "payloads": count(run, "(c)"), "slow_s": SERVICE_SLOW_S,
+                    "throttled_epoch_s": base["epoch_s"], "killed": killed["victim"],
+                    "killed_after_step": killed["at_step"],
+                    "requeued_items": requeued, "lost_s": run["epoch_s"] - base["epoch_s"],
+                    "hops": hops, "trace_tracks": sorted(tracks)}
+    finally:
+        stop_fleet(disp, workers)
+    left = sorted(set(os.listdir("/dev/shm")) - shm_before)
+    if left:
+        raise AssertionError(f"phase 32: shm segments left: {left}")
+    phase("service_train", batch=BATCH, steps=steps, seconds=time.perf_counter() - t0,
+          segments_left=0, **out)
+
+
+SERVICE_AB_SLOW_S = 0.25                          # --service-ab: a tierless tenant's item sleep
+
+
+def service_tenants_ab():
+    """``python3 chip_smoke.py --service-ab`` (not run by default): phase 32
+    (b)'s cost taken apart on phase 6's feed through a fleet started as in
+    phase 32.  The trainer's epoch beside a second tenant, in turns twice:
+    the tenant on a thread of the trainer's process or in a process of its
+    own, on a fresh shared tier or without one (then its items sleep
+    SERVICE_AB_SLOW_S, so its read lasts about as long as a tier tenant's);
+    then the workers' shm encode times over every run.  One JSON line a
+    run."""
+    build.build_all()
+    for name in native_build.LIBS:
+        native_build.build(name)
+    kernels = {k: {"launches": 0} for k in ("normalize_u8", "resized_crop_flip_u8",
+                                           "resized_crop_aa_u8", "jpeg_decode_u8")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="service_ab_") as tmp:
+        path, _ = main_path_phase(tmp, kernels)
+        addr, disp, workers, _ = start_fleet(tmp)
+        try:
+            alone = train_epoch(path, "device", reader_kwargs=dict(service_address=addr))
+            phase("service_ab", run="alone", samples_per_s=alone["samples_per_s"],
+                  epoch_s=alone["epoch_s"])
+            runs = [(tier, where) for _ in range(2) for tier in (True, False)
+                    for where in ("thread", "process")]
+            for k, (tier, where) in enumerate(runs):
+                location = os.path.join(tmp, f"ab_tier{k}")
+                tier_kwargs = (dict(cache_type="shared", cache_location=location,
+                                    cache_size_limit=SHARED_TIER_BYTES) if tier else {})
+                second = dict(shuffle_seed=1, num_epochs=1, service_address=addr,
+                              decode_placement={"image": "device"}, **tier_kwargs)
+                if not tier:
+                    second["chaos"] = ChaosSpec(slow_rate=1.0, slow_s=SERVICE_AB_SLOW_S)
+                done = {}
+                if where == "thread":
+                    def tenant():
+                        t0 = time.perf_counter()
+                        with make_reader(path, **second) as r:
+                            done["rows"] = sum(b.num_rows for b in r.iter_batches())
+                        done["seconds"] = time.perf_counter() - t0
+                    thread = threading.Thread(target=tenant)
+                    thread.start()
+                else:
+                    code = ("import json, sys, time\n"
+                            f"sys.path.insert(0, {here!r})\n"
+                            "from petastorm_tpu_torch import make_reader\n"
+                            "from petastorm_tpu_torch.test_util.chaos import ChaosSpec\n"
+                            f"kw = {dict(second, chaos=None)!r}\n"
+                            + (f"kw['chaos'] = ChaosSpec(slow_rate=1.0, slow_s={SERVICE_AB_SLOW_S})\n"
+                               if not tier else "kw.pop('chaos')\n")
+                            + "t0 = time.perf_counter()\n"
+                            f"with make_reader({path!r}, **kw) as r:\n"
+                            "    rows = sum(b.num_rows for b in r.iter_batches())\n"
+                            "print(json.dumps([rows, time.perf_counter() - t0]))\n")
+                    child = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                             text=True)
+                run = train_epoch(path, "device", reader_kwargs=dict(service_address=addr,
+                                                                     **tier_kwargs))
+                if where == "thread":
+                    thread.join(timeout=300)
+                else:
+                    done["rows"], done["seconds"] = json.loads(
+                        child.communicate(timeout=300)[0].strip().splitlines()[-1])
+                if done.get("rows") != N_ROWS:
+                    raise AssertionError(f"--service-ab: the second tenant read {done}")
+                if tier:
+                    SharedWarmCache(location=location, l1_bytes=SHARED_TIER_BYTES).cleanup()
+                phase("service_ab", run=k, tenant=where, tier=tier,
+                      samples_per_s=run["samples_per_s"], epoch_s=run["epoch_s"],
+                      input_idle_share=run["wait"] / run["timed"],
+                      relative=run["samples_per_s"] / alone["samples_per_s"] - 1,
+                      second_tenant_s=done["seconds"])
+            encode = fleet_probe(addr, "fleet?")["merged_hists"].get(
+                "stage.service.encode.latency_s", {}).get("snapshot", {})
+            phase("service_ab_encode", count=encode.get("count"),
+                  mean_ms=1e3 * encode.get("sum", 0.0) / max(encode.get("count") or 1, 1),
+                  buckets_s=encode.get("buckets"), counts=encode.get("counts"))
+        finally:
+            stop_fleet(disp, workers)
+
+
 def main():
     started = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4453,6 +4798,7 @@ def main():
         clean = process_pool_phase(path, kernels, host, device)
         chaos_phase(path, kernels, clean, device)
         observability_phase(tmp, path, kernels, host, device, warm)
+        service_phase(tmp, path, kernels, device, clean)
 
     phase("wall", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
@@ -4464,5 +4810,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--packed-mesh-rank"]:
         packed_mesh_rank(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--service-ab"]:
+        service_tenants_ab()
     else:
         main()

@@ -7,7 +7,7 @@ batch-major and contiguous for fixed-shape fields.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -16,6 +16,10 @@ import numpy as np
 class ColumnBatch:
     columns: Dict[str, np.ndarray]
     num_rows: int
+    #: the work item's ordinal where a producer stamps it (the service wire's
+    #: ``"bord"`` and the shm descriptor carry it, ``petastorm_tpu/batch.py:26``);
+    #: the port's readers deliver in plan order and do not need it
+    ordinal: Optional[int] = None
 
     def __post_init__(self):
         for name, col in self.columns.items():

@@ -20,7 +20,7 @@ workers, epochs, readers and jobs on one host:
   eviction overflows gracefully.  An L1 miss that hits L2 is promoted back
   into L1.
 
-Two choices differ from the JAX tier on purpose:
+Three choices differ from the JAX tier on purpose:
 
 * the namespace carries a port tag: the segment names hash
   ``petastorm_tpu_torch:<location>``, the disk tier is
@@ -29,7 +29,13 @@ Two choices differ from the JAX tier on purpose:
   one host never attach each other's segments or read each other's entries
   (whose pickles name the other package's classes);
 * without the arena library there is no tier: construction raises, as the
-  process pool does, where the JAX tier degrades to its disk level alone.
+  process pool does, where the JAX tier degrades to its disk level alone;
+* a miss fills under a host-wide lock of its key's stripe (one of
+  :data:`FILL_STRIPES` lockfiles), and looks again once it holds it: two
+  processes or threads that miss one key at once (two tenants of the ingest
+  service on one dataset, ``service/``) decode it once, where the JAX tier
+  lets both decode it.  Unrelated keys of one stripe wait for each other's
+  fill.
 
 Concurrency model
 -----------------
@@ -99,6 +105,8 @@ SEGMENT_PREFIX = "pswt-"
 
 _MAGIC = 0x70737763_61636831  # "pswcach1"
 _ALIGN = 64
+#: stripes of the fill lock (module docstring)
+FILL_STRIPES = 64
 
 _HEADER_DTYPE = np.dtype([
     ("magic", "<u8"), ("nslots", "<u8"), ("tick", "<u8"),
@@ -206,6 +214,9 @@ class SharedWarmCache(CacheBase):
         self._index_name = f"{SEGMENT_PREFIX}{ns}-idx"
         self._lock_path = os.path.join(tempfile.gettempdir(),
                                        f"{SEGMENT_PREFIX}{ns}.lock")
+        #: stripe -> this process's lock on ``<lock_path>.fill<stripe>``
+        self._fill_locks: Dict[int, _FileLock] = {}
+        self._fill_locks_guard = threading.Lock()
         self._ready = False
         self._l1_failed = False
         self._l1_error = ""
@@ -314,6 +325,8 @@ class SharedWarmCache(CacheBase):
         for name in ("_telemetry", "_arena", "_index_shm", "_header",
                      "_slots_arr", "_lock"):
             state[name] = None
+        state["_fill_locks"] = {}
+        state["_fill_locks_guard"] = None
         state["_ready"] = False
         # a parent-side L1 failure is environmental (lib/shm missing) and
         # would recur in the child; a child retries only the attach itself
@@ -322,11 +335,34 @@ class SharedWarmCache(CacheBase):
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._telemetry = _resolve_telemetry(None)
+        self._fill_locks_guard = threading.Lock()
 
     # -- CacheBase ------------------------------------------------------------
 
     def get(self, key: str, fill_cache_func: Callable[[], Any]) -> Any:
         l1 = self._ensure_ready()
+        value = self._lookup(key, l1)
+        if value is not _MISSING:
+            return value
+        with self._fill_lock(key):
+            # a fill of this key elsewhere on the host may have ended while
+            # this one waited for the stripe
+            value = self._lookup(key, l1)
+            if value is not _MISSING:
+                return value
+            self._bump("misses", tick=True)
+            value = fill_cache_func()
+            if l1:
+                self._l1_store(key, value)
+            if self._l2 is not None:
+                try:
+                    self._l2.store(key, value)
+                except Exception:  # noqa: BLE001 - the tier is an optimization
+                    logger.warning("L2 store failed for %s", key, exc_info=True)
+        return value
+
+    def _lookup(self, key: str, l1: bool) -> Any:
+        """The cached value of ``key`` (counted as a hit), or ``_MISSING``."""
         if l1:
             value = self._l1_lookup(key)
             if value is not _MISSING:
@@ -339,16 +375,16 @@ class SharedWarmCache(CacheBase):
                 if l1:
                     self._l1_store(key, value)  # promote for the next reader
                 return value
-        self._bump("misses", tick=True)
-        value = fill_cache_func()
-        if l1:
-            self._l1_store(key, value)
-        if self._l2 is not None:
-            try:
-                self._l2.store(key, value)
-            except Exception:  # noqa: BLE001 - the tier is an optimization
-                logger.warning("L2 store failed for %s", key, exc_info=True)
-        return value
+        return _MISSING
+
+    def _fill_lock(self, key: str) -> _FileLock:
+        """This process's lock on ``key``'s fill stripe, opened at first use."""
+        stripe = _digest_pair(key)[0] % FILL_STRIPES
+        with self._fill_locks_guard:
+            lock = self._fill_locks.get(stripe)
+            if lock is None:
+                lock = self._fill_locks[stripe] = _FileLock(f"{self._lock_path}.fill{stripe}")
+        return lock
 
     def cleanup(self) -> None:
         """Host-wide purge: unlink the shared segments and delete the disk
@@ -372,10 +408,12 @@ class SharedWarmCache(CacheBase):
         if self._l2 is not None:
             self._l2.cleanup()
             self._l2 = None
-        try:
-            os.remove(self._lock_path)
-        except OSError:
-            pass
+        for path in [self._lock_path] + [f"{self._lock_path}.fill{k}"
+                                         for k in range(FILL_STRIPES)]:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
 
     def close(self) -> None:
         """Detach this process's mapping; the tier stays alive for other
@@ -402,6 +440,10 @@ class SharedWarmCache(CacheBase):
         if self._lock is not None:
             self._lock.close()
             self._lock = None
+        with self._fill_locks_guard:
+            for lock in self._fill_locks.values():
+                lock.close()
+            self._fill_locks = {}
 
     def __del__(self):  # best-effort; explicit close() is the supported path
         try:

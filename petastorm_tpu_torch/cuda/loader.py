@@ -1629,7 +1629,8 @@ def make_cuda_loader(dataset_url: str,
     """One-call path: dataset URL -> sharded reader -> ``CudaDataLoader``
     (``petastorm_tpu/jax/loader.py:1889 make_jax_loader``).
 
-    Reader kwargs (``predicate``, ``num_epochs``, ``shuffle_seed``, ...) and
+    Reader kwargs (``predicate``, ``num_epochs``, ``shuffle_seed``,
+    ``service_address``, ...) and
     loader kwargs (``device``, ``shuffling_queue_capacity``, ``pad_shapes``,
     ...) are split by the loader's signature; ``schema_fields`` defaults to
     the delivered fields (``fields`` and ``host_fields``), so no column is

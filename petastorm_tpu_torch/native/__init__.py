@@ -53,6 +53,23 @@ def load_arena() -> ctypes.CDLL:
     return build.load("shm_arena", _configure_arena)
 
 
+def transport_availability() -> dict:
+    """``{"available": bool, "reason": str}`` for the zero-copy transport
+    (``petastorm_tpu/native/__init__.py:47``): the arena library builds and
+    the interpreter has the PEP 688 buffer protocol.  The service client's
+    hello log and its ``shm_ok`` flag read it."""
+    try:
+        load_arena()
+    except Exception as exc:  # noqa: BLE001 - reported, not raised
+        return {"available": False, "reason": f"{type(exc).__name__}: {exc}"}
+    return {"available": True, "reason": "ok"}
+
+
+def is_available() -> bool:
+    """True when the zero-copy transport works here."""
+    return transport_availability()["available"]
+
+
 #: serializes the resource-tracker patch below: two concurrent attaches could
 #: otherwise interleave save and restore and leave it installed for good
 _ATTACH_LOCK = threading.Lock()

@@ -57,11 +57,14 @@ class ShmBatchRef:
     the one block at ``offset`` by ``encode_batch``), ``("slot", dtype,
     shape, abs_offset, nbytes)`` (decoded into its own block by the worker),
     or ``("inline", value)`` (pickled with the descriptor).  ``offset`` is
-    None when nothing was packed."""
+    None when nothing was packed.  ``ordinal`` is the batch's own
+    (``ColumnBatch.ordinal``), carried across the hop
+    (``petastorm_tpu/native/transport.py:62-66``)."""
     offset: Optional[int]
     total_bytes: int
     num_rows: int
     columns: Dict[str, Tuple]
+    ordinal: Optional[int] = None
 
 
 class _Lease:
@@ -247,7 +250,7 @@ def encode_batch(arena: SharedArena, batch: Any, stop_check=None,
             np.copyto(dst, col)
         del dst, view  # drop the buffer exports so arena.close() can unmap
     return ShmBatchRef(offset=offset, total_bytes=total, num_rows=batch.num_rows,
-                       columns=meta)
+                       columns=meta, ordinal=batch.ordinal)
 
 
 def decode_batch(arena: SharedArena, ref: Any) -> Any:
@@ -271,7 +274,7 @@ def decode_batch(arena: SharedArena, ref: Any) -> Any:
         else:
             cols[name] = np.frombuffer(_Lease(arena, entry[3], entry[4]), dtype=dtype,
                                        count=count).reshape(shape)
-    return ColumnBatch(cols, ref.num_rows)
+    return ColumnBatch(cols, ref.num_rows, ordinal=ref.ordinal)
 
 
 def slot_column_count(ref: Any) -> int:

@@ -52,9 +52,11 @@ sampler, a localhost metrics endpoint and a flight recorder
 ``workers_count='auto'``) runs the static planner (``planner.py``) and then
 the runtime controller (``autotune.py``); ``cache_type='shared'`` is the
 host-wide warm tier (``cache_shared.py``); ``decode_placement='auto'`` is
-the live host/device decode split (``:715-731``, ``:2015-2060``).  The
-ingest service is not part of this package yet (ROADMAP.md queue A item
-11).
+the live host/device decode split (``:715-731``, ``:2015-2060``).
+``service_address`` reads through the disaggregated ingest service
+(``service/``, ``:823-843``): the dispatcher's remote workers run the
+reader's worker, and its client executor delivers in plan order as the
+local pools do.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ import numpy as np
 from petastorm_tpu_torch.batch import ColumnBatch
 from petastorm_tpu_torch.cache import make_cache
 from petastorm_tpu_torch.codecs import CompressedImageCodec, native_decodable
-from petastorm_tpu_torch.errors import (EpochNotFinishedError, ErrorBudgetExceededError,
-                                        ErrorPolicy, NoDataAvailableError, PetastormTpuError,
+from petastorm_tpu_torch.errors import (DEFAULT_REQUEUE_ATTEMPTS, EpochNotFinishedError,
+                                        ErrorBudgetExceededError, ErrorPolicy,
+                                        NoDataAvailableError, PetastormTpuError,
                                         ReaderClosedError, resolve_error_policy)
 from petastorm_tpu_torch.etl.indexing import get_row_group_indexes
 from petastorm_tpu_torch.etl.metadata import (declared_geometries, infer_or_load_schema,
@@ -110,7 +113,12 @@ _POOL_DIAGNOSTICS = ("ventilated", "consumed", "in_queue_size", "reorder_held", 
                      "results_queue_bound", "workers_retired",
                      "requeued_items", "hung_workers_killed", "hung_workers_abandoned",
                      "hedged_items", "hedge_wins", "workers_busy", "workers_abandoned",
-                     "workers_count", "workers_alive", "shm_transport")
+                     "workers_count", "workers_alive", "shm_transport",
+                     # a service reader's client (``petastorm_tpu/service/client.py:
+                     # 984-997``), and the payload kinds its results came in
+                     "service_address", "service_addresses", "client_id", "connected",
+                     "reconnects", "dispatcher_restarts", "dispatcher_epoch", "window",
+                     "window_in_use", "trace_items", "payloads")
 #: the process pool's transport counters (``Reader.transport_stats``)
 _TRANSPORT_STATS = ("shm_size_bytes", "shm_free_bytes", "shm_high_water_bytes", "shm_batches",
                     "pickled_batches", "slot_columns", "slot_rows", "worker_spawn_s",
@@ -156,6 +164,9 @@ def make_reader(dataset_url: str,
                 flight_record_path: Optional[str] = None,
                 sample_interval_s: Optional[float] = None,
                 autotune=None,
+                service_address=None,
+                service_weight: Optional[float] = None,
+                service_priority: Optional[int] = None,
                 trace_items=None) -> "Reader":
     """Row reader for datasets that carry a stored schema: yields one
     namedtuple per row; ``iter_batches()`` yields whole decoded rowgroups
@@ -321,8 +332,32 @@ def make_reader(dataset_url: str,
     (``PETASTORM_TPU_FLIGHT_RECORD``), ``sample_interval_s`` sets the
     sampler's cadence (``PETASTORM_TPU_SAMPLE_INTERVAL_S``, 1 s; <= 0 stops
     it).  Any of them, ``autotune`` or a positive ``sample_interval_s``
-    makes a private recorder when none is enabled.  ``trace_items`` is the
-    ingest service's per-item tracing and raises without it.
+    makes a private recorder when none is enabled.
+
+    ``service_address``: consume through the disaggregated ingest service
+    (``petastorm_tpu/reader.py:283-314``) instead of an in-process pool:
+    ``'host:port'``, ``(host, port)`` or a failover list ``'a:p,b:p'`` of a
+    running dispatcher (``python -m petastorm_tpu_torch.service.cli
+    dispatcher``).  The reader ships its worker factory to the dispatcher's
+    remote-worker fleet and receives decoded batches over the wire (as
+    ``"shm"`` descriptors from a worker on this host with an arena);
+    co-located workers using ``cache_type='shared'`` decode each rowgroup
+    once across every client of the dataset.  The plan, the order of
+    delivery, the cursor, the stream digest and ``on_error`` behave as with
+    a local pool; ``reader_pool_type`` and ``workers_count`` are ignored
+    (fleet size is the dispatcher's concern), and ``autotune``,
+    ``item_deadline_s`` and ``hedge_after_s`` are inoperative (warned and
+    dropped); ``cache_type='memory'`` is refused.  A lost dispatcher
+    connection reconnects with backoff and, failing that, raises
+    ``service.client.ServiceConnectionError``.  ``service_weight`` /
+    ``service_priority``: this trainer's QoS share and strict tier at the
+    dispatcher (defaults 1.0 / 0, or ``PETASTORM_TPU_SERVICE_WEIGHT`` /
+    ``PETASTORM_TPU_SERVICE_PRIORITY``); they need ``service_address``.
+    ``trace_items``: per-item distributed tracing across the service's
+    processes (``True`` = 1 item in 16, an int N = 1 in N,
+    ``PETASTORM_TPU_TRACE_ITEMS``): the merged client, dispatcher and worker
+    spans land in the reader's trace buffer, with the ``service.hop.*``
+    histograms; it needs ``service_address``.
 
     ``autotune``: ``True``, an ``autotune.AutotunePolicy``, or ``False``;
     None arms it for ``workers_count='auto'`` only.  The planner seeds the
@@ -345,7 +380,8 @@ def make_reader(dataset_url: str,
                         telemetry=telemetry, metrics_port=metrics_port,
                         flight_record_path=flight_record_path,
                         sample_interval_s=sample_interval_s, autotune=autotune,
-                        trace_items=trace_items)
+                        service_address=service_address, service_weight=service_weight,
+                        service_priority=service_priority, trace_items=trace_items)
 
 
 def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
@@ -387,6 +423,9 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                       flight_record_path: Optional[str] = None,
                       sample_interval_s: Optional[float] = None,
                       autotune=None,
+                      service_address=None,
+                      service_weight: Optional[float] = None,
+                      service_priority: Optional[int] = None,
                       trace_items=None) -> "Reader":
     """Batch reader: yields one namedtuple of column arrays per rowgroup.
     Plain parquet stores (no stored schema) are read with an inferred schema:
@@ -411,7 +450,8 @@ def make_batch_reader(dataset_url_or_urls: Union[str, Sequence[str]],
                         telemetry=telemetry, metrics_port=metrics_port,
                         flight_record_path=flight_record_path,
                         sample_interval_s=sample_interval_s, autotune=autotune,
-                        trace_items=trace_items)
+                        service_address=service_address, service_weight=service_weight,
+                        service_priority=service_priority, trace_items=trace_items)
 
 
 def elastic_resume(states: Sequence[dict]) -> dict:
@@ -625,6 +665,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
                  item_deadline_s=None, hedge_after_s=None, stall_warn_s=None,
                  stall_abort_s=None, chaos=None, telemetry=None, metrics_port=None,
                  flight_record_path=None, sample_interval_s=None, autotune=None,
+                 service_address=None, service_weight=None, service_priority=None,
                  trace_items=None) -> "Reader":
     from petastorm_tpu_torch.autotune import resolve_autotune
 
@@ -646,12 +687,6 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             " boundary are computed before the predicate masks rows, so"
             " windows spanning masked rows would be silently lost. Use"
             " shuffle_row_drop_partitions=1.")
-    if trace_items:
-        raise PetastormTpuError(
-            "trace_items arms DISTRIBUTED per-item tracing across the"
-            " ingest service's processes and needs service_address; local"
-            " pools already trace every stage span into the telemetry"
-            " trace buffer")
     telemetry = _resolve_telemetry(telemetry)
     deterministic = resolve_deterministic(deterministic, shuffle_seed)
     # None is the default bound; an explicit int, even the default's value,
@@ -666,6 +701,40 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         # worker took it: no seed-stable stream survives it (``:503-514``)
         autotune_policy = dataclasses.replace(
             autotune_policy, exclude_knobs=autotune_policy.exclude_knobs | {"decode_split"})
+    if service_address is not None:
+        # the fleet is the worker plane: what steers a local pool does
+        # nothing here, and a per-process cache would be empty in every
+        # remote worker (``petastorm_tpu/reader.py:515-546``)
+        if autotune_policy is not None:
+            if autotune is not None and autotune is not False:
+                logger.warning(
+                    "autotune is inoperative with service_address readers:"
+                    " the worker plane lives in the remote fleet (size it"
+                    " off the dispatcher's scaling_signal)")
+            autotune_policy = None
+        if item_deadline_s is not None or hedge_after_s is not None:
+            logger.warning(
+                "item_deadline_s/hedge_after_s are client-side liveness"
+                " knobs and are inoperative with service_address readers"
+                " (the dispatcher requeues items off dead workers)")
+            item_deadline_s = hedge_after_s = None
+        if cache_type == "memory":
+            raise PetastormTpuError(
+                "cache_type='memory' is process-local: every remote worker"
+                " would hold its own empty cache. Use cache_type='shared'"
+                " (the host-wide tier remote workers share) or"
+                " 'local-disk' with service_address readers.")
+    elif service_weight is not None or service_priority is not None:
+        raise PetastormTpuError(
+            "service_weight/service_priority are multi-tenant QoS knobs of"
+            " the ingest service and need service_address (a local pool"
+            " serves exactly one consumer - there is nothing to share)")
+    elif trace_items:
+        raise PetastormTpuError(
+            "trace_items arms DISTRIBUTED per-item tracing across the"
+            " ingest service's processes and needs service_address; local"
+            " pools already trace every stage span into the telemetry"
+            " trace buffer")
     if not flight_record_path:
         flight_record_path = os.environ.get("PETASTORM_TPU_FLIGHT_RECORD", "").strip() or None
     if metrics_port is None:
@@ -676,7 +745,7 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
             except ValueError:
                 logger.warning("Ignoring non-integer PETASTORM_TPU_METRICS_PORT=%r", raw_port)
     if ((flight_record_path or metrics_port is not None or autotune_policy is not None
-         or (sample_interval_s is not None and sample_interval_s > 0))
+         or trace_items or (sample_interval_s is not None and sample_interval_s > 0))
             and not telemetry.enabled):
         # the observability knobs and the autotune loop need a live
         # recorder: a private one (``:559-568``)
@@ -688,6 +757,10 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
         telemetry.register_stage("decode")
         if transform_spec is not None:
             telemetry.register_stage("transform")
+        if service_address is not None:
+            # the service plane's client-side stage, shown before its first
+            # result arrives (``petastorm_tpu/reader.py:578-582``)
+            telemetry.register_stage("service")
     error_policy = resolve_error_policy(on_error)
     if chaos is not None and chaos.affects_filesystem():
         # transient-IO chaos sits in the filesystem layer, beneath the real
@@ -835,15 +908,33 @@ def _make_reader(dataset_url, schema_fields, reader_pool_type, workers_count,
     pool_kwargs.update({k: v for k, v in (("item_deadline_s", item_deadline_s),
                                           ("hedge_after_s", hedge_after_s),
                                           ("stall_warn_s", stall_warn_s)) if v is not None})
-    if reader_pool_type == "process":
-        # resize slots up to the autotune ceiling are made at start
-        max_workers = autotune_policy.max_workers if autotune_policy is not None else None
-        pool_kwargs["max_workers"] = max_workers
-        pool_kwargs["shm_size_bytes"] = _arena_bytes(
-            full_schema, read_fields, device_fields, decode_roi or {}, plan,
-            max(workers_count, max_workers or 0) + max(results_queue_size, 1), ngram)
-    executor = make_executor(reader_pool_type, workers_count, results_queue_size,
-                             telemetry=telemetry, **pool_kwargs)
+    if service_address is not None:
+        # the dispatcher's fleet replaces the local pool; the client keeps
+        # the executor contract, so the ledger, the cursor and the on_error
+        # policies are unchanged (``petastorm_tpu/reader.py:823-843``).
+        # ``reader_pool_type`` and ``workers_count`` are the fleet's concern
+        from petastorm_tpu_torch.service.client import ServiceExecutor
+
+        executor = ServiceExecutor(
+            service_address, telemetry=telemetry,
+            stop_on_failure=error_policy is None,
+            max_requeue_attempts=(error_policy.max_requeue_attempts
+                                  if error_policy is not None
+                                  else DEFAULT_REQUEUE_ATTEMPTS),
+            # the items at the dispatcher, as the JAX reader sizes them,
+            # and the results held for their turn
+            window=max(4, int(results_queue_size)), results_queue_size=results_queue_size,
+            weight=service_weight, priority=service_priority, trace_items=trace_items)
+    else:
+        if reader_pool_type == "process":
+            # resize slots up to the autotune ceiling are made at start
+            max_workers = autotune_policy.max_workers if autotune_policy is not None else None
+            pool_kwargs["max_workers"] = max_workers
+            pool_kwargs["shm_size_bytes"] = _arena_bytes(
+                full_schema, read_fields, device_fields, decode_roi or {}, plan,
+                max(workers_count, max_workers or 0) + max(results_queue_size, 1), ngram)
+        executor = make_executor(reader_pool_type, workers_count, results_queue_size,
+                                 telemetry=telemetry, **pool_kwargs)
     # one breaker for every worker of the reader: a store that is down fails
     # fast with CircuitOpenError instead of each worker spending its whole
     # retry budget (``petastorm_tpu/reader.py:731-738``)
@@ -1224,7 +1315,11 @@ class Reader:
         try:
             from petastorm_tpu_torch.telemetry.sampler import dump_flight_record, flight_record
 
-            self._flight_record = flight_record(self.sampler, reason=reason)
+            # a service reader's record carries the dispatcher's fleet events
+            # (promotions, requeues, scale decisions), fetched best-effort
+            fetch = getattr(self._executor, "fetch_fleet_events", None)
+            self._flight_record = flight_record(
+                self.sampler, reason=reason, fleet_events=fetch() if callable(fetch) else None)
             self._flight_record["stream_digest"] = self._digest.summary()
             if self._flight_record_path:
                 dump_flight_record(self._flight_record, self._flight_record_path)
@@ -1527,8 +1622,9 @@ class Reader:
         shared tier's stats (``cache``), the flight record
         (``flight_recorder``), the final telemetry snapshot (``telemetry``,
         latched at stop) and the metrics port.  Every key is one of the JAX
-        reader's; the process pool's arena counters are
-        :meth:`transport_stats`."""
+        reader's but ``payloads``, a service reader's count of results by
+        payload kind (``{"shm", "bin", "pickle"}``, kept without telemetry);
+        the process pool's arena counters are :meth:`transport_stats`."""
         out = {"items_per_epoch": self._items_per_epoch,
                "consumed_items": self._consumed_items,
                "expected_items": self._expected_items,

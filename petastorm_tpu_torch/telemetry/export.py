@@ -1,8 +1,9 @@
 """Metrics export: Prometheus text exposition + JSONL push sink.
 
 The port's copy of ``petastorm_tpu/telemetry/export.py:53-421``, with the
-same metric names and text.  ``render_fleet_prometheus`` (the ingest
-service's fleet families) comes with the service.
+same metric names and text; ``render_fleet_prometheus`` renders the ingest
+service's fleet families (``service/dispatcher.py`` appends them to its
+``/metrics``).
 
 Pull: :class:`MetricsExportServer` serves ``GET /metrics`` in Prometheus
 text-exposition format (version 0.0.4) from a stdlib ``http.server`` thread
@@ -215,6 +216,111 @@ def render_prometheus(snapshot: Dict,
                [f"{PREFIX}_sample_interval_seconds "
                 f"{_fmt(sampler_point.get('dt_s', 0.0))}"])
 
+    return "\n".join(lines) + "\n"
+
+
+def render_fleet_prometheus(fleet: Dict) -> str:
+    """Render a dispatcher ``fleet_stats()`` dict as Prometheus text: the
+    fleet aggregation plane's per-worker-labeled families plus fleet-merged
+    histogram quantiles.  Pure function (golden-testable); appended to the
+    dispatcher's ``/metrics`` body via ``MetricsExportServer(extra=...)``.
+
+    Families::
+
+        petastorm_tpu_fleet_worker_up{worker=...}            1
+        petastorm_tpu_fleet_worker_busy{worker=...}          in-flight+queued
+        petastorm_tpu_fleet_worker_capacity{worker=...}
+        petastorm_tpu_fleet_worker_inflight{worker=...}      dispatcher view
+        petastorm_tpu_fleet_worker_heartbeat_age_seconds{worker=...}
+        petastorm_tpu_fleet_worker_counter_total{worker=...,counter=...}
+        petastorm_tpu_fleet_worker_latency_seconds{worker=...,hist=...,quantile=...}
+        petastorm_tpu_fleet_latency_seconds{hist=...,quantile=...}   merged
+        petastorm_tpu_fleet_counter_total{counter=...}       dispatcher fold
+    """
+    lines: List[str] = []
+
+    def family(name: str, mtype: str, help_text: str,
+               samples: Iterable) -> None:
+        rendered = list(samples)
+        if not rendered:
+            return
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {mtype}")
+        lines.extend(rendered)
+
+    def lbl(v) -> str:
+        return _LABEL_RE.sub("_", str(v))
+
+    workers = fleet.get("workers", {}) or {}
+    names = sorted(workers)
+    family(f"{PREFIX}_fleet_worker_up", "gauge",
+           "1 for every worker currently registered with the dispatcher.",
+           [f"{PREFIX}_fleet_worker_up{{worker=\"{lbl(w)}\"}} 1"
+            for w in names])
+    for field, metric, help_text in (
+            ("busy", "fleet_worker_busy",
+             "Worker-reported in-flight + queued items (last heartbeat)."),
+            ("capacity", "fleet_worker_capacity",
+             "Configured concurrent-item capacity per worker."),
+            ("inflight", "fleet_worker_inflight",
+             "Dispatcher-recorded assignments in flight toward the worker."),
+            ("heartbeat_age_s", "fleet_worker_heartbeat_age_seconds",
+             "Seconds since the worker's last heartbeat.")):
+        family(f"{PREFIX}_{metric}", "gauge", help_text,
+               [f"{PREFIX}_{metric}{{worker=\"{lbl(w)}\"}} "
+                f"{_fmt(float(workers[w].get(field, 0) or 0))}"
+                for w in names if field in workers[w]])
+    ctr_samples = []
+    for w in names:
+        counters = workers[w].get("counters", {}) or {}
+        for c in sorted(counters):
+            ctr_samples.append(
+                f"{PREFIX}_fleet_worker_counter_total"
+                f"{{worker=\"{lbl(w)}\",counter=\"{lbl(c)}\"}} "
+                f"{_fmt(float(counters[c]))}")
+    family(f"{PREFIX}_fleet_worker_counter_total", "counter",
+           "Per-worker cumulative counters folded from heartbeat deltas.",
+           ctr_samples)
+    wq_samples = []
+    for w in names:
+        hists = workers[w].get("hists", {}) or {}
+        for h in sorted(hists):
+            for q, key in ((0.5, "p50_s"), (0.99, "p99_s")):
+                v = hists[h].get(key)
+                if v is None:
+                    continue
+                wq_samples.append(
+                    f"{PREFIX}_fleet_worker_latency_seconds"
+                    f"{{worker=\"{lbl(w)}\",hist=\"{lbl(h)}\","
+                    f"quantile=\"{q}\"}} {_fmt(v)}")
+    family(f"{PREFIX}_fleet_worker_latency_seconds", "gauge",
+           "Per-worker stage/hop latency quantiles (heartbeat snapshots).",
+           wq_samples)
+    merged = fleet.get("merged_hists", {}) or {}
+    mq_samples = []
+    for h in sorted(merged):
+        for q, key in ((0.5, "p50_s"), (0.99, "p99_s")):
+            v = merged[h].get(key)
+            if v is None:
+                continue
+            mq_samples.append(
+                f"{PREFIX}_fleet_latency_seconds"
+                f"{{hist=\"{lbl(h)}\",quantile=\"{q}\"}} {_fmt(v)}")
+    family(f"{PREFIX}_fleet_latency_seconds", "gauge",
+           "Fleet-merged stage/hop latency quantiles (bucket-wise merge of"
+           " every worker's snapshot).", mq_samples)
+    fleet_counters = fleet.get("fleet_counters", {}) or {}
+    family(f"{PREFIX}_fleet_counter_total", "counter",
+           "Fleet-wide cumulative counters (dispatcher heartbeat fold).",
+           [f"{PREFIX}_fleet_counter_total{{counter=\"{lbl(c)}\"}} "
+            f"{_fmt(float(fleet_counters[c]))}"
+            for c in sorted(fleet_counters)])
+    if "epoch" in fleet:
+        family(f"{PREFIX}_fleet_epoch", "gauge",
+               "Current dispatcher fencing epoch.",
+               [f"{PREFIX}_fleet_epoch {_fmt(float(fleet['epoch']))}"])
+    if not lines:
+        return ""
     return "\n".join(lines) + "\n"
 
 

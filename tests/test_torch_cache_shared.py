@@ -15,6 +15,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -212,3 +213,34 @@ def test_shared_tier_refuses_a_predicate_before_making_segments(url, location):
     with pytest.raises(PetastormTpuError, match="cannot be combined with a predicate"):
         reader.make_batch_reader(url, cache_type="shared", cache_location=location,
                                  predicate=predicates.in_lambda(["x"], lambda x: x > 3))
+
+
+def test_concurrent_misses_of_one_key_fill_it_once(location):
+    """A choice of the port's tier (``FILL_STRIPES``): threads and processes
+    that miss one key at once wait for one fill; the JAX tier fills it in
+    each of them."""
+    import threading
+
+    tier = SharedWarmCache(location=location, l1_bytes=2 ** 20)
+    fills, barrier = [], threading.Barrier(4)
+
+    def fill():
+        fills.append(1)
+        time.sleep(0.2)
+        return np.arange(8)
+
+    def get():
+        barrier.wait(timeout=10)
+        got.append(tier.get("one-key", fill))
+
+    got = []
+    threads = [threading.Thread(target=get) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(fills) == 1 and len(got) == 4
+    assert all((g == np.arange(8)).all() for g in got)
+    stats = tier.stats()
+    assert (stats["misses"], stats["hits"]) == (1, 3)
+    tier.close()

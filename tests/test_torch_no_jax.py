@@ -106,5 +106,15 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/telemetry/export.py",
                      "petastorm_tpu_torch/cache_shared.py",
                      "petastorm_tpu_torch/autotune.py",
-                     "petastorm_tpu_torch/planner.py"):
+                     "petastorm_tpu_torch/planner.py",
+                     "petastorm_tpu_torch/service/__init__.py",
+                     "petastorm_tpu_torch/service/wire.py",
+                     "petastorm_tpu_torch/service/protocol.py",
+                     "petastorm_tpu_torch/service/journal.py",
+                     "petastorm_tpu_torch/service/worker.py",
+                     "petastorm_tpu_torch/service/dispatcher.py",
+                     "petastorm_tpu_torch/service/client.py",
+                     "petastorm_tpu_torch/service/autoscale.py",
+                     "petastorm_tpu_torch/service/cli.py",
+                     "petastorm_tpu_torch/test_util/netchaos.py"):
         assert required in names

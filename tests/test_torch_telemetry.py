@@ -13,6 +13,7 @@ localhost, and ``hedge_after_s='auto'`` resolves as the JAX pool resolves it.
 
 import json
 import multiprocessing
+import threading
 import time
 import urllib.request
 
@@ -346,6 +347,38 @@ def test_trace_items_needs_the_service_as_in_jax(url):
     for mod in (jax_reader, reader):
         with pytest.raises(Exception, match="trace_items arms DISTRIBUTED"):
             mod.make_batch_reader(url, trace_items=True)
+    # with an address, each package's reader traces through its own fleet:
+    # the same rows, and the merged cross-process spans in its trace buffer
+    from petastorm_tpu.service.dispatcher import Dispatcher as JaxDispatcher
+    from petastorm_tpu.service.worker import ServiceWorker as JaxServiceWorker
+
+    from petastorm_tpu_torch.service.dispatcher import Dispatcher
+    from petastorm_tpu_torch.service.worker import ServiceWorker
+
+    rows = []
+    for mod, disp_cls, worker_cls, tele_mod in (
+            (jax_reader, JaxDispatcher, JaxServiceWorker, jax_telemetry),
+            (reader, Dispatcher, ServiceWorker, telemetry)):
+        disp = disp_cls(telemetry=tele_mod.Telemetry()).start()
+        addr = f"127.0.0.1:{disp.port}"
+        worker = worker_cls(addr, capacity=2)
+        thread = threading.Thread(target=worker.run, daemon=True)
+        thread.start()
+        tele = tele_mod.Telemetry()
+        try:
+            with mod.make_batch_reader(url, shuffle_seed=5, service_address=addr,
+                                       trace_items=True, telemetry=tele) as r:
+                rows.append([int(x) for b in r for x in b.x])
+                assert r.diagnostics["trace_items"] == 16
+        finally:
+            worker.stop()
+            thread.join(timeout=10)
+            disp.stop()
+            disp.join()
+        spans = [e for e in tele.trace.chrome_trace()["traceEvents"]
+                 if e.get("cat") == "service.trace" and e.get("ph") == "X"]
+        assert {"service.item", "worker.exec"} <= {e["name"] for e in spans}
+    assert rows[0] == rows[1]
 
 
 # -- hedge_after_s='auto' ---------------------------------------------------------------
