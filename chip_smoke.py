@@ -343,7 +343,28 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    SERVICE_SLOW_S, once clean and once with a worker SIGKILLed after step 4:
    phase 6's labels and sums, items requeued, a merged trace with client,
    dispatcher and worker tracks, the ``service.hop.*`` p50s and the seconds
-   the kill cost; every fleet process reaped and no shm segment left.
+   the kill cost; every fleet process reaped and no shm segment left;
+33. the other resampling methods, legacy Petastorm datasets, the matrix and
+   the converter: (a) the general resize kernel's Keys-cubic, Lanczos 3 and
+   Lanczos 5 instances against their plain versions, antialias off and on:
+   ``random_resized_crop`` over (256, 256, 256, 3) uint8 -> 224x224 with
+   drawn boxes and flips, ``resize_images`` 256 -> 224 and 128 -> 224, one
+   float32 crop each (uint8 within 1 LSB on at most 1 % of bytes, float32
+   within 1e-5 of max|x|), and the nearest gather kernel equal to its plain
+   version down and up, uint8 and float32; each case's median and first-call
+   times, plain time and bound, and for nearest ``F.interpolate(
+   mode='nearest-exact')`` on the same bytes; (b) phase 4's dataset copied
+   into the original Petastorm's layout (pickled Unischema, rowgroup counts
+   and a ``label`` index, written with throwaway ``petastorm`` modules) and
+   phase 6's training path from it for 16 steps: the legacy schema, index
+   and rows read, B2, B3 and B1 once a step, each batch also resized by
+   cubic, Lanczos 3, Lanczos 5 and nearest in turn (4 launches each), phase
+   6's labels and sums, and every delivered image equal byte for byte to the
+   same read of the port's format; (c) determinism-matrix cells feeding
+   ``CudaDataLoader`` over phase 6's dataset (4 threads, 3 processes with
+   two workers killed, an in-process service fleet): one ``content_crc``
+   and stream digest; (d) ``examples/spark_converter/convert_and_feed_cuda``
+   over the mocked Spark DataFrame on the card.
 
 Then a ``wall`` line (the script's seconds so far), a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``.
@@ -415,7 +436,12 @@ from petastorm_tpu_torch.autotune import AutotunePolicy  # noqa: E402
 from petastorm_tpu_torch.cache_shared import SharedWarmCache  # noqa: E402
 from petastorm_tpu_torch.telemetry import Telemetry, dominant_stage  # noqa: E402
 from petastorm_tpu_torch.telemetry import sampler as telemetry_sampler  # noqa: E402
+from petastorm_tpu_torch import interop  # noqa: E402
+from petastorm_tpu_torch.etl.indexing import get_row_group_indexes  # noqa: E402
+from petastorm_tpu_torch.examples.spark_converter import convert_and_feed_cuda  # noqa: E402
+from petastorm_tpu_torch.test_util import matrix  # noqa: E402
 from petastorm_tpu_torch.test_util.chaos import ChaosSpec  # noqa: E402
+from petastorm_tpu_torch.test_util.legacy_petastorm import make_legacy_dataset  # noqa: E402
 from petastorm_tpu_torch.test_util.latency_fs import latent_filesystem  # noqa: E402
 from petastorm_tpu_torch.sequence import PackedSequenceReader, make_sequence_reader  # noqa: E402
 from petastorm_tpu_torch.sequence import (SequencePacker, iter_documents,  # noqa: E402
@@ -643,7 +669,7 @@ def check_other_dtypes(x, boxes, flips):
     return errs
 
 
-def resample_bound(x, params, out_hw, antialias):
+def resample_bound(x, params, out_hw, antialias, method="linear"):
     """Bytes the resample needs (each image's source rows x columns with a
     nonzero weight, x C, read once, and the output written once) and
     operations: 2 per multiply-add of the separable form over the nonzero
@@ -653,8 +679,8 @@ def resample_bound(x, params, out_hw, antialias):
     Returns (bound ms, "bytes" or "operations", read, written, flops)."""
     n, h, w, c = x.shape
     oh, ow = out_hw
-    wy = augment._weight_mats(h, oh, params[:, 0], params[:, 1], antialias) != 0
-    wx = augment._weight_mats(w, ow, params[:, 2], params[:, 3], antialias) != 0
+    wy = augment._weight_mats(h, oh, params[:, 0], params[:, 1], antialias, method) != 0
+    wx = augment._weight_mats(w, ow, params[:, 2], params[:, 3], antialias, method) != 0
     rows_used, cols_used = wy.any(2).sum(1).double(), wx.any(2).sum(1).double()
     read = (rows_used * cols_used).sum().item() * c
     written = n * oh * ow * c
@@ -819,6 +845,175 @@ def resized_crop_aa_entry(gen):
         "resize_images_ms": resize_ms, "random_resized_crop_aa_ms": rrc_ms,
         "random_resized_crop_aa_shape": list(rrc_x.shape)})
     return entry
+
+
+RESAMPLE_METHODS = ("cubic", "lanczos3", "lanczos5")   # phase 33: the general kernel's filters
+RESAMPLE_N = 256                                      # phase 33 (a): images a uint8 case
+RESAMPLE_F32_N = 32                                   # phase 33 (a): images a float32 case
+EVAL_SIDE = 160                                       # phase 33 (b): the evaluation resize's side
+EVAL_METHODS = RESAMPLE_METHODS + ("nearest",)        # phase 33 (b): a method a batch, in turn
+
+
+def first_call_ms(fn):
+    """One call of ``fn`` between two CUDA events: the first call of a case."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def hold_to_plain(got, want, what, float_out):
+    """A phase-33 kernel result against the plain version's on the same
+    inputs.  Bound: uint8 within 1 LSB on at most 1 % of bytes (the same
+    float32 weights summed in another order, and the card's ``sinf`` against
+    torch's ``sin`` in the last bit for Lanczos); float32 within 1e-5 of
+    max|x| (256).  Returns (error, share differing)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"phase 33, {what}: {got.dtype} {tuple(got.shape)} against"
+                             f" the plain version's {want.dtype} {tuple(want.shape)}")
+    diff = (got.double() - want.double()).abs()
+    err, share = float(diff.max()), float((diff > 0).double().mean())
+    if float_out:
+        if not err <= 1e-5 * 256:
+            raise AssertionError(f"phase 33, {what}: max err {err} (bound {1e-5 * 256})")
+    elif err > 1 or share > 0.01:
+        raise AssertionError(f"phase 33, {what}: max {err} LSB, {share:.2e} of bytes differ")
+    return err, share
+
+
+def check_method_case(fn, plain, what, float_out):
+    """A phase-33 (a) case: ``fn``'s first call held to ``plain`` by
+    :func:`hold_to_plain`.  Returns (error, share differing, first call ms,
+    median ms)."""
+    got, first = first_call_ms(fn)
+    want = plain()
+    torch.cuda.synchronize()
+    err, share = hold_to_plain(got, want, f"(a) {what}", float_out)
+    return err, share, first, time_ms(fn, samples=11, launches=3, warmup=1)
+
+
+def resample_methods_entry():
+    """Phase 33 (a): the general kernel's cubic, Lanczos 3 and Lanczos 5
+    instances and the nearest gather kernel against their plain versions on
+    the card: random_resized_crop over (256, 256, 256, 3) uint8 -> 224x224,
+    resize_images down 256 -> 224 and up 128 -> 224, antialias off and on,
+    one float32 case a method; nearest down and up, uint8 and float32; and
+    phase 33 (b)'s evaluation resize, (256, 224, 224, 3) -> EVAL_SIDE
+    antialiased, each method's ``kernels`` entry timed at that shape.
+    Each case's time (median of CUDA-event samples, and its first call),
+    its bound and the plain version's time; for nearest,
+    ``F.interpolate(mode='nearest-exact')`` on the same bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    big = torch.randint(0, 256, (RESAMPLE_N, 256, 256, 3), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    small = torch.randint(0, 256, (RESAMPLE_N, 128, 128, 3), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    boxes = augment.draw_crop_boxes(RESAMPLE_N, 256, 256, gen, device="cuda")
+    flips = augment.draw_flips(RESAMPLE_N, gen, "cuda")
+    out_hw = (SIDE, SIDE)
+    crop = augment.crop_params(boxes, out_hw)
+
+    def inv(h, n, side=SIDE):  # resize_images' params
+        return torch.tensor([1.0 / (side / h), 0.0, 1.0 / (side / h), 0.0],
+                            device="cuda").expand(n, 4)
+
+    # phase 33 (b)'s evaluation resize: the delivered batch -> EVAL_SIDE, antialiased
+    eval_x, eval_hw = big[:, 16:16 + SIDE, 16:16 + SIDE].contiguous(), (EVAL_SIDE, EVAL_SIDE)
+    cases, entries = {}, {}
+    for method in RESAMPLE_METHODS:
+        for antialias in (False, True):
+            runs = [("random_resized_crop", big, crop, flips, out_hw,
+                     lambda m=method, a=antialias: augment.random_resized_crop(
+                         big, None, out_hw, method=m, antialias=a, boxes=boxes, flips=flips)),
+                    ("resize_down", big, inv(256, RESAMPLE_N), None, out_hw,
+                     lambda m=method, a=antialias: augment.resize_images(
+                         big, out_hw, method=m, antialias=a)),
+                    ("resize_up", small, inv(128, RESAMPLE_N), None, out_hw,
+                     lambda m=method, a=antialias: augment.resize_images(
+                         small, out_hw, method=m, antialias=a))]
+            if antialias:
+                runs.append(("resize_eval", eval_x, inv(SIDE, RESAMPLE_N, EVAL_SIDE), None,
+                             eval_hw, lambda m=method: augment.resize_images(
+                                 eval_x, eval_hw, method=m, antialias=True)))
+            for case, x, params, fl, hw, fn in runs:
+                what = f"{method} {case} antialias={antialias}"
+                plain = (lambda x=x, p=params, f=fl, m=method, a=antialias, hw=hw:
+                         augment._resized_crop_reference(x, p, f, hw, a, m))
+                err, share, first, ms = check_method_case(fn, plain, what, False)
+                bound_ms, bound_by, read, written, flops = resample_bound(x, params, hw,
+                                                                          antialias, method)
+                cases[what] = {"shape": list(x.shape), "max_lsb": err, "share_differing": share,
+                               "first_ms": first, "ms": ms,
+                               "plain_ms": time_ms(plain, samples=5, launches=1, warmup=1),
+                               "bound_ms": bound_ms, "bound_by": bound_by, "bytes_read": read,
+                               "bytes_written": written, "flops": flops}
+        xf = big[:RESAMPLE_F32_N].float()
+        what = f"{method} random_resized_crop float32"
+        err, _, first, ms = check_method_case(
+            lambda m=method: augment.random_resized_crop(
+                xf, None, out_hw, method=m, boxes=boxes[:RESAMPLE_F32_N],
+                flips=flips[:RESAMPLE_F32_N]),
+            lambda m=method: augment._resized_crop_reference(
+                xf, crop[:RESAMPLE_F32_N], flips[:RESAMPLE_F32_N], out_hw, False, m), what, True)
+        cases[what] = {"shape": list(xf.shape), "max_abs_err": err, "first_ms": first, "ms": ms}
+        main = cases[f"{method} resize_eval antialias=True"]  # the main path's shape
+        entries[f"resample_{method}"] = {
+            "name": f"resample_{method}", "route": "cuda",
+            "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
+            "function": f"resized_crop_kernel<T, {method}>",
+            "replaces": "petastorm_tpu/ops/augment.py:141",
+            "max_abs_err": max(c.get("max_lsb", 0) for k, c in cases.items()
+                               if k.startswith(method + " ")),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "timed_case": f"{method} resize_eval antialias=True",
+            # torch's bicubic is Keys with a = -0.75 (jax: -0.5) and it has
+            # no Lanczos: no library call computes this function
+            "library_ms": None}
+    nearest = {}
+    for case, x, hw in (("down", big, out_hw), ("up", small, out_hw),
+                        ("down float32", big[:RESAMPLE_F32_N].float(), out_hw),
+                        ("up float32", small[:RESAMPLE_F32_N].float(), out_hw),
+                        ("eval", eval_x, eval_hw)):
+        fn = lambda x=x, hw=hw: augment.resize_images(x, hw, method="nearest")  # noqa: E731
+        plain = lambda x=x, hw=hw: augment._resize_nearest_reference(x, hw)  # noqa: E731
+        got, first = first_call_ms(fn)
+        if not torch.equal(got, plain()):
+            raise AssertionError(f"phase 33 (a), nearest {case}: the gather differs from the"
+                                 " plain version")
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        library = torch.nn.functional.interpolate(x_nchw, size=hw, mode="nearest-exact")
+        n, h, w, c = x.shape
+        # each source pixel picked is read once, each output pixel written once
+        picked = (len(set(augment._nearest_offsets(h, hw[0], "cpu").tolist()))
+                  * len(set(augment._nearest_offsets(w, hw[1], "cpu").tolist())))
+        moved = (n * picked * c + got.numel()) * got.element_size()
+        nearest[case] = {"shape": list(x.shape), "first_ms": first,
+                         "ms": time_ms(fn, samples=11, launches=3, warmup=1),
+                         "plain_ms": time_ms(plain, samples=5, launches=1, warmup=1),
+                         "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes",
+                         # its offsets are (o + 0.5) * fl(in / out), jax's ((o + 0.5) * in) / out
+                         "library_picks_the_same_pixels": bool(torch.equal(
+                             library.permute(0, 2, 3, 1), got)),
+                         "library_ms": time_ms(lambda x_nchw=x_nchw, hw=hw: (
+                             torch.nn.functional.interpolate(x_nchw, size=hw,
+                                                             mode="nearest-exact")),
+                             samples=11, launches=3, warmup=1)}
+    down = nearest["eval"]  # the main path's shape
+    entries["resize_nearest"] = {
+        "name": "resize_nearest", "route": "cuda",
+        "source": "petastorm_tpu_torch/csrc/resized_crop.cu", "function": "resize_nearest_kernel",
+        "replaces": "petastorm_tpu/ops/augment.py:121", "max_abs_err": 0,
+        "ms": down["ms"], "plain_ms": down["plain_ms"], "bound_ms": down["bound_ms"],
+        "bound_by": "bytes", "library_ms": down["library_ms"], "timed_case": "nearest eval"}
+    phase("kernels", resample_methods={
+        "cases": cases, "nearest": nearest,
+        "library_call": "none for cubic/lanczos (torch's bicubic is Keys a = -0.75, jax's"
+                        " a = -0.5; no Lanczos); nearest: F.interpolate(nearest-exact) on"
+                        " uint8/float32 NCHW, the call alone"})
+    return entries
 
 
 def kernels_phase():
@@ -1408,7 +1603,9 @@ def reset_launch_counts():
     """Every kernel wrapper's launch count to 0."""
     ring_ops.reset_launch_counts()
     normalize.normalize_kernel.launches = 0
-    for counts, names in ((augment.resized_crop_kernel, ("", "_tiled", "_aa", "_general")),
+    for counts, names in ((augment.resized_crop_kernel, ("", "_tiled", "_aa", "_general",
+                                                         "_cubic", "_lanczos3", "_lanczos5")),
+                          (augment.nearest_kernel, ("",)),
                           (jpeg.jpeg_decode_kernel, ("", "_tiled", "_general"))):
         for suffix in names:
             setattr(counts, "launches" + suffix, 0)
@@ -4663,6 +4860,152 @@ def service_phase(tmp, path, kernels, device, clean):
           segments_left=0, **out)
 
 
+MATRIX_SEED = 7                                   # phase 33 (c): the cells' shuffle seed
+CONVERTER_ROWS = 32                               # phase 33 (d): the mock DataFrame's rows
+
+
+def legacy_interop_phase(tmp, path, kernels, device):
+    """Phase 33: (a) the resampling kernels of the other jax.image methods
+    against their plain versions (``resample_methods_entry``); (b) phase 4's
+    dataset copied into the original Petastorm's layout (the pickled
+    Unischema, rowgroup counts and a ``label`` index in ``_common_metadata``,
+    none of this package's metadata) and phase 6's training path over it for
+    16 steps, each delivered batch also resized to EVAL_SIDE by one of the
+    methods in turn (the new kernels' main-path launches), each such resize
+    held to its plain version on the same batch after the run, the delivered
+    images equal byte for byte to the same read of the port's own format;
+    (c) determinism-matrix cells feeding ``CudaDataLoader`` over phase 6's
+    dataset (thread pool, process pool with killed workers, an in-process
+    service fleet): equal ``content_crc`` and stream digests; (d) the Spark
+    converter example over the mocked DataFrame, on the card."""
+    t0 = time.perf_counter()
+    entries = resample_methods_entry()
+    out = {"resample_seconds": time.perf_counter() - t0}
+
+    # (b) a legacy Petastorm dataset through the main path
+    t1 = time.perf_counter()
+    legacy = os.path.join(tmp, "legacy_petastorm")
+    schema = open_dataset(path).stored_schema
+    written = make_legacy_dataset(path, legacy, schema, index_fields=["label"])
+    info = open_dataset(legacy)
+    if (interop.LEGACY_UNISCHEMA_KEY not in info.kv_metadata
+            or any(k.startswith(b"petastorm_tpu") for k in info.kv_metadata)):
+        raise AssertionError(f"phase 33 (b): the legacy dataset's keys {sorted(info.kv_metadata)}")
+    if [(f.name, f.dtype, f.shape, type(f.codec).__name__) for f in info.stored_schema] != \
+            [(f.name, f.dtype, f.shape, type(f.codec).__name__) for f in schema]:
+        raise AssertionError("phase 33 (b): the legacy Unischema converts to another schema")
+    index = get_row_group_indexes(info)["label"]
+    for value in sorted(written["label"])[::97]:
+        if index.get_row_group_indexes(value) != written["label"][value]:
+            raise AssertionError(f"phase 33 (b): the legacy index gives other rowgroups for"
+                                 f" label {value}")
+    delivered, evals = [], []
+
+    def on_batch(batch):
+        # kept for the checks after the run (no host sync in the step)
+        images = batch["image"]
+        delivered.append(images.clone())
+        method = EVAL_METHODS[(len(delivered) - 1) % len(EVAL_METHODS)]
+        evals.append((method, augment.resize_images(images, eval_hw, method=method)))
+
+    eval_hw = (EVAL_SIDE, EVAL_SIDE)
+    run = train_epoch(legacy, "device", on_batch=on_batch)
+    launches = {"resample_cubic": augment.resized_crop_kernel.launches_cubic,
+                "resample_lanczos3": augment.resized_crop_kernel.launches_lanczos3,
+                "resample_lanczos5": augment.resized_crop_kernel.launches_lanczos5,
+                "resize_nearest": augment.nearest_kernel.launches}
+    # each evaluation resize of the run held to its plain version on the same batch
+    eval_errs = {}
+    for i, (method, resized) in enumerate(evals):
+        images, what = delivered[i], f"(b) {method} evaluation resize of batch {i}"
+        if method == "nearest":
+            if not torch.equal(resized, augment._resize_nearest_reference(images, eval_hw)):
+                raise AssertionError(f"phase 33 {what}: the gather differs from the plain"
+                                     f" version")
+            err, share = 0.0, 0.0
+        else:
+            n, h, w, _ = images.shape
+            inv = torch.tensor([1.0 / (EVAL_SIDE / h), 0.0, 1.0 / (EVAL_SIDE / w), 0.0],
+                               device="cuda").expand(n, 4)
+            err, share = hold_to_plain(resized, augment._resized_crop_reference(
+                images, inv, None, eval_hw, True, method), what, False)
+        name = "resize_nearest" if method == "nearest" else f"resample_{method}"
+        worst = eval_errs.get(name, {"max_lsb": 0.0, "share_differing": 0.0, "batches": 0})
+        eval_errs[name] = {"max_lsb": max(worst["max_lsb"], err),
+                           "share_differing": max(worst["share_differing"], share),
+                           "batches": worst["batches"] + 1}
+    evals.clear()
+    steps = N_ROWS // BATCH
+    for name, count in launches.items():
+        if count != steps // len(EVAL_METHODS):
+            raise AssertionError(f"phase 33 (b): kernel {name} launched {count} times in"
+                                 f" {steps} steps, expected {steps // len(EVAL_METHODS)}")
+        entries[name]["launches"] = count
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                           eval_errs[name]["max_lsb"])
+    for kernel in ("normalize_u8", "resized_crop_flip_u8", "jpeg_decode_u8"):
+        kernels[kernel]["launches"] += run["launches"][kernel]
+    same_epoch(run, device, "phase 33 (b), the legacy dataset, against phase 6")
+    # the same read of the port's own format, batch for batch on the card
+    own = make_reader(path, workers_count=run["workers"], shuffle_seed=0, num_epochs=1,
+                      decode_placement={"image": "device"})
+    with CudaDataLoader(own, batch_size=BATCH, device="cuda") as loader:
+        same = [torch.equal(batch["image"], delivered[i]) for i, batch in enumerate(loader)]
+    if len(same) != len(delivered) or not all(same):
+        raise AssertionError(f"phase 33 (b): the legacy read's images differ from the port's"
+                             f" own format in batches"
+                             f" {[i for i, ok in enumerate(same) if not ok]}")
+    delivered.clear()
+    out["b"] = {"rows": N_ROWS, "steps": run["steps"], "samples_per_s": run["samples_per_s"],
+                "phase6_samples_per_s": device["samples_per_s"],
+                "input_idle_share": run["wait"] / run["timed"], "launches": run["launches"],
+                "eval_launches": launches, "eval_errors": eval_errs, "bytes_equal_batches": len(same),
+                "legacy_index_values": len(written["label"]),
+                "seconds": time.perf_counter() - t1}
+
+    # (c) determinism-matrix cells feeding the loader on the card
+    t2 = time.perf_counter()
+
+    def cell(spec, **kwargs):
+        return matrix.run_cell(path, MATRIX_SEED, spec, num_epochs=1,
+                               reader_kwargs={"decode_placement": {"image": "device"}},
+                               loader=lambda r: CudaDataLoader(r, batch_size=BATCH,
+                                                               device="cuda"), **kwargs)
+
+    cells = {"thread": cell(matrix.MatrixCell(workers=4)),
+             "process-kill": cell(matrix.MatrixCell(workers=3, pool="process", chaos="kill"))}
+    with matrix.service_fleet(n_workers=2) as (_disp, addr, _workers):
+        cells["service"] = cell(matrix.MatrixCell(transport="service"), service_address=addr)
+    base = cells["thread"]
+    for name, result in cells.items():
+        if (result.rows, result.batch_rows) != (N_ROWS, (BATCH,) * steps):
+            raise AssertionError(f"phase 33 (c), {name}: {result.rows} rows in"
+                                 f" {result.batch_rows}")
+        if (result.content_crc != base.content_crc
+                or result.digest["combined"] != base.digest["combined"]):
+            raise AssertionError(f"phase 33 (c): cell {name} delivered another stream"
+                                 f" (crc {result.content_crc} against {base.content_crc})")
+    no_children("phase 33 (c)")
+    out["c"] = {"cells": {name: {"content_crc": r.content_crc,
+                                 "digest": r.digest["combined"]}
+                          for name, r in cells.items()},
+                "seconds": time.perf_counter() - t2}
+
+    # (d) the Spark converter example, on the card
+    t3 = time.perf_counter()
+    feed = convert_and_feed_cuda.main(os.path.join(tmp, "converter_cache"), CONVERTER_ROWS,
+                                      device="cuda")
+    want_sum = 3 * sum(range(CONVERTER_ROWS)) + 0.75 * CONVERTER_ROWS
+    if (feed["cuda_ids"] != list(range(CONVERTER_ROWS)) or feed["vec_sum"] != want_sum
+            or feed["torch_rows"] != CONVERTER_ROWS or not feed["cache_hit"]):
+        raise AssertionError(f"phase 33 (d): the converter example delivered {feed}")
+    out["d"] = {k: feed[k] for k in ("rows", "files", "cuda_rows", "vec_sum", "torch_rows",
+                                     "cache_hit")}
+    out["d"]["seconds"] = time.perf_counter() - t3
+    kernels.update(entries)
+    phase("legacy_interop", seconds=time.perf_counter() - t0, **out)
+
+
 SERVICE_AB_SLOW_S = 0.25                          # --service-ab: a tierless tenant's item sleep
 
 
@@ -4799,6 +5142,7 @@ def main():
         chaos_phase(path, kernels, clean, device)
         observability_phase(tmp, path, kernels, host, device, warm)
         service_phase(tmp, path, kernels, device, clean)
+        legacy_interop_phase(tmp, path, kernels, device)
 
     phase("wall", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -19,10 +19,13 @@ shard arguments disagree with the launcher's rank (``:380-414``).
 
 The cache directory may be remote (``storage_options``, ``:283-355``: any
 URL ``fs.get_filesystem_and_path`` resolves); the handle's readers take the
-same ``storage_options``.  Not part of this package yet (ROADMAP.md queue A
-item 11): ``make_tf_dataset`` (it needs the ``tf`` module) and Spark
-DataFrames (materialized on the executors by ``df.write.parquet``,
-``:116-358``): each raises.
+same ``storage_options``.  ``make_tf_dataset`` wraps the cached dataset in a
+``tf.data.Dataset`` (``tf.make_petastorm_dataset``; it needs tensorflow).  A
+Spark DataFrame is materialized on the executors by ``df.write.parquet``
+into a temporary directory published by one rename, deduplicated by its
+analyzed plan, with MLlib vectors turned into arrays and the floats cast per
+``dtype`` by Spark column expressions (``:116-358``): the data is never
+collected into the calling process.
 """
 
 from __future__ import annotations
@@ -117,6 +120,57 @@ def _to_arrow_table(data, dtype: Optional[str]) -> pa.Table:
     return table.cast(pa.schema(fields)) if changed else table
 
 
+def _spark_prepare_df(df, dtype: Optional[str]):
+    """The DataFrame's columns normalised by Spark column expressions, at
+    write time on the executors (``petastorm_tpu/converter.py:116-152``):
+    MLlib ``VectorUDT`` columns become arrays (with a warning: sparse vectors
+    densify), and the floats take ``dtype``'s precision."""
+    if dtype not in (None, "float32", "float64"):
+        raise PetastormTpuError(f"dtype must be 'float32', 'float64' or None, got {dtype!r}")
+    target_scalar = {"float32": "float", "float64": "double"}.get(dtype)
+    source_scalar = {"float32": "DoubleType", "float64": "FloatType"}.get(dtype)
+    for field in df.schema.fields:
+        type_name = type(field.dataType).__name__
+        if type_name == "VectorUDT":
+            from pyspark.ml.functions import vector_to_array
+            from pyspark.sql.functions import col
+
+            warnings.warn(f"Column {field.name!r} is an MLlib vector; converting to an"
+                          f" array of {dtype or 'float64'} (sparse vectors densify)")
+            df = df.withColumn(field.name, vector_to_array(col(field.name),
+                                                           dtype=dtype or "float64"))
+        elif dtype is not None and type_name == source_scalar:
+            from pyspark.sql.functions import col
+
+            df = df.withColumn(field.name, col(field.name).cast(target_scalar))
+        elif (dtype is not None and type_name == "ArrayType"
+              and type(field.dataType.elementType).__name__ == source_scalar):
+            from pyspark.sql.functions import col
+
+            df = df.withColumn(field.name, col(field.name).cast(f"array<{target_scalar}>"))
+    return df
+
+
+def _spark_fingerprint(df, params: Dict) -> str:
+    """A Spark DataFrame's cache key: its analyzed logical plan and the
+    parameters (hashing its content would collect it); a stand-in without a
+    JVM gives its schema and semantic hash, and one without either a fresh
+    key, so no dedup."""
+    try:
+        plan = df._jdf.queryExecution().analyzed().toString()  # noqa: SLF001
+    except Exception:  # noqa: BLE001 - a stand-in without a JVM
+        plan = None
+    if not plan:
+        try:
+            plan = f"{df.schema.json()}|semantic:{df.semanticHash()}"
+        except Exception:  # noqa: BLE001
+            plan = f"{df.schema.json()}|uuid:{uuid.uuid4().hex}"
+    digest = hashlib.sha256()
+    digest.update(plan.encode())
+    digest.update(repr(sorted(params.items())).encode())
+    return digest.hexdigest()[:20]
+
+
 def _publish_dir(fs: pafs.FileSystem, tmp_root: str, root: str) -> None:
     """Publish ``tmp_root`` at ``root`` by one rename.  A lost race (another
     process published the same content first) keeps the winner, recognised
@@ -158,6 +212,25 @@ def _move_debris_aside(fs: pafs.FileSystem, root: str, ds_url: str) -> None:
         pass  # another process cleared it first
 
 
+def _materialize_spark_df(df, ds_url: str, cache_dir_url: str, fs: pafs.FileSystem,
+                          root: str, compression_codec: str, row_group_size_mb: float) -> None:
+    """``df.write.parquet`` on the executors into a temporary directory, then
+    one rename publishes it: a crashed job leaves a ``.tmp-*`` directory,
+    never a partial dataset at the cache URL (``parquet.block.size`` sets
+    the rowgroup size)."""
+    tag = posixpath.basename(root)
+    tmp_url = posixpath.join(cache_dir_url, f".tmp-{tag}-{uuid.uuid4().hex[:8]}")
+    _, tmp_root = get_filesystem_and_path(tmp_url)
+    (df.write.mode("overwrite")
+       .option("compression", compression_codec)
+       .option("parquet.block.size", int(row_group_size_mb * 2**20))
+       .parquet(tmp_url))
+    if not _parquet_files(fs, tmp_root):
+        fs.delete_dir(tmp_root)
+        raise PetastormTpuError(f"Spark wrote no parquet files for {ds_url!r} (empty DataFrame?)")
+    _publish_dir(fs, tmp_root, root)
+
+
 def _share_live_handle(ds_url: str, delete_at_exit: bool):
     """The live handle of the same content converted earlier in this process,
     or None.  Keeping the files wins: ``delete_at_exit=False`` on either call
@@ -179,6 +252,68 @@ def _register_converter(conv: "DatasetConverter", delete_at_exit: bool) -> None:
     _converters_by_url[conv.cache_url] = conv
     if delete_at_exit:
         _registered_converters.append(conv)
+
+
+def _make_spark_converter(df, cache_dir_url: str, *, dtype, compression_codec,
+                          row_group_size_mb, delete_at_exit,
+                          storage_options) -> "DatasetConverter":
+    """A Spark DataFrame's converter (``petastorm_tpu/converter.py:281-357``):
+    materialized on the executors, reused when a complete materialization of
+    the same plan is published (``_SUCCESS`` or ``_common_metadata`` beside
+    its part files), its schema and row count read from the written
+    footers."""
+    df = _spark_prepare_df(df, dtype)
+    compression_codec = compression_codec or "snappy"
+    params = {"codec": compression_codec, "rg_mb": row_group_size_mb, "v": 2,
+              "engine": "spark"}
+    tag = _spark_fingerprint(df, params)
+    ds_url = posixpath.join(cache_dir_url, f"converted-{tag}")
+    fs, root = get_filesystem_and_path(ds_url, storage_options)
+
+    live = _share_live_handle(ds_url, delete_at_exit)
+    if live is not None:
+        return live
+
+    def published_files():
+        if fs.get_file_info(root).type != pafs.FileType.Directory:
+            return []
+        entries = [i for i in fs.get_file_info(pafs.FileSelector(root))
+                   if i.type == pafs.FileType.File]
+        if not {"_SUCCESS", "_common_metadata"} & {posixpath.basename(i.path) for i in entries}:
+            return []  # a crashed or foreign write: never adopted
+        return [i.path for i in entries if i.path.endswith(".parquet")]
+
+    files = published_files()
+    if not files and fs.get_file_info(root).type == pafs.FileType.Directory:
+        # look again (a publish may have landed), then move the debris aside
+        files = published_files()
+        if not files:
+            _move_debris_aside(fs, root, ds_url)
+    if not files:
+        _materialize_spark_df(df, ds_url, cache_dir_url, fs, root, compression_codec,
+                              row_group_size_mb)
+        files = published_files()
+        if not files:
+            raise PetastormTpuError(
+                f"Materialized Spark dataset at {ds_url!r} has no complete"
+                " parquet output (committer wrote no _SUCCESS marker?)")
+    else:
+        logger.info("Reusing cached converted dataset %s", ds_url)
+    _wait_files_available(fs, files)
+    num_rows, arrow_schema = 0, None
+    for path in files:
+        with fs.open_input_file(path) as f:
+            meta = pq.ParquetFile(f)
+            num_rows += meta.metadata.num_rows
+            if arrow_schema is None:
+                arrow_schema = meta.schema_arrow
+    schema = Schema.from_arrow_schema(arrow_schema, name=f"Converted_{tag[:8]}")
+    stamp_dataset_metadata(ds_url, schema, storage_options=storage_options)
+    _advise_on_file_sizes(fs, files)
+    conv = DatasetConverter(ds_url, files, num_rows, schema, _owns_cache=delete_at_exit,
+                            storage_options=storage_options)
+    _register_converter(conv, delete_at_exit)
+    return conv
 
 
 def _fingerprint(table: pa.Table, params: Dict) -> str:
@@ -261,6 +396,21 @@ def _parquet_files(fs: pafs.FileSystem, root: str) -> List[str]:
             if i.type == pafs.FileType.File and i.path.endswith(".parquet")]
 
 
+class _TfDatasetContextManager:
+    """Owns the reader behind a ``tf.data.Dataset``; stops it on exit."""
+
+    def __init__(self, reader, make_dataset):
+        self._reader = reader
+        self.dataset = make_dataset(reader)
+
+    def __enter__(self):
+        return self.dataset
+
+    def __exit__(self, *exc):
+        self._reader.stop()
+        self._reader.join()
+
+
 class DatasetConverter:
     """Handle on a converted (cached) dataset and its loader factories
     (the reference's ``SparkDatasetConverter``)."""
@@ -327,11 +477,15 @@ class DatasetConverter:
                               **loader_kwargs))
 
     def make_tf_dataset(self, reader_kwargs: Optional[Dict] = None):
-        """Not part of this package yet: it needs the ``tf`` module (ROADMAP.md
-        queue A item 11)."""
-        raise PetastormTpuError(
-            "make_tf_dataset needs petastorm_tpu_torch.tf, which is not part of this package"
-            " yet; use make_cuda_loader or make_torch_dataloader")
+        """A context manager yielding a ``tf.data.Dataset`` over the cached
+        dataset (``tf.make_petastorm_dataset``), its reader stopped on exit
+        (the reference's ``TFDatasetContextManager``); ImportError without
+        tensorflow."""
+        from petastorm_tpu_torch.tf import make_petastorm_dataset
+
+        return self._wrap(self._checked_reader(reader_kwargs),
+                          lambda reader: _TfDatasetContextManager(reader,
+                                                                  make_petastorm_dataset))
 
     def delete(self) -> None:
         """Remove the cached dataset's files (unless the handle does not own them)."""
@@ -358,8 +512,9 @@ def make_converter(data, cache_dir_url: Optional[str] = None, *,
                    storage_options: Optional[dict] = None) -> DatasetConverter:
     """Write in-memory data to cached Parquet once and return its handle.
 
-    ``data``: a pandas DataFrame or a pyarrow Table (a Spark DataFrame
-    raises: not part of this package yet).  ``cache_dir_url`` (else
+    ``data``: a pandas DataFrame, a pyarrow Table or a Spark DataFrame
+    (written by its executors, deduplicated by its analyzed plan).
+    ``cache_dir_url`` (else
     ``$PETASTORM_TPU_CONVERTER_CACHE_DIR``): a directory URL, local or
     remote (``storage_options`` go to its filesystem).  The same
     content and parameters give the same ``converted-<fingerprint>``
@@ -372,9 +527,11 @@ def make_converter(data, cache_dir_url: Optional[str] = None, *,
             " (the reference's petastorm.spark.converter.parentCacheDirUrl)")
     cache_dir_url = normalize_dir_url(cache_dir_url)
     if _is_spark_dataframe(data):
-        raise PetastormTpuError(
-            "Spark DataFrame input (written on the executors by df.write.parquet) is not part"
-            " of petastorm_tpu_torch yet; convert a pandas DataFrame or a pyarrow Table")
+        return _make_spark_converter(data, cache_dir_url, dtype=dtype,
+                                     compression_codec=compression_codec,
+                                     row_group_size_mb=row_group_size_mb,
+                                     delete_at_exit=delete_at_exit,
+                                     storage_options=storage_options)
 
     table = _to_arrow_table(data, dtype)
     # the write below uses snappy when no codec is given: the parameters say

@@ -1,5 +1,6 @@
-// Bilinear scale-and-translate of uint8 NHWC images, with an optional
-// per-image horizontal flip, on Hopper (sm_90a).
+// Scale-and-translate of uint8 (and float32) NHWC images with the filters of
+// jax.image, with an optional per-image horizontal flip, and its nearest
+// resize, on Hopper (sm_90a).
 //
 // Replaces the XLA-compiled resample of
 // petastorm_tpu/ops/augment.py::random_resized_crop (and resize_images, and
@@ -115,6 +116,16 @@
 // partial sums are finite and >= +0 (so each chain starts and ends as
 // there).  A zero row or column (ay.zero, ax.zero) gives zero bytes, as
 // there.  chip_smoke.py checks every byte.
+// The other filters of jax.image (method= cubic: Keys with a = -0.5;
+// lanczos3, lanczos5) run in the general kernel, an instance a filter
+// (resized_crop_kernel<T, F>: filter_value<F> in tap_weight, and taps
+// [floor(sample - r * kernel_scale), ceil(sample + r * kernel_scale)] for the
+// filter's radius r), uint8 and float32 alike.  Their weights go negative on
+// the outer lobes, which the tiled kernels' +0 arguments do not allow, and
+// their supports are 2-5x wider; the general kernel skips a zero weight
+// whatever the sign of the others, so it takes them as they are.  Lanczos 5
+// with antialias on a 500 -> 224 axis walks about 23 taps an axis, 529 a
+// pixel.  resize_nearest_kernel is method='nearest' of resize_images: a gather.
 // All are launched on the caller's stream and allocate nothing (the
 // pre-pass's scratch comes from the wrapper).
 
@@ -125,6 +136,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 4;  // channels accumulated in registers per pass
+constexpr int kWeightCache = 32;  // row weights a pixel of the general kernel keeps
 constexpr float kMinWeightSum = 1000.0f * 1.1920928955078125e-7f;  // 1000 * FLT_EPSILON
 
 struct Axis {
@@ -135,14 +147,55 @@ struct Axis {
   bool zero;    // every weight of this output position is zero
 };
 
+// The filters of jax.image (jax/_src/image/scale.py): kTriangle is
+// _fill_triangle_kernel (bilinear), kKeysCubic _fill_keys_cubic_kernel (Keys,
+// a = -0.5), kLanczos3 and kLanczos5 _fill_lanczos_kernel(radius, x), each on
+// x = |sample - i| / kernel_scale >= 0, in jax's float32 expressions in its
+// order.  Cubic and Lanczos weights are negative on their outer lobes.
+constexpr int kTriangle = 0, kKeysCubic = 1, kLanczos3 = 2, kLanczos5 = 3;
+constexpr float kPi = 3.14159265358979323846f;          // np.pi as float32
+constexpr float kPiSquared = 9.8696044010893586188f;    // np.pi ** 2 as float32
+
+template <int F>
+struct FilterRadius;  // the support: the weight is 0 for x past it
+template <> struct FilterRadius<kTriangle> { static constexpr float value = 1.0f; };
+template <> struct FilterRadius<kKeysCubic> { static constexpr float value = 2.0f; };
+template <> struct FilterRadius<kLanczos3> { static constexpr float value = 3.0f; };
+template <> struct FilterRadius<kLanczos5> { static constexpr float value = 5.0f; };
+
+template <int F>
+__device__ __forceinline__ float filter_value(float x) {
+  if constexpr (F == kTriangle) {
+    return fmaxf(0.0f, __fsub_rn(1.0f, x));
+  } else if constexpr (F == kKeysCubic) {
+    // ((1.5 x - 2.5) x) x + 1; ((-0.5 x + 2.5) x - 4) x + 2 from 1; 0 from 2
+    if (x >= 2.0f) return 0.0f;
+    if (x >= 1.0f)
+      return __fadd_rn(__fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(-0.5f, x), 2.5f), x),
+                                           4.0f), x), 2.0f);
+    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(__fmul_rn(1.5f, x), 2.5f), x), x), 1.0f);
+  } else {
+    // r sin(pi x) sin(pi x / r) / (pi^2 x^2) for x > 1e-3, 1 below, 0 past r;
+    // sinf, not the fast __sinf (full range reduction, within 2 ulp)
+    constexpr float r = FilterRadius<F>::value;
+    if (x > r) return 0.0f;
+    if (!(x > 1e-3f)) return 1.0f;
+    const float px = __fmul_rn(kPi, x);
+    const float y = __fmul_rn(__fmul_rn(r, sinf(px)), sinf(__fdiv_rn(px, r)));
+    return __fdiv_rn(y, __fmul_rn(kPiSquared, __fmul_rn(x, x)));
+  }
+}
+
+template <int F = kTriangle>
 __device__ __forceinline__ float tap_weight(const Axis& a, int i) {
   float x = fabsf(__fsub_rn(a.sample, (float)i));
   if (a.kernel_scale != 1.0f) x = __fdiv_rn(x, a.kernel_scale);  // x / 1 is x
-  return fmaxf(0.0f, __fsub_rn(1.0f, x));
+  return filter_value<F>(x);
 }
 
 // The sample, kernel scale and taps [lo, hi] of output position o; zero
 // when the sample lies outside the input (total still 0).
+template <int F = kTriangle>
 __device__ __forceinline__ Axis axis_taps(int o, int in_size, float inv_scale,
                                           float translation, bool antialias) {
   Axis a;
@@ -156,23 +209,31 @@ __device__ __forceinline__ Axis axis_taps(int o, int in_size, float inv_scale,
   const bool inside = a.sample >= -0.5f && a.sample <= (float)in_size - 0.5f;
   a.zero = !inside;
   if (inside) {
-    // kernel_scale 1: |sample - i| < 1 only for floor(sample) and the next
-    // tap (sample - i is exact there); otherwise one tap of margin each side
-    const float lo = a.kernel_scale == 1.0f ? floorf(a.sample)
-                                            : floorf(__fsub_rn(a.sample, a.kernel_scale));
-    const float hi = a.kernel_scale == 1.0f ? lo + 1.0f
-                                            : ceilf(__fadd_rn(a.sample, a.kernel_scale));
+    float lo, hi;
+    if (F == kTriangle && a.kernel_scale == 1.0f) {
+      // |sample - i| < 1 only for floor(sample) and the next tap (sample - i
+      // is exact there)
+      lo = floorf(a.sample);
+      hi = lo + 1.0f;
+    } else {
+      // the filter's support, radius x kernel_scale each side, and a tap of
+      // margin for the rounding of the ends
+      const float span = __fmul_rn(FilterRadius<F>::value, a.kernel_scale);
+      lo = floorf(__fsub_rn(a.sample, span));
+      hi = ceilf(__fadd_rn(a.sample, span));
+    }
     a.lo = lo < 0.0f ? 0 : (int)lo;
     a.hi = hi > (float)(in_size - 1) ? in_size - 1 : (int)hi;
   }
   return a;
 }
 
+template <int F = kTriangle>
 __device__ __forceinline__ Axis make_axis(int o, int in_size, float inv_scale,
                                           float translation, bool antialias) {
-  Axis a = axis_taps(o, in_size, inv_scale, translation, antialias);
+  Axis a = axis_taps<F>(o, in_size, inv_scale, translation, antialias);
   if (!a.zero) {
-    for (int i = a.lo; i <= a.hi; ++i) a.total = __fadd_rn(a.total, tap_weight(a, i));
+    for (int i = a.lo; i <= a.hi; ++i) a.total = __fadd_rn(a.total, tap_weight<F>(a, i));
     a.zero = !(fabsf(a.total) > kMinWeightSum);
   }
   return a;
@@ -185,7 +246,7 @@ __device__ __forceinline__ uint8_t store_value(float v, uint8_t) {
 }
 __device__ __forceinline__ float store_value(float v, float) { return v; }
 
-template <typename T>
+template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
 resized_crop_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int h, int w, int c,
                     int oh, int ow, const float* __restrict__ params,
@@ -198,8 +259,8 @@ resized_crop_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int h,
   const int img = (int)(idx / ((long long)ow * oh));
 
   const float* p = params + 4 * img;
-  const Axis ay = make_axis(oy, h, p[0], p[1], antialias);
-  const Axis ax = make_axis(ox, w, p[2], p[3], antialias);
+  const Axis ay = make_axis<F>(oy, h, p[0], p[1], antialias);
+  const Axis ax = make_axis<F>(ox, w, p[2], p[3], antialias);
 
   const int store_x = (flips != nullptr && flips[img]) ? ow - 1 - ox : ox;
   T* dst = out + (((long long)img * oh + oy) * ow + store_x) * c;
@@ -208,16 +269,25 @@ resized_crop_kernel(const T* __restrict__ in, T* __restrict__ out, int n, int h,
     return;
   }
   const T* src = in + (long long)img * h * w * c;
+  // the other filters' row weights, each computed once a pixel (two sinf for
+  // Lanczos), not once a column tap: the same values, the same order
+  float wy_cache[F == kTriangle ? 1 : kWeightCache];
+  if constexpr (F != kTriangle) {
+    for (int j = 0; j < kWeightCache && ay.lo + j <= ay.hi; ++j)
+      wy_cache[j] = __fdiv_rn(tap_weight<F>(ay, ay.lo + j), ay.total);
+  }
 
   for (int c0 = 0; c0 < c; c0 += kChunk) {
     const int nc = c - c0 < kChunk ? c - c0 : kChunk;
     float acc[kChunk] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int ix = ax.lo; ix <= ax.hi; ++ix) {
-      const float wx = __fdiv_rn(tap_weight(ax, ix), ax.total);
+      const float wx = __fdiv_rn(tap_weight<F>(ax, ix), ax.total);
       if (wx == 0.0f) continue;
       float col[kChunk] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int iy = ay.lo; iy <= ay.hi; ++iy) {
-        const float wy = __fdiv_rn(tap_weight(ay, iy), ay.total);
+        const float wy = F != kTriangle && iy - ay.lo < kWeightCache
+                             ? wy_cache[F == kTriangle ? 0 : iy - ay.lo]
+                             : __fdiv_rn(tap_weight<F>(ay, iy), ay.total);
         if (wy == 0.0f) continue;
         const T* px = src + ((long long)iy * w + ix) * c + c0;
 #pragma unroll
@@ -723,13 +793,37 @@ int launch_aa(const dim3& grid, const AaPlan& plan, const AaTables& tables, cuda
   return (int)cudaGetLastError();
 }
 
+// resize_nearest_kernel: jax.image.resize(method='nearest')
+// (jax/_src/image/scale.py::_resize_nearest), one thread an output pixel,
+// which copies the pixel_bytes bytes (C x the element size, so any dtype) of
+// source pixel (floor(float32((oy + 0.5) * h / oh)), the same of ox) of its
+// image.  The offsets are float32 as jax computes them, clamped to the input
+// as jax's gather clamps an index.
+__global__ void __launch_bounds__(kThreads)
+resize_nearest_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int n, int h,
+                      int w, int pixel_bytes, int oh, int ow) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long pixels = (long long)n * oh * ow;
+  if (idx >= pixels) return;
+  const int ox = (int)(idx % ow);
+  const int oy = (int)((idx / ow) % oh);
+  const long long img = idx / ((long long)ow * oh);
+  const float fy = floorf(__fdiv_rn(__fmul_rn(__fadd_rn((float)oy, 0.5f), (float)h), (float)oh));
+  const float fx = floorf(__fdiv_rn(__fmul_rn(__fadd_rn((float)ox, 0.5f), (float)w), (float)ow));
+  const int sy = fy < 0.0f ? 0 : fy > (float)(h - 1) ? h - 1 : (int)fy;
+  const int sx = fx < 0.0f ? 0 : fx > (float)(w - 1) ? w - 1 : (int)fx;
+  const uint8_t* src = in + ((img * h + sy) * w + sx) * pixel_bytes;
+  uint8_t* dst = out + idx * pixel_bytes;
+  for (int b = 0; b < pixel_bytes; ++b) dst[b] = src[b];
+}
+
 }  // namespace
 
 // params: device array of n x 4 floats (inv_scale_y, translation_y,
 // inv_scale_x, translation_x); flips: device array of n bytes, or null for no
 // flips.  Returns a cudaError_t (0 = launched), or -1 for arguments the
 // kernel does not take.
-template <typename T>
+template <typename T, int F>
 int launch_general(const void* in, void* out, int n, int h, int w, int c, int oh, int ow,
                    const float* params, const uint8_t* flips, int antialias, void* stream) {
   if (n < 0 || h < 1 || w < 1 || c < 1 || oh < 1 || ow < 1) return -1;
@@ -737,28 +831,69 @@ int launch_general(const void* in, void* out, int n, int h, int w, int c, int oh
   const long long pixels = (long long)n * oh * ow;
   const long long blocks = (pixels + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return -1;
-  resized_crop_kernel<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  resized_crop_kernel<T, F><<<(unsigned)blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<T*>(out), n, h, w, c, oh, ow, params, flips,
       antialias != 0);
   return (int)cudaGetLastError();
 }
 
-extern "C" int pst_resized_crop_u8(const void* in, void* out, int n, int h, int w, int c,
-                                   int oh, int ow, const float* params, const uint8_t* flips,
-                                   int antialias, void* stream) {
-  return launch_general<uint8_t>(in, out, n, h, w, c, oh, ow, params, flips, antialias, stream);
+// The general kernel with filter 0 (triangle, bilinear), 1 (Keys cubic), 2
+// (Lanczos 3) or 3 (Lanczos 5) on uint8 NHWC images, rounded half to even and
+// clipped; -1 for another filter.
+template <typename T>
+int launch_filtered(const void* in, void* out, int n, int h, int w, int c, int oh, int ow,
+                    const float* params, const uint8_t* flips, int filter, int antialias,
+                    void* stream) {
+  switch (filter) {
+    case kTriangle:
+      return launch_general<T, kTriangle>(in, out, n, h, w, c, oh, ow, params, flips,
+                                          antialias, stream);
+    case kKeysCubic:
+      return launch_general<T, kKeysCubic>(in, out, n, h, w, c, oh, ow, params, flips,
+                                           antialias, stream);
+    case kLanczos3:
+      return launch_general<T, kLanczos3>(in, out, n, h, w, c, oh, ow, params, flips,
+                                          antialias, stream);
+    case kLanczos5:
+      return launch_general<T, kLanczos5>(in, out, n, h, w, c, oh, ow, params, flips,
+                                          antialias, stream);
+    default:
+      return -1;
+  }
 }
 
-// The general kernel's float32 instance: the arguments of
-// pst_resized_crop_u8 on float32 NHWC images, the sums stored unrounded.
-extern "C" int pst_resized_crop_f32(const void* in, void* out, int n, int h, int w, int c,
-                                    int oh, int ow, const float* params, const uint8_t* flips,
-                                    int antialias, void* stream) {
-  return launch_general<float>(in, out, n, h, w, c, oh, ow, params, flips, antialias, stream);
+extern "C" int pst_resample_u8(const void* in, void* out, int n, int h, int w, int c, int oh,
+                               int ow, const float* params, const uint8_t* flips, int filter,
+                               int antialias, void* stream) {
+  return launch_filtered<uint8_t>(in, out, n, h, w, c, oh, ow, params, flips, filter,
+                                  antialias, stream);
 }
 
-// The tiled kernel: the arguments of pst_resized_crop_u8 without antialias
-// (two taps per axis).  Returns a cudaError_t (0 = launched), or -1 for
+// pst_resample_u8 on float32 NHWC images, the sums stored unrounded.
+extern "C" int pst_resample_f32(const void* in, void* out, int n, int h, int w, int c, int oh,
+                                int ow, const float* params, const uint8_t* flips, int filter,
+                                int antialias, void* stream) {
+  return launch_filtered<float>(in, out, n, h, w, c, oh, ow, params, flips, filter, antialias,
+                                stream);
+}
+
+// Nearest resize of n NHWC images of pixel_bytes bytes a pixel (C x the
+// element size), (h, w) -> (oh, ow).  Returns a cudaError_t (0 = launched),
+// or -1 for arguments the kernel does not take.
+extern "C" int pst_resize_nearest(const void* in, void* out, int n, int h, int w,
+                                  int pixel_bytes, int oh, int ow, void* stream) {
+  if (n < 0 || h < 1 || w < 1 || pixel_bytes < 1 || oh < 1 || ow < 1) return -1;
+  if (n == 0) return 0;
+  const long long blocks = ((long long)n * oh * ow + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return -1;
+  resize_nearest_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), n, h, w, pixel_bytes, oh, ow);
+  return (int)cudaGetLastError();
+}
+
+// The tiled kernel: the arguments of pst_resample_u8 without the filter
+// (bilinear) and without antialias (two taps per axis).  Returns a cudaError_t (0 = launched), or -1 for
 // arguments the kernel does not take.
 extern "C" int pst_resized_crop_tiled_u8(const void* in, void* out, int n, int h, int w, int c,
                                          int oh, int ow, const float* params,
@@ -777,7 +912,7 @@ extern "C" int pst_resized_crop_tiled_u8(const void* in, void* out, int n, int h
 }
 
 // The antialiased tiled kernel, after its pre-pass: the arguments of
-// pst_resized_crop_u8 with antialias, the launch plan (tile rows and
+// pst_resample_u8 without the filter (bilinear), with antialias, the launch plan (tile rows and
 // columns, the row and column tap capacities, the source columns of a span
 // chunk, the channels of a group; augment.aa_launch_plan) and device scratch
 // of at least aa_scratch_bytes for the pre-pass's tables.  Returns a

@@ -7,9 +7,9 @@ with this package's codecs) that stores JSON under
 ``ROWGROUP_INDEX_METADATA_KEY``; ``get_row_group_indexes``.  A stored index
 is the same JSON whichever package built it, and each package reads the
 other's.  A hive partition column is indexed from each rowgroup's path
-value.  The legacy petastorm index (``dataset-toolkit.rowgroups_index.v1``,
-read through the JAX package's ``interop.py``) is not part of this package
-yet: a dataset that carries only the legacy index raises.
+value.  A dataset that carries only the legacy petastorm index
+(``dataset-toolkit.rowgroups_index.v1``, a pickled indexer dict) gives it
+through ``interop.load_legacy_indexes`` (``:239-244``).
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ import pyarrow.fs as pafs
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError
-from petastorm_tpu_torch.etl.metadata import (LEGACY_INDEX_KEY, ROWGROUP_INDEX_METADATA_KEY,
-                                              DatasetInfo, open_dataset, write_metadata_file)
+from petastorm_tpu_torch.etl.metadata import (ROWGROUP_INDEX_METADATA_KEY, DatasetInfo,
+                                              open_dataset, write_metadata_file)
 
 logger = logging.getLogger(__name__)
 
@@ -231,12 +231,11 @@ def get_row_group_indexes(info: DatasetInfo) -> Dict[str, RowGroupIndexer]:
     rowgroup_indexing.py:138-160); ``{}`` when it stores none."""
     raw = info.kv_metadata.get(ROWGROUP_INDEX_METADATA_KEY)
     if not raw:
-        if info.kv_metadata.get(LEGACY_INDEX_KEY):
-            raise MetadataError(
-                f"Dataset {info.url!r} carries only a legacy petastorm rowgroup index"
-                f" ({LEGACY_INDEX_KEY.decode()}); reading it (interop.py) is not part of"
-                " this package yet (ROADMAP.md queue A item 11). Rebuild the index with"
-                " build_rowgroup_index().")
+        from petastorm_tpu_torch import interop
+
+        legacy = info.kv_metadata.get(interop.LEGACY_INDEX_KEY)
+        if legacy:
+            return interop.load_legacy_indexes(legacy)
         return {}
     payload = json.loads(raw)
     out = {}

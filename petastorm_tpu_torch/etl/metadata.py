@@ -11,8 +11,10 @@ values, and the dataset's arrow schema is discovered with
 ``HivePartitioning``, so it holds the partition keys too.  On a remote
 filesystem the listing, the key-value metadata and the footer reads go
 through ``retry.retry_call`` (``:205-325``; ``io_retries='auto'`` retries on
-any filesystem that is not local).  Legacy petastorm metadata is not part
-of this package yet (ROADMAP.md queue A item 11).
+any filesystem that is not local).  A dataset written by the original
+Petastorm carries a pickled Unischema instead of the schema JSON: it is
+loaded through ``interop.load_legacy_schema`` (``:302-318``), and its
+per-file rowgroup counts cross-check the footers (``:146-170``).
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ ROW_GROUPS_METADATA_KEY = b"petastorm-tpu.row_groups_per_file.v1"
 GEOMETRIES_METADATA_KEY = b"petastorm-tpu.image_geometries.v1"
 #: Parquet KV key: JSON rowgroup index (``etl/indexing.py``)
 ROWGROUP_INDEX_METADATA_KEY = b"petastorm-tpu.rowgroup_index.v1"
-#: Parquet KV key of the legacy petastorm rowgroup index (pickled; read by
-#: the JAX package's ``interop.py``, which this package has not ported)
-LEGACY_INDEX_KEY = b"dataset-toolkit.rowgroups_index.v1"
 
 _METADATA_FILENAMES = ("_common_metadata", "_metadata")
 _FOOTER_READ_THREADS = 10
@@ -147,6 +146,31 @@ def _footer_row_groups(fs: pafs.FileSystem, path: str) -> List[int]:
         return [md.row_group(i).num_rows for i in range(md.num_row_groups)]
 
 
+def _check_legacy_row_group_counts(kv_metadata: Dict[bytes, bytes], root: str,
+                                   counts: Dict[str, List[int]]) -> None:
+    """Warn when a legacy petastorm
+    ``dataset-toolkit.num_row_groups_per_file.v1`` payload (``{relpath:
+    count}``) disagrees with the footers' rowgroup counts: the files were
+    rewritten after the metadata (``petastorm_tpu/etl/metadata.py:146-170``).
+    It holds no row counts, so it never replaces the footer reads."""
+    from petastorm_tpu_torch.interop import LEGACY_ROW_GROUPS_KEY
+
+    raw = kv_metadata.get(LEGACY_ROW_GROUPS_KEY)
+    if not raw:
+        return
+    try:
+        legacy_counts = json.loads(raw)
+    except ValueError:
+        logger.warning("Corrupt legacy %s payload; ignoring", LEGACY_ROW_GROUPS_KEY)
+        return
+    for rel, rg_rows in counts.items():
+        if rel in legacy_counts and legacy_counts[rel] != len(rg_rows):
+            logger.warning(
+                "Legacy petastorm metadata is stale for %s: recorded %d rowgroups,"
+                " file has %d (dataset rewritten after materialize?)",
+                rel, legacy_counts[rel], len(rg_rows))
+
+
 def collect_row_group_counts(fs: pafs.FileSystem, root: str,
                              files: List[str], retry=None) -> Dict[str, List[int]]:
     """Per-file rowgroup row counts keyed by path relative to ``root``."""
@@ -180,6 +204,7 @@ def load_row_groups(fs: pafs.FileSystem, root: str, files: List[str],
             counts = None
     if counts is None:
         counts = collect_row_group_counts(fs, root, files, retry)
+        _check_legacy_row_group_counts(kv_metadata, root, counts)
     refs: List[RowGroupRef] = []
     for f in files:
         parts = parse_hive_partitions(root, f)
@@ -269,6 +294,25 @@ def open_dataset(url_or_urls: Union[str, Sequence[str]],
             kv = {**footer_kv, **kv}
     stored_schema = (Schema.from_json(kv[SCHEMA_METADATA_KEY])
                      if SCHEMA_METADATA_KEY in kv else None)
+    if stored_schema is None:
+        # written by the original Petastorm: a pickled Unischema under
+        # dataset-toolkit.unischema.v1
+        from petastorm_tpu_torch import interop
+
+        legacy_blob = kv.get(interop.LEGACY_UNISCHEMA_KEY)
+        if legacy_blob:
+            # an undecodable blob (a codec outside the unpickler's list) must
+            # not break make_batch_reader, which reads such a dataset by
+            # inference
+            try:
+                stored_schema = interop.load_legacy_schema(legacy_blob)
+                logger.info("Loaded legacy petastorm unischema %r from %s",
+                            stored_schema.name, url_or_urls)
+            except Exception as exc:
+                logger.warning(
+                    "Dataset at %s has a legacy petastorm unischema that could"
+                    " not be converted (%s); falling back to arrow schema"
+                    " inference", url_or_urls, exc)
     if require_stored_schema and stored_schema is None:
         raise MetadataError(
             f"Dataset at {url_or_urls!r} has no petastorm-tpu schema metadata; use"

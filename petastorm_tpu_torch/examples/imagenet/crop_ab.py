@@ -122,7 +122,7 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
         calls, outs = {}, {}
         for name, (path, _) in built.items():
             lib = ctypes.CDLL(path)
-            augment._configure(lib)
+            augment._configure_tiled(lib)
             out = torch.empty((batch, *out_hw, c), dtype=torch.uint8, device="cuda")
             outs[name] = out
 

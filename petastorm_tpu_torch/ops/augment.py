@@ -12,21 +12,27 @@ those, it is a deterministic function that the tests hold against the JAX
 package.  When every draw is given, the generator is not used.
 
 The resample of ``random_resized_crop`` and ``resize_images`` is
-``jax.image.scale_and_translate`` with the triangle (bilinear) kernel.  On a
-CUDA tensor it runs in a hand-written Hopper kernel of
-``csrc/resized_crop.cu`` (which replaces the XLA-compiled dense weight
-matrices of ``jax/_src/image/scale.py::compute_weight_mat``), with an optional
-per-image horizontal flip fused in: the tiled kernel without antialias, the
-antialiased tiled kernel with it; a method those kernels do not take raises.
-The file's third kernel, the general one, takes every image that is not
-uint8, in its float32 instance (other dtypes are converted to float32 and
-back, as the reference does); its uint8 instance is reachable only by naming
-it to :func:`launch_resized_crop`: it is the byte oracle of the card
-checks.  On
-a CPU tensor it runs the plain PyTorch version ``_scale_and_translate``, which
-builds the same weight matrices with the same float32 expressions and
-contracts rows, then columns.  Crop, flip, mixup and
-cutmix are selections or blends and stay torch ops on both devices.
+``jax.image.scale_and_translate`` with one of jax's filters: triangle
+(``bilinear``), Keys cubic (``cubic``, a = -0.5), ``lanczos3`` or
+``lanczos5``; ``resize_images`` also takes ``nearest`` (a gather).  The method
+names are ``jax.image.ResizeMethod.from_string``'s, and an unknown one raises
+``ValueError`` as there.  On a CUDA tensor the resample runs in a hand-written
+Hopper kernel of ``csrc/resized_crop.cu`` (which replaces the XLA-compiled
+dense weight matrices of ``jax/_src/image/scale.py::compute_weight_mat``),
+with an optional per-image horizontal flip fused in.  Bilinear uint8 takes the
+tiled kernel without antialias and the antialiased tiled kernel with it.
+The file's general kernel takes every bilinear image that is not uint8, in
+its float32 instance (other dtypes are converted to float32 and back, as the
+reference does); its bilinear uint8 instance is reachable only by naming it
+to :func:`launch_resized_crop`: it is the byte oracle of the card checks.
+The other filters run in the general kernel's instance for that filter
+(``launch_resized_crop(..., kernel="general", method=...)``), uint8 and
+float32 alike, and ``nearest`` in a gather kernel (:func:`nearest_kernel`); a
+CUDA tensor takes a kernel or raises.  On a CPU tensor the plain PyTorch version runs:
+``_scale_and_translate`` builds the same weight matrices with the same
+float32 expressions and contracts rows, then columns, and
+``_resize_nearest_reference`` gathers.  Crop, flip, mixup and cutmix are
+selections or blends and stay torch ops on both devices.
 """
 
 from __future__ import annotations
@@ -43,36 +49,64 @@ from petastorm_tpu_torch.cuda import build
 from petastorm_tpu_torch.device import resolve_device
 
 _F32_EPS = float(np.finfo(np.float32).eps)
-_LINEAR = ("bilinear", "linear")
+
+#: jax.image.ResizeMethod.from_string's names, by the port's filter name
+_METHOD_NAMES = {"nearest": ("nearest",),
+                 "linear": ("linear", "bilinear", "trilinear", "triangle"),
+                 "lanczos3": ("lanczos3",), "lanczos5": ("lanczos5",),
+                 "cubic": ("cubic", "bicubic", "tricubic")}
+_METHODS = {name: method for method, names in _METHOD_NAMES.items() for name in names}
+#: the filter number of each method ``pst_resample_u8``/``_f32`` take (csrc/resized_crop.cu)
+FILTERS = {"linear": 0, "cubic": 1, "lanczos3": 2, "lanczos5": 3}
 
 
-def _configure(lib: ctypes.CDLL) -> None:
-    common = [
-        ctypes.c_void_p,     # const uint8_t* in, NHWC
-        ctypes.c_void_p,     # uint8_t* out, NHWC
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, h, w, c
-        ctypes.c_int, ctypes.c_int,                              # oh, ow
-        ctypes.c_void_p,     # const float* params (device, n x 4)
-        ctypes.c_void_p,     # const uint8_t* flips (device, n) or null
-    ]
-    for general in (lib.pst_resized_crop_u8, lib.pst_resized_crop_f32):
-        general.restype = ctypes.c_int
-        general.argtypes = common + [ctypes.c_int,      # antialias
-                                     ctypes.c_void_p]   # cudaStream_t
+_COMMON_ARGS = [
+    ctypes.c_void_p,     # const uint8_t* in, NHWC
+    ctypes.c_void_p,     # uint8_t* out, NHWC
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, h, w, c
+    ctypes.c_int, ctypes.c_int,                              # oh, ow
+    ctypes.c_void_p,     # const float* params (device, n x 4)
+    ctypes.c_void_p,     # const uint8_t* flips (device, n) or null
+]
+
+
+def _configure_tiled(lib: ctypes.CDLL) -> None:
+    """The entries of the two tiled kernels, which every revision of
+    ``csrc/resized_crop.cu`` has (``examples/imagenet/crop_ab.py`` times
+    earlier ones)."""
     lib.pst_resized_crop_tiled_u8.restype = ctypes.c_int
-    lib.pst_resized_crop_tiled_u8.argtypes = common + [ctypes.c_void_p]  # cudaStream_t
+    lib.pst_resized_crop_tiled_u8.argtypes = _COMMON_ARGS + [ctypes.c_void_p]  # cudaStream_t
     lib.pst_resized_crop_aa_u8.restype = ctypes.c_int
-    lib.pst_resized_crop_aa_u8.argtypes = common + [ctypes.c_int] * 6 + [  # the plan
+    lib.pst_resized_crop_aa_u8.argtypes = _COMMON_ARGS + [ctypes.c_int] * 6 + [  # the plan
         ctypes.c_void_p,     # scratch (device) for the pre-pass's axis tables
         ctypes.c_longlong,   # its bytes
         ctypes.c_void_p]     # cudaStream_t
 
 
-def _check_method(method: str) -> None:
-    if method not in _LINEAR:
-        raise NotImplementedError(
-            f"resize method {method!r}: only 'bilinear'/'linear' is ported (the other"
-            " jax.image kernels are ROADMAP.md queue B item 3)")
+def _configure(lib: ctypes.CDLL) -> None:
+    for general in (lib.pst_resample_u8, lib.pst_resample_f32):
+        general.restype = ctypes.c_int
+        general.argtypes = _COMMON_ARGS + [ctypes.c_int,      # filter (FILTERS)
+                                           ctypes.c_int,      # antialias
+                                           ctypes.c_void_p]   # cudaStream_t
+    _configure_tiled(lib)
+    lib.pst_resize_nearest.restype = ctypes.c_int
+    lib.pst_resize_nearest.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,                # in, out (NHWC)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # n, h, w
+        ctypes.c_int,                                    # bytes a pixel
+        ctypes.c_int, ctypes.c_int,                      # oh, ow
+        ctypes.c_void_p]                                 # cudaStream_t
+
+
+def resize_method(method: str) -> str:
+    """The filter of a jax.image method name: ``'nearest'``, ``'linear'``,
+    ``'cubic'``, ``'lanczos3'`` or ``'lanczos5'``; ``ValueError`` for a name
+    ``jax.image.ResizeMethod.from_string`` does not know (its message)."""
+    try:
+        return _METHODS[method]
+    except (KeyError, TypeError):
+        raise ValueError(f'Unknown resize method "{method}"') from None
 
 
 def _restore_dtype(out: torch.Tensor, src_dtype: torch.dtype) -> torch.Tensor:
@@ -210,11 +244,30 @@ def cutmix(images: torch.Tensor, labels: torch.Tensor, generator: Optional[torch
 # -- resample ------------------------------------------------------------
 
 
+def _filter(method: str, x: torch.Tensor) -> torch.Tensor:
+    """jax's kernel function of ``method`` on float32 ``x`` >= 0
+    (``jax/_src/image/scale.py``: ``_fill_triangle_kernel``,
+    ``_fill_keys_cubic_kernel``, ``_fill_lanczos_kernel(radius, x)``), in its
+    float32 expressions and order."""
+    if method == "linear":
+        return torch.clamp_min(1.0 - torch.abs(x), 0.0)
+    if method == "cubic":
+        out = ((1.5 * x - 2.5) * x) * x + 1.0
+        out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+        return torch.where(x >= 2.0, torch.zeros_like(x), out)
+    radius = {"lanczos3": 3.0, "lanczos5": 5.0}[method]
+    y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
+    safe = torch.where(x != 0, np.pi ** 2 * x ** 2, torch.ones_like(x))
+    out = torch.where(x > 1e-3, y / safe, torch.ones_like(x))
+    return torch.where(x > radius, torch.zeros_like(x), out)
+
+
 def _weight_mats(in_size: int, out_size: int, inv_scale: torch.Tensor,
-                 translation: torch.Tensor, antialias: bool) -> torch.Tensor:
-    """(N, in, out) float32 triangle-kernel weights, one matrix per image, with
-    the float32 expressions of ``jax/_src/image/scale.py::compute_weight_mat``
-    in its order."""
+                 translation: torch.Tensor, antialias: bool,
+                 method: str = "linear") -> torch.Tensor:
+    """(N, in, out) float32 weights of ``method``'s filter, one matrix per
+    image, with the float32 expressions of
+    ``jax/_src/image/scale.py::compute_weight_mat`` in its order."""
     device = inv_scale.device
     inv_scale = inv_scale[:, None]
     kernel_scale = (torch.clamp_min(inv_scale, 1.0) if antialias
@@ -223,7 +276,7 @@ def _weight_mats(in_size: int, out_size: int, inv_scale: torch.Tensor,
     sample_f = ((o + 0.5) * inv_scale - translation[:, None] * inv_scale) - 0.5  # (N, out)
     i = torch.arange(in_size, dtype=torch.float32, device=device)
     x = torch.abs(sample_f[:, None, :] - i[None, :, None]) / kernel_scale[:, :, None]
-    weights = torch.clamp_min(1.0 - torch.abs(x), 0.0)
+    weights = _filter(method, x)
     total = torch.sum(weights, dim=1, keepdim=True)
     weights = torch.where(torch.abs(total) > 1000.0 * _F32_EPS,
                           weights / torch.where(total != 0, total, torch.ones_like(total)),
@@ -233,7 +286,7 @@ def _weight_mats(in_size: int, out_size: int, inv_scale: torch.Tensor,
 
 
 def _scale_and_translate(x: torch.Tensor, out_hw: Tuple[int, int], params: torch.Tensor,
-                         antialias: bool) -> torch.Tensor:
+                         antialias: bool, method: str = "linear") -> torch.Tensor:
     """Plain version of the resample: float32 (N, H, W, C) -> (N, oh, ow, C).
 
     ``params`` is (N, 4) float32 ``(inv_scale_y, translation_y, inv_scale_x,
@@ -242,20 +295,36 @@ def _scale_and_translate(x: torch.Tensor, out_hw: Tuple[int, int], params: torch
     rows, then the columns."""
     _, h, w, _ = x.shape
     oh, ow = out_hw
-    wy = _weight_mats(h, oh, params[:, 0], params[:, 1], antialias)
-    wx = _weight_mats(w, ow, params[:, 2], params[:, 3], antialias)
+    wy = _weight_mats(h, oh, params[:, 0], params[:, 1], antialias, method)
+    wx = _weight_mats(w, ow, params[:, 2], params[:, 3], antialias, method)
     rows = torch.einsum("nhwc,nho->nowc", x, wy)
     return torch.einsum("nowc,nwp->nopc", rows, wx)
 
 
 def _resized_crop_reference(images: torch.Tensor, params: torch.Tensor,
                             flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
-                            antialias: bool) -> torch.Tensor:
+                            antialias: bool, method: str = "linear") -> torch.Tensor:
     """Plain version of the kernel: resample, flip the flagged outputs, back to the source dtype."""
-    out = _scale_and_translate(images.float(), out_hw, params, antialias)
+    out = _scale_and_translate(images.float(), out_hw, params, antialias, method)
     if flips is not None:
         out = torch.where(flips.bool()[:, None, None, None], out.flip(2), out)
     return _restore_dtype(out, images.dtype)
+
+
+def _nearest_offsets(in_size: int, out_size: int, device) -> torch.Tensor:
+    """``floor(float32((o + 0.5) * in / out))`` for each output position, in
+    float32 as ``jax/_src/image/scale.py::_resize_nearest`` computes it,
+    clamped to the input as jax's gather clamps an index."""
+    o = torch.arange(out_size, dtype=torch.float32, device=device)
+    return torch.clamp(torch.floor((o + 0.5) * in_size / out_size).long(), 0, in_size - 1)
+
+
+def _resize_nearest_reference(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of the nearest kernel: one source pixel an output pixel."""
+    _, h, w, _ = images.shape
+    rows = _nearest_offsets(h, out_hw[0], images.device)
+    cols = _nearest_offsets(w, out_hw[1], images.device)
+    return images[:, rows][:, :, cols]
 
 
 # Launch plan of the antialiased tiled kernel (csrc/resized_crop.cu).
@@ -342,20 +411,25 @@ RESIZED_CROP_KERNELS = ("tiled", "aa", "general")
 
 def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
-                        antialias: bool, kernel: str) -> torch.Tensor:
-    """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA uint8
-    NHWC tensor, on the current stream: ``"tiled"`` (two taps per axis, so
-    ``antialias`` must be False), ``"aa"`` (the antialiased tiled kernel, so
-    ``antialias`` must be True) or ``"general"`` (one thread a pixel, either;
-    it also takes float32 images and writes float32, unrounded).
+                        antialias: bool, kernel: str, method: str = "linear") -> torch.Tensor:
+    """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA
+    NHWC tensor, on the current stream: ``"tiled"`` (bilinear uint8, two taps
+    per axis, so ``antialias`` must be False), ``"aa"`` (the antialiased tiled
+    kernel, bilinear uint8, so ``antialias`` must be True) or ``"general"``
+    (one thread a pixel, either; uint8 or float32, with ``method``'s filter:
+    ``linear``, ``cubic``, ``lanczos3`` or ``lanczos5``; it writes the source
+    dtype, uint8 rounded half to even and clipped, float32 unrounded).
     Each launch adds one to ``resized_crop_kernel.launches`` and to its
-    kernel's own count (``launches_tiled``, ``launches_aa`` or
-    ``launches_general``).
+    kernel's own count (``launches_tiled``, ``launches_aa``,
+    ``launches_general`` for the general kernel's bilinear instance, or
+    ``launches_<method>`` for its other filters).
 
     ``params``: (N, 4) float32 as for :func:`_scale_and_translate`, on the
     same device; ``flips``: (N,) flags (nonzero = mirror the output columns) or None."""
     if kernel not in RESIZED_CROP_KERNELS:
         raise ValueError(f"kernel must be one of {RESIZED_CROP_KERNELS}, got {kernel!r}")
+    if method not in FILTERS or (kernel != "general" and method != "linear"):
+        raise ValueError(f"the {kernel} resized-crop kernel cannot take method {method!r}")
     if images.device.type != "cuda":
         raise ValueError(f"resized_crop_kernel takes a CUDA tensor, got {images.device}")
     dtypes = (torch.uint8, torch.float32) if kernel == "general" else (torch.uint8,)
@@ -395,14 +469,14 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
             err = lib.pst_resized_crop_aa_u8(*args, *plan, scratch.data_ptr(), scratch.numel(),
                                              stream)
         else:
-            general = (lib.pst_resized_crop_u8 if images.dtype == torch.uint8
-                       else lib.pst_resized_crop_f32)
-            err = general(*args, int(antialias), stream)
+            general = (lib.pst_resample_u8 if images.dtype == torch.uint8
+                       else lib.pst_resample_f32)
+            err = general(*args, FILTERS[method], int(antialias), stream)
     if err != 0:
         raise RuntimeError(f"resized-crop kernel launch failed (error {err})")
     if n:
         resized_crop_kernel.launches += 1
-        counter = f"launches_{kernel}"
+        counter = f"launches_{kernel if method == 'linear' else method}"
         setattr(resized_crop_kernel, counter, getattr(resized_crop_kernel, counter) + 1)
     return out
 
@@ -414,8 +488,9 @@ def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
     crop of the training step), the antialiased tiled kernel with it.  The
     choice reads only the flag, never ``params``, so the host does not wait on
     the card.  ``resized_crop_kernel.launches`` counts every kernel's
-    launches, ``.launches_tiled``, ``.launches_aa`` and ``.launches_general``
-    each one's."""
+    launches, ``.launches_tiled``, ``.launches_aa``, ``.launches_general``,
+    ``.launches_cubic``, ``.launches_lanczos3`` and ``.launches_lanczos5``
+    each one's (see :func:`launch_resized_crop`)."""
     return launch_resized_crop(images, params, flips, out_hw, antialias,
                                kernel="aa" if antialias else "tiled")
 
@@ -424,34 +499,109 @@ resized_crop_kernel.launches = 0
 resized_crop_kernel.launches_tiled = 0
 resized_crop_kernel.launches_aa = 0
 resized_crop_kernel.launches_general = 0
+resized_crop_kernel.launches_cubic = 0
+resized_crop_kernel.launches_lanczos3 = 0
+resized_crop_kernel.launches_lanczos5 = 0
+
+
+def nearest_kernel(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``resize_images(method='nearest')`` on a contiguous CUDA uint8 or
+    float32 NHWC tensor, on the current stream: one launch of the gather
+    kernel (``csrc/resized_crop.cu``, ``pst_resize_nearest``), which copies
+    each output pixel's source pixel whole.  Each launch adds one to
+    ``nearest_kernel.launches``."""
+    if images.device.type != "cuda":
+        raise ValueError(f"the nearest kernel takes a CUDA tensor, got {images.device}")
+    if images.dtype not in (torch.uint8, torch.float32) or images.dim() != 4:
+        raise TypeError(f"the nearest kernel takes uint8 or float32 NHWC images, got"
+                        f" {images.dtype} {tuple(images.shape)}")
+    if not images.is_contiguous():
+        raise ValueError("the nearest kernel takes a contiguous tensor; call .contiguous()")
+    n, h, w, c = images.shape
+    oh, ow = out_hw
+    pixel_bytes = c * images.element_size()
+    if min(h, w, c, oh, ow) < 1 or max(n, h, w, pixel_bytes, oh, ow) >= 2 ** 31:
+        raise ValueError(f"nearest kernel cannot take {tuple(images.shape)} -> {out_hw}")
+    lib = build.load("resized_crop", _configure)
+    out = torch.empty((n, oh, ow, c), dtype=images.dtype, device=images.device)
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = lib.pst_resize_nearest(images.data_ptr(), out.data_ptr(), n, h, w, pixel_bytes,
+                                     oh, ow, stream)
+    if err != 0:
+        raise RuntimeError(f"nearest kernel launch failed (error {err})")
+    if n:
+        nearest_kernel.launches += 1
+    return out
+
+
+nearest_kernel.launches = 0
 
 
 def _resample(images: torch.Tensor, params: torch.Tensor, flips: Optional[torch.Tensor],
-              out_hw: Tuple[int, int], antialias: bool) -> torch.Tensor:
+              out_hw: Tuple[int, int], antialias: bool, method: str = "linear") -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU tensor.  On the
-    card uint8 takes the tiled kernels; any other dtype is resampled in
-    float32 by the general kernel and brought back to its dtype."""
+    card bilinear uint8 takes the tiled kernels; everything else takes the
+    general kernel's instance for its filter, uint8 and float32 as they are,
+    any other dtype resampled in float32 and brought back to its dtype."""
     if images.device.type == "cpu":
-        return _resized_crop_reference(images, params, flips, out_hw, antialias)
-    if images.dtype == torch.uint8:
+        return _resized_crop_reference(images, params, flips, out_hw, antialias, method)
+    if method == "linear" and images.dtype == torch.uint8:
         return resized_crop_kernel(images, params, flips, out_hw, antialias)
-    out = launch_resized_crop(images.float().contiguous(), params, flips, out_hw, antialias,
-                              kernel="general")
+    x = images if images.dtype in (torch.uint8, torch.float32) else images.float()
+    out = launch_resized_crop(x.contiguous(), params, flips, out_hw, antialias,
+                              kernel="general", method=method)
     return _restore_dtype(out, images.dtype)
+
+
+def _resize_nearest(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize: the gather kernel on a CUDA tensor (uint8 and float32
+    as they are, any other dtype through float32 as the reference does), the
+    plain version on a CPU tensor."""
+    if images.device.type == "cpu":
+        if images.dtype in (torch.uint8, torch.float32):
+            return _resize_nearest_reference(images, out_hw)
+        return _restore_dtype(_resize_nearest_reference(images.float(), out_hw), images.dtype)
+    if images.dtype in (torch.uint8, torch.float32):
+        return nearest_kernel(images.contiguous(), out_hw)
+    return _restore_dtype(nearest_kernel(images.float().contiguous(), out_hw), images.dtype)
 
 
 def resize_images(images: torch.Tensor, out_hw: Tuple[int, int], method: str = "bilinear",
                   antialias: bool = True) -> torch.Tensor:
     """Batched resize of (N, H, W, C) to (N, oh, ow, C), ``jax.image.resize``
-    semantics (antialiased by default).  uint8 comes back uint8, float dtypes
-    are kept, other integers are rounded and clipped back."""
-    _check_method(method)
-    n, h, w, _ = images.shape
+    semantics (antialiased by default; ``antialias`` has no effect on
+    ``nearest``).  uint8 comes back uint8, float dtypes are kept, other
+    integers are rounded and clipped back.
+
+    As ``jax.image.resize``, the cubic and Lanczos filters leave an axis whose
+    size does not change alone (a Lanczos weight at a whole-pixel distance is
+    ``sin`` of a float32 multiple of pi, not 0): such an axis becomes an axis
+    of one pixel, the other one's pixels its channels or its images."""
+    method = resize_method(method)
+    n, h, w, c = images.shape
     oh, ow = out_hw
-    # jax.image.resize: scale = out/in and 1/scale in float64, then float32
-    inv = torch.tensor([1.0 / (oh / h), 0.0, 1.0 / (ow / w), 0.0], dtype=torch.float32)
-    params = inv.expand(n, 4).to(images.device)
-    return _resample(images, params, None, out_hw, antialias)
+    if method == "nearest":
+        return _resize_nearest(images, out_hw)
+
+    def params(inv_y, inv_x, count):
+        # jax.image.resize: scale = out/in and 1/scale in float64, then float32
+        inv = torch.tensor([inv_y, 0.0, inv_x, 0.0], dtype=torch.float32)
+        return inv.expand(count, 4).to(images.device)
+
+    if method != "linear" and (h == oh or w == ow):
+        if h == oh and w == ow:
+            return images.clone()
+        if h == oh:  # each row an image of one row
+            rows = images.reshape(n * h, 1, w, c)
+            out = _resample(rows, params(1.0, 1.0 / (ow / w), n * h), None, (1, ow),
+                            antialias, method)
+            return out.reshape(n, oh, ow, c)
+        cols = images.reshape(n, h, 1, w * c)  # a row's pixels its channels
+        out = _resample(cols, params(1.0 / (oh / h), 1.0, n), None, (oh, 1), antialias, method)
+        return out.reshape(n, oh, ow, c)
+    return _resample(images, params(1.0 / (oh / h), 1.0 / (ow / w), n), None, out_hw,
+                     antialias, method)
 
 
 def draw_crop_boxes(n: int, h: int, w: int, generator: Optional[torch.Generator],
@@ -498,17 +648,23 @@ def random_resized_crop(images: torch.Tensor, generator: Optional[torch.Generato
                         flips: Optional[torch.Tensor] = None) -> torch.Tensor:
     """torchvision-style RandomResizedCrop, batched: each image's box
     ``(y0, x0, crop_h, crop_w)`` (drawn by :func:`draw_crop_boxes` when
-    ``boxes`` is None) is resampled to ``out_hw`` with the bilinear kernel.
+    ``boxes`` is None) is resampled to ``out_hw`` with ``method``'s filter
+    (``jax.image.scale_and_translate``, which refuses ``nearest`` with a
+    ``ValueError``; so does this).
 
     ``flips`` (N,) mirrors the flagged outputs in the same pass (the JAX
     training step's ``random_flip`` after the crop); None flips nothing.
-    On a CUDA tensor: one launch of the resized-crop kernel (for a dtype other
-    than uint8, the general kernel in float32, the dtype restored after)."""
-    _check_method(method)
+    On a CUDA tensor: one launch of a resized-crop kernel (bilinear: the
+    tiled kernels for uint8, the general kernel in float32 for any other
+    dtype; the other filters: their general kernel instance)."""
+    method = resize_method(method)
+    if method == "nearest":
+        raise ValueError("Nearest neighbor resampling is not currently supported for"
+                         " scale_and_translate.")
     n, h, w, _ = images.shape
     if boxes is None:
         boxes = draw_crop_boxes(n, h, w, generator, scale, ratio, images.device)
     params = crop_params(torch.as_tensor(boxes, device=images.device), out_hw)
     if flips is not None:
         flips = torch.as_tensor(flips, device=images.device)
-    return _resample(images, params, flips, out_hw, antialias)
+    return _resample(images, params, flips, out_hw, antialias, method)

@@ -1,23 +1,40 @@
 """Synthetic data for the port's checks and tests.
 
-A trimmed copy of ``petastorm_tpu/test_util/synthetic.py`` over the port's
-writer and schema: ``synthetic_rgb_image`` (a smooth RGB frame that
-compresses like a photo), ``write_token_corpus`` (lognormal document
+Counterpart of ``petastorm_tpu/test_util/synthetic.py`` over the port's
+writer and schema: ``TEST_SCHEMA`` (every codec, dtype, nullable and
+variable-shape case) with ``random_row`` and ``create_test_dataset``;
+``synthetic_rgb_image`` (a smooth RGB frame that compresses like a photo)
+and ``synthetic_jpeg_bytes``; ``write_token_corpus`` (lognormal document
 lengths) and ``write_wide_dataset`` (an id column and float32 vector
 columns: the shape where a read a column chunk would hurt on a remote
-store).  The rest of the JAX module (``TEST_SCHEMA``, ``random_row``,
-``create_test_dataset``, ``synthetic_jpeg_bytes``) waits for ROADMAP.md
-queue A item 12.
+store).  Each draws from a seeded numpy generator in the JAX module's order,
+so both packages write the same rows from one seed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,
+                                        NdarrayCodec)
 from petastorm_tpu_torch.etl.writer import write_dataset
 from petastorm_tpu_torch.schema import Field, Schema
+
+TEST_SCHEMA = Schema("TestSchema", [
+    Field("id", np.int64),
+    Field("id2", np.int32),
+    Field("partition_key", np.dtype("object")),
+    Field("python_primitive_uint8", np.uint8),
+    Field("image_png", np.uint8, (16, 12, 3), CompressedImageCodec("png")),
+    Field("matrix", np.float32, (4, 5), NdarrayCodec()),
+    Field("matrix_compressed", np.float32, (4, 5), CompressedNdarrayCodec()),
+    Field("matrix_var", np.float64, (None, 2), NdarrayCodec()),
+    Field("sensor_name", np.dtype("object")),
+    Field("timestamp_s", np.int64),
+    Field("nullable_float", np.float64, nullable=True),
+])
 
 
 def synthetic_rgb_image(i: int, height: int, width: int,
@@ -32,6 +49,67 @@ def synthetic_rgb_image(i: int, height: int, width: int,
         base = base + (rng or np.random.default_rng(i)).normal(0, noise,
                                                                base.shape)
     return base.clip(0, 255).astype(np.uint8)
+
+
+def synthetic_jpeg_bytes(n: int, height: int, width: int,
+                         quality: int = 90) -> List[bytes]:
+    """``n`` same-geometry JPEG streams of ``synthetic_rgb_image`` frames."""
+    import cv2
+
+    out = []
+    for i in range(n):
+        ok, enc = cv2.imencode(
+            ".jpeg", cv2.cvtColor(synthetic_rgb_image(i, height, width), cv2.COLOR_RGB2BGR),
+            [int(cv2.IMWRITE_JPEG_QUALITY), quality])
+        if not ok:
+            raise RuntimeError("cv2.imencode failed")
+        out.append(enc.tobytes())
+    return out
+
+
+def random_row(schema: Schema, rng: np.random.Generator, row_index: int) -> Dict:
+    """One schema-conformant random row (reference: generator.py:21-47)."""
+    row: Dict = {}
+    for f in schema:
+        if f.name == "id":
+            row[f.name] = row_index
+            continue
+        if f.name == "timestamp_s":
+            row[f.name] = 1_000_000 + row_index
+            continue
+        if f.nullable and rng.random() < 0.3:
+            row[f.name] = None
+            continue
+        if f.shape == ():
+            if f.dtype.kind == "O":
+                row[f.name] = f"{f.name}_{rng.integers(0, 5)}"
+            elif f.dtype.kind in "ui":
+                row[f.name] = int(rng.integers(0, np.iinfo(f.dtype).max // 2, dtype=f.dtype))
+            elif f.dtype.kind == "f":
+                row[f.name] = float(rng.random())
+            elif f.dtype.kind == "b":
+                row[f.name] = bool(rng.integers(0, 2))
+            else:
+                raise ValueError(f"no generator for {f}")
+        else:
+            shape = tuple(d if d is not None else int(rng.integers(1, 6)) for d in f.shape)
+            if f.dtype.kind in "ui":
+                row[f.name] = rng.integers(0, 255, shape).astype(f.dtype)
+            else:
+                row[f.name] = rng.standard_normal(shape).astype(f.dtype)
+    return row
+
+
+def create_test_dataset(url: str, num_rows: int = 100, row_group_size_rows: int = 10,
+                        schema: Optional[Schema] = None, seed: int = 1234,
+                        **write_kwargs) -> List[Dict]:
+    """Write a synthetic dataset of ``schema`` (``TEST_SCHEMA`` by default);
+    returns the rows written, for assertions."""
+    schema = schema or TEST_SCHEMA
+    rng = np.random.default_rng(seed)
+    rows = [random_row(schema, rng, i) for i in range(num_rows)]
+    write_dataset(url, schema, rows, row_group_size_rows=row_group_size_rows, **write_kwargs)
+    return rows
 
 
 def write_token_corpus(url: str, n_docs: int = 400,

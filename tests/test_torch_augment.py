@@ -25,6 +25,8 @@ Tolerances:
   shapes.  float32: within 8 float32 ulp of 256 (2.4e-4): the same weight
   and summation-order differences over up to 5 antialiased taps per axis
   (measured at most 4 ulp).
+* the other methods (``bicubic``, ``lanczos3``, ``nearest``): the bounds of
+  ``tests/test_torch_resample_methods.py`` (1 LSB on at most 1 % of bytes).
 * ``mixup`` uint8: at most 1 LSB, at most 0.1 % of bytes (XLA fuses
   ``lam * x + (1 - lam) * y`` and may contract it into an FMA; torch rounds
   each product; measured 0.0 %).  float32: within 2 float32 ulp of 255.
@@ -185,12 +187,24 @@ def test_resample_keeps_the_dtype_like_jax(dtype, antialias):
 
 
 @pytest.mark.parametrize("method", ["bicubic", "lanczos3", "nearest"])
-def test_other_methods_are_not_ported(method):
-    images = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B item 3"):
-        augment.resize_images(images, (4, 4), method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B item 3"):
-        augment.random_resized_crop(images, torch.Generator(), (4, 4), method=method)
+def test_other_methods_match_jax(method):
+    # the other methods of jax.image; tests/test_torch_resample_methods.py
+    # holds every method, setting and dtype to the JAX package
+    images = _images(6, (3, 40, 36, 3))
+    want = np.asarray(jax_augment.resize_images(jnp.asarray(images), (24, 20), method=method))
+    got = augment.resize_images(torch.from_numpy(images), (24, 20), method=method)
+    _assert_bytes_close(got.numpy(), want, 0.01)
+    key = jax.random.PRNGKey(6)
+    if method == "nearest":  # jax.image.scale_and_translate refuses it
+        with pytest.raises(ValueError, match="Nearest neighbor"):
+            augment.random_resized_crop(torch.from_numpy(images), None, (24, 24), method=method,
+                                        boxes=_jax_boxes(key, 3, 40, 36))
+        return
+    want = np.asarray(jax_augment.random_resized_crop(jnp.asarray(images), key, (24, 24),
+                                                      method=method))
+    got = augment.random_resized_crop(torch.from_numpy(images), None, (24, 24), method=method,
+                                      boxes=_jax_boxes(key, 3, 40, 36))
+    _assert_bytes_close(got.numpy(), want, 0.01)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

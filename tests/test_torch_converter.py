@@ -4,7 +4,10 @@ The cases of ``tests/test_converter.py`` that apply to the port, on
 ``petastorm_tpu_torch.converter``, plus parity: from the same pandas frame
 and arrow table both packages compute the same fingerprint and cache
 directory name and deliver the same rows.  ``make_cuda_loader`` takes the
-place of ``make_jax_loader``; ``make_tf_dataset`` and Spark frames raise.
+place of ``make_jax_loader``.  ``make_tf_dataset`` raises ImportError
+without tensorflow, and a Spark frame whose write leaves nothing raises;
+their parity cases are ``tests/test_torch_tf.py`` and
+``tests/test_torch_spark.py``.
 """
 
 import logging
@@ -286,18 +289,40 @@ def test_atexit_registration(tmp_path):
     assert not os.path.exists(doomed.cache_url) and doomed not in _registered_converters
 
 
-def test_make_tf_dataset_raises(tmp_path):
+def test_make_tf_dataset_raises(tmp_path, monkeypatch):
+    # without tensorflow it raises ImportError, as the JAX converter does, and
+    # the reader it opened is stopped
+    import sys
+
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    monkeypatch.delitem(sys.modules, "petastorm_tpu_torch.tf", raising=False)
     conv = make_converter(_df(), cache_dir_url=str(tmp_path / "cache"))
     try:
-        with pytest.raises(PetastormTpuError, match="not part of this package yet"):
+        with pytest.raises(ImportError, match="requires tensorflow"):
             conv.make_tf_dataset(reader_kwargs={"num_epochs": 1})
     finally:
         conv.delete()
 
 
-def test_spark_frame_raises(tmp_path):
-    with pytest.raises(PetastormTpuError, match="Spark DataFrame"):
-        make_converter(mock_spark_dataframe(), cache_dir_url=str(tmp_path))
+def test_spark_frame_raises(tmp_path, monkeypatch):
+    # a Spark frame with a dtype neither float precision raises the JAX
+    # converter's error before anything is written
+    import sys
+
+    from petastorm_tpu.test_util.mock_pyspark import build_mock_pyspark_modules
+
+    for name, mod in build_mock_pyspark_modules().items():
+        monkeypatch.setitem(sys.modules, name, mod)
+    messages = []
+    for module in (converter, jax_converter):
+        with pytest.raises(Exception, match="dtype must be") as err:
+            module.make_converter(mock_spark_dataframe(), cache_dir_url=str(tmp_path),
+                                  dtype="int8")
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+    assert not any(tmp_path.iterdir())
+    with pytest.raises(PetastormTpuError, match="dtype must be"):
+        make_converter(mock_spark_dataframe(), cache_dir_url=str(tmp_path), dtype="float16")
 
 
 def test_slices_get_distinct_fingerprints(tmp_path):

@@ -3,11 +3,13 @@
 Each package builds the same indexes over copies of one dataset: the stored
 JSON is equal byte for byte, each package reads the index the other built,
 and single, intersect and union selectors select equal rowgroup sets.  A
-dataset that carries only the legacy petastorm index raises in the port
-(reading it is not ported); the build refusals carry the JAX messages.
+legacy petastorm index that is no pickle raises the JAX package's error
+(``tests/test_torch_interop.py`` reads real ones); the build refusals carry
+the JAX messages.
 """
 
 import json
+import pickle
 import shutil
 
 import numpy as np
@@ -21,6 +23,7 @@ from petastorm_tpu.etl import metadata as jax_metadata
 
 import petastorm_tpu_torch.selectors as torch_selectors
 from petastorm_tpu_torch import CompressedImageCodec, Field, Schema, write_dataset
+from petastorm_tpu_torch import interop as torch_interop
 from petastorm_tpu_torch.errors import MetadataError, PetastormTpuError
 from petastorm_tpu_torch.etl import indexing as torch_indexing
 from petastorm_tpu_torch.etl import metadata as torch_metadata
@@ -169,14 +172,19 @@ def test_build_refusals_match(dataset, tmp_path):
 
 
 def test_legacy_only_index_raises(dataset, tmp_path):
+    # a legacy index that is no pickle raises the JAX package's error: both
+    # read it through their restricted unpicklers
     path = str(tmp_path / "ds")
     shutil.copytree(dataset, path)
     info = torch_metadata.open_dataset(path)
     torch_metadata.write_metadata_file(info.filesystem, info.root_path, info.arrow_schema,
-                                       {torch_metadata.LEGACY_INDEX_KEY: b"\x80\x04legacy"})
-    assert torch_metadata.LEGACY_INDEX_KEY == b"dataset-toolkit.rowgroups_index.v1"
-    with pytest.raises(MetadataError, match="queue A item 11"):
+                                       {torch_interop.LEGACY_INDEX_KEY: b"\x80\x04legacy"})
+    assert torch_interop.LEGACY_INDEX_KEY == b"dataset-toolkit.rowgroups_index.v1"
+    with pytest.raises(pickle.UnpicklingError) as want:
+        jax_indexing.get_row_group_indexes(jax_metadata.open_dataset(path))
+    with pytest.raises(pickle.UnpicklingError) as got:
         torch_indexing.get_row_group_indexes(torch_metadata.open_dataset(path))
+    assert str(got.value) == str(want.value)
     # an index of this package beside the legacy one is read
     torch_indexing.build_rowgroup_index(path, _indexers(torch_indexing)[:1])
     assert sorted(_loaded("port", path)) == ["bucket_ix"]

@@ -187,8 +187,8 @@ def test_metadata_open_failures_fail_fast_without_retries(tmp_path):
 
 def test_retries_are_counted_in_io_stats(flaky_ds):
     """The retries the JAX reader counts as ``io.retries`` telemetry are
-    counted by the port's ``Reader.io_stats()`` (telemetry is not ported
-    yet), and every row arrives once."""
+    counted by the port's ``Reader.io_stats()``, and every row arrives
+    once."""
     url, state = flaky_ds
     with make_reader(url, reader_pool_type="serial", num_epochs=1,
                      shuffle_row_groups=False, io_retries=FAST) as r:

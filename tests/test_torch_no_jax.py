@@ -116,5 +116,18 @@ def test_every_port_module_is_scanned():
                      "petastorm_tpu_torch/service/client.py",
                      "petastorm_tpu_torch/service/autoscale.py",
                      "petastorm_tpu_torch/service/cli.py",
-                     "petastorm_tpu_torch/test_util/netchaos.py"):
+                     "petastorm_tpu_torch/test_util/netchaos.py",
+                     "petastorm_tpu_torch/interop.py", "petastorm_tpu_torch/tf.py",
+                     "petastorm_tpu_torch/spark.py",
+                     "petastorm_tpu_torch/tools/__init__.py",
+                     "petastorm_tpu_torch/tools/show_metadata.py",
+                     "petastorm_tpu_torch/tools/copy_dataset.py",
+                     "petastorm_tpu_torch/tools/diagnose.py",
+                     "petastorm_tpu_torch/test_util/matrix.py",
+                     "petastorm_tpu_torch/test_util/mock_pyspark.py",
+                     "petastorm_tpu_torch/test_util/reader_mock.py",
+                     "petastorm_tpu_torch/test_util/stub_workers.py",
+                     "petastorm_tpu_torch/test_util/legacy_petastorm.py",
+                     "petastorm_tpu_torch/examples/spark_converter/__init__.py",
+                     "petastorm_tpu_torch/examples/spark_converter/convert_and_feed_cuda.py"):
         assert required in names

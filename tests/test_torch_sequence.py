@@ -8,10 +8,10 @@ batches, ``packed_stream_digest``, mixture digests and draws must be equal
 exactly, and ``make_packed_sequence_loader(..., device="cpu")`` must deliver
 ``JaxDataLoader``'s batches (its mesh form where the tail is padded).  The
 JAX cases that read telemetry (``sequence.*`` counters,
-``worker.rows_decoded``) or the ``'process'`` pool wait for ROADMAP.md
-queue A item 11 in the port: they compare the port's ``stats()`` with the
-JAX series, count the rows the port's list codec decodes, and read the JAX
-process pool against the port's thread pool, as each test says.
+``worker.rows_decoded``) or the ``'process'`` pool are held here another
+way: they compare the port's ``stats()`` with the JAX series, count the rows
+the port's list codec decodes, and read the JAX process pool against the
+port's thread pool, as each test says.
 """
 
 import logging
@@ -226,7 +226,7 @@ def test_decode_placement_on_sequence_field_refused_as_in_jax(varlen_dataset, pl
 
 def test_predicate_pushdown_decodes_only_survivors(labeled_corpus, monkeypatch):
     """The JAX test reads ``sequence.rows_filtered`` and
-    ``worker.rows_decoded`` (telemetry: queue A item 11).  Here the rows the
+    ``worker.rows_decoded`` (telemetry).  Here the rows the
     port's list codec decodes are counted instead: only the survivors reach
     it, and they are the JAX reader's survivors."""
     decoded = []
@@ -382,9 +382,9 @@ def test_empty_none_and_feed_after_finish_as_in_jax():
 @pytest.mark.parametrize("docs,kwargs", [(_docs(6, 6, 20), {}),
                                          (_docs(20), dict(long_docs="truncate"))])
 def test_packer_stats_equal_the_jax_telemetry_series(docs, kwargs):
-    """The JAX packer's ``sequence.*`` series wait for queue A item 11 in
-    the port; the port's ``stats()`` carries the same numbers, monotonic
-    token counts under truncation included."""
+    """The JAX packer's ``sequence.*`` series against the port's
+    ``stats()``: the same numbers, monotonic token counts under truncation
+    included."""
     tele = Telemetry()
     jp = jseq.SequencePacker(8, telemetry=tele, **kwargs)
     list(jseq.iter_packed_rows(iter(docs), 8, packer=jp))

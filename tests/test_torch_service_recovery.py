@@ -11,6 +11,8 @@ twice; a result that finishes before its client reconnects is buffered and
 replayed; the hot standby takes over exactly once and a deposed primary is
 refused; ``NetChaosSpec`` schedules equal the JAX package's, and a read
 through ``ChaosProxy`` on the client link survives.  Every wait is bounded.
+The fleets are the determinism matrix's handles
+(``test_util.matrix.recoverable_fleet`` and ``ha_fleet``).
 """
 
 import struct
@@ -34,7 +36,8 @@ from petastorm_tpu_torch.service.journal import ServiceJournal
 from petastorm_tpu_torch.service.protocol import PROTOCOL_VERSION, connect_frames
 from petastorm_tpu_torch.service.worker import ServiceWorker
 from petastorm_tpu_torch.telemetry import Telemetry
-from petastorm_tpu_torch.test_util.netchaos import ChaosProxy, NetChaosSpec
+from petastorm_tpu_torch.test_util.matrix import ha_fleet, recoverable_fleet
+from petastorm_tpu_torch.test_util.netchaos import NetChaosSpec
 
 FAST_RECONNECT = RetryPolicy(max_attempts=6, initial_backoff_s=0.05,
                              backoff_multiplier=1.5, max_backoff_s=0.4)
@@ -80,40 +83,6 @@ def int_dataset(tmp_path_factory):
     write_dataset(url, Schema("RecInts", [Field("x", np.int64)]),
                   [{"x": i} for i in range(200)], row_group_size_rows=10)
     return url
-
-
-class _Fleet:
-    """A dispatcher and rejoining in-process workers; ``restart`` kills the
-    dispatcher and starts a fresh one on the same port."""
-
-    def __init__(self, n=2, capacity=2, backoff_s=0.25, **disp_kwargs):
-        self._kwargs = disp_kwargs
-        self.disp = Dispatcher(telemetry=Telemetry(), heartbeat_timeout_s=5.0,
-                               **disp_kwargs).start()
-        self.port = self.disp.port
-        self.addr = f"127.0.0.1:{self.port}"
-        self.workers = [ServiceWorker(self.addr, capacity=capacity, name=f"rw{i}",
-                                      reconnect_attempts=60, reconnect_backoff_s=backoff_s)
-                        for i in range(n)]
-        self.threads = [threading.Thread(target=w.run, daemon=True) for w in self.workers]
-        for t in self.threads:
-            t.start()
-        _wait_for(lambda: len(self.disp.stats()["workers"]) == n, what="workers registered")
-
-    def restart(self, downtime_s=0.2):
-        self.disp.stop()
-        self.disp.join()
-        time.sleep(downtime_s)
-        self.disp = Dispatcher(telemetry=Telemetry(), heartbeat_timeout_s=5.0, port=self.port,
-                               **self._kwargs).start()
-
-    def close(self):
-        for w in self.workers:
-            w.stop()
-        for t in self.threads:
-            t.join(timeout=10.0)
-        self.disp.stop()
-        self.disp.join()
 
 
 def _consume(ex, items):
@@ -221,10 +190,9 @@ def test_foreign_records_apply_as_no_ops_as_in_jax(tmp_path):
 # -- dispatcher restart ----------------------------------------------------------------------
 
 def test_a_dispatcher_restart_mid_epoch_recovers(int_dataset):
-    f = _Fleet()
-    try:
+    with recoverable_fleet() as f:
         tele = Telemetry()
-        r = reader.make_batch_reader(int_dataset, service_address=f.addr, shuffle_seed=2,
+        r = reader.make_batch_reader(int_dataset, service_address=f.address, shuffle_seed=2,
                                      telemetry=tele)
         r._executor._reconnect_policy = FAST_RECONNECT  # noqa: SLF001
         rows, restarted = [], False
@@ -233,7 +201,7 @@ def test_a_dispatcher_restart_mid_epoch_recovers(int_dataset):
                 rows += [int(x) for x in b.columns["x"]]
                 if not restarted and len(rows) >= 40:
                     restarted = True
-                    f.restart()
+                    f.restart_dispatcher()
             diag = r.diagnostics
         finally:
             r.stop()
@@ -243,33 +211,30 @@ def test_a_dispatcher_restart_mid_epoch_recovers(int_dataset):
         assert rows == expect  # exactly once, in plan order
         assert diag["dispatcher_restarts"] == 1 and diag["reconnects"] >= 1
         assert tele.snapshot()["counters"]["service.dispatcher_restarts"] == 1
-        dc = f.disp.stats()["counters"]
+        dc = f.dispatcher.stats()["counters"]
         assert dc.get("service.sessions_reconstructed", 0) >= 1, dc
         assert dc.get("service.worker_rejoins", 0) >= 1, dc
-    finally:
-        f.close()
 
 
 def test_no_item_executes_twice_through_a_restart():
     tag = "restart-exactly-once"
     _EXECUTIONS.pop(tag, None)
-    f = _Fleet(n=1, capacity=2, backoff_s=0.1)
-    ex = ServiceExecutor(f.addr, telemetry=Telemetry(), window=8,
-                         reconnect_policy=FAST_RECONNECT)
-    try:
-        ex.start(CountingSlowFactory(sleep_s=1.2, tag=tag))
-        t, out = _consume(ex, [f"p{i}" for i in range(6)])
-        time.sleep(0.2)  # the worker is executing the first wave
-        f.restart()
-        t.join(timeout=30)
-        assert out.get("got") == [("done", i) for i in range(6)], out
-        assert sorted(_EXECUTIONS.get(tag, [])) == list(range(6))
-        dc = f.disp.stats()["counters"]
-        assert dc.get("service.recovered_assignments", 0) >= 1, dc
-    finally:
-        ex.stop()
-        ex.join()
-        f.close()
+    with recoverable_fleet(n_workers=1, capacity=2, worker_reconnect_backoff_s=0.1) as f:
+        ex = ServiceExecutor(f.address, telemetry=Telemetry(), window=8,
+                             reconnect_policy=FAST_RECONNECT)
+        try:
+            ex.start(CountingSlowFactory(sleep_s=1.2, tag=tag))
+            t, out = _consume(ex, [f"p{i}" for i in range(6)])
+            time.sleep(0.2)  # the worker is executing the first wave
+            f.restart_dispatcher()
+            t.join(timeout=30)
+            assert out.get("got") == [("done", i) for i in range(6)], out
+            assert sorted(_EXECUTIONS.get(tag, [])) == list(range(6))
+            dc = f.dispatcher.stats()["counters"]
+            assert dc.get("service.recovered_assignments", 0) >= 1, dc
+        finally:
+            ex.stop()
+            ex.join()
 
 
 def test_an_orphan_result_is_buffered_until_its_client_reconnects():
@@ -277,23 +242,22 @@ def test_an_orphan_result_is_buffered_until_its_client_reconnects():
     _EXECUTIONS.pop(tag, None)
     slow_client = RetryPolicy(max_attempts=4, initial_backoff_s=2.0,
                               backoff_multiplier=1.0, max_backoff_s=2.0)
-    f = _Fleet(n=1, capacity=1, backoff_s=0.1)
-    ex = ServiceExecutor(f.addr, telemetry=Telemetry(), window=2,
-                         reconnect_policy=slow_client)
-    try:
-        ex.start(CountingSlowFactory(sleep_s=1.2, tag=tag))
-        t, out = _consume(ex, ["slow"])
-        time.sleep(0.3)  # executing now
-        f.restart(downtime_s=0.05)
-        t.join(timeout=30)
-        assert out.get("got") == [("done", 0)], out
-        assert _EXECUTIONS.get(tag) == [0]
-        dc = f.disp.stats()["counters"]
-        assert dc.get("service.orphan_results_buffered", 0) >= 1, dc
-    finally:
-        ex.stop()
-        ex.join()
-        f.close()
+    with recoverable_fleet(n_workers=1, capacity=1, worker_reconnect_backoff_s=0.1) as f:
+        ex = ServiceExecutor(f.address, telemetry=Telemetry(), window=2,
+                             reconnect_policy=slow_client)
+        try:
+            ex.start(CountingSlowFactory(sleep_s=1.2, tag=tag))
+            t, out = _consume(ex, ["slow"])
+            time.sleep(0.3)  # executing now
+            f.restart_dispatcher(downtime_s=0.05)
+            t.join(timeout=30)
+            assert out.get("got") == [("done", 0)], out
+            assert _EXECUTIONS.get(tag) == [0]
+            dc = f.dispatcher.stats()["counters"]
+            assert dc.get("service.orphan_results_buffered", 0) >= 1, dc
+        finally:
+            ex.stop()
+            ex.join()
 
 
 def test_a_journal_warm_restart_skips_resends(tmp_path, caplog):
@@ -302,25 +266,25 @@ def test_a_journal_warm_restart_skips_resends(tmp_path, caplog):
     journal = str(tmp_path / "svc.journal")
     tag = "journal"
     _EXECUTIONS.pop(tag, None)
-    f = _Fleet(n=1, capacity=1, backoff_s=0.1, journal_path=journal)
-    ex = ServiceExecutor(f.addr, telemetry=Telemetry(), window=8,
-                         reconnect_policy=FAST_RECONNECT)
-    try:
-        ex.start(CountingSlowFactory(sleep_s=0.3, tag=tag))
-        with caplog.at_level(logging.INFO, logger="petastorm_tpu_torch.service.client"):
-            t, out = _consume(ex, [f"p{i}" for i in range(6)])
-            time.sleep(0.15)  # journaled, some assigned
-            f.restart(downtime_s=0.0)
-            t.join(timeout=30)
-        assert out.get("got") == [("done", i) for i in range(6)], out
-        assert f.disp.telemetry.snapshot()["counters"].get(
-            "service.journal_items_restored", 0) >= 1
-        assert any("resync skipped" in r.getMessage() for r in caplog.records)
-        assert sorted(_EXECUTIONS.get(tag, [])) == list(range(6))
-    finally:
-        ex.stop()
-        ex.join()
-        f.close()
+    with recoverable_fleet(n_workers=1, capacity=1, worker_reconnect_backoff_s=0.1,
+                           dispatcher_kwargs={"journal_path": journal}) as f:
+        ex = ServiceExecutor(f.address, telemetry=Telemetry(), window=8,
+                             reconnect_policy=FAST_RECONNECT)
+        try:
+            ex.start(CountingSlowFactory(sleep_s=0.3, tag=tag))
+            with caplog.at_level(logging.INFO, logger="petastorm_tpu_torch.service.client"):
+                t, out = _consume(ex, [f"p{i}" for i in range(6)])
+                time.sleep(0.15)  # journaled, some assigned
+                f.restart_dispatcher(downtime_s=0.0)
+                t.join(timeout=30)
+            assert out.get("got") == [("done", i) for i in range(6)], out
+            assert f.dispatcher.telemetry.snapshot()["counters"].get(
+                "service.journal_items_restored", 0) >= 1
+            assert any("resync skipped" in r.getMessage() for r in caplog.records)
+            assert sorted(_EXECUTIONS.get(tag, [])) == list(range(6))
+        finally:
+            ex.stop()
+            ex.join()
 
 
 # -- the hot standby -------------------------------------------------------------------------
@@ -328,50 +292,40 @@ def test_a_journal_warm_restart_skips_resends(tmp_path, caplog):
 def test_the_hot_standby_takes_over_exactly_once():
     tag = "ha-warm"
     _EXECUTIONS.pop(tag, None)
-    primary = Dispatcher(telemetry=Telemetry(), heartbeat_timeout_s=5.0).start()
-    standby = Dispatcher(telemetry=Telemetry(), heartbeat_timeout_s=5.0,
-                         standby_of=f"127.0.0.1:{primary.port}").start()
-    peers = f"127.0.0.1:{primary.port},127.0.0.1:{standby.port}"
-    worker = ServiceWorker(peers, capacity=2, name="haw0", heartbeat_interval_s=0.5,
-                           reconnect_attempts=240, reconnect_backoff_s=0.25)
-    wt = threading.Thread(target=worker.run, daemon=True)
-    wt.start()
     patient = RetryPolicy(max_attempts=20, initial_backoff_s=0.1, backoff_multiplier=1.5,
                           max_backoff_s=0.5)
-    ex = ServiceExecutor(peers, telemetry=Telemetry(), window=8, reconnect_policy=patient)
-    try:
-        _wait_for(lambda: len(primary.stats()["workers"]) == 1
-                  and standby.stats()["standby"]["primary_epoch"] >= 1,
-                  timeout=20.0, what="worker and a synced standby")
-        # a standby refuses work hellos until it promotes
-        probe = connect_frames(("127.0.0.1", standby.port))
-        probe.send({"t": "worker_hello", "protocol": PROTOCOL_VERSION, "token": None,
-                    "capacity": 1, "resume": False, "assignments": [], "jobs": []})
-        refusal = probe.recv(timeout=5.0)
-        probe.close()
-        assert refusal["t"] == "error" and "standby" in refusal["error"]
-        ex.start(CountingSlowFactory(sleep_s=0.3, tag=tag))
-        t, out = _consume(ex, [f"p{i}" for i in range(6)])
-        _wait_for(lambda: standby.stats()["standby"]["synced_records"] >= 8
-                  and standby.stats()["standby"]["lag_items"] == 0,
-                  what="standby caught up before the kill")
-        primary.stop()
-        primary.join()
-        assert standby.standby_promoted.wait(20.0)
-        t.join(timeout=30)
-        assert out.get("got") == [("done", i) for i in range(6)], out
-        stats = standby.stats()
-        assert stats["counters"].get("service.failovers", 0) == 1
-        assert stats["counters"].get("service.journal_items_restored", 0) >= 1
-        assert stats["epoch"] >= 2
-        assert sorted(_EXECUTIONS.get(tag, [])) == list(range(6))
-    finally:
-        ex.stop()
-        ex.join()
-        worker.stop()
-        for d in (standby, primary):
-            d.stop()
-            d.join()
+    # ha_fleet yields once its worker is on the primary and the standby synced
+    with ha_fleet(n_workers=1, capacity=2) as ha:
+        primary, standby = ha.primary, ha.standby
+        ex = ServiceExecutor(ha.address, telemetry=Telemetry(), window=8,
+                             reconnect_policy=patient)
+        try:
+            assert len(primary.stats()["workers"]) == 1
+            assert standby.stats()["standby"]["primary_epoch"] >= 1
+            # a standby refuses work hellos until it promotes
+            probe = connect_frames(("127.0.0.1", standby.port))
+            probe.send({"t": "worker_hello", "protocol": PROTOCOL_VERSION, "token": None,
+                        "capacity": 1, "resume": False, "assignments": [], "jobs": []})
+            refusal = probe.recv(timeout=5.0)
+            probe.close()
+            assert refusal["t"] == "error" and "standby" in refusal["error"]
+            ex.start(CountingSlowFactory(sleep_s=0.3, tag=tag))
+            t, out = _consume(ex, [f"p{i}" for i in range(6)])
+            _wait_for(lambda: standby.stats()["standby"]["synced_records"] >= 8
+                      and standby.stats()["standby"]["lag_items"] == 0,
+                      what="standby caught up before the kill")
+            ha.failover(timeout_s=20.0)  # the primary dies; the standby promotes
+            assert standby.standby_promoted.is_set() and ha.dispatcher is standby
+            t.join(timeout=30)
+            assert out.get("got") == [("done", i) for i in range(6)], out
+            stats = standby.stats()
+            assert stats["counters"].get("service.failovers", 0) == 1
+            assert stats["counters"].get("service.journal_items_restored", 0) >= 1
+            assert stats["epoch"] >= 2
+            assert sorted(_EXECUTIONS.get(tag, [])) == list(range(6))
+        finally:
+            ex.stop()
+            ex.join()
 
 
 def test_epoch_fencing_refuses_a_deposed_primary(tmp_path):
@@ -446,11 +400,11 @@ def test_netchaos_validation_as_in_jax(bad):
 def test_a_read_through_chaos_on_the_client_link_survives(int_dataset):
     spec = NetChaosSpec(seed=11, dup_rate=0.1, delay_rate=0.15, delay_s=0.01,
                         cut_frames=(12,))
-    f = _Fleet()
-    proxy = ChaosProxy(f.addr, spec).start()
-    try:
+    # the fleet's chaos proxy sits on the client link: f.address dials it
+    with recoverable_fleet(net_spec=spec) as f:
+        assert f.address == f.proxy.address
         tele = Telemetry()
-        r = reader.make_batch_reader(int_dataset, service_address=proxy.address,
+        r = reader.make_batch_reader(int_dataset, service_address=f.address,
                                      shuffle_seed=5, telemetry=tele)
         r._executor._reconnect_policy = FAST_RECONNECT  # noqa: SLF001
         try:
@@ -460,9 +414,6 @@ def test_a_read_through_chaos_on_the_client_link_survives(int_dataset):
             r.join()
         with reader.make_batch_reader(int_dataset, shuffle_seed=5) as local:
             assert rows == [int(x) for b in local.iter_batches() for x in b.columns["x"]]
-        stats = proxy.stats
+        stats = f.proxy.stats
         assert stats["dups"] >= 1 and stats["cuts"] >= 1, stats
         assert tele.snapshot()["counters"]["service.reconnects"] >= 1
-    finally:
-        proxy.stop()
-        f.close()
