@@ -826,7 +826,7 @@ def resized_crop_aa_entry(gen):
     entry = {
         "name": "resized_crop_aa_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
-        "function": "resized_crop_u8_aa_tiled_kernel",
+        "function": "resample_u8_separable_kernel after resample_axes_kernel<linear>",
         "replaces": "petastorm_tpu/ops/augment.py:141",
         "max_abs_err": eval_err,
         "ms": (turns[0] + turns[3]) / 2, "prev_ms": (turns[1] + turns[2]) / 2,
@@ -847,11 +847,20 @@ def resized_crop_aa_entry(gen):
     return entry
 
 
-RESAMPLE_METHODS = ("cubic", "lanczos3", "lanczos5")   # phase 33: the general kernel's filters
+RESAMPLE_METHODS = ("cubic", "lanczos3", "lanczos5")   # phase 33: the separable kernel's filters
 RESAMPLE_N = 256                                      # phase 33 (a): images a uint8 case
 RESAMPLE_F32_N = 32                                   # phase 33 (a): images a float32 case
 EVAL_SIDE = 160                                       # phase 33 (b): the evaluation resize's side
 EVAL_METHODS = RESAMPLE_METHODS + ("nearest",)        # phase 33 (b): a method a batch, in turn
+# phase 33 (a): ragged, unaligned and steep cases of every filter, both antialias settings:
+# shape, out_hw, crop-box scale (None: resize_images' params), byte offset, flips
+RESAMPLE_EDGE_CASES = (
+    ((5, 64, 64, 1), (17, 23), (0.08, 1.0), 0, True),     # C = 1
+    ((3, 20, 30, 5), (41, 7), (0.08, 1.0), 0, True),      # C = 5, upscaled rows
+    ((6, 40, 50, 4), (19, 30), (0.08, 1.0), 1, False),    # odd byte offset
+    ((3, 300, 517, 3), (37, 301), (0.08, 1.0), 0, True),  # oh % 8, ow > 256
+    ((4, 512, 640, 3), (40, 50), (0.5, 1.0), 0, True),    # downscale past 8x
+    ((2, 16, 4096, 3), (16, 16), None, 0, True))          # 256x on one axis: span chunks
 
 
 def first_call_ms(fn):
@@ -884,28 +893,86 @@ def hold_to_plain(got, want, what, float_out):
     return err, share
 
 
-def check_method_case(fn, plain, what, float_out):
+def check_method_case(fn, general, plain, what, float_out):
     """A phase-33 (a) case: ``fn``'s first call held to ``plain`` by
-    :func:`hold_to_plain`.  Returns (error, share differing, first call ms,
-    median ms)."""
+    :func:`hold_to_plain`; for uint8, also equal on every byte to
+    ``general`` (the general kernel's instance for the filter, the byte
+    oracle), itself held to ``plain``.  Returns (error, share differing,
+    first call ms, median ms)."""
     got, first = first_call_ms(fn)
     want = plain()
     torch.cuda.synchronize()
     err, share = hold_to_plain(got, want, f"(a) {what}", float_out)
+    if general is not None:
+        oracle = general()
+        differing = int((got != oracle).sum())
+        if differing:
+            raise AssertionError(f"phase 33 (a), {what}: the separable kernel and the general"
+                                 f" kernel differ in {differing} bytes")
+        hold_to_plain(oracle, want, f"(a) {what}, the general kernel", float_out)
     return err, share, first, time_ms(fn, samples=11, launches=3, warmup=1)
 
 
+def separable_edge_cases(gen):
+    """Phase 33 (a)'s ragged, unaligned and steep cases: for every filter and
+    both antialias settings, the separable kernel (through the entry points)
+    equal to the general kernel byte for byte, both held to the plain
+    version.  Returns {case: (max LSB, share differing)}."""
+    checks = {}
+    for shape, out_hw, scale, offset, flipped in RESAMPLE_EDGE_CASES:
+        flat = torch.randint(0, 256, (int(np.prod(shape)) + offset,), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        x = flat[offset:].view(shape)
+        n, h, w, _ = shape
+        flips = augment.draw_flips(n, gen, "cuda") if flipped else None
+        if scale is None:
+            params = torch.tensor([1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0],
+                                  device="cuda").expand(n, 4)
+        else:
+            boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
+            params = augment.crop_params(boxes, out_hw)
+        for method in RESAMPLE_METHODS:
+            for antialias in (False, True):
+                what = f"{method} {shape}->{out_hw} antialias={antialias} offset={offset}"
+                before = getattr(augment.resized_crop_kernel, f"launches_{method}")
+                if scale is not None:
+                    got = augment.random_resized_crop(x, None, out_hw, method=method,
+                                                      antialias=antialias, boxes=boxes,
+                                                      flips=flips)
+                else:  # resize_images' params, with flips: the wrapper itself
+                    got = augment.resized_crop_kernel(x, params, flips, out_hw, antialias,
+                                                      method)
+                if getattr(augment.resized_crop_kernel, f"launches_{method}") != before + 1:
+                    raise AssertionError(f"phase 33 (a), {what}: the entry point did not launch"
+                                         f" the separable kernel once")
+                oracle = augment.launch_resized_crop(x, params, flips, out_hw, antialias,
+                                                     kernel="general", method=method)
+                differing = int((got != oracle).sum())
+                if differing:
+                    raise AssertionError(f"phase 33 (a), {what}: the separable kernel and the"
+                                         f" general kernel differ in {differing} bytes")
+                want = augment._resized_crop_reference(x, params, flips, out_hw, antialias,
+                                                       method)
+                checks[what] = hold_to_plain(got, want, f"(a) {what}", False)
+    return checks
+
+
 def resample_methods_entry():
-    """Phase 33 (a): the general kernel's cubic, Lanczos 3 and Lanczos 5
-    instances and the nearest gather kernel against their plain versions on
-    the card: random_resized_crop over (256, 256, 256, 3) uint8 -> 224x224,
+    """Phase 33 (a): the separable tiled kernel with the cubic, Lanczos 3
+    and Lanczos 5 filters and the nearest gather kernel against their plain
+    versions on the card, and the separable kernel against the general
+    kernel's instance for the filter (its byte oracle, on no path) on every
+    byte: random_resized_crop over (256, 256, 256, 3) uint8 -> 224x224,
     resize_images down 256 -> 224 and up 128 -> 224, antialias off and on,
-    one float32 case a method; nearest down and up, uint8 and float32; and
-    phase 33 (b)'s evaluation resize, (256, 224, 224, 3) -> EVAL_SIDE
-    antialiased, each method's ``kernels`` entry timed at that shape.
-    Each case's time (median of CUDA-event samples, and its first call),
-    its bound and the plain version's time; for nearest,
-    ``F.interpolate(mode='nearest-exact')`` on the same bytes."""
+    the ragged, unaligned and steep cases of ``RESAMPLE_EDGE_CASES``, one
+    float32 case a method (the general kernel's float32 instance); nearest
+    down and up, uint8 and float32; and phase 33 (b)'s evaluation resize,
+    (256, 224, 224, 3) -> EVAL_SIDE antialiased, where each method's
+    ``kernels`` entry is timed: the separable and the general kernel in
+    turns (new, general, general, new), nearest and
+    ``F.interpolate(mode='nearest-exact')`` in turns from CUDA graphs.  Each case's time
+    (median of CUDA-event samples, and its first call), its bound and the
+    plain version's time."""
     gen = torch.Generator(device="cuda").manual_seed(33)
     big = torch.randint(0, 256, (RESAMPLE_N, 256, 256, 3), dtype=torch.uint8, device="cuda",
                         generator=gen)
@@ -922,6 +989,7 @@ def resample_methods_entry():
 
     # phase 33 (b)'s evaluation resize: the delivered batch -> EVAL_SIDE, antialiased
     eval_x, eval_hw = big[:, 16:16 + SIDE, 16:16 + SIDE].contiguous(), (EVAL_SIDE, EVAL_SIDE)
+    eval_params = inv(SIDE, RESAMPLE_N, EVAL_SIDE).contiguous()
     cases, entries = {}, {}
     for method in RESAMPLE_METHODS:
         for antialias in (False, True):
@@ -935,18 +1003,21 @@ def resample_methods_entry():
                      lambda m=method, a=antialias: augment.resize_images(
                          small, out_hw, method=m, antialias=a))]
             if antialias:
-                runs.append(("resize_eval", eval_x, inv(SIDE, RESAMPLE_N, EVAL_SIDE), None,
-                             eval_hw, lambda m=method: augment.resize_images(
+                runs.append(("resize_eval", eval_x, eval_params, None, eval_hw,
+                             lambda m=method: augment.resize_images(
                                  eval_x, eval_hw, method=m, antialias=True)))
             for case, x, params, fl, hw, fn in runs:
                 what = f"{method} {case} antialias={antialias}"
                 plain = (lambda x=x, p=params, f=fl, m=method, a=antialias, hw=hw:
                          augment._resized_crop_reference(x, p, f, hw, a, m))
-                err, share, first, ms = check_method_case(fn, plain, what, False)
+                general = (lambda x=x, p=params, f=fl, m=method, a=antialias, hw=hw:
+                           augment.launch_resized_crop(x, p, f, hw, a, kernel="general",
+                                                       method=m))
+                err, share, first, ms = check_method_case(fn, general, plain, what, False)
                 bound_ms, bound_by, read, written, flops = resample_bound(x, params, hw,
                                                                           antialias, method)
                 cases[what] = {"shape": list(x.shape), "max_lsb": err, "share_differing": share,
-                               "first_ms": first, "ms": ms,
+                               "equals_general": True, "first_ms": first, "ms": ms,
                                "plain_ms": time_ms(plain, samples=5, launches=1, warmup=1),
                                "bound_ms": bound_ms, "bound_by": bound_by, "bytes_read": read,
                                "bytes_written": written, "flops": flops}
@@ -955,27 +1026,48 @@ def resample_methods_entry():
         err, _, first, ms = check_method_case(
             lambda m=method: augment.random_resized_crop(
                 xf, None, out_hw, method=m, boxes=boxes[:RESAMPLE_F32_N],
-                flips=flips[:RESAMPLE_F32_N]),
+                flips=flips[:RESAMPLE_F32_N]), None,
             lambda m=method: augment._resized_crop_reference(
                 xf, crop[:RESAMPLE_F32_N], flips[:RESAMPLE_F32_N], out_hw, False, m), what, True)
         cases[what] = {"shape": list(xf.shape), "max_abs_err": err, "first_ms": first, "ms": ms}
+        # the separable kernel and the general kernel through the wrapper on
+        # the same inputs (params on the card), in turns; the separable one,
+        # as resize_images launches it, with one params row for every image
+        new = lambda m=method: augment.launch_resized_crop(  # noqa: E731
+            eval_x, eval_params[:1], None, eval_hw, True, kernel="aa", method=m)
+        general = lambda m=method: augment.launch_resized_crop(  # noqa: E731
+            eval_x, eval_params, None, eval_hw, True, kernel="general", method=m)
+        turns = [time_ms(new, samples=11, launches=3, warmup=1),
+                 time_ms(general, samples=11, launches=3, warmup=1),
+                 time_ms(general, samples=11, launches=3, warmup=1),
+                 time_ms(new, samples=11, launches=3, warmup=1)]
         main = cases[f"{method} resize_eval antialias=True"]  # the main path's shape
+        main["turns_ms_new_general_general_new"] = turns
         entries[f"resample_{method}"] = {
             "name": f"resample_{method}", "route": "cuda",
             "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
-            "function": f"resized_crop_kernel<T, {method}>",
+            "function": f"resample_u8_separable_kernel after resample_axes_kernel<{method}>",
             "replaces": "petastorm_tpu/ops/augment.py:141",
             "max_abs_err": max(c.get("max_lsb", 0) for k, c in cases.items()
                                if k.startswith(method + " ")),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "ms": (turns[0] + turns[3]) / 2, "general_ms": (turns[1] + turns[2]) / 2,
+            "turns_ms_new_general_general_new": turns,
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "timed_case": f"{method} resize_eval antialias=True",
             # torch's bicubic is Keys with a = -0.75 (jax: -0.5) and it has
             # no Lanczos: no library call computes this function
             "library_ms": None}
+    edges = separable_edge_cases(gen)
+    for method in RESAMPLE_METHODS:
+        entries[f"resample_{method}"]["max_abs_err"] = max(
+            [entries[f"resample_{method}"]["max_abs_err"]]
+            + [err for k, (err, _) in edges.items() if k.startswith(method + " ")])
     nearest = {}
     for case, x, hw in (("down", big, out_hw), ("up", small, out_hw),
                         ("down float32", big[:RESAMPLE_F32_N].float(), out_hw),
                         ("up float32", small[:RESAMPLE_F32_N].float(), out_hw),
+                        ("C=5 odd rows", small[:RESAMPLE_F32_N, :, :125].reshape(
+                            RESAMPLE_F32_N, 128, 75, 5), (51, 7)),
                         ("eval", eval_x, eval_hw)):
         fn = lambda x=x, hw=hw: augment.resize_images(x, hw, method="nearest")  # noqa: E731
         plain = lambda x=x, hw=hw: augment._resize_nearest_reference(x, hw)  # noqa: E731
@@ -984,32 +1076,47 @@ def resample_methods_entry():
             raise AssertionError(f"phase 33 (a), nearest {case}: the gather differs from the"
                                  " plain version")
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        library = torch.nn.functional.interpolate(x_nchw, size=hw, mode="nearest-exact")
+        library = lambda x_nchw=x_nchw, hw=hw: torch.nn.functional.interpolate(  # noqa: E731
+            x_nchw, size=hw, mode="nearest-exact")
         n, h, w, c = x.shape
         # each source pixel picked is read once, each output pixel written once
         picked = (len(set(augment._nearest_offsets(h, hw[0], "cpu").tolist()))
                   * len(set(augment._nearest_offsets(w, hw[1], "cpu").tolist())))
         moved = (n * picked * c + got.numel()) * got.element_size()
+        # the gather and the library call in turns (kernel, library, library,
+        # kernel), replayed from CUDA graphs: the wrapper's host work (about
+        # 0.03 ms) outlasts the gather, which a back-to-back run would time
+        turns = [time_graph_ms(t, samples=11, launches=10) for t in (fn, library, library, fn)]
         nearest[case] = {"shape": list(x.shape), "first_ms": first,
-                         "ms": time_ms(fn, samples=11, launches=3, warmup=1),
+                         "ms": (turns[0] + turns[3]) / 2,
+                         "wrapper_ms": time_ms(fn, samples=11, launches=3, warmup=1),
+                         "turns_ms_kernel_library_library_kernel": turns,
                          "plain_ms": time_ms(plain, samples=5, launches=1, warmup=1),
                          "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes",
                          # its offsets are (o + 0.5) * fl(in / out), jax's ((o + 0.5) * in) / out
                          "library_picks_the_same_pixels": bool(torch.equal(
-                             library.permute(0, 2, 3, 1), got)),
-                         "library_ms": time_ms(lambda x_nchw=x_nchw, hw=hw: (
-                             torch.nn.functional.interpolate(x_nchw, size=hw,
-                                                             mode="nearest-exact")),
-                             samples=11, launches=3, warmup=1)}
+                             library().permute(0, 2, 3, 1), got)),
+                         "library_ms": (turns[1] + turns[2]) / 2}
     down = nearest["eval"]  # the main path's shape
     entries["resize_nearest"] = {
         "name": "resize_nearest", "route": "cuda",
-        "source": "petastorm_tpu_torch/csrc/resized_crop.cu", "function": "resize_nearest_kernel",
+        "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
+        # rows of whole 16-byte words (the <4> and <1> instances take the others)
+        "function": "resize_nearest_rows_kernel<16>",
         "replaces": "petastorm_tpu/ops/augment.py:121", "max_abs_err": 0,
         "ms": down["ms"], "plain_ms": down["plain_ms"], "bound_ms": down["bound_ms"],
-        "bound_by": "bytes", "library_ms": down["library_ms"], "timed_case": "nearest eval"}
+        "bound_by": "bytes", "library_ms": down["library_ms"],
+        # through the wrapper, as the gather's earlier time was taken
+        "wrapper_ms": down["wrapper_ms"],
+        "turns_ms_kernel_library_library_kernel": down["turns_ms_kernel_library_library_kernel"],
+        "timed_case": "nearest eval"}
     phase("kernels", resample_methods={
-        "cases": cases, "nearest": nearest,
+        "cases": cases, "edge_cases": {k: {"max_lsb": e, "share_differing": s,
+                                           "equals_general": True}
+                                       for k, (e, s) in edges.items()},
+        "plans": {m: augment.aa_launch_plan(SIDE, SIDE, 3, EVAL_SIDE, EVAL_SIDE, m,
+                                            True)._asdict() for m in RESAMPLE_METHODS},
+        "nearest": nearest,
         "library_call": "none for cubic/lanczos (torch's bicubic is Keys a = -0.75, jax's"
                         " a = -0.5; no Lanczos); nearest: F.interpolate(nearest-exact) on"
                         " uint8/float32 NCHW, the call alone"})
@@ -1603,8 +1710,7 @@ def reset_launch_counts():
     """Every kernel wrapper's launch count to 0."""
     ring_ops.reset_launch_counts()
     normalize.normalize_kernel.launches = 0
-    for counts, names in ((augment.resized_crop_kernel, ("", "_tiled", "_aa", "_general",
-                                                         "_cubic", "_lanczos3", "_lanczos5")),
+    for counts, names in ((augment.resized_crop_kernel, ("",) + augment.LAUNCH_COUNTERS),
                           (augment.nearest_kernel, ("",)),
                           (jpeg.jpeg_decode_kernel, ("", "_tiled", "_general"))):
         for suffix in names:
@@ -4914,6 +5020,10 @@ def legacy_interop_phase(tmp, path, kernels, device):
                 "resample_lanczos3": augment.resized_crop_kernel.launches_lanczos3,
                 "resample_lanczos5": augment.resized_crop_kernel.launches_lanczos5,
                 "resize_nearest": augment.nearest_kernel.launches}
+    oracle = {f"general{suffix}": getattr(augment.resized_crop_kernel, f"launches_general{suffix}")
+              for suffix in ("", "_cubic", "_lanczos3", "_lanczos5")}
+    if any(oracle.values()):
+        raise AssertionError(f"phase 33 (b): the path launched the general kernel: {oracle}")
     # each evaluation resize of the run held to its plain version on the same batch
     eval_errs = {}
     for i, (method, resized) in enumerate(evals):

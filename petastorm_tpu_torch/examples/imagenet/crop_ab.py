@@ -1,8 +1,10 @@
 """Times builds of a resized-crop kernel against each other on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 -m
-petastorm_tpu_torch.examples.imagenet.crop_ab [--entry tiled|aa] [--shape
-N,H,W,C] [--out OH,OW] [--crop] [--plan R,TW,CAP_Y,CAP_X,SPAN,GROUP] [--rounds 15]
+petastorm_tpu_torch.examples.imagenet.crop_ab [--entry tiled|aa|nearest]
+[--method linear|cubic|lanczos3|lanczos5] [--no-antialias] [--shape N,H,W,C]
+[--out OH,OW] [--crop] [--per-image] [--plan R,TW,CAP_Y,CAP_X,SPAN,GROUP]
+[--rounds 15]
 [NAME=FILE.cu ...]``.
 ``as_is`` is the package's ``csrc/resized_crop.cu``; each ``NAME=FILE.cu`` is
 another version of that file (an earlier revision, or one with a line
@@ -11,16 +13,21 @@ changed) whose entry takes the same arguments.  Every source is built by ``nvcc`
 
 ``--entry`` picks the kernel: ``tiled`` (no antialias; default inputs the
 training step's: 256 seeded uint8 images of 224x224x3, boxes and flips drawn
-as ``chip_smoke.py`` phase 3 draws them, out 224x224) or ``aa`` (the
-antialiased tiled kernel; default inputs the evaluation resize: 256 images
-of 256x256x3 to 224x224 with ``resize_images``' scale, or drawn boxes and
-flips with ``--crop``).  Each build's entry, with the package's launch plan
-(or ``--plan``'s),
-and the general kernel through the package run in rounds whose order
-rotates: 10 back-to-back launches between two CUDA events after 2 warm-up
-launches.  The general kernel must give the bytes of ``as_is``; for every
-other build the result says whether it does (a build that leaves work out
-will not).  Prints the card's name and power limit as ``nvidia-smi`` gives
+as ``chip_smoke.py`` phase 3 draws them, out 224x224), ``aa`` (the separable
+tiled kernel, with ``--method``'s filter, antialiased unless
+``--no-antialias``; default inputs the evaluation resize: 256 images of
+256x256x3 to 224x224 with ``resize_images``' scale, one params row for every
+image as ``resize_images`` passes it, or a row an image as
+``resized_crop_kernel`` takes it with ``--per-image``, or drawn boxes and
+flips with ``--crop``) or ``nearest`` (the nearest gather, the same default
+inputs).  Each build's entry, with the package's launch plan (or
+``--plan``'s), and the package's yardstick (the general kernel with the same
+filter; for ``nearest``, ``F.interpolate(mode='nearest-exact')`` on NCHW,
+which picks the same pixels) run in rounds whose order rotates: 10
+back-to-back launches between two CUDA events after 2 warm-up launches.
+The general kernel (or the plain nearest gather) must give the bytes of
+``as_is``; for every other build the result says whether it does (a build
+that leaves work out will not).  Prints the card's name and power limit as ``nvidia-smi`` gives
 them, then one JSON line: per build the median, min and max ms per launch
 over the rounds, whether its bytes equal ``as_is``'s, and ptxas's report on
 the entry's kernels.
@@ -57,15 +64,20 @@ def parse_variants(args: list[str]) -> dict[str, str]:
     return variants
 
 
-ENTRIES = ("tiled", "aa")
+ENTRIES = ("tiled", "aa", "nearest")
 DEFAULT_SHAPES = {"tiled": ((256, 224, 224, 3), (224, 224)),
-                  "aa": ((256, 256, 256, 3), (224, 224))}
+                  "aa": ((256, 256, 256, 3), (224, 224)),
+                  "nearest": ((256, 256, 256, 3), (224, 224))}
 
 
 def entry_kernel(entry: str, line: str) -> bool:
-    """Whether ptxas's ``Compiling entry`` line is a kernel of ``entry``."""
+    """Whether ptxas's ``Compiling entry`` line is a kernel of ``entry``
+    (the separable kernel and its pre-pass are named ``aa_`` in earlier
+    revisions)."""
     if entry == "aa":
-        return "aa_tiled" in line
+        return any(k in line for k in ("aa_tiled", "aa_axes", "separable", "resample_axes"))
+    if entry == "nearest":
+        return "nearest" in line
     return "tiled" in line and "aa_tiled" not in line
 
 
@@ -93,7 +105,8 @@ def _build(name: str, source: str, tmp: str, entry: str):
 
 
 def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None, out_hw=None,
-         crop: bool = False, plan=None, launches: int = 10) -> dict:
+         crop: bool = False, plan=None, launches: int = 10, method: str = "linear",
+         antialias: bool = True, per_image: bool = False) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -101,10 +114,12 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
     shape = tuple(shape or DEFAULT_SHAPES[entry][0])
     out_hw = tuple(out_hw or DEFAULT_SHAPES[entry][1])
     batch, h, w, c = shape
-    antialias = entry == "aa"
+    antialias = entry == "aa" and antialias
+    if entry != "aa" and method != "linear":
+        raise ValueError(f"--method is the separable kernel's (--entry aa), not {entry}'s")
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
-    if antialias and not crop:
+    if entry != "tiled" and not crop:
         # resize_images' params, no flips
         inv = [1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0]
         params = torch.tensor(inv, device="cuda").expand(batch, 4).contiguous()
@@ -113,7 +128,9 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
         boxes = augment.draw_crop_boxes(batch, h, w, gen, device="cuda")
         flips = augment.draw_flips(batch, gen, "cuda").to(torch.uint8)
         params = augment.crop_params(boxes, out_hw).contiguous()
-    plan = augment.AaPlan(*plan) if plan else augment.aa_launch_plan(h, w, c, *out_hw)
+    shared = flips is None and not per_image  # one image's tap tables for every image
+    plan = (augment.AaPlan(*plan) if plan
+            else augment.aa_launch_plan(h, w, c, *out_hw, method, antialias))
     scratch = torch.empty(plan.scratch_bytes(batch, *out_hw), dtype=torch.uint8, device="cuda")
     with tempfile.TemporaryDirectory(prefix="crop_ab_") as tmp:
         with ThreadPoolExecutor(max_workers=len(variants)) as pool:
@@ -123,14 +140,31 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
         for name, (path, _) in built.items():
             lib = ctypes.CDLL(path)
             augment._configure_tiled(lib)
+            # the separable entry, where this revision has it (else the aa one)
+            separable = entry == "aa" and hasattr(lib, "pst_resample_separable_u8")
+            if separable:
+                augment._configure(lib)
+            elif entry == "nearest":
+                augment._configure_nearest(lib)
+            elif entry == "aa" and (method != "linear" or not antialias):
+                raise ValueError(f"variant {name} has no separable entry for {method}")
             out = torch.empty((batch, *out_hw, c), dtype=torch.uint8, device="cuda")
             outs[name] = out
 
-            def call(lib=lib, out=out):
+            def call(lib=lib, out=out, separable=separable):
                 args = (x.data_ptr(), out.data_ptr(), batch, h, w, c, *out_hw, params.data_ptr(),
                         None if flips is None else flips.data_ptr())
                 stream = torch.cuda.current_stream().cuda_stream
-                if antialias:
+                if entry == "nearest":
+                    err = lib.pst_resize_nearest(x.data_ptr(), out.data_ptr(), batch, h, w, c,
+                                                 *out_hw, stream)
+                elif separable:
+                    # resize_images' scale: one image's tap tables for every
+                    # image, as resize_images launches it, unless --per-image
+                    err = lib.pst_resample_separable_u8(
+                        *args, augment.FILTERS[method], int(antialias), int(shared),
+                        *plan, scratch.data_ptr(), scratch.numel(), stream)
+                elif entry == "aa":
                     err = lib.pst_resized_crop_aa_u8(*args, *plan, scratch.data_ptr(),
                                                      scratch.numel(), stream)
                 else:
@@ -138,14 +172,21 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
                 if err != 0:
                     raise RuntimeError(f"launch failed (error {err})")
             calls[name] = call
-        calls["general"] = lambda: augment.launch_resized_crop(x, params, flips, out_hw, antialias,
-                                                               kernel="general")
+        if entry == "nearest":
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            calls["library"] = lambda: torch.nn.functional.interpolate(
+                x_nchw, size=out_hw, mode="nearest-exact")
+            oracle = lambda: augment._resize_nearest_reference(x, out_hw)  # noqa: E731
+        else:
+            calls["general"] = lambda: augment.launch_resized_crop(
+                x, params, flips, out_hw, antialias, kernel="general", method=method)
+            oracle = calls["general"]
         for call in calls.values():
             call()
         torch.cuda.synchronize()
         equal = {name: torch.equal(out, outs["as_is"]) for name, out in outs.items()}
-        if not torch.equal(calls["general"](), outs["as_is"]):
-            raise AssertionError(f"the general kernel gives other bytes than the {entry} one")
+        if not torch.equal(oracle(), outs["as_is"]):
+            raise AssertionError(f"the {entry} kernel's bytes are not its oracle's")
         times = {name: [] for name in calls}
         names = list(calls)
         for r in range(rounds):
@@ -161,9 +202,12 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
                 end.record()
                 end.synchronize()
                 times[name].append(start.elapsed_time(end) / launches)
-    result = {"entry": entry, "shape": list(shape), "out_hw": list(out_hw),
-              "inputs": "boxes and flips" if flips is not None else "resize_images' scale",
-              "plan": plan._asdict() if antialias else None, "rounds": rounds,
+    result = {"entry": entry, "method": method, "antialias": antialias,
+              "shape": list(shape), "out_hw": list(out_hw),
+              "inputs": ("boxes and flips" if flips is not None
+                         else "resize_images' scale, a params row an image" if per_image
+                         else "resize_images' scale"),
+              "plan": plan._asdict() if entry == "aa" else None, "rounds": rounds,
               "launches_per_timing": launches, "device": torch.cuda.get_device_name(0)}
     for name, ms in times.items():
         result[name] = {"median_ms": float(np.median(ms)), "min_ms": min(ms), "max_ms": max(ms),
@@ -181,10 +225,16 @@ if __name__ == "__main__":
     parser.add_argument("--out", type=ints, help="OH,OW of the output")
     parser.add_argument("--crop", action="store_true",
                         help="aa: drawn boxes and flips instead of resize_images' scale")
+    parser.add_argument("--per-image", action="store_true",
+                        help="aa: resize_images' scale as a params row an image (tables an image)")
     parser.add_argument("--plan", type=ints, help="aa: the launch plan instead of the package's")
+    parser.add_argument("--method", choices=sorted(augment.FILTERS), default="linear",
+                        help="aa: the filter")
+    parser.add_argument("--no-antialias", action="store_true", help="aa: without antialias")
     parser.add_argument("--rounds", type=int, default=15)
     parser.add_argument("variants", nargs="*", metavar="NAME=FILE.cu",
                         help="other versions of csrc/resized_crop.cu to time against it")
     args = parser.parse_args()
     main(parse_variants(args.variants), args.rounds, args.entry, args.shape, args.out, args.crop,
-         args.plan)
+         args.plan, method=args.method, antialias=not args.no_antialias,
+         per_image=args.per_image)

@@ -19,16 +19,16 @@ names are ``jax.image.ResizeMethod.from_string``'s, and an unknown one raises
 ``ValueError`` as there.  On a CUDA tensor the resample runs in a hand-written
 Hopper kernel of ``csrc/resized_crop.cu`` (which replaces the XLA-compiled
 dense weight matrices of ``jax/_src/image/scale.py::compute_weight_mat``),
-with an optional per-image horizontal flip fused in.  Bilinear uint8 takes the
-tiled kernel without antialias and the antialiased tiled kernel with it.
-The file's general kernel takes every bilinear image that is not uint8, in
-its float32 instance (other dtypes are converted to float32 and back, as the
-reference does); its bilinear uint8 instance is reachable only by naming it
-to :func:`launch_resized_crop`: it is the byte oracle of the card checks.
-The other filters run in the general kernel's instance for that filter
-(``launch_resized_crop(..., kernel="general", method=...)``), uint8 and
-float32 alike, and ``nearest`` in a gather kernel (:func:`nearest_kernel`); a
-CUDA tensor takes a kernel or raises.  On a CPU tensor the plain PyTorch version runs:
+with an optional per-image horizontal flip fused in.  uint8 takes the tiled
+kernel for bilinear without antialias (two taps an axis) and the separable
+tiled kernel, after a pre-pass that tabulates each image's row and column
+weights, for bilinear with antialias and for every other filter with or
+without.  The file's general kernel takes every image that is not uint8, in
+its float32 instance for the filter (other dtypes are converted to float32
+and back, as the reference does); its uint8 instances are reachable only by
+naming them to :func:`launch_resized_crop` (``kernel="general"``): they are
+the byte oracle of the card checks.  ``nearest`` runs in a row-tiled gather
+kernel (:func:`nearest_kernel`); a CUDA tensor takes a kernel or raises.  On a CPU tensor the plain PyTorch version runs:
 ``_scale_and_translate`` builds the same weight matrices with the same
 float32 expressions and contracts rows, then columns, and
 ``_resize_nearest_reference`` gathers.  Crop, flip, mixup and cutmix are
@@ -58,6 +58,8 @@ _METHOD_NAMES = {"nearest": ("nearest",),
 _METHODS = {name: method for method, names in _METHOD_NAMES.items() for name in names}
 #: the filter number of each method ``pst_resample_u8``/``_f32`` take (csrc/resized_crop.cu)
 FILTERS = {"linear": 0, "cubic": 1, "lanczos3": 2, "lanczos5": 3}
+#: each filter's support: its weight is 0 past this distance (in kernel_scale units)
+FILTER_RADIUS = {"linear": 1.0, "cubic": 2.0, "lanczos3": 3.0, "lanczos5": 5.0}
 
 
 _COMMON_ARGS = [
@@ -70,17 +72,22 @@ _COMMON_ARGS = [
 ]
 
 
+_PLAN_ARGS = [ctypes.c_int] * 6 + [  # the plan (AaPlan's fields)
+    ctypes.c_void_p,     # scratch (device) for the pre-pass's axis tables
+    ctypes.c_longlong,   # its bytes
+    ctypes.c_void_p]     # cudaStream_t
+
+
 def _configure_tiled(lib: ctypes.CDLL) -> None:
-    """The entries of the two tiled kernels, which every revision of
-    ``csrc/resized_crop.cu`` has (``examples/imagenet/crop_ab.py`` times
-    earlier ones)."""
+    """The entry of the bilinear tiled kernel, which every revision of
+    ``csrc/resized_crop.cu`` has, and the antialiased bilinear entry of the
+    revisions before the separable kernel (``examples/imagenet/crop_ab.py``
+    times earlier ones)."""
     lib.pst_resized_crop_tiled_u8.restype = ctypes.c_int
     lib.pst_resized_crop_tiled_u8.argtypes = _COMMON_ARGS + [ctypes.c_void_p]  # cudaStream_t
-    lib.pst_resized_crop_aa_u8.restype = ctypes.c_int
-    lib.pst_resized_crop_aa_u8.argtypes = _COMMON_ARGS + [ctypes.c_int] * 6 + [  # the plan
-        ctypes.c_void_p,     # scratch (device) for the pre-pass's axis tables
-        ctypes.c_longlong,   # its bytes
-        ctypes.c_void_p]     # cudaStream_t
+    if hasattr(lib, "pst_resized_crop_aa_u8"):
+        lib.pst_resized_crop_aa_u8.restype = ctypes.c_int
+        lib.pst_resized_crop_aa_u8.argtypes = _COMMON_ARGS + _PLAN_ARGS
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -90,6 +97,15 @@ def _configure(lib: ctypes.CDLL) -> None:
                                            ctypes.c_int,      # antialias
                                            ctypes.c_void_p]   # cudaStream_t
     _configure_tiled(lib)
+    lib.pst_resample_separable_u8.restype = ctypes.c_int
+    lib.pst_resample_separable_u8.argtypes = (
+        _COMMON_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_int]  # filter, antialias, shared params
+        + _PLAN_ARGS)
+    _configure_nearest(lib)
+
+
+def _configure_nearest(lib: ctypes.CDLL) -> None:
+    """The nearest gather's entry, which every revision since the gather has."""
     lib.pst_resize_nearest.restype = ctypes.c_int
     lib.pst_resize_nearest.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,                # in, out (NHWC)
@@ -327,7 +343,7 @@ def _resize_nearest_reference(images: torch.Tensor, out_hw: Tuple[int, int]) -> 
     return images[:, rows][:, :, cols]
 
 
-# Launch plan of the antialiased tiled kernel (csrc/resized_crop.cu).
+# Launch plan of the separable tiled kernel (csrc/resized_crop.cu).
 AA_MAX_SHARED_BYTES = 232448     # an sm_90 block's dynamic shared memory
 AA_TARGET_SHARED_BYTES = 64 * 1024   # several blocks an SM
 _AA_AXIS_BYTES = 24              # sizeof(Axis) in the kernel
@@ -338,7 +354,7 @@ _AA_SCALE_MARGIN = 1.0 + 2.0 ** -16  # inv_scale above in/out by float rounding
 
 
 class AaPlan(NamedTuple):
-    """Sizes of one launch of the antialiased tiled kernel: a tile of
+    """Sizes of one launch of the separable tiled kernel: a tile of
     ``rows`` x ``cols`` output pixels, row and column weight tables of
     ``cap_y`` and ``cap_x`` taps (built by its pre-pass in device memory),
     vertical sums over ``span`` source columns at a time, ``group`` channels
@@ -362,27 +378,34 @@ class AaPlan(NamedTuple):
         return n * (oh + ow) * _AA_AXIS_BYTES + 4 * n * (oh * self.cap_y + ow * self.cap_x)
 
 
-def _aa_taps(in_size: int, out_size: int) -> int:
-    """Most taps [lo, hi] an output position walks: kernel_scale is at most
-    max(1, in/out) up to float rounding (a box is no larger than the image,
-    and resize_images sets inv_scale = in/out), and hi - lo <= 2 * kernel_scale + 2;
-    at most ``_AA_MAX_CAP``."""
-    kernel_scale = max(1.0, in_size / out_size) * _AA_SCALE_MARGIN
-    return min(in_size, _AA_MAX_CAP, math.floor(2.0 * kernel_scale) + 3)
+def _aa_taps(in_size: int, out_size: int, radius: float = 1.0, antialias: bool = True) -> int:
+    """Most taps an output position keeps, from its first to its last
+    nonzero weight: they lie within ``radius * kernel_scale`` of the sample,
+    so at most ``floor(2 * radius * kernel_scale) + 1`` of them (+ 2 for the
+    float32 rounding of the distances); kernel_scale is 1 without antialias,
+    with it at most max(1, in/out) up to float rounding (a box is no larger
+    than the image, and resize_images sets inv_scale = in/out); at most
+    ``_AA_MAX_CAP``."""
+    kernel_scale = max(1.0, in_size / out_size) * _AA_SCALE_MARGIN if antialias else 1.0
+    return min(in_size, _AA_MAX_CAP, math.floor(2.0 * radius * kernel_scale) + 3)
 
 
 @functools.lru_cache(maxsize=64)
-def aa_launch_plan(h: int, w: int, c: int, oh: int, ow: int) -> AaPlan:
-    """The antialiased tiled kernel's plan from the shapes alone (reading
-    ``params`` back would make the host wait on the card).
+def aa_launch_plan(h: int, w: int, c: int, oh: int, ow: int, method: str = "linear",
+                   antialias: bool = True) -> AaPlan:
+    """The separable tiled kernel's plan from the shapes, the filter and the
+    antialias flag alone (reading ``params`` back would make the host wait
+    on the card).
 
-    Column tiles of at most 256 (a block's threads) split ``ow`` evenly; a
-    span holds the source columns of a tile's taps.  Over
-    ``AA_TARGET_SHARED_BYTES`` the tile narrows to 32 columns, then the span
-    is cut (the kernel walks it in chunks), then the channel group and the
-    rows.  Any plan is correct: the sizes only trade speed."""
+    The tap tables hold ``_aa_taps`` of ``method``'s radius.  Column tiles of
+    at most 256 (a block's threads) split ``ow`` evenly; a span holds the
+    source columns of a tile's taps.  Over ``AA_TARGET_SHARED_BYTES`` the
+    tile narrows to 32 columns, then the span is cut (the kernel walks it in
+    chunks), then the channel group and the rows.  Any plan is correct: the
+    sizes only trade speed."""
     rows, group = min(_AA_ROWS, oh), min(c, _AA_GROUP)
-    cap_y, cap_x = _aa_taps(h, oh), _aa_taps(w, ow)
+    radius = FILTER_RADIUS[method]
+    cap_y, cap_x = _aa_taps(h, oh, radius, antialias), _aa_taps(w, ow, radius, antialias)
     spacing = (w / ow) * _AA_SCALE_MARGIN  # source columns between neighbouring outputs
 
     def plan(rows, cols, group, span=None):
@@ -409,26 +432,41 @@ def aa_launch_plan(h: int, w: int, c: int, oh: int, ow: int) -> AaPlan:
 RESIZED_CROP_KERNELS = ("tiled", "aa", "general")
 
 
+def _counter(kernel: str, method: str) -> str:
+    """The launch count a kernel and a filter add to: ``launches_tiled``;
+    ``launches_aa`` (the separable kernel's bilinear) or ``launches_<method>``
+    (its other filters); ``launches_general`` or ``launches_general_<method>``."""
+    if kernel == "aa":
+        return "launches_aa" if method == "linear" else f"launches_{method}"
+    if kernel == "general" and method != "linear":
+        return f"launches_general_{method}"
+    return f"launches_{kernel}"
+
+
 def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
                         antialias: bool, kernel: str, method: str = "linear") -> torch.Tensor:
     """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA
     NHWC tensor, on the current stream: ``"tiled"`` (bilinear uint8, two taps
-    per axis, so ``antialias`` must be False), ``"aa"`` (the antialiased tiled
-    kernel, bilinear uint8, so ``antialias`` must be True) or ``"general"``
-    (one thread a pixel, either; uint8 or float32, with ``method``'s filter:
+    per axis, so ``antialias`` must be False), ``"aa"`` (the separable tiled
+    kernel after its pre-pass, uint8: bilinear with antialias, and ``cubic``,
+    ``lanczos3`` or ``lanczos5`` with or without) or ``"general"`` (one
+    thread a pixel, either; uint8 or float32, with ``method``'s filter:
     ``linear``, ``cubic``, ``lanczos3`` or ``lanczos5``; it writes the source
     dtype, uint8 rounded half to even and clipped, float32 unrounded).
     Each launch adds one to ``resized_crop_kernel.launches`` and to its
-    kernel's own count (``launches_tiled``, ``launches_aa``,
-    ``launches_general`` for the general kernel's bilinear instance, or
-    ``launches_<method>`` for its other filters).
+    kernel's own count (``launches_tiled``; ``launches_aa`` for the separable
+    kernel's bilinear, ``launches_<method>`` for its other filters;
+    ``launches_general`` for the general kernel's bilinear instance,
+    ``launches_general_<method>`` for its other filters).
 
     ``params``: (N, 4) float32 as for :func:`_scale_and_translate`, on the
-    same device; ``flips``: (N,) flags (nonzero = mirror the output columns) or None."""
+    same device, or (1, 4) for every image (the separable kernel then builds
+    one image's tap tables and every image reads them); ``flips``: (N,) flags
+    (nonzero = mirror the output columns) or None."""
     if kernel not in RESIZED_CROP_KERNELS:
         raise ValueError(f"kernel must be one of {RESIZED_CROP_KERNELS}, got {kernel!r}")
-    if method not in FILTERS or (kernel != "general" and method != "linear"):
+    if method not in FILTERS or (kernel == "tiled" and method != "linear"):
         raise ValueError(f"the {kernel} resized-crop kernel cannot take method {method!r}")
     if images.device.type != "cuda":
         raise ValueError(f"resized_crop_kernel takes a CUDA tensor, got {images.device}")
@@ -441,15 +479,19 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         raise ValueError("resized-crop kernel takes a contiguous tensor; call .contiguous()")
     if kernel == "tiled" and antialias:
         raise ValueError("the tiled resized-crop kernel takes two taps per axis: no antialias")
-    if kernel == "aa" and not antialias:
-        raise ValueError("the antialiased tiled resized-crop kernel takes antialias only")
+    if kernel == "aa" and method == "linear" and not antialias:
+        raise ValueError("the separable kernel takes bilinear with antialias only (without,"
+                         " the tiled kernel)")
     n, h, w, c = images.shape
     oh, ow = out_hw
     if min(h, w, c, oh, ow) < 1 or max(n, h, w, c, oh, ow) >= 2 ** 31:
         raise ValueError(f"resized-crop kernel cannot take {tuple(images.shape)} -> {out_hw}")
     params = params.to(device=images.device, dtype=torch.float32).contiguous()
-    if params.shape != (n, 4):
-        raise ValueError(f"params must be ({n}, 4), got {tuple(params.shape)}")
+    if params.shape not in ((n, 4), (1, 4)):
+        raise ValueError(f"params must be ({n}, 4) or (1, 4), got {tuple(params.shape)}")
+    shared = params.shape[0] != n
+    if shared and kernel != "aa":  # the other kernels read each image's params
+        params = params.expand(n, 4).contiguous()
     if flips is not None:
         flips = flips.to(device=images.device, dtype=torch.uint8).contiguous()
         if flips.shape != (n,):
@@ -463,11 +505,12 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         if kernel == "tiled":
             err = lib.pst_resized_crop_tiled_u8(*args, stream)
         elif kernel == "aa":
-            plan = aa_launch_plan(h, w, c, oh, ow)
-            scratch = torch.empty(plan.scratch_bytes(n, oh, ow), dtype=torch.uint8,
-                                  device=images.device)
-            err = lib.pst_resized_crop_aa_u8(*args, *plan, scratch.data_ptr(), scratch.numel(),
-                                             stream)
+            plan = aa_launch_plan(h, w, c, oh, ow, method, bool(antialias))
+            scratch = torch.empty(plan.scratch_bytes(1 if shared else n, oh, ow),
+                                  dtype=torch.uint8, device=images.device)
+            err = lib.pst_resample_separable_u8(*args, FILTERS[method], int(antialias),
+                                                int(shared), *plan, scratch.data_ptr(),
+                                                scratch.numel(), stream)
         else:
             general = (lib.pst_resample_u8 if images.dtype == torch.uint8
                        else lib.pst_resample_f32)
@@ -476,40 +519,48 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         raise RuntimeError(f"resized-crop kernel launch failed (error {err})")
     if n:
         resized_crop_kernel.launches += 1
-        counter = f"launches_{kernel if method == 'linear' else method}"
+        counter = _counter(kernel, method)
         setattr(resized_crop_kernel, counter, getattr(resized_crop_kernel, counter) + 1)
     return out
 
 
 def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
-                        antialias: bool) -> torch.Tensor:
-    """The resample on a CUDA tensor: the tiled kernel without antialias (every
-    crop of the training step), the antialiased tiled kernel with it.  The
-    choice reads only the flag, never ``params``, so the host does not wait on
-    the card.  ``resized_crop_kernel.launches`` counts every kernel's
-    launches, ``.launches_tiled``, ``.launches_aa``, ``.launches_general``,
-    ``.launches_cubic``, ``.launches_lanczos3`` and ``.launches_lanczos5``
-    each one's (see :func:`launch_resized_crop`)."""
+                        antialias: bool, method: str = "linear") -> torch.Tensor:
+    """The uint8 resample on a CUDA tensor: bilinear takes the tiled kernel
+    without antialias (every crop of the training step) and the separable
+    tiled kernel with it; ``cubic``, ``lanczos3`` and ``lanczos5`` take the
+    separable tiled kernel either way.  The choice reads only the filter and
+    the flag, never ``params``, so the host does not wait on the card.
+    ``resized_crop_kernel.launches`` counts every kernel's launches; each
+    kernel and filter has its own count (see :func:`launch_resized_crop`)."""
     return launch_resized_crop(images, params, flips, out_hw, antialias,
-                               kernel="aa" if antialias else "tiled")
+                               kernel="tiled" if method == "linear" and not antialias else "aa",
+                               method=method)
 
 
 resized_crop_kernel.launches = 0
 resized_crop_kernel.launches_tiled = 0
 resized_crop_kernel.launches_aa = 0
-resized_crop_kernel.launches_general = 0
 resized_crop_kernel.launches_cubic = 0
 resized_crop_kernel.launches_lanczos3 = 0
 resized_crop_kernel.launches_lanczos5 = 0
+resized_crop_kernel.launches_general = 0
+resized_crop_kernel.launches_general_cubic = 0
+resized_crop_kernel.launches_general_lanczos3 = 0
+resized_crop_kernel.launches_general_lanczos5 = 0
+#: every count of :func:`resized_crop_kernel` but the total, by suffix of ``launches``
+LAUNCH_COUNTERS = ("_tiled", "_aa", "_cubic", "_lanczos3", "_lanczos5", "_general",
+                   "_general_cubic", "_general_lanczos3", "_general_lanczos5")
 
 
 def nearest_kernel(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """``resize_images(method='nearest')`` on a contiguous CUDA uint8 or
-    float32 NHWC tensor, on the current stream: one launch of the gather
-    kernel (``csrc/resized_crop.cu``, ``pst_resize_nearest``), which copies
-    each output pixel's source pixel whole.  Each launch adds one to
-    ``nearest_kernel.launches``."""
+    float32 NHWC tensor, on the current stream: one launch of the row-tiled
+    gather kernel (``csrc/resized_crop.cu``, ``pst_resize_nearest``), which
+    writes each output row in 16-, 4- or 1-byte words from its source row.
+    An image of 2^31 bytes or more is refused (the kernel's offsets within an
+    image are 32-bit).  Each launch adds one to ``nearest_kernel.launches``."""
     if images.device.type != "cuda":
         raise ValueError(f"the nearest kernel takes a CUDA tensor, got {images.device}")
     if images.dtype not in (torch.uint8, torch.float32) or images.dim() != 4:
@@ -520,7 +571,8 @@ def nearest_kernel(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tenso
     n, h, w, c = images.shape
     oh, ow = out_hw
     pixel_bytes = c * images.element_size()
-    if min(h, w, c, oh, ow) < 1 or max(n, h, w, pixel_bytes, oh, ow) >= 2 ** 31:
+    if (min(h, w, c, oh, ow) < 1 or max(n, h, w, oh, ow) >= 2 ** 31
+            or h * w * pixel_bytes >= 2 ** 31 or 2048 * pixel_bytes >= 2 ** 31):
         raise ValueError(f"nearest kernel cannot take {tuple(images.shape)} -> {out_hw}")
     lib = build.load("resized_crop", _configure)
     out = torch.empty((n, oh, ow, c), dtype=images.dtype, device=images.device)
@@ -541,14 +593,16 @@ nearest_kernel.launches = 0
 def _resample(images: torch.Tensor, params: torch.Tensor, flips: Optional[torch.Tensor],
               out_hw: Tuple[int, int], antialias: bool, method: str = "linear") -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU tensor.  On the
-    card bilinear uint8 takes the tiled kernels; everything else takes the
-    general kernel's instance for its filter, uint8 and float32 as they are,
-    any other dtype resampled in float32 and brought back to its dtype."""
+    card uint8 takes the tiled kernels (:func:`resized_crop_kernel`), every
+    filter; any other dtype takes the general kernel's float32 instance for
+    its filter, float32 as it is, the others resampled in float32 and brought
+    back to their dtype.  ``params``: (N, 4), or (1, 4) for every image."""
     if images.device.type == "cpu":
-        return _resized_crop_reference(images, params, flips, out_hw, antialias, method)
-    if method == "linear" and images.dtype == torch.uint8:
-        return resized_crop_kernel(images, params, flips, out_hw, antialias)
-    x = images if images.dtype in (torch.uint8, torch.float32) else images.float()
+        return _resized_crop_reference(images, params.expand(images.shape[0], 4), flips, out_hw,
+                                       antialias, method)
+    if images.dtype == torch.uint8:
+        return resized_crop_kernel(images.contiguous(), params, flips, out_hw, antialias, method)
+    x = images if images.dtype == torch.float32 else images.float()
     out = launch_resized_crop(x.contiguous(), params, flips, out_hw, antialias,
                               kernel="general", method=method)
     return _restore_dtype(out, images.dtype)
@@ -584,24 +638,25 @@ def resize_images(images: torch.Tensor, out_hw: Tuple[int, int], method: str = "
     if method == "nearest":
         return _resize_nearest(images, out_hw)
 
-    def params(inv_y, inv_x, count):
-        # jax.image.resize: scale = out/in and 1/scale in float64, then float32
-        inv = torch.tensor([inv_y, 0.0, inv_x, 0.0], dtype=torch.float32)
-        return inv.expand(count, 4).to(images.device)
+    def params(inv_y, inv_x):
+        # jax.image.resize: scale = out/in and 1/scale in float64, then float32;
+        # one row for every image
+        return torch.tensor([[inv_y, 0.0, inv_x, 0.0]], dtype=torch.float32,
+                            device=images.device)
 
     if method != "linear" and (h == oh or w == ow):
         if h == oh and w == ow:
             return images.clone()
         if h == oh:  # each row an image of one row
             rows = images.reshape(n * h, 1, w, c)
-            out = _resample(rows, params(1.0, 1.0 / (ow / w), n * h), None, (1, ow),
-                            antialias, method)
+            out = _resample(rows, params(1.0, 1.0 / (ow / w)), None, (1, ow), antialias,
+                            method)
             return out.reshape(n, oh, ow, c)
         cols = images.reshape(n, h, 1, w * c)  # a row's pixels its channels
-        out = _resample(cols, params(1.0 / (oh / h), 1.0, n), None, (oh, 1), antialias, method)
+        out = _resample(cols, params(1.0 / (oh / h), 1.0), None, (oh, 1), antialias, method)
         return out.reshape(n, oh, ow, c)
-    return _resample(images, params(1.0 / (oh / h), 1.0 / (ow / w), n), None, out_hw,
-                     antialias, method)
+    return _resample(images, params(1.0 / (oh / h), 1.0 / (ow / w)), None, out_hw, antialias,
+                     method)
 
 
 def draw_crop_boxes(n: int, h: int, w: int, generator: Optional[torch.Generator],
@@ -654,9 +709,9 @@ def random_resized_crop(images: torch.Tensor, generator: Optional[torch.Generato
 
     ``flips`` (N,) mirrors the flagged outputs in the same pass (the JAX
     training step's ``random_flip`` after the crop); None flips nothing.
-    On a CUDA tensor: one launch of a resized-crop kernel (bilinear: the
-    tiled kernels for uint8, the general kernel in float32 for any other
-    dtype; the other filters: their general kernel instance)."""
+    On a CUDA tensor: one launch of a resized-crop kernel (uint8: the tiled
+    kernel for bilinear without antialias, else the separable tiled kernel;
+    any other dtype: the general kernel in float32)."""
     method = resize_method(method)
     if method == "nearest":
         raise ValueError("Nearest neighbor resampling is not currently supported for"

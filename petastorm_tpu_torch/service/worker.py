@@ -789,8 +789,13 @@ class ServiceWorker:
         if self._drain_confirmed.is_set():
             logger.info("Worker %s drained; retiring gracefully",
                         self.worker_name or "?")
-            self._send({"t": "bye"})
+            # stopped before the goodbye: the dispatcher closes the link
+            # as it reads ``bye``, and a run loop that saw that close
+            # before the stop would rejoin and be assigned work it never
+            # does (requeued when it then exits)
             self.retired_gracefully = True
+            self._stop_event.set()
+            self._send({"t": "bye"})
             self.stop()
             return True
         self._send({"t": "drained?"})

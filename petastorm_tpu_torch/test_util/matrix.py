@@ -505,11 +505,19 @@ class FleetHandle:
     def retire_worker(self, index: int = 0, timeout_s: float = 30.0) -> None:
         """Gracefully retire one worker (the supervisor's scale-down move):
         it drains its in-flight assignments, flushes, and exits - nothing
-        requeues, so a deterministic stream must not notice."""
+        requeues, so a deterministic stream must not notice.  Returns once
+        the dispatcher has dropped the worker too: the worker's ``bye`` is
+        read on the dispatcher's own thread, after the worker has stopped."""
         worker = self.workers.pop(index)
+        deadline = time.monotonic() + timeout_s
         if not worker.retire(timeout=timeout_s):
             raise PetastormTpuError(
                 "retire_worker: graceful drain missed its timeout")
+        while worker.worker_name in self.dispatcher.stats()["workers"]:
+            if time.monotonic() >= deadline:
+                raise PetastormTpuError(
+                    "retire_worker: the dispatcher still lists the retired worker")
+            time.sleep(0.02)
 
     def elastic_event(self) -> None:
         """The elastic-fleet disruption: a new worker joins mid-epoch, then
@@ -688,8 +696,12 @@ def recoverable_fleet(n_workers: int = 2, capacity: int = 2,
         from petastorm_tpu_torch.test_util.netchaos import ChaosProxy
 
         proxy = ChaosProxy(direct, net_spec).start()
+    # heartbeats every 0.5 s, as scale_up's workers: ten of them fit the
+    # dispatcher's 5 s timeout, so a loaded host does not declare a live
+    # worker dead (and requeue its items) for one late heartbeat
     workers = [ServiceWorker(
         direct, capacity=capacity, name=f"rw{i}",
+        heartbeat_interval_s=0.5,
         reconnect_attempts=worker_reconnect_attempts,
         reconnect_backoff_s=worker_reconnect_backoff_s)
         for i in range(n_workers)]

@@ -21,10 +21,15 @@ JAX op's draws, re-derived from its key).  Tolerances:
 
 An unknown method raises ``ValueError`` in both packages, and so does
 ``random_resized_crop(method='nearest')``, with jax's messages.  The
-``cuda``-marked tests hold each kernel (the general kernel's cubic,
-Lanczos 3 and Lanczos 5 instances, uint8 and float32, and the nearest
-gather) against its plain version on the card, within the uint8 bound above
-and 1e-5 of max|x| for float32, and count their launches.
+separable tiled kernel's launch plan (``augment.aa_launch_plan``) is checked
+here: its tap tables and spans hold every nonzero tap of the plain weight
+matrices, and it is a plan the kernel's entry takes at any shape.  The
+``cuda``-marked tests hold each kernel (the separable tiled kernel with the
+cubic, Lanczos 3 and Lanczos 5 filters for uint8, the general kernel's
+float32 instances, and the nearest gather) against its plain version on the
+card, within the uint8 bound above and 1e-5 of max|x| for float32, the
+separable kernel against the general kernel's uint8 instance byte for byte,
+and count their launches.
 """
 
 import numpy as np
@@ -187,15 +192,96 @@ def test_the_plain_versions_take_cpu_tensors_and_the_kernels_refuse_them():
         augment.launch_resized_crop(x, params, None, (4, 4), False, "general", method="cubic")
     with pytest.raises(ValueError, match="CUDA tensor"):
         augment.nearest_kernel(x, (4, 4))
-    for kernel, method in (("tiled", "cubic"), ("aa", "lanczos3"), ("general", "bicubic")):
+    for kernel, method in (("tiled", "cubic"), ("tiled", "lanczos3"), ("aa", "bicubic"),
+                           ("general", "bicubic")):
         with pytest.raises(ValueError, match=f"cannot take method '{method}'"):
             augment.launch_resized_crop(x, params, None, (4, 4), kernel == "aa", kernel,
                                         method=method)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        augment.launch_resized_crop(x, params, None, (4, 4), False, "aa", method="lanczos3")
     k = augment.resized_crop_kernel
     launches = (k.launches, k.launches_lanczos3, augment.nearest_kernel.launches)
     augment.resize_images(x, (4, 4), method="lanczos3")
     augment.resize_images(x, (4, 4), method="nearest")
     assert (k.launches, k.launches_lanczos3, augment.nearest_kernel.launches) == launches
+
+
+# -- the separable tiled kernel's launch plan -------------------------------------------------
+
+def _nonzero_ranges(mats):
+    """(first, last) nonzero tap of every output position of (N, in, out)
+    weight matrices, and whether it has any."""
+    nz = mats != 0
+    any_ = nz.any(1)
+    idx = torch.arange(mats.shape[1])[None, :, None]
+    first = torch.where(nz, idx, mats.shape[1]).min(1).values
+    last = torch.where(nz, idx, -1).max(1).values
+    return first, last, any_
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic", "lanczos3", "lanczos5"])
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("hw", [(64, 48), (37, 91)], ids=["64x48", "37x91"])
+def test_the_plan_holds_every_nonzero_tap(method, antialias, hw):
+    """For drawn and full-image boxes and resize_images' params, at scales
+    from 0.05 to 4: every output row's and column's taps, from its first to
+    its last nonzero weight, fit the plan's tables (cap_y, cap_x), and the
+    taps of every column tile fit one span."""
+    h, w = hw
+    gen = torch.Generator().manual_seed(h * w)
+    n = 24
+    for scale in (0.05, 0.1, 0.3, 0.55, 0.9, 1.0, 1.7, 4.0):
+        oh, ow = max(1, round(h * scale)), max(1, round(w * scale))
+        plan = augment.aa_launch_plan(h, w, 3, oh, ow, method, antialias)
+        params = [augment.crop_params(augment.draw_crop_boxes(n, h, w, gen, device="cpu"),
+                                      (oh, ow)),
+                  augment.crop_params(augment.draw_crop_boxes(n, h, w, gen, scale=(1.0, 1.0),
+                                                              device="cpu"), (oh, ow)),
+                  torch.tensor([1.0 / (oh / h), 0.0, 1.0 / (ow / w), 0.0]).expand(n, 4)]
+        for p in params:
+            for size, out, col, cap in ((h, oh, 0, plan.cap_y), (w, ow, 2, plan.cap_x)):
+                mats = augment._weight_mats(size, out, p[:, col], p[:, col + 1], antialias,
+                                            method)
+                first, last, any_ = _nonzero_ranges(mats)
+                taps = torch.where(any_, last - first + 1, 0)
+                assert int(taps.max()) <= cap, (scale, col, int(taps.max()), cap)
+                if col == 2:  # each tile of plan.cols columns within one span
+                    for x0 in range(0, ow, plan.cols):
+                        tile = slice(x0, x0 + plan.cols)
+                        if bool(any_[:, tile].any()):
+                            lo = torch.where(any_[:, tile], first[:, tile], w).min(1).values
+                            hi = torch.where(any_[:, tile], last[:, tile], -1).max(1).values
+                            assert int((hi - lo + 1).max()) <= plan.span, (scale, x0)
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic", "lanczos3", "lanczos5"])
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("shape", [
+    (256, 256, 3, 224, 224), (224, 224, 3, 160, 160), (1, 20, 3, 1, 13), (5, 1, 672, 9, 1),
+    (7, 9, 3, 300, 2), (16, 4096, 3, 16, 16), (8, 8, 70000, 8, 8), (10 ** 6, 10 ** 6, 3, 1, 1),
+    (1, 2 ** 20, 4, 1, 3), (5000, 5000, 64, 2, 2), (3, 3, 1, 2 ** 20, 2 ** 20)], ids=str)
+def test_the_plan_is_one_the_separable_entry_takes(method, antialias, shape):
+    """Every shape the general kernel takes gets a plan that
+    ``pst_resample_separable_u8`` accepts (its checks, in
+    csrc/resized_crop.cu): positive sizes, a channel group of at most 4 and
+    of no more than the channels, and a block's shared memory; the kernel
+    walks longer spans in chunks and computes taps past a table."""
+    h, w, c, oh, ow = shape
+    plan = augment.aa_launch_plan(h, w, c, oh, ow, method, antialias)
+    assert min(plan.rows, plan.cols, plan.cap_y, plan.cap_x, plan.span) >= 1
+    assert 1 <= plan.group <= min(4, c)
+    assert plan.shared_bytes <= augment.AA_MAX_SHARED_BYTES
+    assert plan.rows <= oh and plan.cols <= ow
+    assert plan.scratch_bytes(2, oh, ow) > 0
+
+
+def test_the_plan_keeps_the_bilinear_plan_and_widens_for_wider_filters():
+    assert (augment.aa_launch_plan(256, 256, 3, 224, 224)
+            == augment.aa_launch_plan(256, 256, 3, 224, 224, "linear", True))
+    caps = [augment.aa_launch_plan(224, 224, 3, 160, 160, m, True).cap_x
+            for m in ("linear", "cubic", "lanczos3", "lanczos5")]
+    assert caps == sorted(caps) and caps[-1] >= 15  # Lanczos 5 at 224 -> 160: ~15 taps
+    assert augment.aa_launch_plan(256, 256, 3, 224, 224, "lanczos5", False).cap_x >= 11
 
 
 # -- on the card ---------------------------------------------------------------------------
@@ -220,11 +306,12 @@ def test_the_resample_kernels_match_the_plain_version_on_the_card(method, antial
     boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
     flips = augment.draw_flips(n, gen, "cuda")
     params = augment.crop_params(boxes, out_hw)
-    for images in (x, x.float()):
-        before = getattr(augment.resized_crop_kernel, f"launches_{method}")
+    # uint8 takes the separable kernel, float32 the general kernel's instance
+    for images, counter in ((x, f"launches_{method}"), (x.float(), f"launches_general_{method}")):
+        before = getattr(augment.resized_crop_kernel, counter)
         got = augment.random_resized_crop(images, None, out_hw, method=method,
                                           antialias=antialias, boxes=boxes, flips=flips)
-        assert getattr(augment.resized_crop_kernel, f"launches_{method}") == before + 1
+        assert getattr(augment.resized_crop_kernel, counter) == before + 1
         want = augment._resized_crop_reference(images, params, flips, out_hw, antialias, method)
         assert got.dtype == images.dtype and got.is_cuda
         _assert_close(got.cpu().numpy(), want.cpu().numpy(),
@@ -237,8 +324,43 @@ def test_the_resample_kernels_match_the_plain_version_on_the_card(method, antial
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cubic", "lanczos3", "lanczos5"])
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("shape,out_hw,scale", [
+    ((8, 96, 128, 3), (64, 64), (0.08, 1.0)), ((5, 33, 37, 1), (50, 61), (0.08, 1.0)),
+    ((3, 300, 517, 3), (37, 301), (0.5, 1.0)), ((2, 40, 50, 5), (19, 30), (1.0, 1.0))])
+def test_the_separable_kernel_equals_the_general_kernel_on_the_card(method, antialias, shape,
+                                                                    out_hw, scale):
+    """The separable tiled kernel gives the general kernel's uint8 instance's
+    bytes (its byte oracle), with flips and without, through the wrapper and
+    through resize_images; the oracle's own counter counts its launches."""
+    gen = _card()
+    n, h, w, _ = shape
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+    boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
+    params = augment.crop_params(boxes, out_hw)
+    resize = torch.tensor([1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0],
+                          device="cuda").expand(n, 4)
+    k = augment.resized_crop_kernel
+    for p, flips in ((params, augment.draw_flips(n, gen, "cuda")), (params, None), (resize, None)):
+        new = augment.launch_resized_crop(x, p, flips, out_hw, antialias, kernel="aa",
+                                          method=method)
+        before = getattr(k, f"launches_general_{method}")
+        oracle = augment.launch_resized_crop(x, p, flips, out_hw, antialias, kernel="general",
+                                             method=method)
+        assert getattr(k, f"launches_general_{method}") == before + 1
+        assert torch.equal(new, oracle)
+    assert torch.equal(augment.resize_images(x, out_hw, method=method, antialias=antialias),
+                       oracle)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.int16], ids=str)
-@pytest.mark.parametrize("shape,out_hw", [((4, 64, 48, 3), (32, 20)), ((3, 17, 23, 5), (51, 7))])
+@pytest.mark.parametrize("shape,out_hw", [
+    ((4, 64, 48, 3), (32, 20)), ((3, 17, 23, 5), (51, 7)), ((3, 17, 23, 1), (40, 60)),
+    ((2, 40, 30, 3), (80, 70)), ((2, 1, 9, 3), (5, 1)), ((2, 7, 1, 5), (1, 13)),
+    ((2, 224, 224, 3), (160, 160)), ((1, 3, 5000, 1), (2, 4100))],
+    ids=["down", "C=5", "C=1-up", "up", "one-row", "one-column", "eval", "wide"])
 def test_the_nearest_kernel_matches_the_plain_version_on_the_card(dtype, shape, out_hw):
     gen = _card()
     x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen).to(dtype)

@@ -340,8 +340,11 @@ def test_a_worker_process_killed_by_sigkill_loses_and_repeats_no_row(url):
 
 def test_a_dropped_client_connection_recovers(url, fleet):
     tele = Telemetry()
+    # the items after the cut are held back a second each, so the cut lands
+    # mid-stream: results are still to come, and only a reconnect brings them
+    held = ChaosSpec(slow_ordinals=tuple(range(4, N_ROWS // RG_ROWS)), slow_s=1.0)
     r = reader.make_batch_reader(url, schema_fields=["label"], service_address=fleet.addr,
-                                 shuffle_seed=8, telemetry=tele)
+                                 shuffle_seed=8, telemetry=tele, chaos=held)
     r._executor._reconnect_policy = FAST_RECONNECT  # noqa: SLF001
     labels = []
     try:

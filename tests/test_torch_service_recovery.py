@@ -36,6 +36,7 @@ from petastorm_tpu_torch.service.journal import ServiceJournal
 from petastorm_tpu_torch.service.protocol import PROTOCOL_VERSION, connect_frames
 from petastorm_tpu_torch.service.worker import ServiceWorker
 from petastorm_tpu_torch.telemetry import Telemetry
+from petastorm_tpu_torch.test_util.chaos import ChaosSpec
 from petastorm_tpu_torch.test_util.matrix import ha_fleet, recoverable_fleet
 from petastorm_tpu_torch.test_util.netchaos import NetChaosSpec
 
@@ -192,8 +193,12 @@ def test_foreign_records_apply_as_no_ops_as_in_jax(tmp_path):
 def test_a_dispatcher_restart_mid_epoch_recovers(int_dataset):
     with recoverable_fleet() as f:
         tele = Telemetry()
+        # the items after the restart (rows 40 on) are held back half a second
+        # each, so it lands mid-stream: results are still owed, and only a
+        # reconnect to the new dispatcher brings them
+        held = ChaosSpec(slow_ordinals=tuple(range(4, 20)), slow_s=0.5)
         r = reader.make_batch_reader(int_dataset, service_address=f.address, shuffle_seed=2,
-                                     telemetry=tele)
+                                     telemetry=tele, chaos=held)
         r._executor._reconnect_policy = FAST_RECONNECT  # noqa: SLF001
         rows, restarted = [], False
         try:
