@@ -364,7 +364,19 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    ``CudaDataLoader`` over phase 6's dataset (4 threads, 3 processes with
    two workers killed, an in-process service fleet): one ``content_crc``
    and stream digest; (d) ``examples/spark_converter/convert_and_feed_cuda``
-   over the mocked Spark DataFrame on the card.
+   over the mocked Spark DataFrame on the card;
+34. the throughput harness (``petastorm_tpu_torch/benchmark``) over phase 4's
+   dataset: (a) ``cuda_loader_throughput`` flat out with host decode and with
+   B2, then with phase 5's measured step simulated (samples, B2's launches
+   between the batches consumed and those plus the prefetched ones, the
+   stall share beside phase 5's input-idle share); (b) the
+   ``petastorm_tpu_torch.benchmark.cli`` process with ``--method row``,
+   ``batch``, ``batch --isolated`` and ``cuda --decode-device image``,
+   beside phases 7 and 10; (c) ``ops_microbench`` at the JAX tool's shapes,
+   its lines printed, B1, B3, B3 aa and B2 each held once to their plain
+   versions on its kept outputs, its launches in the ``kernels`` line; (d)
+   ``loader_microbench`` at its defaults and ``scaling`` with 1, 4 and 7
+   threads and 1 and 7 processes.
 
 Then a ``wall`` line (the script's seconds so far), a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``.
@@ -451,6 +463,10 @@ from petastorm_tpu_torch.sequence import (SequencePacker, iter_documents,  # noq
 from petastorm_tpu_torch.transform import TransformSpec, transform_cache_info  # noqa: E402
 from petastorm_tpu_torch.weighted_sampling import WeightedSamplingReader  # noqa: E402
 from petastorm_tpu_torch.worker import RowGroupDecoderWorker  # noqa: E402
+from petastorm_tpu_torch.benchmark import ops_microbench  # noqa: E402
+from petastorm_tpu_torch.benchmark import scaling as benchmark_scaling  # noqa: E402
+from petastorm_tpu_torch.benchmark import throughput as benchmark_throughput  # noqa: E402
+from petastorm_tpu_torch.benchmark.dummy_reader import loader_microbench  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -578,11 +594,14 @@ def ulp(x, mantissa_bits):
     return torch.pow(2.0, exp - mantissa_bits)
 
 
-def check_normalize(x, mean, std, out_dtype):
+def check_normalize(x, mean, std, out_dtype, got=None):
     """Kernel vs plain version; bound: 2 float32 ulp at max(|out|, |bias|)
-    (FMA contraction), plus 1 ulp of a narrower output type at |out|."""
+    (FMA contraction), plus 1 ulp of a narrower output type at |out|.
+    ``got``: the kernel's output on ``x`` when the caller has it already."""
     scale, bias = normalize.channel_constants(mean, std, x.shape[-1])
-    got = normalize.normalize_images(x, mean, std, out_dtype).float()
+    if got is None:
+        got = normalize.normalize_images(x, mean, std, out_dtype)
+    got = got.float()
     want = normalize._normalize_reference(x, scale, bias, out_dtype).float()
     torch.cuda.synchronize()
     b = torch.from_numpy(np.abs(bias)).to(x.device)
@@ -1639,12 +1658,9 @@ def train_epoch(path, decode, loader_kwargs=None, epochs=1, reader_kwargs=None,
         end = time.perf_counter()
         diagnostics = loader.diagnostics()
         wait = diagnostics["consumer_wait_s"] - wait0
-    launches = {"normalize_u8": normalize.normalize_kernel.launches,
-                "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
-                "resized_crop_aa_u8": augment.resized_crop_kernel.launches_aa,
-                "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches_tiled}
-    general_launches = augment.resized_crop_kernel.launches_general
-    general_b2 = jpeg.jpeg_decode_kernel.launches_general
+    launches = kernel_launch_counts()
+    general_launches = launches.pop("general_resized_crop")
+    general_b2 = launches.pop("general_jpeg_decode")
     losses = torch.stack(losses).float().cpu()
 
     if steps != want_steps:
@@ -1717,6 +1733,17 @@ def reset_launch_counts():
             setattr(counts, "launches" + suffix, 0)
 
 
+def kernel_launch_counts():
+    """Each kernel's launches since :func:`reset_launch_counts`, by its name
+    in the ``kernels`` line; the general kernels' under their own names."""
+    return {"normalize_u8": normalize.normalize_kernel.launches,
+            "resized_crop_flip_u8": augment.resized_crop_kernel.launches_tiled,
+            "resized_crop_aa_u8": augment.resized_crop_kernel.launches_aa,
+            "jpeg_decode_u8": jpeg.jpeg_decode_kernel.launches_tiled,
+            "general_resized_crop": augment.resized_crop_kernel.launches_general,
+            "general_jpeg_decode": jpeg.jpeg_decode_kernel.launches_general}
+
+
 def train_path_phase(path, kernels):
     """The training path over one epoch of the phase-4 dataset, host decode."""
     run = train_epoch(path, "host")
@@ -1747,7 +1774,8 @@ def train_path_phase(path, kernels):
           step_vs_f32_plain=step_check)
     return {"labels": run["labels"], "first_images": first[0].cpu(),
             "samples_per_s": samples_per_s, "losses": run["losses"], "digest": run["digest"],
-            "image_sums": run["image_sums"]}
+            "image_sums": run["image_sums"], "step_s": timed / (steps - WARMUP_STEPS),
+            "input_idle_share": run["wait"] / timed}
 
 
 def train_path_device_decode_phase(path, kernels, host):
@@ -2069,12 +2097,13 @@ def drained_inference_phase(path, main_samples_per_s):
                 "samples_per_s": (steps - first_batch) * BATCH / (t1 - t0),
                 "consumer_wait_share": (w1 - w0) / (t1 - t0)}
 
+    drained = {"all_timed": rates(WARMUP_STEPS), "after_window_drained": rates(DRAINED_FROM)}
     phase("inference_drained", epochs=RATE_EPOCHS, batches=steps, batch=BATCH,
           workers=workers, in_flight_window_rowgroups=workers + 10,
-          drained_from_batch=DRAINED_FROM, all_timed=rates(WARMUP_STEPS),
-          after_window_drained=rates(DRAINED_FROM),
+          drained_from_batch=DRAINED_FROM, **drained,
           phase4_samples_per_s=main_samples_per_s, launches={"normalize_u8": launches},
           decode_stats=decoded, labels_each_4_times=True)
+    return drained
 
 
 def kernel_counts_by_name(fn, names, margin_s=0.05):
@@ -5116,6 +5145,145 @@ def legacy_interop_phase(tmp, path, kernels, device):
     phase("legacy_interop", seconds=time.perf_counter() - t0, **out)
 
 
+HARNESS_BATCHES = 16                              # phase 34 (a): timed batches a loader run
+HARNESS_PREFETCH = 2                              # phase 34 (a): the loader's queue bound
+HARNESS_ROWS, HARNESS_ROWGROUPS = 2048, 48        # phase 34 (b): rows of --method row, batches
+SCALING_WORKERS = {"thread": (1, 4, 7), "process": (1, 7)}  # phase 34 (d)
+
+
+def harness_loader_run(path, workers, decode_fields=(), step_s=0.0):
+    """``benchmark.cuda_loader_throughput`` over phase 4's dataset (batch
+    256, WARMUP_STEPS + HARNESS_BATCHES batches) with every kernel count set
+    to 0 just before and read just after: B2 once a batch the loader staged
+    with ``decode_fields``, at least the batches consumed and at most those
+    plus the prefetched ones and the one on the transfer thread; no other
+    kernel."""
+    reset_launch_counts()
+    res = benchmark_throughput.cuda_loader_throughput(
+        path, batch_size=BATCH, warmup_batches=WARMUP_STEPS, measure_batches=HARNESS_BATCHES,
+        workers_count=workers, simulated_step_s=step_s, device_decode_fields=decode_fields,
+        prefetch=HARNESS_PREFETCH, device="cuda")
+    launches = kernel_launch_counts()
+    what = f"phase 34 (a), decode {decode_fields or 'host'}, step {step_s} s"
+    if res.samples != HARNESS_BATCHES * BATCH:
+        raise AssertionError(f"{what}: {res.samples} samples, expected {HARNESS_BATCHES * BATCH}")
+    consumed = WARMUP_STEPS + HARNESS_BATCHES
+    b2 = launches.pop("jpeg_decode_u8")
+    low, high = (consumed, consumed + HARNESS_PREFETCH + 1) if decode_fields else (0, 0)
+    if not low <= b2 <= high or any(launches.values()):
+        raise AssertionError(f"{what}: B2 launched {b2} times for {consumed} batches (expected"
+                             f" {low}-{high}), the other kernels {launches} (expected 0)")
+    return {**json.loads(res.to_json()), "jpeg_decode_u8_launches": b2}
+
+
+def harness_cli(here, *args):
+    """``python -m petastorm_tpu_torch.benchmark.cli`` over phase 4's dataset,
+    ``--json``: its one result line."""
+    out = subprocess.run([sys.executable, "-m", "petastorm_tpu_torch.benchmark.cli", *args,
+                          "--json"], cwd=here, capture_output=True, text=True,
+                         timeout=CHILD_TIMEOUT_S)
+    if out.returncode:
+        raise AssertionError(f"phase 34 (b): the CLI {args} exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def harness_phase(path, kernels, host, device, rates, drained):
+    """Phase 34: the throughput harness (``petastorm_tpu_torch/benchmark``)
+    over phase 4's dataset.  (a) ``cuda_loader_throughput`` in this process
+    flat out, host decode and device decode, then host decode with phase 5's
+    measured step simulated: samples, B2's launches, the stall share beside
+    phase 5's input-idle share; (b) the CLI as a process, ``--method row``,
+    ``batch`` (also ``--isolated``) and ``cuda --decode-device image``,
+    beside phases 7 and 10; (c) ``ops_microbench`` at the JAX tool's shapes,
+    its lines printed, each kernel's kept output held once to its plain
+    version (B1 within 2 float32 ulp plus 1 bfloat16 ulp, B3 and B3 aa equal
+    to the general kernel and within 1 LSB of the plain version on at most
+    0.1 % of bytes, B2 against cv2 under phase 6's rule), its launches added
+    to the ``kernels`` line; (d) ``loader_microbench`` at its defaults and
+    ``scaling`` over the thread and process pools."""
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cores = os.cpu_count() or 2
+    workers = max(1, min(cores - 1, 16))
+    out = {"a": {"host": harness_loader_run(path, workers),
+                 "device": harness_loader_run(path, workers, ("image",)),
+                 "host_step": harness_loader_run(path, workers, step_s=host["step_s"])}}
+    kernels["jpeg_decode_u8"]["launches"] += out["a"]["device"]["jpeg_decode_u8_launches"]
+    out["a"]["simulated_step_s"] = host["step_s"]
+    out["a"]["phase5_input_idle_share"] = host["input_idle_share"]
+    out["a"]["phase6_samples_per_s"] = device["samples_per_s"]
+    out["seconds_a"] = time.perf_counter() - t0
+
+    common = [path, "-w", str(workers), "--batch-size", str(BATCH)]
+    cuda_batches = ["-n", str(25 * WARMUP_STEPS), "-m", str(25 * HARNESS_BATCHES)]
+    out["b"] = {
+        "row": harness_cli(here, *common, "--method", "row", "-n", "256",
+                           "-m", str(HARNESS_ROWS)),
+        "batch": harness_cli(here, *common, "--method", "batch", "-n", "2",
+                             "-m", str(HARNESS_ROWGROUPS)),
+        "batch_isolated": harness_cli(here, *common, "--method", "batch", "-n", "2",
+                                      "-m", str(HARNESS_ROWGROUPS), "--isolated"),
+        "cuda_device_decode": harness_cli(here, *common, "--method", "cuda",
+                                          "--decode-device", "image", *cuda_batches)}
+    want = {"row": HARNESS_ROWS, "batch": HARNESS_ROWGROUPS * ROWS_PER_GROUP,
+            "batch_isolated": HARNESS_ROWGROUPS * ROWS_PER_GROUP,
+            "cuda_device_decode": HARNESS_BATCHES * BATCH}
+    got = {k: r["samples"] for k, r in out["b"].items()}
+    if got != want:
+        raise AssertionError(f"phase 34 (b): the CLI counted {got} samples, expected {want}")
+    out["b"]["phase7_rows_per_s"] = {k: rates[k]["rows_per_s"]
+                                     for k in ("native", "entropy_only")}
+    out["b"]["phase10_samples_per_s"] = {k: v["samples_per_s"] for k, v in drained.items()}
+    out["seconds_b"] = time.perf_counter() - t0 - out["seconds_a"]
+
+    t1 = time.perf_counter()
+    outputs = {}
+    reset_launch_counts()
+    records = ops_microbench.run("cuda", outputs=outputs)
+    launches = kernel_launch_counts()
+    general = {k: launches.pop(k) for k in ("general_resized_crop", "general_jpeg_decode")}
+    if min(launches.values()) < 1 or any(general.values()):
+        raise AssertionError(f"phase 34 (c): ops_microbench launched {launches}, the general"
+                             f" kernels {general}")
+    for name, count in launches.items():
+        kernels[name]["launches"] += count
+    images, normalized = outputs["normalize"]
+    held = {"normalize_u8": check_normalize(images, ops_microbench.MEAN, ops_microbench.STD,
+                                            torch.bfloat16, got=normalized)}
+    for key, name, antialias in (("crop", "resized_crop_flip_u8", False),
+                                 ("crop_aa", "resized_crop_aa_u8", True)):
+        big, boxes, flips, cropped = outputs[key]
+        hw = tuple(cropped.shape[1:3])
+        held[name] = check_resample(cropped, big, augment.crop_params(boxes, hw), flips, hw,
+                                    antialias)
+    bufs, planes, qtabs, layout, decoded = outputs["jpeg"]
+    plain = jpeg._decode_reference(planes, qtabs, (layout.height, layout.width), layout.sampling)
+    held["jpeg_decode_u8"] = within_cv2(decoded.cpu().numpy(), cv2_decode(bufs),
+                                        plain.cpu().numpy(), "phase 34 (c)")
+    out["c"] = {"records": records, "launches": launches, "vs_plain": held,
+                "seconds": time.perf_counter() - t1}
+
+    t1 = time.perf_counter()
+    micro = loader_microbench(device="cuda")
+    if not all(r["samples_per_sec"] > 0 for r in micro) or len(micro) != 12:
+        raise AssertionError(f"phase 34 (d): loader_microbench gave {micro}")
+    curves = {}
+    for pool, counts in SCALING_WORKERS.items():
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            benchmark_scaling.main(["--pool-type", pool, "--workers", *map(str, counts),
+                                    "--dataset-url", path, "--epochs", "1"])
+        curves[pool] = [json.loads(line) for line in text.getvalue().splitlines()]
+        got = [(r["workers"], r["samples"], r["shm_transport"]) for r in curves[pool]]
+        if got != [(w, N_ROWS, pool == "process") for w in counts]:
+            raise AssertionError(f"phase 34 (d): scaling over the {pool} pool gave {got}")
+    out["d"] = {"loader_microbench": micro, "scaling": curves,
+                "seconds": time.perf_counter() - t1}
+    phase("throughput_harness", batch=BATCH, workers=workers,
+          seconds=time.perf_counter() - t0, **out)
+
+
 SERVICE_AB_SLOW_S = 0.25                          # --service-ab: a tierless tenant's item sleep
 
 
@@ -5228,7 +5396,7 @@ def main():
         rates = reader_rate_phase(path)
         shuffled_train_path_phase(path, device)
         adapter_phase(path, main_samples_per_s)
-        drained_inference_phase(path, main_samples_per_s)
+        drained = drained_inference_phase(path, main_samples_per_s)
         scan = scan_train_phase(path, device)
         checkpoint_resume_phase(path, host, scan["loss_bound"])
         shuffled_inference_phase(path, main_samples_per_s)
@@ -5253,6 +5421,7 @@ def main():
         observability_phase(tmp, path, kernels, host, device, warm)
         service_phase(tmp, path, kernels, device, clean)
         legacy_interop_phase(tmp, path, kernels, device)
+        harness_phase(path, kernels, host, device, rates, drained)
 
     phase("wall", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
