@@ -18,8 +18,15 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    PyTorch call computes the same function, that call's time; each
    resized-crop kernel (tiled without antialias, antialiased tiled with it)
    equal on every byte to the general kernel wherever both apply, and
-   timed in turns against it; float images through the general kernel's
-   float32 instance and normalize at 65 and 300 channels; the JPEG decode
+   timed in turns against it; their float32, float16 and bfloat16 instances
+   (the training crop, the 256 -> 224 evaluation resize, cubic, Lanczos 3
+   and Lanczos 5 at phase 33 (b)'s shape, and ragged, unaligned, one- and
+   five-channel shapes) equal bit for bit to the general kernel's float32
+   instance (cast back for the 16-bit types) and held to the plain version,
+   timed in turns against that instance at the element size's bound, beside
+   ``F.grid_sample`` and ``F.interpolate(antialias=True)`` in float32;
+   int16 images through their float32 instance, and normalize at 65 and
+   300 channels; the JPEG decode
    (B2) on coefficient planes of cv2-encoded images at the training batch
    (256 x 224 x 224, 4:2:0), 4:4:4, 4:2:2, grayscale, 37 x 53, progressive
    and float32 output: the tiled kernel, which the path takes, equal on
@@ -376,7 +383,17 @@ with a CUDA GPU and ``nvcc``.  Phases, each printing one line:
    its lines printed, B1, B3, B3 aa and B2 each held once to their plain
    versions on its kept outputs, its launches in the ``kernels`` line; (d)
    ``loader_microbench`` at its defaults and ``scaling`` with 1, 4 and 7
-   threads and 1 and 7 processes.
+   threads and 1 and 7 processes;
+35. a float feed: 1024 rows of a fixed-shape (256, 256, 3) float16 ``image``
+   (``NdarrayCodec``, values in [0, 1)) and an int64 ``label``, 4 rowgroups
+   of 256 (about 400 MB), through ``make_reader`` ->
+   ``CudaDataLoader(batch_size=256)`` for 2 epochs (8 batches), each batch
+   cropped to 224 with drawn boxes and flips (the tiled kernel's float16
+   instance) and resized 256 -> 224 antialiased (the separable kernel's),
+   and the same on the batch cast to float32 or bfloat16 in turn: samples/s,
+   the input-wait share, each instance's launches and none of the general
+   kernel, every label seen twice, every kept crop and resize equal bit for
+   bit to the general kernel's float32 instance on its batch, cast back.
 
 Then a ``wall`` line (the script's seconds so far), a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``.
@@ -656,10 +673,12 @@ def within_lsb(got, want, what):
 
 def check_other_dtypes(x, boxes, flips):
     """Images that are not uint8 through random_resized_crop and resize_images
-    on the card (the general kernel's float32 instance) against the plain
-    version; bound: float32 within 8 float32 ulp of 256 (the same weights,
-    sums in other orders), a narrower type one of its ulps at 255 more, an
-    integer type 1.  Returns the largest difference by dtype."""
+    on the card (float32, float16 and bfloat16 in the tiled and separable
+    kernels' own instances, int16 through their float32 instance; the
+    general kernel never) against the plain version; bound: float32 within
+    8 float32 ulp of 256 (the same weights, sums in other orders), a
+    narrower type one of its ulps at 255 more, an integer type 1.  Returns
+    the largest difference by dtype."""
     bounds = {torch.float32: 8 * 2.0 ** -15, torch.float16: 0.125 + 8 * 2.0 ** -15,
               torch.bfloat16: 1.0 + 8 * 2.0 ** -15, torch.int16: 1.0}
     n, h, w, _ = x.shape
@@ -671,12 +690,18 @@ def check_other_dtypes(x, boxes, flips):
     for dtype, bound in bounds.items():
         xd = x.to(dtype)
         for antialias in (False, True):
-            general = augment.resized_crop_kernel.launches_general
+            k = augment.resized_crop_kernel
+            counters = ("launches_general", "launches_aa" if antialias else "launches_tiled",
+                        f"launches_{'separable' if antialias else 'tiled'}_"
+                        f"{augment.ELEMENTS.get(dtype, 'f32')}")
+            before = [getattr(k, name) for name in counters]
             got = augment.random_resized_crop(xd, None, out_hw, antialias=antialias,
                                               boxes=boxes, flips=flips)
             resized = augment.resize_images(xd, out_hw, antialias=antialias)
-            if augment.resized_crop_kernel.launches_general != general + 2:
-                raise AssertionError(f"{dtype} images did not take the general kernel")
+            took = [getattr(k, name) - b for name, b in zip(counters, before)]
+            if took != [0, 2, 2]:
+                raise AssertionError(f"{dtype} images, antialias={antialias}: launches of"
+                                     f" {counters} {took}, expected [0, 2, 2]")
             for out, want in (
                     (got, augment._resized_crop_reference(xd, params, flips, out_hw, antialias)),
                     (resized, augment._resized_crop_reference(xd, inv, None, out_hw, antialias))):
@@ -690,19 +715,19 @@ def check_other_dtypes(x, boxes, flips):
 
 def resample_bound(x, params, out_hw, antialias, method="linear"):
     """Bytes the resample needs (each image's source rows x columns with a
-    nonzero weight, x C, read once, and the output written once) and
-    operations: 2 per multiply-add of the separable form over the nonzero
-    taps, per image in the cheaper of its two orders (rows first: each
-    output row's taps over the source columns used, then each output pixel's
-    column taps; or columns first), x C.
-    Returns (bound ms, "bytes" or "operations", read, written, flops)."""
+    nonzero weight, x C x the element size, read once, and the output, of
+    the input's dtype, written once) and operations: 2 per multiply-add of
+    the separable form over the nonzero taps, per image in the cheaper of
+    its two orders (rows first: each output row's taps over the source
+    columns used, then each output pixel's column taps; or columns first),
+    x C.  Returns (bound ms, "bytes" or "operations", read, written, flops)."""
     n, h, w, c = x.shape
     oh, ow = out_hw
     wy = augment._weight_mats(h, oh, params[:, 0], params[:, 1], antialias, method) != 0
     wx = augment._weight_mats(w, ow, params[:, 2], params[:, 3], antialias, method) != 0
     rows_used, cols_used = wy.any(2).sum(1).double(), wx.any(2).sum(1).double()
-    read = (rows_used * cols_used).sum().item() * c
-    written = n * oh * ow * c
+    read = (rows_used * cols_used).sum().item() * c * x.element_size()
+    written = n * oh * ow * c * x.element_size()
     taps_y, taps_x = wy.sum((1, 2)).double(), wx.sum((1, 2)).double()
     rows_first = taps_y * cols_used + oh * taps_x
     cols_first = taps_x * rows_used + ow * taps_y
@@ -763,7 +788,7 @@ def resized_crop_entry(gen):
     entry = {
         "name": "resized_crop_flip_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
-        "function": "resized_crop_u8_tiled_kernel",
+        "function": "resized_crop_tiled_kernel<ElemU8>",
         "replaces": "petastorm_tpu/ops/augment.py:141",
         "max_abs_err": main_err,
         "ms": (turns[0] + turns[3]) / 2, "prev_ms": (turns[1] + turns[2]) / 2,
@@ -845,7 +870,7 @@ def resized_crop_aa_entry(gen):
     entry = {
         "name": "resized_crop_aa_u8", "route": "cuda",
         "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
-        "function": "resample_u8_separable_kernel after resample_axes_kernel<linear>",
+        "function": "resample_separable_kernel<ElemU8, ...> after resample_axes_kernel<linear>",
         "replaces": "petastorm_tpu/ops/augment.py:141",
         "max_abs_err": eval_err,
         "ms": (turns[0] + turns[3]) / 2, "prev_ms": (turns[1] + turns[2]) / 2,
@@ -864,6 +889,181 @@ def resized_crop_aa_entry(gen):
         "resize_images_ms": resize_ms, "random_resized_crop_aa_ms": rrc_ms,
         "random_resized_crop_aa_shape": list(rrc_x.shape)})
     return entry
+
+
+FLOAT_DTYPES = (torch.float32, torch.float16, torch.bfloat16)  # phase 3: the float instances
+FLOAT_METHODS = ("cubic", "lanczos3", "lanczos5")    # phase 3: timed at phase 33 (b)'s shape
+FLOAT_EVAL_SIDE = 160                                # phase 3: that shape's output side
+# phase 3: ragged, unaligned and steep float cases: shape, out_hw, crop-box scale (None:
+# resize_images' params), element offset, flips
+FLOAT_EDGE_CASES = (
+    ((7, 97, 131, 3), (50, 61), (0.08, 1.0), 1, True),   # one element off alignment
+    ((6, 40, 50, 1), (21, 33), (0.08, 1.0), 0, True),    # C = 1
+    ((6, 40, 50, 4), (19, 30), (0.08, 1.0), 1, False),   # C = 4, no flips
+    ((5, 33, 37, 3), (20, 27), (0.08, 1.0), 0, True),    # odd rows
+    ((3, 300, 517, 3), (37, 301), (0.08, 1.0), 0, True),  # oh % 8, ow > 256
+    ((4, 512, 640, 3), (40, 50), (0.5, 1.0), 0, True),   # downscale past 8x
+    ((3, 20, 30, 5), (41, 7), (0.08, 1.0), 0, True),     # C = 5: two channel groups
+    ((2, 16, 4096, 3), (16, 16), None, 0, True))         # 256x on one axis: span chunks
+
+
+def float_oracle(x, params, flips, out_hw, antialias, method="linear"):
+    """The general kernel's float32 instance on ``x`` as float32, cast back
+    to ``x``'s dtype: what a float instance must give bit for bit."""
+    return augment.launch_resized_crop(x.float().contiguous(), params, flips, out_hw, antialias,
+                                       kernel="general", method=method).to(x.dtype)
+
+
+def same_bits(got, want, what):
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against the oracle's"
+                             f" {want.dtype} {tuple(want.shape)}")
+    differing = int((got.contiguous().reshape(-1).view(torch.uint8)
+                     != want.contiguous().reshape(-1).view(torch.uint8)).sum())
+    if differing:
+        raise AssertionError(f"{what}: {differing} bytes differ from the general kernel's"
+                             f" float32 instance")
+
+
+def hold_float_to_plain(got, x, params, flips, out_hw, antialias, method, what):
+    """A float instance's result against the plain version on the same
+    inputs, within today's bounds: float32 within 8 float32 ulp of 256 for
+    bilinear (check_other_dtypes) and 1e-5 of 256 for the other filters
+    (hold_to_plain); float16 and bfloat16 one ulp of the type at
+    max(|value|, 255) more.  Returns the largest difference."""
+    want = augment._resized_crop_reference(x, params.expand(x.shape[0], 4), flips, out_hw,
+                                           antialias, method).double()
+    bound = torch.full_like(want, 8 * 2.0 ** -15 if method == "linear" else 1e-5 * 256)
+    if x.dtype != torch.float32:
+        bound += ulp(torch.clamp(want.abs(), min=255.0),
+                     {torch.float16: 10, torch.bfloat16: 7}[x.dtype])
+    err = (got.double() - want).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{what}: max err {err.max().item()} against the plain version")
+    return err.max().item()
+
+
+def float_resample_entries(gen):
+    """B3's float instances in phase 3: the tiled kernel (random_resized_crop
+    over MAIN_SHAPE -> 224 with drawn boxes and flips) and the separable
+    kernel (the 256 -> 224 evaluation resize, bilinear antialiased; cubic,
+    Lanczos 3 and Lanczos 5 at phase 33 (b)'s (256, 224, 224, 3) -> 160
+    antialiased) on float32, float16 and bfloat16 images holding the same
+    values of [0, 255): each equal bit for bit to the general kernel's
+    float32 instance (cast back for the 16-bit types) and held to the plain
+    version; timed in turns against that instance on the same values (new,
+    general, general, new); the bound at the element size; beside them
+    F.grid_sample and F.interpolate(antialias=True) on the float32 tensor.
+    Then FLOAT_EDGE_CASES, every filter and both antialias settings, bit for
+    bit.  Returns the kernels line's entries (launches filled by phase 35)."""
+    main32 = torch.rand(MAIN_SHAPE, device="cuda", generator=gen) * 255
+    big32 = torch.rand((BATCH, 256, 256, 3), device="cuda", generator=gen) * 255
+    n = BATCH
+    boxes = augment.draw_crop_boxes(n, SIDE, SIDE, gen, device="cuda")
+    flips = augment.draw_flips(n, gen, "cuda")
+    crop = augment.crop_params(boxes, (SIDE, SIDE))
+
+    def inv(h, side):  # resize_images' params, one row for every image
+        return torch.tensor([[1.0 / (side / h), 0.0, 1.0 / (side / h), 0.0]], device="cuda")
+
+    # case: (source, params, flips, out_hw, antialias, method)
+    cases = {"crop": (main32, crop, flips, (SIDE, SIDE), False, "linear"),
+             "eval": (big32, inv(256, SIDE), None, (SIDE, SIDE), True, "linear"),
+             **{m: (main32, inv(SIDE, FLOAT_EVAL_SIDE), None,
+                    (FLOAT_EVAL_SIDE, FLOAT_EVAL_SIDE), True, m) for m in FLOAT_METHODS}}
+    # the library yardsticks on the float32 tensors (the calls alone)
+    y0, x0, ch, cw = boxes.unbind(1)
+    theta = torch.zeros((n, 2, 3), device="cuda")
+    theta[:, 0, 0], theta[:, 0, 2] = cw / SIDE, (2 * x0 + cw) / SIDE - 1
+    theta[:, 1, 1], theta[:, 1, 2] = ch / SIDE, (2 * y0 + ch) / SIDE - 1
+    grid = torch.nn.functional.affine_grid(theta, (n, 3, SIDE, SIDE), align_corners=False)
+    main_nchw = main32.permute(0, 3, 1, 2).contiguous()
+    big_nchw = big32.permute(0, 3, 1, 2).contiguous()
+    library = {
+        "crop": time_ms(lambda: torch.nn.functional.grid_sample(
+            main_nchw, grid, mode="bilinear", padding_mode="border", align_corners=False)),
+        "eval": time_ms(lambda: torch.nn.functional.interpolate(
+            big_nchw, size=(SIDE, SIDE), mode="bilinear", antialias=True, align_corners=False))}
+    del main_nchw, big_nchw, grid
+    results, entries = {}, {}
+    for dtype in FLOAT_DTYPES:
+        element = augment.ELEMENTS[dtype]
+        for case, (src32, params, fl, out_hw, antialias, method) in cases.items():
+            x = src32.to(dtype)
+            what = f"phase 3, {element} {case}"
+            kernel = augment.resample_route(dtype, method, antialias)[0]
+            new = lambda x=x, p=params, f=fl, hw=out_hw, a=antialias, m=method: (  # noqa: E731
+                augment.resized_crop_kernel(x, p, f, hw, a, m))
+            x_general = x.float()  # the general kernel on the same values, params a row an image
+            p_general = params.expand(n, 4).contiguous()
+            def general(xg=x_general, p=p_general, f=fl, hw=out_hw, a=antialias, m=method):
+                return augment.launch_resized_crop(xg, p, f, hw, a, kernel="general", method=m)
+            got = new()
+            same_bits(got, general().to(dtype), what)
+            err = hold_float_to_plain(got, x, params, fl, out_hw, antialias, method, what)
+            timing = dict(samples=11, launches=5, warmup=2)
+            turns = [time_ms(new, **timing), time_ms(general, **timing),
+                     time_ms(general, **timing), time_ms(new, **timing)]
+            bound_ms, bound_by, read, written, flops = resample_bound(x, p_general, out_hw,
+                                                                      antialias, method)
+            plain = lambda x=x, p=p_general, f=fl, hw=out_hw, a=antialias, m=method: (  # noqa: E731
+                augment._resized_crop_reference(x, p, f, hw, a, m))
+            results[f"{element} {case}"] = {
+                "kernel": kernel, "shape": list(x.shape), "out_hw": list(out_hw),
+                "method": method, "antialias": antialias, "equals_general_f32": True,
+                "max_abs_err": err, "ms": (turns[0] + turns[3]) / 2,
+                "general_f32_ms": (turns[1] + turns[2]) / 2,
+                "turns_ms_new_general_general_new": turns,
+                "plain_ms": time_ms(plain, samples=3, launches=1, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes_read": read,
+                "bytes_written": written, "flops": flops, "library_ms": library.get(case)}
+            del x, x_general
+        for name, case, function in (
+                (f"resized_crop_flip_{element}", "crop", f"resized_crop_tiled_kernel<Elem"
+                 f"{element.upper()}>"),
+                (f"resized_crop_aa_{element}", "eval", f"resample_separable_kernel<Elem"
+                 f"{element.upper()}, ...> after resample_axes_kernel<linear>")):
+            r = results[f"{element} {case}"]
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": f"petastorm_tpu_torch/csrc/resized_crop_{element}.cu",
+                "function": function, "replaces": "petastorm_tpu/ops/augment.py:141",
+                "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "general_f32_ms": r["general_f32_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
+        entries[f"resized_crop_aa_{element}"]["filters"] = {
+            m: {k: results[f"{element} {m}"][k] for k in ("ms", "general_f32_ms", "plain_ms",
+                                                           "bound_ms", "bound_by", "max_abs_err")}
+            for m in FLOAT_METHODS}
+    del main32, big32
+    edges = {}
+    for shape, out_hw, scale, offset, flipped in FLOAT_EDGE_CASES:
+        nn_, h, w, _ = shape
+        flat = torch.rand(int(np.prod(shape)) + offset, device="cuda", generator=gen) * 300 - 20
+        fl = augment.draw_flips(nn_, gen, "cuda") if flipped else None
+        if scale is None:
+            params = torch.tensor([1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0],
+                                  device="cuda").expand(nn_, 4)
+        else:
+            params = augment.crop_params(
+                augment.draw_crop_boxes(nn_, h, w, gen, scale=scale, device="cuda"), out_hw)
+        for dtype in FLOAT_DTYPES:
+            x = flat.to(dtype)[offset:].view(shape)
+            for method in ("linear",) + FLOAT_METHODS:
+                for antialias in (False, True):
+                    what = f"phase 3, {dtype} {method} {shape}->{out_hw} antialias={antialias}"
+                    got = augment.resized_crop_kernel(x, params, fl, out_hw, antialias, method)
+                    same_bits(got, float_oracle(x, params, fl, out_hw, antialias, method), what)
+                    edges[what[9:]] = hold_float_to_plain(got, x, params, fl, out_hw, antialias,
+                                                          method, what)
+    phase("kernels", resized_crop_float={
+        "cases": results, "edge_cases": edges, "values": "uniform [0, 255) as float32, cast",
+        "edge_values": "uniform [-20, 280) as float32, cast",
+        "library_call": {"crop": "F.grid_sample(bilinear, border, align_corners=False) on"
+                                 " float32 NCHW, affine grid precomputed",
+                         "eval": "F.interpolate(bilinear, antialias=True) on float32 NCHW"}})
+    return entries
 
 
 RESAMPLE_METHODS = ("cubic", "lanczos3", "lanczos5")   # phase 33: the separable kernel's filters
@@ -1065,7 +1265,8 @@ def resample_methods_entry():
         entries[f"resample_{method}"] = {
             "name": f"resample_{method}", "route": "cuda",
             "source": "petastorm_tpu_torch/csrc/resized_crop.cu",
-            "function": f"resample_u8_separable_kernel after resample_axes_kernel<{method}>",
+            "function": f"resample_separable_kernel<ElemU8, ...> after"
+                        f" resample_axes_kernel<{method}>",
             "replaces": "petastorm_tpu/ops/augment.py:141",
             "max_abs_err": max(c.get("max_lsb", 0) for k, c in cases.items()
                                if k.startswith(method + " ")),
@@ -1187,7 +1388,8 @@ def kernels_phase():
     phase("kernels", normalize_u8={"max_abs_err": results, "ms": entry["ms"],
                                    "plain_ms": entry["plain_ms"], "bound_ms": bound_ms,
                                    "shape": list(MAIN_SHAPE), "out": "bfloat16"})
-    return {"normalize_u8": entry, **resized_crop_entry(gen), "jpeg_decode_u8": jpeg_entry()}
+    return {"normalize_u8": entry, **resized_crop_entry(gen), **float_resample_entries(gen),
+            "jpeg_decode_u8": jpeg_entry()}
 
 
 def smooth_image(rng, h=SIDE, w=SIDE):
@@ -2252,7 +2454,7 @@ def scan_train_phase(path, device):
         profiled = replay_kernel_counts(
             lambda: scan(images, labels),
             {"normalize_u8": "normalize_u8_kernel",
-             "resized_crop_flip_u8": "resized_crop_u8_tiled_kernel"},
+             "resized_crop_flip_u8": "resized_crop_tiled_kernel"},
             {"normalize_u8": SCAN_K, "resized_crop_flip_u8": SCAN_K})
         vs_eager, loss_bound = graph_vs_eager(step, scan, images, labels)
     diagnostics = loader.diagnostics()
@@ -4608,7 +4810,7 @@ def traced_steps(tmp, path, workers):
             kernel_us[e["name"]] = kernel_us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
             kernel_n[e["name"]] = kernel_n.get(e["name"], 0) + 1
     found = {want: sorted(n for n in kernel_us if want in n)
-             for want in ("jpeg_decode_tiled_kernel", "resized_crop_u8_tiled_kernel",
+             for want in ("jpeg_decode_tiled_kernel", "resized_crop_tiled_kernel",
                           "normalize")}
     if not all(found.values()):
         raise AssertionError(f"phase 31: the trace lacks {[k for k, v in found.items() if not v]};"
@@ -5284,6 +5486,135 @@ def harness_phase(path, kernels, host, device, rates, drained):
           seconds=time.perf_counter() - t0, **out)
 
 
+FLOAT_FEED_ROWS, FLOAT_FEED_GROUP, FLOAT_FEED_EPOCHS = 1024, 256, 2  # phase 35: the float feed
+FLOAT_FEED_SIDE = 256                             # phase 35: its images' side (ImageNet's resize)
+FLOAT_FEED_OTHER = (torch.float32, torch.bfloat16)  # phase 35: a batch's other dtype, in turn
+
+
+def write_float_feed(path):
+    """Phase 35's dataset: FLOAT_FEED_ROWS rows of an int64 ``label`` (the
+    row's number) and a fixed-shape (256, 256, 3) float16 ``image`` of
+    values in [0, 1) (``NdarrayCodec``), in rowgroups of FLOAT_FEED_GROUP."""
+    schema = Schema("FloatImages", [
+        Field("label", np.int64),
+        Field("image", np.float16, (FLOAT_FEED_SIDE, FLOAT_FEED_SIDE, 3), codecs.NdarrayCodec())])
+    rng = np.random.default_rng(35)
+    write_dataset(path, schema, ({"label": i, "image": rng.random(
+        (FLOAT_FEED_SIDE, FLOAT_FEED_SIDE, 3), dtype=np.float32).astype(np.float16)}
+        for i in range(FLOAT_FEED_ROWS)), row_group_size_rows=FLOAT_FEED_GROUP)
+
+
+def float_feed_phase(tmp, kernels):
+    """Phase 35, a float feed: float16 images through ``make_reader`` ->
+    ``CudaDataLoader(batch_size=256)`` for FLOAT_FEED_EPOCHS epochs, each
+    batch cropped by ``random_resized_crop`` to 224 with drawn boxes and
+    flips (the tiled kernel's float16 instance) and resized 256 -> 224
+    antialiased by ``resize_images`` (the separable kernel's float16
+    instance), and the same two ops on the batch cast to float32 or
+    bfloat16 in turn (a user normalising to another dtype first), so every
+    float instance runs on the path.  Samples/s, the input-wait share, the
+    seconds a timed batch spent waiting on its copy to the card and on its
+    ops (a synchronize after each), the loader's assembly and transfer
+    seconds a batch, each kernel's launches (every count 0 just before the
+    run, the general kernel's 0 after it); every label seen FLOAT_FEED_EPOCHS times; every
+    kept crop and resize equal bit for bit to the general kernel's float32
+    instance on the same batch, cast back, after the timed loop."""
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "float_feed")
+    write_float_feed(path)
+    write_s = time.perf_counter() - t0
+    workers = max(1, min((os.cpu_count() or 2) - 1, 16))
+    reader = make_reader(path, workers_count=workers, shuffle_seed=0,
+                         num_epochs=FLOAT_FEED_EPOCHS)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    side, out_hw = FLOAT_FEED_SIDE, (SIDE, SIDE)
+    kept, labels = [], []
+    copy_wait = ops_s = 0.0  # timed batches: the wait on a batch's copy, then its ops
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with CudaDataLoader(reader, batch_size=BATCH, device="cuda") as loader:
+        for i, batch in enumerate(loader):
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()  # the batch's copy to the card done
+            t2 = time.perf_counter()
+            images = batch["image"]
+            boxes = augment.draw_crop_boxes(BATCH, side, side, gen, device="cuda")
+            flips = augment.draw_flips(BATCH, gen, "cuda")
+            crop = augment.random_resized_crop(images, None, out_hw, boxes=boxes, flips=flips)
+            resized = augment.resize_images(images, out_hw, antialias=True)
+            other = images.to(FLOAT_FEED_OTHER[i % len(FLOAT_FEED_OTHER)])
+            other_out = (augment.random_resized_crop(other, None, out_hw, boxes=boxes,
+                                                     flips=flips),
+                         augment.resize_images(other, out_hw, antialias=True))
+            labels.append(batch["label"])
+            # kept for the checks after the run (no host sync in the loop)
+            kept.append((images.clone(), boxes, flips, crop, resized, other_out))
+            torch.cuda.synchronize()
+            if i > 0:
+                copy_wait += t2 - t1
+                ops_s += time.perf_counter() - t2
+            if i == 0:
+                torch.cuda.synchronize()
+                timed_start, wait0 = time.perf_counter(), loader.diagnostics()["consumer_wait_s"]
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        diagnostics = loader.diagnostics()
+        wait = diagnostics["consumer_wait_s"] - wait0
+    k = augment.resized_crop_kernel
+    counts = {suffix[1:]: getattr(k, "launches" + suffix) for suffix in augment.LAUNCH_COUNTERS}
+    batches = len(kept)
+    want_batches = FLOAT_FEED_EPOCHS * FLOAT_FEED_ROWS // BATCH
+    turns = [sum(1 for i in range(batches) if FLOAT_FEED_OTHER[i % 2] == dt)
+             for dt in FLOAT_FEED_OTHER]
+    want = dict.fromkeys(counts, 0)
+    want.update(tiled=2 * batches, aa=2 * batches, tiled_f16=batches, separable_f16=batches,
+                tiled_f32=turns[0], separable_f32=turns[0], tiled_bf16=turns[1],
+                separable_bf16=turns[1])
+    if batches != want_batches or counts != want:
+        raise AssertionError(f"phase 35: {batches} batches (expected {want_batches}), launches"
+                             f" {counts}, expected {want}")
+    seen = torch.bincount(torch.cat(labels).cpu(), minlength=FLOAT_FEED_ROWS)
+    if seen.numel() != FLOAT_FEED_ROWS or not bool((seen == FLOAT_FEED_EPOCHS).all()):
+        raise AssertionError(f"phase 35: labels seen {seen.unique().tolist()} times, expected"
+                             f" each {FLOAT_FEED_EPOCHS}")
+    # each kept crop and resize against the general kernel's float32 instance
+    inv = torch.tensor([1.0 / (SIDE / side), 0.0, 1.0 / (SIDE / side), 0.0],
+                       device="cuda").expand(BATCH, 4)
+    errs = {}
+    for i, (images, boxes, flips, crop, resized, other_out) in enumerate(kept):
+        params = augment.crop_params(boxes, out_hw)
+        other = images.to(FLOAT_FEED_OTHER[i % len(FLOAT_FEED_OTHER)])
+        for x, got_crop, got_resized in ((images, crop, resized), (other, *other_out)):
+            what = f"phase 35, batch {i} {x.dtype}"
+            same_bits(got_crop, float_oracle(x, params, flips, out_hw, False), what + " crop")
+            same_bits(got_resized, float_oracle(x, inv, None, out_hw, True), what + " resize")
+            if i < 2:  # and the first batches against the plain version
+                for got, p, f, a in ((got_crop, params, flips, False),
+                                     (got_resized, inv, None, True)):
+                    errs[str(x.dtype)] = max(errs.get(str(x.dtype), 0.0), hold_float_to_plain(
+                        got, x, p, f, out_hw, a, "linear", what))
+    kept.clear()
+    for name, count in (("resized_crop_flip", "tiled"), ("resized_crop_aa", "separable")):
+        for element in ("f32", "f16", "bf16"):
+            kernels[f"{name}_{element}"]["launches"] = counts[f"{count}_{element}"]
+            kernels[f"{name}_{element}"]["max_abs_err"] = max(
+                kernels[f"{name}_{element}"]["max_abs_err"],
+                errs.get(str({"f32": torch.float32, "f16": torch.float16,
+                              "bf16": torch.bfloat16}[element]), 0.0))
+    timed = end - timed_start
+    phase("float_feed", rows=FLOAT_FEED_ROWS, epochs=FLOAT_FEED_EPOCHS, batch=BATCH,
+          image=[FLOAT_FEED_SIDE, FLOAT_FEED_SIDE, 3], dtype="float16", workers=workers,
+          batches=batches, timed_batches=batches - 1,
+          samples_per_s=(batches - 1) * BATCH / timed, input_wait_share=wait / timed,
+          copy_wait_s_per_batch=copy_wait / (batches - 1), ops_s_per_batch=ops_s / (batches - 1),
+          loader_s_per_batch={key: diagnostics[key] / batches for key in ("assemble_s",
+                                                                          "transfer_s")},
+          launches=counts, other_dtype_batches={str(dt): n for dt, n in zip(FLOAT_FEED_OTHER,
+                                                                            turns)},
+          equals_general_f32_batches=batches, plain_max_abs_err=errs,
+          dataset_write_s=write_s, seconds=time.perf_counter() - t0)
+
+
 SERVICE_AB_SLOW_S = 0.25                          # --service-ab: a tierless tenant's item sleep
 
 
@@ -5422,6 +5753,7 @@ def main():
         service_phase(tmp, path, kernels, device, clean)
         legacy_interop_phase(tmp, path, kernels, device)
         harness_phase(path, kernels, host, device, rates, drained)
+        float_feed_phase(tmp, kernels)
 
     phase("wall", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -3,7 +3,8 @@
 The port's own copy of the idea in ``petastorm_tpu/native/build.py``: each
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 plain-C shared library under ``petastorm_tpu_torch/_lib/``, keyed by a hash of
-the source and the flags, and loaded with ``ctypes``.  Only the sources in the
+the source, the ``csrc/`` headers it includes and the flags, and loaded with
+``ctypes``.  Only the sources in the
 checkout are used.  A missing toolkit or a failed build raises: a CUDA tensor
 never falls back to the plain version.  ptxas's report (``-Xptxas -v``:
 registers, shared memory and spills of each kernel) is kept beside each
@@ -48,9 +49,25 @@ def nvcc_path() -> str:
     return path
 
 
+def _source_bytes(path: str, seen: Optional[set] = None) -> bytes:
+    """A source's bytes and, after them, those of each header of ``csrc/``
+    it includes with quotes (recursively, each once)."""
+    seen = set() if seen is None else seen
+    with open(path, "rb") as f:
+        data = f.read()
+    for header in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', data, re.M):
+        local = os.path.join(os.path.dirname(path), header.decode())
+        if local not in seen and os.path.exists(local):
+            seen.add(local)
+            data += _source_bytes(local, seen)
+    return data
+
+
 def lib_path(name: str) -> str:
-    with open(os.path.join(SOURCE_DIR, f"{name}.cu"), "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``csrc/<name>.cu``, keyed by a hash of the source, the
+    headers it includes and the flags."""
+    data = _source_bytes(os.path.join(SOURCE_DIR, f"{name}.cu"))
+    tag = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(LIB_DIR, f"lib{name}-{tag}.so")
 
 

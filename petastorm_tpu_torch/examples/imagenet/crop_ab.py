@@ -4,12 +4,16 @@ Run from the root of a checkout: ``python3 -m
 petastorm_tpu_torch.examples.imagenet.crop_ab [--entry tiled|aa|nearest]
 [--method linear|cubic|lanczos3|lanczos5] [--no-antialias] [--shape N,H,W,C]
 [--out OH,OW] [--crop] [--per-image] [--plan R,TW,CAP_Y,CAP_X,SPAN,GROUP]
-[--rounds 15]
+[--dtype uint8|float32|float16|bfloat16] [--rounds 15]
 [NAME=FILE.cu ...]``.
-``as_is`` is the package's ``csrc/resized_crop.cu``; each ``NAME=FILE.cu`` is
-another version of that file (an earlier revision, or one with a line
-changed) whose entry takes the same arguments.  Every source is built by ``nvcc`` with the package's flags (plus
-``-Xptxas -v``) into a temporary directory, all at once.
+``as_is`` is the package's ``csrc/resized_crop.cu`` (for a float ``--dtype``
+its ``csrc/resized_crop_<e>.cu``); each ``NAME=FILE.cu`` is another version
+of that file (an earlier revision, or one with a line changed) whose entry
+takes the same arguments, and each ``NAME=FILE.cuh`` a version of the
+kernels' shared ``csrc/resized_crop.cuh``, built under the package's entry
+file for the dtype.  Every source is built by ``nvcc`` with the package's
+flags (plus ``-Xptxas -v``, and ``csrc/`` on the include path) into a
+temporary directory, all at once.
 
 ``--entry`` picks the kernel: ``tiled`` (no antialias; default inputs the
 training step's: 256 seeded uint8 images of 224x224x3, boxes and flips drawn
@@ -20,12 +24,15 @@ tiled kernel, with ``--method``'s filter, antialiased unless
 image as ``resize_images`` passes it, or a row an image as
 ``resized_crop_kernel`` takes it with ``--per-image``, or drawn boxes and
 flips with ``--crop``) or ``nearest`` (the nearest gather, the same default
-inputs).  Each build's entry, with the package's launch plan (or
+inputs).  ``--dtype`` picks the images' element type (uint8 by default;
+float images hold seeded values of [0, 255) and take the kernels' float
+instances).  Each build's entry, with the package's launch plan (or
 ``--plan``'s), and the package's yardstick (the general kernel with the same
-filter; for ``nearest``, ``F.interpolate(mode='nearest-exact')`` on NCHW,
-which picks the same pixels) run in rounds whose order rotates: 10
-back-to-back launches between two CUDA events after 2 warm-up launches.
-The general kernel (or the plain nearest gather) must give the bytes of
+filter, its float32 instance on the same values for a float dtype; for
+``nearest``, ``F.interpolate(mode='nearest-exact')`` on NCHW, which picks the
+same pixels) run in rounds whose order rotates: 10 back-to-back launches
+between two CUDA events after 2 warm-up launches.  The general kernel (cast
+back to a 16-bit dtype, or the plain nearest gather) must give the bits of
 ``as_is``; for every other build the result says whether it does (a build
 that leaves work out will not).  Prints the card's name and power limit as ``nvidia-smi`` gives
 them, then one JSON line: per build the median, min and max ms per launch
@@ -39,6 +46,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -95,18 +103,34 @@ def ptxas_report(entry: str, stderr: str) -> list[str]:
     return report
 
 
-def _build(name: str, source: str, tmp: str, entry: str):
+def entry_source(dtype: str) -> str:
+    """The package's source of ``dtype``'s entries: ``csrc/resized_crop.cu``
+    for uint8, ``csrc/resized_crop_<e>.cu`` for a float type."""
+    element = augment.ELEMENTS[getattr(torch, dtype)]
+    return os.path.join(build.SOURCE_DIR,
+                        "resized_crop.cu" if element == "u8" else f"resized_crop_{element}.cu")
+
+
+def _build(name: str, source: str, tmp: str, entry: str, dtype: str = "uint8"):
     lib = os.path.join(tmp, f"lib{name}.so")
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", source,
-                           "-o", lib], capture_output=True, text=True)
+    if source.endswith(".cuh"):  # a version of the kernels' header under the dtype's entries
+        work = os.path.join(tmp, name)
+        os.makedirs(work)
+        shutil.copy(source, os.path.join(work, "resized_crop.cuh"))
+        source = shutil.copy(entry_source(dtype), work)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                           build.SOURCE_DIR, source, "-o", lib], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stderr}")
     return lib, ptxas_report(entry, proc.stderr)
 
 
+DTYPES = ("uint8", "float32", "float16", "bfloat16")
+
+
 def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None, out_hw=None,
          crop: bool = False, plan=None, launches: int = 10, method: str = "linear",
-         antialias: bool = True, per_image: bool = False) -> dict:
+         antialias: bool = True, per_image: bool = False, dtype: str = "uint8") -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -118,7 +142,14 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
     if entry != "aa" and method != "linear":
         raise ValueError(f"--method is the separable kernel's (--entry aa), not {entry}'s")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+    dt = getattr(torch, dtype)
+    if dt == torch.uint8:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+    else:
+        x = (torch.rand(shape, device="cuda", generator=gen) * 255).to(dt)
+    element = augment.ELEMENTS.get(dt)
+    # the general kernel's instance for the yardstick: float32 for a 16-bit dtype
+    x_general = x if dt in (torch.uint8, torch.float32) else x.float()
     if entry != "tiled" and not crop:
         # resize_images' params, no flips
         inv = [1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0]
@@ -132,23 +163,27 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
     plan = (augment.AaPlan(*plan) if plan
             else augment.aa_launch_plan(h, w, c, *out_hw, method, antialias))
     scratch = torch.empty(plan.scratch_bytes(batch, *out_hw), dtype=torch.uint8, device="cuda")
+    if entry != "nearest":
+        variants = dict(variants, as_is=entry_source(dtype))
     with tempfile.TemporaryDirectory(prefix="crop_ab_") as tmp:
         with ThreadPoolExecutor(max_workers=len(variants)) as pool:
-            built = dict(zip(variants, pool.map(lambda n: _build(n, variants[n], tmp, entry),
-                                                variants)))
+            built = dict(zip(variants, pool.map(
+                lambda n: _build(n, variants[n], tmp, entry, dtype), variants)))
         calls, outs = {}, {}
         for name, (path, _) in built.items():
             lib = ctypes.CDLL(path)
             augment._configure_tiled(lib)
             # the separable entry, where this revision has it (else the aa one)
-            separable = entry == "aa" and hasattr(lib, "pst_resample_separable_u8")
+            separable = entry == "aa" and hasattr(lib, f"pst_resample_separable_{element}")
             if separable:
                 augment._configure(lib)
             elif entry == "nearest":
                 augment._configure_nearest(lib)
             elif entry == "aa" and (method != "linear" or not antialias):
                 raise ValueError(f"variant {name} has no separable entry for {method}")
-            out = torch.empty((batch, *out_hw, c), dtype=torch.uint8, device="cuda")
+            if entry != "nearest" and not hasattr(lib, f"pst_resized_crop_tiled_{element}"):
+                raise ValueError(f"variant {name} has no {dtype} entries")
+            out = torch.empty((batch, *out_hw, c), dtype=dt, device="cuda")
             outs[name] = out
 
             def call(lib=lib, out=out, separable=separable):
@@ -156,19 +191,19 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
                         None if flips is None else flips.data_ptr())
                 stream = torch.cuda.current_stream().cuda_stream
                 if entry == "nearest":
-                    err = lib.pst_resize_nearest(x.data_ptr(), out.data_ptr(), batch, h, w, c,
-                                                 *out_hw, stream)
+                    err = lib.pst_resize_nearest(x.data_ptr(), out.data_ptr(), batch, h, w,
+                                                 c * x.element_size(), *out_hw, stream)
                 elif separable:
                     # resize_images' scale: one image's tap tables for every
                     # image, as resize_images launches it, unless --per-image
-                    err = lib.pst_resample_separable_u8(
+                    err = getattr(lib, f"pst_resample_separable_{element}")(
                         *args, augment.FILTERS[method], int(antialias), int(shared),
                         *plan, scratch.data_ptr(), scratch.numel(), stream)
                 elif entry == "aa":
                     err = lib.pst_resized_crop_aa_u8(*args, *plan, scratch.data_ptr(),
                                                      scratch.numel(), stream)
                 else:
-                    err = lib.pst_resized_crop_tiled_u8(*args, stream)
+                    err = getattr(lib, f"pst_resized_crop_tiled_{element}")(*args, stream)
                 if err != 0:
                     raise RuntimeError(f"launch failed (error {err})")
             calls[name] = call
@@ -179,14 +214,15 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
             oracle = lambda: augment._resize_nearest_reference(x, out_hw)  # noqa: E731
         else:
             calls["general"] = lambda: augment.launch_resized_crop(
-                x, params, flips, out_hw, antialias, kernel="general", method=method)
-            oracle = calls["general"]
+                x_general, params, flips, out_hw, antialias, kernel="general", method=method)
+            oracle = lambda: calls["general"]().to(dt)  # noqa: E731
         for call in calls.values():
             call()
         torch.cuda.synchronize()
-        equal = {name: torch.equal(out, outs["as_is"]) for name, out in outs.items()}
-        if not torch.equal(oracle(), outs["as_is"]):
-            raise AssertionError(f"the {entry} kernel's bytes are not its oracle's")
+        bits = lambda t: t.view(torch.uint8)  # noqa: E731
+        equal = {name: torch.equal(bits(out), bits(outs["as_is"])) for name, out in outs.items()}
+        if not torch.equal(bits(oracle()), bits(outs["as_is"])):
+            raise AssertionError(f"the {entry} kernel's bits are not its oracle's")
         times = {name: [] for name in calls}
         names = list(calls)
         for r in range(rounds):
@@ -202,7 +238,7 @@ def main(variants: dict[str, str], rounds: int, entry: str = "tiled", shape=None
                 end.record()
                 end.synchronize()
                 times[name].append(start.elapsed_time(end) / launches)
-    result = {"entry": entry, "method": method, "antialias": antialias,
+    result = {"entry": entry, "method": method, "antialias": antialias, "dtype": dtype,
               "shape": list(shape), "out_hw": list(out_hw),
               "inputs": ("boxes and flips" if flips is not None
                          else "resize_images' scale, a params row an image" if per_image
@@ -231,10 +267,13 @@ if __name__ == "__main__":
     parser.add_argument("--method", choices=sorted(augment.FILTERS), default="linear",
                         help="aa: the filter")
     parser.add_argument("--no-antialias", action="store_true", help="aa: without antialias")
+    parser.add_argument("--dtype", choices=DTYPES, default="uint8",
+                        help="the images' element type")
     parser.add_argument("--rounds", type=int, default=15)
     parser.add_argument("variants", nargs="*", metavar="NAME=FILE.cu",
-                        help="other versions of csrc/resized_crop.cu to time against it")
+                        help="other versions of csrc/resized_crop.cu (or, as FILE.cuh, of"
+                             " csrc/resized_crop.cuh) to time against it")
     args = parser.parse_args()
     main(parse_variants(args.variants), args.rounds, args.entry, args.shape, args.out, args.crop,
          args.plan, method=args.method, antialias=not args.no_antialias,
-         per_image=args.per_image)
+         per_image=args.per_image, dtype=args.dtype)

@@ -19,15 +19,19 @@ names are ``jax.image.ResizeMethod.from_string``'s, and an unknown one raises
 ``ValueError`` as there.  On a CUDA tensor the resample runs in a hand-written
 Hopper kernel of ``csrc/resized_crop.cu`` (which replaces the XLA-compiled
 dense weight matrices of ``jax/_src/image/scale.py::compute_weight_mat``),
-with an optional per-image horizontal flip fused in.  uint8 takes the tiled
-kernel for bilinear without antialias (two taps an axis) and the separable
-tiled kernel, after a pre-pass that tabulates each image's row and column
-weights, for bilinear with antialias and for every other filter with or
-without.  The file's general kernel takes every image that is not uint8, in
-its float32 instance for the filter (other dtypes are converted to float32
-and back, as the reference does); its uint8 instances are reachable only by
-naming them to :func:`launch_resized_crop` (``kernel="general"``): they are
-the byte oracle of the card checks.  ``nearest`` runs in a row-tiled gather
+with an optional per-image horizontal flip fused in (the float
+instances' entries in ``csrc/resized_crop_<e>.cu``, one library a float
+type, on the shared ``csrc/resized_crop.cuh``).  Bilinear without
+antialias (two taps an axis) takes the tiled kernel, and bilinear with
+antialias and every other filter with or without the separable tiled
+kernel, after a pre-pass that tabulates each image's row and column
+weights.  Each has an instance for uint8, float32, float16 and bfloat16
+images, which it reads and writes as they are (:func:`resample_route`); any
+other dtype is resampled by the float32 instance and brought back, as the
+reference does.  The file's general kernel is reachable only by naming it
+to :func:`launch_resized_crop` (``kernel="general"``): its uint8 instances
+are the byte oracle of the card checks, its float32 instances the bit
+oracle of the float instances.  ``nearest`` runs in a row-tiled gather
 kernel (:func:`nearest_kernel`); a CUDA tensor takes a kernel or raises.  On a CPU tensor the plain PyTorch version runs:
 ``_scale_and_translate`` builds the same weight matrices with the same
 float32 expressions and contracts rows, then columns, and
@@ -78,30 +82,60 @@ _PLAN_ARGS = [ctypes.c_int] * 6 + [  # the plan (AaPlan's fields)
     ctypes.c_void_p]     # cudaStream_t
 
 
+#: the element type of each dtype the tiled and separable kernels take: the
+#: suffix of their entries (``pst_resized_crop_tiled_<e>``,
+#: ``pst_resample_separable_<e>``) and of a float type's library
+#: (``csrc/resized_crop_<e>.cu``)
+ELEMENTS = {torch.uint8: "u8", torch.float32: "f32", torch.float16: "f16",
+            torch.bfloat16: "bf16"}
+
+
 def _configure_tiled(lib: ctypes.CDLL) -> None:
-    """The entry of the bilinear tiled kernel, which every revision of
-    ``csrc/resized_crop.cu`` has, and the antialiased bilinear entry of the
-    revisions before the separable kernel (``examples/imagenet/crop_ab.py``
-    times earlier ones)."""
-    lib.pst_resized_crop_tiled_u8.restype = ctypes.c_int
-    lib.pst_resized_crop_tiled_u8.argtypes = _COMMON_ARGS + [ctypes.c_void_p]  # cudaStream_t
+    """The entries of the bilinear tiled kernel that a revision of
+    ``csrc/resized_crop.cu`` has (every one has the uint8 entry), and the
+    antialiased bilinear entry of the revisions before the separable kernel
+    (``examples/imagenet/crop_ab.py`` times earlier ones)."""
+    for element in ELEMENTS.values():
+        if hasattr(lib, f"pst_resized_crop_tiled_{element}"):
+            entry = getattr(lib, f"pst_resized_crop_tiled_{element}")
+            entry.restype = ctypes.c_int
+            entry.argtypes = _COMMON_ARGS + [ctypes.c_void_p]  # cudaStream_t
     if hasattr(lib, "pst_resized_crop_aa_u8"):
         lib.pst_resized_crop_aa_u8.restype = ctypes.c_int
         lib.pst_resized_crop_aa_u8.argtypes = _COMMON_ARGS + _PLAN_ARGS
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    for general in (lib.pst_resample_u8, lib.pst_resample_f32):
-        general.restype = ctypes.c_int
-        general.argtypes = _COMMON_ARGS + [ctypes.c_int,      # filter (FILTERS)
-                                           ctypes.c_int,      # antialias
-                                           ctypes.c_void_p]   # cudaStream_t
+    """The entries a library of the resample has: ``csrc/resized_crop.cu``'s
+    (the general kernel's, the nearest gather's and the uint8 ones) or a
+    float type's ``csrc/resized_crop_<e>.cu``'s (its tiled and separable
+    entries)."""
+    for name in ("pst_resample_u8", "pst_resample_f32"):
+        if hasattr(lib, name):
+            general = getattr(lib, name)
+            general.restype = ctypes.c_int
+            general.argtypes = _COMMON_ARGS + [ctypes.c_int,      # filter (FILTERS)
+                                               ctypes.c_int,      # antialias
+                                               ctypes.c_void_p]   # cudaStream_t
     _configure_tiled(lib)
-    lib.pst_resample_separable_u8.restype = ctypes.c_int
-    lib.pst_resample_separable_u8.argtypes = (
-        _COMMON_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_int]  # filter, antialias, shared params
-        + _PLAN_ARGS)
-    _configure_nearest(lib)
+    for element in ELEMENTS.values():
+        if hasattr(lib, f"pst_resample_separable_{element}"):
+            entry = getattr(lib, f"pst_resample_separable_{element}")
+            entry.restype = ctypes.c_int
+            entry.argtypes = (
+                _COMMON_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_int]  # filter, antialias,
+                + _PLAN_ARGS)                                               # shared params
+    if hasattr(lib, "pst_resize_nearest"):
+        _configure_nearest(lib)
+
+
+def _library(element: str = "u8") -> ctypes.CDLL:
+    """The library of an element type's tiled and separable entries:
+    ``csrc/resized_crop.cu`` for uint8 (and the general kernel and the
+    gather), ``csrc/resized_crop_<e>.cu`` for a float type, each built by its
+    own ``nvcc`` at first use."""
+    return build.load("resized_crop" if element == "u8" else f"resized_crop_{element}",
+                      _configure)
 
 
 def _configure_nearest(lib: ctypes.CDLL) -> None:
@@ -430,6 +464,30 @@ def aa_launch_plan(h: int, w: int, c: int, oh: int, ow: int, method: str = "line
 
 
 RESIZED_CROP_KERNELS = ("tiled", "aa", "general")
+#: dtypes the nearest gather moves as they are; the others (int32, int64,
+#: float64, ...) go through float32 and back, as the reference does, which
+#: can round them
+_NEAREST_AS_IS = (torch.uint8, torch.int8, torch.int16, torch.float16, torch.bfloat16,
+                  torch.float32)
+
+
+def resample_route(dtype: torch.dtype, method: str,
+                   antialias: bool) -> Tuple[str, torch.dtype]:
+    """The kernel a CUDA image of ``dtype`` takes for ``method`` (a filter
+    name of :func:`resize_method`) and ``antialias``, and the dtype that
+    kernel reads and writes: ``("tiled", d)`` for bilinear without
+    antialias, ``("aa", d)`` (the separable tiled kernel) for bilinear with
+    it and every other filter, ``("nearest", d)`` for the gather.  ``d`` is
+    ``dtype`` where the kernel has an instance for it (uint8, float32,
+    float16, bfloat16; for the gather also int8 and int16, whose float32
+    round trip is exact), else float32: the image is resampled in float32
+    and brought back by ``_restore_dtype``."""
+    if method == "nearest":
+        return "nearest", dtype if dtype in _NEAREST_AS_IS else torch.float32
+    if method not in FILTERS:
+        raise ValueError(f'Unknown resize method "{method}"')
+    kernel = "tiled" if method == "linear" and not antialias else "aa"
+    return kernel, dtype if dtype in ELEMENTS else torch.float32
 
 
 def _counter(kernel: str, method: str) -> str:
@@ -447,18 +505,24 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
                         antialias: bool, kernel: str, method: str = "linear") -> torch.Tensor:
     """Launch one kernel of ``csrc/resized_crop.cu`` on a contiguous CUDA
-    NHWC tensor, on the current stream: ``"tiled"`` (bilinear uint8, two taps
-    per axis, so ``antialias`` must be False), ``"aa"`` (the separable tiled
-    kernel after its pre-pass, uint8: bilinear with antialias, and ``cubic``,
-    ``lanczos3`` or ``lanczos5`` with or without) or ``"general"`` (one
-    thread a pixel, either; uint8 or float32, with ``method``'s filter:
-    ``linear``, ``cubic``, ``lanczos3`` or ``lanczos5``; it writes the source
-    dtype, uint8 rounded half to even and clipped, float32 unrounded).
-    Each launch adds one to ``resized_crop_kernel.launches`` and to its
-    kernel's own count (``launches_tiled``; ``launches_aa`` for the separable
-    kernel's bilinear, ``launches_<method>`` for its other filters;
-    ``launches_general`` for the general kernel's bilinear instance,
-    ``launches_general_<method>`` for its other filters).
+    NHWC tensor, on the current stream: ``"tiled"`` (bilinear, two taps per
+    axis, so ``antialias`` must be False), ``"aa"`` (the separable tiled
+    kernel after its pre-pass: bilinear with antialias, and ``cubic``,
+    ``lanczos3`` or ``lanczos5`` with or without), each on uint8, float32,
+    float16 or bfloat16 (:data:`ELEMENTS`), or ``"general"`` (one thread a
+    pixel, either; uint8 or float32; the oracle, on no path), with
+    ``method``'s filter: ``linear``, ``cubic``, ``lanczos3`` or
+    ``lanczos5``.  Each writes the source dtype: uint8 rounded half to even
+    and clipped, float32 unrounded, float16 and bfloat16 rounded to nearest
+    even from the float32 sum.  Each launch adds one to
+    ``resized_crop_kernel.launches`` and to its kernel's own count,
+    whatever the element type (``launches_tiled``; ``launches_aa`` for the
+    separable kernel's bilinear, ``launches_<method>`` for its other
+    filters; ``launches_general`` for the general kernel's bilinear
+    instance, ``launches_general_<method>`` for its other filters), and the
+    tiled and separable kernels to their element type's count
+    (``launches_tiled_<e>``, ``launches_separable_<e>``, ``e`` in
+    :data:`ELEMENTS`' values).
 
     ``params``: (N, 4) float32 as for :func:`_scale_and_translate`, on the
     same device, or (1, 4) for every image (the separable kernel then builds
@@ -470,7 +534,7 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         raise ValueError(f"the {kernel} resized-crop kernel cannot take method {method!r}")
     if images.device.type != "cuda":
         raise ValueError(f"resized_crop_kernel takes a CUDA tensor, got {images.device}")
-    dtypes = (torch.uint8, torch.float32) if kernel == "general" else (torch.uint8,)
+    dtypes = (torch.uint8, torch.float32) if kernel == "general" else tuple(ELEMENTS)
     if images.dtype not in dtypes or images.dim() != 4:
         raise TypeError(f"the {kernel} resized-crop kernel takes"
                         f" {' or '.join(str(d) for d in dtypes)} NHWC images, got"
@@ -496,21 +560,22 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         flips = flips.to(device=images.device, dtype=torch.uint8).contiguous()
         if flips.shape != (n,):
             raise ValueError(f"flips must be ({n},), got {tuple(flips.shape)}")
-    lib = build.load("resized_crop", _configure)
+    element = ELEMENTS[images.dtype]
+    lib = _library("u8" if kernel == "general" else element)
     out = torch.empty((n, oh, ow, c), dtype=images.dtype, device=images.device)
     args = (images.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, params.data_ptr(),
             None if flips is None else flips.data_ptr())
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         if kernel == "tiled":
-            err = lib.pst_resized_crop_tiled_u8(*args, stream)
+            err = getattr(lib, f"pst_resized_crop_tiled_{element}")(*args, stream)
         elif kernel == "aa":
             plan = aa_launch_plan(h, w, c, oh, ow, method, bool(antialias))
             scratch = torch.empty(plan.scratch_bytes(1 if shared else n, oh, ow),
                                   dtype=torch.uint8, device=images.device)
-            err = lib.pst_resample_separable_u8(*args, FILTERS[method], int(antialias),
-                                                int(shared), *plan, scratch.data_ptr(),
-                                                scratch.numel(), stream)
+            err = getattr(lib, f"pst_resample_separable_{element}")(
+                *args, FILTERS[method], int(antialias), int(shared), *plan, scratch.data_ptr(),
+                scratch.numel(), stream)
         else:
             general = (lib.pst_resample_u8 if images.dtype == torch.uint8
                        else lib.pst_resample_f32)
@@ -519,23 +584,28 @@ def launch_resized_crop(images: torch.Tensor, params: torch.Tensor,
         raise RuntimeError(f"resized-crop kernel launch failed (error {err})")
     if n:
         resized_crop_kernel.launches += 1
-        counter = _counter(kernel, method)
-        setattr(resized_crop_kernel, counter, getattr(resized_crop_kernel, counter) + 1)
+        counters = [_counter(kernel, method)]
+        if kernel != "general":
+            counters.append(f"launches_{'tiled' if kernel == 'tiled' else 'separable'}_{element}")
+        for counter in counters:
+            setattr(resized_crop_kernel, counter, getattr(resized_crop_kernel, counter) + 1)
     return out
 
 
 def resized_crop_kernel(images: torch.Tensor, params: torch.Tensor,
                         flips: Optional[torch.Tensor], out_hw: Tuple[int, int],
                         antialias: bool, method: str = "linear") -> torch.Tensor:
-    """The uint8 resample on a CUDA tensor: bilinear takes the tiled kernel
-    without antialias (every crop of the training step) and the separable
-    tiled kernel with it; ``cubic``, ``lanczos3`` and ``lanczos5`` take the
-    separable tiled kernel either way.  The choice reads only the filter and
-    the flag, never ``params``, so the host does not wait on the card.
+    """The resample of a uint8, float32, float16 or bfloat16 CUDA tensor, in
+    its dtype: bilinear takes the tiled kernel without antialias (every crop
+    of the training step) and the separable tiled kernel with it; ``cubic``,
+    ``lanczos3`` and ``lanczos5`` take the separable tiled kernel either way
+    (:func:`resample_route`).  The choice reads only the dtype, the filter
+    and the flag, never ``params``, so the host does not wait on the card.
     ``resized_crop_kernel.launches`` counts every kernel's launches; each
-    kernel and filter has its own count (see :func:`launch_resized_crop`)."""
+    kernel and filter has its own count, and each element type its own (see
+    :func:`launch_resized_crop`)."""
     return launch_resized_crop(images, params, flips, out_hw, antialias,
-                               kernel="tiled" if method == "linear" and not antialias else "aa",
+                               kernel=resample_route(images.dtype, method, antialias)[0],
                                method=method)
 
 
@@ -551,20 +621,26 @@ resized_crop_kernel.launches_general_lanczos3 = 0
 resized_crop_kernel.launches_general_lanczos5 = 0
 #: every count of :func:`resized_crop_kernel` but the total, by suffix of ``launches``
 LAUNCH_COUNTERS = ("_tiled", "_aa", "_cubic", "_lanczos3", "_lanczos5", "_general",
-                   "_general_cubic", "_general_lanczos3", "_general_lanczos5")
+                   "_general_cubic", "_general_lanczos3", "_general_lanczos5",
+                   *(f"_{kernel}_{element}" for kernel in ("tiled", "separable")
+                     for element in ELEMENTS.values()))
+for _suffix in LAUNCH_COUNTERS[9:]:
+    setattr(resized_crop_kernel, "launches" + _suffix, 0)
 
 
 def nearest_kernel(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """``resize_images(method='nearest')`` on a contiguous CUDA uint8 or
-    float32 NHWC tensor, on the current stream: one launch of the row-tiled
+    """``resize_images(method='nearest')`` on a contiguous CUDA uint8, int8,
+    int16, float16, bfloat16 or float32 NHWC tensor, on the current stream
+    (any pixel size: it moves bytes): one launch of the row-tiled
     gather kernel (``csrc/resized_crop.cu``, ``pst_resize_nearest``), which
     writes each output row in 16-, 4- or 1-byte words from its source row.
     An image of 2^31 bytes or more is refused (the kernel's offsets within an
     image are 32-bit).  Each launch adds one to ``nearest_kernel.launches``."""
     if images.device.type != "cuda":
         raise ValueError(f"the nearest kernel takes a CUDA tensor, got {images.device}")
-    if images.dtype not in (torch.uint8, torch.float32) or images.dim() != 4:
-        raise TypeError(f"the nearest kernel takes uint8 or float32 NHWC images, got"
+    if images.dtype not in _NEAREST_AS_IS or images.dim() != 4:
+        raise TypeError(f"the nearest kernel takes"
+                        f" {', '.join(str(d) for d in _NEAREST_AS_IS)} NHWC images, got"
                         f" {images.dtype} {tuple(images.shape)}")
     if not images.is_contiguous():
         raise ValueError("the nearest kernel takes a contiguous tensor; call .contiguous()")
@@ -574,7 +650,7 @@ def nearest_kernel(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tenso
     if (min(h, w, c, oh, ow) < 1 or max(n, h, w, oh, ow) >= 2 ** 31
             or h * w * pixel_bytes >= 2 ** 31 or 2048 * pixel_bytes >= 2 ** 31):
         raise ValueError(f"nearest kernel cannot take {tuple(images.shape)} -> {out_hw}")
-    lib = build.load("resized_crop", _configure)
+    lib = _library()
     out = torch.empty((n, oh, ow, c), dtype=images.dtype, device=images.device)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
@@ -593,32 +669,30 @@ nearest_kernel.launches = 0
 def _resample(images: torch.Tensor, params: torch.Tensor, flips: Optional[torch.Tensor],
               out_hw: Tuple[int, int], antialias: bool, method: str = "linear") -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU tensor.  On the
-    card uint8 takes the tiled kernels (:func:`resized_crop_kernel`), every
-    filter; any other dtype takes the general kernel's float32 instance for
-    its filter, float32 as it is, the others resampled in float32 and brought
-    back to their dtype.  ``params``: (N, 4), or (1, 4) for every image."""
+    card the tiled or the separable tiled kernel (:func:`resample_route`),
+    uint8, float32, float16 and bfloat16 in their own instances, any other
+    dtype resampled by the float32 instance and brought back to its dtype.
+    ``params``: (N, 4), or (1, 4) for every image."""
     if images.device.type == "cpu":
         return _resized_crop_reference(images, params.expand(images.shape[0], 4), flips, out_hw,
                                        antialias, method)
-    if images.dtype == torch.uint8:
-        return resized_crop_kernel(images.contiguous(), params, flips, out_hw, antialias, method)
-    x = images if images.dtype == torch.float32 else images.float()
-    out = launch_resized_crop(x.contiguous(), params, flips, out_hw, antialias,
-                              kernel="general", method=method)
-    return _restore_dtype(out, images.dtype)
+    kernel, dtype = resample_route(images.dtype, method, antialias)
+    x = images if dtype == images.dtype else images.to(dtype)
+    out = launch_resized_crop(x.contiguous(), params, flips, out_hw, antialias, kernel=kernel,
+                              method=method)
+    return out if dtype == images.dtype else _restore_dtype(out, images.dtype)
 
 
 def _resize_nearest(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Nearest resize: the gather kernel on a CUDA tensor (uint8 and float32
-    as they are, any other dtype through float32 as the reference does), the
-    plain version on a CPU tensor."""
-    if images.device.type == "cpu":
-        if images.dtype in (torch.uint8, torch.float32):
-            return _resize_nearest_reference(images, out_hw)
-        return _restore_dtype(_resize_nearest_reference(images.float(), out_hw), images.dtype)
-    if images.dtype in (torch.uint8, torch.float32):
-        return nearest_kernel(images.contiguous(), out_hw)
-    return _restore_dtype(nearest_kernel(images.float().contiguous(), out_hw), images.dtype)
+    """Nearest resize: the gather kernel on a CUDA tensor, the plain version
+    on a CPU tensor; the dtypes of :func:`resample_route`'s gather as they
+    are (their float32 round trip is exact), any other dtype through float32
+    as the reference does."""
+    _, dtype = resample_route(images.dtype, "nearest", False)
+    x = images if dtype == images.dtype else images.to(dtype)
+    out = (_resize_nearest_reference(x, out_hw) if images.device.type == "cpu"
+           else nearest_kernel(x.contiguous(), out_hw))
+    return out if dtype == images.dtype else _restore_dtype(out, images.dtype)
 
 
 def resize_images(images: torch.Tensor, out_hw: Tuple[int, int], method: str = "bilinear",
@@ -709,9 +783,10 @@ def random_resized_crop(images: torch.Tensor, generator: Optional[torch.Generato
 
     ``flips`` (N,) mirrors the flagged outputs in the same pass (the JAX
     training step's ``random_flip`` after the crop); None flips nothing.
-    On a CUDA tensor: one launch of a resized-crop kernel (uint8: the tiled
-    kernel for bilinear without antialias, else the separable tiled kernel;
-    any other dtype: the general kernel in float32)."""
+    On a CUDA tensor: one launch of a resized-crop kernel, the tiled kernel
+    for bilinear without antialias, else the separable tiled kernel, in the
+    image's dtype for uint8, float32, float16 and bfloat16, in float32 for
+    any other (:func:`resample_route`)."""
     method = resize_method(method)
     if method == "nearest":
         raise ValueError("Nearest neighbor resampling is not currently supported for"

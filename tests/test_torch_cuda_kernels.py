@@ -12,10 +12,14 @@ byte only where the sum sits at a .5 boundary.  The tiled kernel (no
 antialias) and the antialiased tiled kernel must each agree with the
 general kernel on every byte.
 
-Resample of other dtypes (the general kernel's float32 instance): float32
-within 8 float32 ulp of 256 (the same weights, the sums in other orders); a
-narrower float type within one of its ulps at 255 on top (both round such
-float32 values); an integer type within 1.
+Resample of other dtypes (float32, float16 and bfloat16 in the tiled and
+separable kernels' own instances, other dtypes through their float32
+instance): float32 within 8 float32 ulp of 256 (the same weights, the sums
+in other orders); a narrower float type within one of its ulps at 255 on top
+(both round such float32 values); an integer type within 1.  Each float
+instance must equal the general kernel's float32 instance bit for bit, on
+the image cast to float32 and the result cast back for the 16-bit types:
+the same float32 operations in the same order, one rounding at the end.
 
 Normalize tolerance: float32 within 2 ulp taken at the larger of |out| and
 |bias| (the kernel contracts ``x*s+b`` into one FMA, the plain version rounds
@@ -185,11 +189,14 @@ def test_resized_crop_kernel_matches_plain_on_card(shape, out_hw, antialias, fli
         assert float((diff > 0).float().mean()) <= 0.001
     resized = augment.resize_images(x, out_hw, antialias=antialias)
     assert resized.shape == (n, *out_hw, shape[-1]) and resized.dtype == torch.uint8
-    # float32 images take the general kernel's float32 instance, unrounded
-    general_launches = augment.resized_crop_kernel.launches_general
+    # float32 images take the kernels' float32 instances, unrounded, and never the general kernel
+    k = augment.resized_crop_kernel
+    counter = f"launches_{'separable' if antialias else 'tiled'}_f32"
+    before = (k.launches_general, getattr(k, counter))
     resized = augment.resize_images(x.float(), out_hw, antialias=antialias)
     assert resized.dtype == torch.float32
-    assert augment.resized_crop_kernel.launches_general == general_launches + (1 if n else 0)
+    assert (k.launches_general, getattr(k, counter)) == (before[0],
+                                                          before[1] + (1 if n else 0))
     if n:
         inv = torch.tensor([1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0],
                            device="cuda")  # as resize_images
@@ -209,8 +216,10 @@ _FLOAT_RESAMPLE = {torch.float32: 8 * 2.0 ** -15, torch.float16: 0.125 + 8 * 2.0
     ((3, 20, 30, 5), (41, 7), True), ((6, 40, 50, 1), (21, 33), False)])
 @pytest.mark.parametrize("flipped", [True, False], ids=["flips", "no-flips"])
 def test_other_dtypes_resample_on_card(dtype, shape, out_hw, antialias, flipped):
-    """Images that are not uint8 are resampled in float32 by the general
-    kernel and brought back to their dtype, as the plain version does."""
+    """Images that are not uint8 take the tiled (no antialias) or the
+    separable (antialias) kernel: float32, float16 and bfloat16 in their own
+    instances, integers resampled by the float32 instance and brought back
+    to their dtype, as the plain version does; the general kernel never."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -219,11 +228,14 @@ def test_other_dtypes_resample_on_card(dtype, shape, out_hw, antialias, flipped)
     boxes = augment.draw_crop_boxes(n, h, w, gen, device="cuda")
     flips = augment.draw_flips(n, gen, "cuda") if flipped else None
     k = augment.resized_crop_kernel
-    before = (k.launches_tiled, k.launches_aa, k.launches_general)
+    element = augment.ELEMENTS.get(dtype, "f32")
+    counters = ("launches_tiled", "launches_aa", "launches_general",
+                f"launches_{'separable' if antialias else 'tiled'}_{element}")
+    before = [getattr(k, c) for c in counters]
     got = augment.random_resized_crop(x, None, out_hw, antialias=antialias, boxes=boxes,
                                       flips=flips)
-    assert (k.launches_tiled, k.launches_aa, k.launches_general) == (before[0], before[1],
-                                                                     before[2] + 1)
+    assert [getattr(k, c) for c in counters] == [before[0] + (not antialias),
+                                                 before[1] + antialias, before[2], before[3] + 1]
     assert got.dtype == dtype and got.shape == (n, *out_hw, shape[-1])
     params = augment.crop_params(boxes, out_hw)
     want = augment._resized_crop_reference(x, params, flips, out_hw, antialias)
@@ -231,6 +243,92 @@ def test_other_dtypes_resample_on_card(dtype, shape, out_hw, antialias, flipped)
     assert err <= _FLOAT_RESAMPLE[dtype], err
     resized = augment.resize_images(x, out_hw, antialias=antialias)
     assert resized.dtype == dtype and resized.shape == (n, *out_hw, shape[-1])
+
+
+_BIT_SHAPES = [
+    ((256, 224, 224, 3), (224, 224), (0.08, 1.0), 0),  # the training crop
+    ((32, 256, 256, 3), (224, 224), None, 0),          # the evaluation resize
+    ((7, 97, 131, 3), (50, 61), (0.08, 1.0), 1),       # ragged, one element off alignment
+    ((5, 64, 64, 1), (17, 23), (0.08, 1.0), 0),        # C = 1
+    ((3, 20, 30, 5), (41, 7), (0.08, 1.0), 0),         # C = 5: two channel chunks
+    ((3, 300, 517, 3), (37, 301), (0.08, 1.0), 0),     # two column tiles, oh % 8
+    ((4, 512, 640, 3), (40, 50), (0.5, 1.0), 0),       # downscale past 8x
+    ((2, 16, 4096, 3), (16, 16), None, 0)]             # 256x on one axis: span chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("method,antialias", [
+    ("linear", False), ("linear", True), ("cubic", False), ("cubic", True),
+    ("lanczos3", True), ("lanczos5", False), ("lanczos5", True)])
+@pytest.mark.parametrize("shape,out_hw,boxes,offset", _BIT_SHAPES,
+                         ids=["crop", "eval", "ragged-off1", "c1", "c5", "wide", "past-8x",
+                              "256x"])
+def test_float_instances_equal_the_general_float32_kernel_bit_for_bit(dtype, method, antialias,
+                                                                      shape, out_hw, boxes,
+                                                                      offset):
+    """The tiled and separable kernels' float32, float16 and bfloat16
+    instances give the general kernel's float32 instance's bits (on the
+    image cast to float32, the result cast back for the 16-bit types), with
+    flips and without, on values with both signs; each launch counts on its
+    kernel's, filter's and element type's counters, the general kernel's
+    only on its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, h, w, _ = shape
+    flat = (torch.rand(int(np.prod(shape)) + offset, generator=gen, device="cuda") * 300
+            - 20).to(dtype)
+    x = flat[offset:].view(shape)
+    if boxes is None:
+        inv = [1.0 / (out_hw[0] / h), 0.0, 1.0 / (out_hw[1] / w), 0.0]  # as resize_images
+        params = torch.tensor(inv, device="cuda").expand(n, 4)
+    else:
+        params = augment.crop_params(
+            augment.draw_crop_boxes(n, h, w, gen, scale=boxes, device="cuda"), out_hw)
+    k = augment.resized_crop_kernel
+    kernel = augment.resample_route(dtype, method, antialias)[0]
+    element = augment.ELEMENTS[dtype]
+    for flips in (augment.draw_flips(n, gen, "cuda"), None):
+        counters = (f"launches_{'separable' if kernel == 'aa' else 'tiled'}_{element}",
+                    augment._counter(kernel, method), "launches_general")
+        before = [getattr(k, c) for c in counters]
+        got = augment.resized_crop_kernel(x, params, flips, out_hw, antialias, method)
+        assert [getattr(k, c) for c in counters] == [before[0] + 1, before[1] + 1, before[2]]
+        oracle = augment.launch_resized_crop(x.float(), params, flips, out_hw, antialias,
+                                             kernel="general", method=method).to(dtype)
+        assert got.dtype == dtype
+        assert torch.equal(got.view(torch.int16 if dtype != torch.float32 else torch.int32),
+                           oracle.view(torch.int16 if dtype != torch.float32 else torch.int32))
+    # resize_images, one params row for every image (it leaves an unchanged
+    # axis alone for the other filters, as jax.image.resize does)
+    if boxes is None and (method == "linear" or (h != out_hw[0] and w != out_hw[1])):
+        resized = augment.resize_images(x, out_hw, method=method, antialias=antialias)
+        assert torch.equal(resized.view(torch.int16 if dtype != torch.float32 else torch.int32),
+                           oracle.view(torch.int16 if dtype != torch.float32 else torch.int32))
+
+
+@pytest.mark.cuda
+def test_a_float_image_the_kernels_refuse_raises_on_card():
+    """No quiet fallback: a float image the new kernels refuse raises, as
+    uint8 does, and neither the general kernel nor the plain version runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    k = augment.resized_crop_kernel
+    before = (k.launches, k.launches_general, k.launches_tiled_f16)
+    params = torch.ones(1, 4, device="cuda")
+    x = torch.zeros((2, 8, 8, 3), dtype=torch.float16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        augment.launch_resized_crop(x.transpose(1, 2), params, None, (4, 4), False, "tiled")
+    with pytest.raises(TypeError):
+        augment.launch_resized_crop(x.double(), params, None, (4, 4), True, "aa")
+    # a row of 2^31 elements: the tiled kernel's offsets are 32-bit, its entry refuses it
+    wide = torch.empty((1, 1, 2 ** 28, 8), dtype=torch.float16, device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        augment.random_resized_crop(wide, None, (1, 1), boxes=torch.tensor(
+            [[0.0, 0.0, 1.0, 2.0 ** 28]], device="cuda"))
+    del wide
+    assert (k.launches, k.launches_general, k.launches_tiled_f16) == before
 
 
 @pytest.mark.cuda

@@ -17,6 +17,10 @@ JAX op's draws, re-derived from its key).  Tolerances:
   8.7e-6): as for bilinear, the compiled JAX op's sample positions can lie
   an ulp from the port's, and on random images a one-ulp shift of a sample
   near 60 moves an output by about 255 x 4e-6.
+* float16 and bfloat16 (both packages resample in float32 and cast back):
+  the float32 bound, plus one ulp of the type at 255 (0.125 and 1), or at
+  the value where a cubic or Lanczos lobe overshoots past 256: two float32
+  sums that far apart may round to neighbouring values of the type.
 * ``nearest``: exact (a gather).
 
 An unknown method raises ``ValueError`` in both packages, and so does
@@ -25,11 +29,12 @@ separable tiled kernel's launch plan (``augment.aa_launch_plan``) is checked
 here: its tap tables and spans hold every nonzero tap of the plain weight
 matrices, and it is a plan the kernel's entry takes at any shape.  The
 ``cuda``-marked tests hold each kernel (the separable tiled kernel with the
-cubic, Lanczos 3 and Lanczos 5 filters for uint8, the general kernel's
-float32 instances, and the nearest gather) against its plain version on the
-card, within the uint8 bound above and 1e-5 of max|x| for float32, the
-separable kernel against the general kernel's uint8 instance byte for byte,
-and count their launches.
+cubic, Lanczos 3 and Lanczos 5 filters for uint8 and float32, and the
+nearest gather) against its plain version on the card, within the uint8
+bound above and 1e-5 of max|x| for float32, the separable kernel against the
+general kernel's uint8 instance byte for byte, and count their launches.
+Which kernel and element type each dtype and filter takes is pinned on the
+CPU (``augment.resample_route``).
 """
 
 import numpy as np
@@ -59,6 +64,19 @@ def _images(seed, shape, dtype=np.uint8):
     return (rng.random(shape) * 255).astype(dtype)
 
 
+#: the mantissa bits of the narrow float types the tests take, by name
+_NARROW = {"float16": 10, "bfloat16": 7}
+FLOAT_DTYPES = ["float32", "float16", "bfloat16"]
+
+
+def _float_pair(seed, shape, dtype):
+    """The same images in ``dtype`` (a name of ``FLOAT_DTYPES``) for JAX and
+    for the port: values of [0, 255) made in float32 and cast by JAX."""
+    images = jnp.asarray(_images(seed, shape, np.float32)).astype(dtype)
+    return images, torch.from_numpy(np.array(images.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+
+
 def _assert_close(got, want, dtype, float_bound):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape
@@ -67,41 +85,61 @@ def _assert_close(got, want, dtype, float_bound):
         assert diff.max() <= 1, diff.max()
         assert np.mean(diff > 0) <= 0.01, np.mean(diff > 0)
     else:
-        assert diff.max() <= float_bound * 255, diff.max()
+        bound = float_bound * 255
+        if dtype in _NARROW:  # one ulp of the type at max(|want|, 255)
+            exp = np.floor(np.log2(np.maximum(np.abs(want), 255.0)))
+            bound = bound + 2.0 ** (exp - _NARROW[dtype])
+        assert (diff <= bound).all(), diff.max()
+
+
+def _inputs(seed, shape, dtype):
+    """(JAX images, port images) of ``dtype``: np.uint8, np.float32 or a
+    name of ``_NARROW``."""
+    if dtype in _NARROW:
+        return _float_pair(seed, shape, dtype)
+    images = _images(seed, shape, dtype)
+    return jnp.asarray(images), torch.from_numpy(images)
+
+
+def _port_values(got):
+    return got.float().numpy() if got.dtype == torch.bfloat16 else got.numpy()
+
+
+_DTYPES = [np.uint8, np.float32, "float16", "bfloat16"]
+_DTYPE_IDS = ["uint8", "float32", "float16", "bfloat16"]
 
 
 @needs_jax
 @pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("antialias", [False, True])
-@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["uint8", "float32"])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("shape,out_hw", [
     ((3, 64, 48, 3), (32, 20)), ((2, 40, 30, 3), (80, 70)), ((2, 31, 17, 1), (31, 9)),
     ((2, 20, 17, 2), (9, 17)), ((2, 12, 10, 3), (12, 10))],
     ids=["down", "up", "rows-kept", "cols-kept", "identity"])
 def test_resize_images_matches_jax(method, antialias, dtype, shape, out_hw):
-    images = _images(5, shape, dtype)
-    want = np.asarray(jax_augment.resize_images(jnp.asarray(images), out_hw, method=method,
-                                                antialias=antialias))
-    got = augment.resize_images(torch.from_numpy(images), out_hw, method=method,
-                                antialias=antialias)
-    assert got.dtype == torch.from_numpy(images).dtype
-    _assert_close(got.numpy(), want, dtype, 1e-5)
+    jax_images, images = _inputs(5, shape, dtype)
+    want = jax_augment.resize_images(jax_images, out_hw, method=method, antialias=antialias)
+    got = augment.resize_images(images, out_hw, method=method, antialias=antialias)
+    assert got.dtype == images.dtype and str(want.dtype) == str(images.dtype).split(".")[1]
+    _assert_close(_port_values(got), np.asarray(want.astype(jnp.float32)), dtype, 1e-5)
 
 
 @needs_jax
 @pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("antialias", [False, True])
-@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["uint8", "float32"])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_random_resized_crop_matches_jax(method, antialias, dtype, seed):
     shape, out_hw = (4, 64, 80, 3), (40, 40)
-    images = _images(seed, shape, dtype)
+    jax_images, images = _inputs(seed, shape, dtype)
     key = jax.random.PRNGKey(seed)
-    want = np.asarray(jax_augment.random_resized_crop(jnp.asarray(images), key, out_hw,
-                                                      method=method, antialias=antialias))
-    got = augment.random_resized_crop(torch.from_numpy(images), None, out_hw, method=method,
+    want = jax_augment.random_resized_crop(jax_images, key, out_hw, method=method,
+                                           antialias=antialias)
+    got = augment.random_resized_crop(images, None, out_hw, method=method,
                                       antialias=antialias, boxes=_jax_boxes(key, *shape[:3]))
-    _assert_close(got.numpy(), want, dtype, 2e-5)
+    assert got.dtype == images.dtype and str(want.dtype) == str(images.dtype).split(".")[1]
+    _assert_close(_port_values(got), np.asarray(want.astype(jnp.float32)), dtype, 2e-5)
 
 
 @needs_jax
@@ -118,19 +156,22 @@ def test_random_resized_crop_flips_after_the_crop_as_jax(method):
 
 
 @needs_jax
-@pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.int16], ids=str)
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.int16, "float16", "bfloat16"],
+                         ids=str)
 @pytest.mark.parametrize("shape,out_hw", [((3, 64, 48, 3), (32, 20)), ((2, 40, 30, 3), (80, 70)),
                                           ((2, 7, 5, 2), (7, 13)), ((1, 5, 9, 1), (160, 2))],
                          ids=["down", "up", "one-axis", "far-up"])
 @pytest.mark.parametrize("antialias", [False, True])
 def test_resize_nearest_matches_jax_exactly(dtype, shape, out_hw, antialias):
-    images = _images(9, shape, np.uint8).astype(dtype)
-    want = np.asarray(jax_augment.resize_images(jnp.asarray(images), out_hw, method="nearest",
-                                                antialias=antialias))
-    got = augment.resize_images(torch.from_numpy(images), out_hw, method="nearest",
-                                antialias=antialias)
-    assert got.numpy().dtype == want.dtype
-    np.testing.assert_array_equal(got.numpy(), want)
+    if dtype in _NARROW:
+        jax_images, images = _float_pair(9, shape, dtype)
+    else:
+        jax_images = jnp.asarray(_images(9, shape, np.uint8).astype(dtype))
+        images = torch.from_numpy(np.array(jax_images))
+    want = jax_augment.resize_images(jax_images, out_hw, method="nearest", antialias=antialias)
+    got = augment.resize_images(images, out_hw, method="nearest", antialias=antialias)
+    assert got.dtype == images.dtype and str(want.dtype) == str(images.dtype).split(".")[1]
+    np.testing.assert_array_equal(_port_values(got), np.asarray(want.astype(jnp.float32)))
 
 
 @needs_jax
@@ -204,6 +245,47 @@ def test_the_plain_versions_take_cpu_tensors_and_the_kernels_refuse_them():
     augment.resize_images(x, (4, 4), method="lanczos3")
     augment.resize_images(x, (4, 4), method="nearest")
     assert (k.launches, k.launches_lanczos3, augment.nearest_kernel.launches) == launches
+
+
+# -- the route a CUDA image takes -------------------------------------------------------------
+
+_ELEMENT_DTYPES = [torch.uint8, torch.float32, torch.float16, torch.bfloat16]
+_ROUND_TRIP_DTYPES = [torch.int8, torch.int16, torch.int32, torch.int64, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", _ELEMENT_DTYPES + _ROUND_TRIP_DTYPES, ids=str)
+@pytest.mark.parametrize("method", ["linear", "cubic", "lanczos3", "lanczos5", "nearest"])
+@pytest.mark.parametrize("antialias", [False, True])
+def test_the_route_of_every_dtype_and_filter(dtype, method, antialias):
+    """Which kernel a CUDA image takes, and in which dtype: bilinear without
+    antialias the tiled kernel, any other filter the separable tiled kernel,
+    nearest the gather; uint8, float32, float16 and bfloat16 in their own
+    instances, other dtypes through float32 (the gather also moves int8 and
+    int16 as they are)."""
+    kernel, kernel_dtype = augment.resample_route(dtype, method, antialias)
+    assert kernel == ("nearest" if method == "nearest"
+                      else "tiled" if method == "linear" and not antialias else "aa")
+    as_is = (_ELEMENT_DTYPES + [torch.int8, torch.int16] if method == "nearest"
+             else _ELEMENT_DTYPES)
+    assert kernel_dtype == (dtype if dtype in as_is else torch.float32)
+    if kernel != "nearest":
+        # the entries of csrc/resized_crop.cu the wrapper calls for it
+        assert augment.ELEMENTS[kernel_dtype] == {
+            torch.uint8: "u8", torch.float32: "f32", torch.float16: "f16",
+            torch.bfloat16: "bf16"}[kernel_dtype]
+
+
+def test_the_route_refuses_an_unknown_filter():
+    with pytest.raises(ValueError, match="Unknown resize method"):
+        augment.resample_route(torch.float32, "bilinear", False)  # a name, not a filter
+
+
+def test_every_element_type_has_its_launch_counts():
+    k = augment.resized_crop_kernel
+    for kernel in ("tiled", "separable"):
+        for element in augment.ELEMENTS.values():
+            assert f"_{kernel}_{element}" in augment.LAUNCH_COUNTERS
+            assert getattr(k, f"launches_{kernel}_{element}") >= 0
 
 
 # -- the separable tiled kernel's launch plan -------------------------------------------------
@@ -306,12 +388,15 @@ def test_the_resample_kernels_match_the_plain_version_on_the_card(method, antial
     boxes = augment.draw_crop_boxes(n, h, w, gen, scale=scale, device="cuda")
     flips = augment.draw_flips(n, gen, "cuda")
     params = augment.crop_params(boxes, out_hw)
-    # uint8 takes the separable kernel, float32 the general kernel's instance
-    for images, counter in ((x, f"launches_{method}"), (x.float(), f"launches_general_{method}")):
-        before = getattr(augment.resized_crop_kernel, counter)
+    # uint8 and float32 take the separable kernel's instances, the general kernel none
+    k = augment.resized_crop_kernel
+    for images, element in ((x, "u8"), (x.float(), "f32")):
+        counters = (f"launches_{method}", f"launches_separable_{element}",
+                    f"launches_general_{method}")
+        before = [getattr(k, c) for c in counters]
         got = augment.random_resized_crop(images, None, out_hw, method=method,
                                           antialias=antialias, boxes=boxes, flips=flips)
-        assert getattr(augment.resized_crop_kernel, counter) == before + 1
+        assert [getattr(k, c) for c in counters] == [before[0] + 1, before[1] + 1, before[2]]
         want = augment._resized_crop_reference(images, params, flips, out_hw, antialias, method)
         assert got.dtype == images.dtype and got.is_cuda
         _assert_close(got.cpu().numpy(), want.cpu().numpy(),
